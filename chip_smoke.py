@@ -8,8 +8,10 @@ them, and on any mismatch. Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
   2. build the greedy-assignment kernel with nvcc;
   3. kernel vs its plain PyTorch version on the card, bitwise, at the
-     shapes of tests/test_pallas_select.py and at full width (one
-     1024-pod batch against 50,000 nodes, R=10, bench workload);
+     shapes of tests/test_pallas_select.py, at a shape that runs 132
+     blocks with uneven slices, and at full width (one 1024-pod batch
+     against 50,000 nodes, R=10, bench workload), with the kernel's time
+     per pod beside the earlier grid-barrier kernel's time;
   4. one full-width build_step batch (bench profile) on cuda vs on cpu,
      every Decision field bitwise;
   5. the main path: Cluster(...).start() on the card with the bench
@@ -43,6 +45,9 @@ from minisched_tpu_torch.state import objects as O
 
 N_NODES, N_PODS, BATCH = 50_000, 10_000, 1024
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+# The earlier kernel (one grid barrier per pod, commit 969202e) at the
+# full-width shape, for reference: PERF.md, NVIDIA H100 80GB HBM3, 700 W.
+GRID_BARRIER_KERNEL_MS = 5.059
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BENCH_PROFILE = Profile(
     name="bench",
@@ -170,14 +175,15 @@ def main() -> int:
     err = 0.0
     for name, P, N, kw in (("ties", 16, 128, {}),
                            ("scarce", 24, 128, {"cpu_free": 300.0}),
-                           ("off-tile", 13, 200, {})):
+                           ("off-tile", 13, 200, {}),
+                           ("uneven 132-block", 256, 8449, {"R": 10})):
         args = random_case(rng, P, N, **kw)
         k = greedy_kernel.greedy_assign_cuda(*args, seed)
         p = greedy_assign_plain(*args, seed)
         torch.cuda.synchronize()
         err = max(err, compare(k, p))
-        print(f"kernel vs plain {name} {P}x{N}x4: bitwise equal, "
-              f"{int(p.assigned.sum())} assigned")
+        print(f"kernel vs plain {name} {P}x{N}x{args[1].shape[1]}: bitwise "
+              f"equal, {int(p.assigned.sum())} assigned")
 
     plugin_set = BENCH_PROFILE.build()
     nodes, pods = bench_workload(N_NODES, N_PODS)
@@ -201,9 +207,10 @@ def main() -> int:
     bound_by = ("bytes" if moved / HBM_BYTES_PER_S
                 >= compares / F32_OPS_PER_S else "operations")
     print(f"kernel vs plain full width {P}x{N}x{R}: bitwise equal, "
-          f"{int(p.assigned.sum())} assigned; kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms, bound {bound_s * 1e3:.4f} ms "
-          f"({bound_by}) ({smi})")
+          f"{int(p.assigned.sum())} assigned; kernel {kernel_ms:.3f} ms "
+          f"({kernel_ms * 1e3 / P:.3f} us per pod; grid-barrier kernel "
+          f"{GRID_BARRIER_KERNEL_MS} ms), plain {plain_ms:.1f} ms, bound "
+          f"{bound_s * 1e3:.4f} ms ({bound_by}) ({smi})")
     print(f"step parts at full width: filters+scores {eval_ms:.3f} ms, "
           f"greedy kernel {kernel_ms:.3f} ms ({smi})")
     del scores, args, k, p
@@ -240,9 +247,16 @@ def main() -> int:
         greedy_kernel.LAUNCHES["greedy_assign"] = 0
         cluster.create_objects(pods)
         sched = cluster.service.scheduler
-        wait_until(lambda: sched.metrics()["pods_bound"] >= N_PODS
-                   or sched.metrics()["cycle_errors"] > 0,
-                   timeout=300, interval=0.05)
+
+        def settled() -> bool:
+            # A batch's pods may all be bound by the binder thread before
+            # the scheduling thread folds that batch into its metrics.
+            m = sched.metrics()
+            return m["cycle_errors"] > 0 or (
+                m["pods_bound"] >= N_PODS and m["kernel_launches"]
+                == greedy_kernel.LAUNCHES["greedy_assign"])
+
+        wait_until(settled, timeout=300, interval=0.05)
         launches = greedy_kernel.LAUNCHES["greedy_assign"]
         m = sched.metrics()
         check(m["cycle_errors"] == 0, "a scheduling cycle failed")

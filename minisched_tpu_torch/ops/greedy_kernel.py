@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_MAX_BLOCKS = 1024  # grid-size cap; the scratch holds 2 triples per block
+_MAX_BLOCKS = 256  # grid-size cap; the scratch holds 2 slots per block
 _MAX_R = 32
 
 # Launches of the kernel since the last reset: the main path's evidence
@@ -89,8 +89,8 @@ def _load():
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_void_p]
-            lib.greedy_assign_triple_bytes.restype = ctypes.c_int
-            lib.greedy_assign_triple_bytes.argtypes = []
+            lib.greedy_assign_slot_bytes.restype = ctypes.c_int
+            lib.greedy_assign_slot_bytes.argtypes = []
             lib.greedy_assign_error_string.restype = ctypes.c_char_p
             lib.greedy_assign_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -132,7 +132,7 @@ def greedy_assign_cuda(scores: torch.Tensor, requests: torch.Tensor,
     assigned = torch.empty((P,), dtype=torch.bool, device=dev)
     free_after = torch.empty((N, R), dtype=torch.float32, device=dev)
     scratch = torch.empty(
-        (2 * _MAX_BLOCKS * lib.greedy_assign_triple_bytes(),),
+        (2 * _MAX_BLOCKS * lib.greedy_assign_slot_bytes(),),
         dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

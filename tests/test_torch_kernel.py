@@ -13,7 +13,8 @@ import torch
 from minisched_tpu_torch.ops import prng
 from minisched_tpu_torch.ops import select as S
 from minisched_tpu_torch.ops.greedy_kernel import LAUNCHES, greedy_assign_cuda
-from torch_parity import GREEDY_SHAPES, bits_equal, greedy_case
+from torch_parity import (GREEDY_SHAPES, NEG, bits_equal, greedy_case,
+                          scarce_case)
 
 
 def _need_card():
@@ -55,6 +56,59 @@ def test_kernel_matches_plain_on_card(P, N, cpu_free):
     for field in ("chosen", "assigned", "free_after"):
         assert bits_equal(getattr(plain, field).numpy(),
                           getattr(got, field).cpu().numpy()), field
+
+
+def _multiblock_case(kind, rng):
+    """Cases that run up to 132 blocks of the kernel (one per SM of an
+    H100), with uneven or empty column slices."""
+    if kind == "wide":
+        return greedy_case(rng, 512, 20000, R=10)
+    if kind == "uneven":  # slices of 65 columns: the last two blocks are empty
+        return greedy_case(rng, 256, 8449, R=10)
+    if kind == "scarce":  # the owner's look-ahead often has to rescan
+        return scarce_case(rng, 1024, 9000)
+    if kind == "ties":  # scores 0 or 1: many equal scores across blocks
+        return greedy_case(rng, 512, 16384, R=10, quant=1, infeasible=0.0)
+    if kind == "all-neg-row":
+        s, req, free = greedy_case(rng, 64, 5000, R=10)
+        s[[0, 7, 63]] = NEG
+        return s, req, free
+    if kind == "negative-request":
+        s, req, free = greedy_case(rng, 128, 5000, R=10, cpu_free=300.0)
+        req[5, 2] = -3.0
+        req[9, 0] = -250.0
+        return s, req, free
+    if kind == "empty-batch":
+        s, req, free = greedy_case(rng, 1, 5000, R=10)
+        return s[:0], req[:0], free
+    if kind == "max-r":
+        return greedy_case(rng, 96, 20000, R=32)
+    if kind == "no-ring":  # the free slices leave no room for the score ring
+        return greedy_case(rng, 64, 500000, R=10)
+    raise ValueError(kind)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["wide", "uneven", "scarce", "ties",
+                                  "all-neg-row", "negative-request",
+                                  "empty-batch", "max-r", "no-ring"])
+def test_kernel_matches_plain_on_card_multiblock(kind):
+    _need_card()
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    args = [torch.from_numpy(a) for a in _multiblock_case(kind, rng)]
+    seed = prng.bits(prng.fold_in(prng.PRNGKey(5), len(kind)))
+    plain = S.greedy_assign_plain(*args, seed)
+    n0 = LAUNCHES["greedy_assign"]
+    got = greedy_assign_cuda(*(a.cuda() for a in args), seed)
+    torch.cuda.synchronize()
+    assert LAUNCHES["greedy_assign"] == n0 + 1
+    for field in ("chosen", "assigned", "free_after"):
+        assert bits_equal(getattr(plain, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    if kind not in ("empty-batch", "all-neg-row"):
+        assert int(plain.assigned.sum()) > 0
+    if kind == "all-neg-row":
+        assert not plain.assigned[[0, 7, 63]].any()
 
 
 @pytest.mark.card

@@ -105,6 +105,22 @@ def greedy_case(rng, P, N, R=4, quant=4, infeasible=0.2, cpu_free=500.0):
     return s, req, free
 
 
+def scarce_case(rng, P, N, R=10, quant=8):
+    """Each node fits one pod (CPU 400 against requests of 300-399), and
+    a node's score varies little from pod to pod, so consecutive pods
+    want the same node: the winner of pod i is often the best fitting
+    node of pod i+1 too, until pod i takes it. Returns float32 (scores,
+    requests, free)."""
+    base = rng.random((1, N))
+    s = (np.round((base + 0.05 * rng.random((P, N))) * quant) / quant)
+    s = s.astype(np.float32)
+    req = np.concatenate([300 + np.floor(rng.random((P, 1)) * 100),
+                          np.ones((P, R - 1))], axis=1).astype(np.float32)
+    free = np.concatenate([np.full((N, 1), 400.0), np.full((N, R - 1), 50.0)],
+                          axis=1).astype(np.float32)
+    return s, req, free
+
+
 def build_cache(cache_cls, nodes, bound=()):
     cache = cache_cls()
     cache.upsert_nodes_bulk(nodes)
