@@ -6,18 +6,29 @@ Needs a CUDA card and the CUDA toolkit (nvcc); exits non-zero without
 them, and on any mismatch. Phases, each printing its own lines:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
-  2. build the greedy-assignment kernel with nvcc;
-  3. kernel vs its plain PyTorch version on the card, bitwise, at the
-     shapes of tests/test_pallas_select.py, at a shape that runs 132
-     blocks with uneven slices, and at full width (one 1024-pod batch
-     against 50,000 nodes, R=10, bench workload), with the kernel's time
-     per pod beside the earlier grid-barrier kernel's time;
-  4. one full-width build_step batch (bench profile) on cuda vs on cpu,
-     every Decision field bitwise;
-  5. the main path: Cluster(...).start() on the card with the bench
+  2. build the three kernels with nvcc, one process each, all at once,
+     and print each ptxas report;
+  3. the greedy-assignment kernel vs its plain PyTorch version on the
+     card, bitwise, at the shapes of tests/test_pallas_select.py, at a
+     shape that runs 132 blocks with uneven slices, and at full width
+     (one 1024-pod batch against 50,000 nodes, R=10, bench workload);
+  4. the shortlist scan kernel vs its plain version, bitwise on all four
+     outputs, at the shapes of tests/test_shortlist.py (random, plateau,
+     contention, K in {1, 16, 128, N}), off-tile (13x200) and at full
+     width (the bench batch, K=128), with shortlist_select's time; then a
+     full-width contention batch that forces repairs;
+  5. one full-width build_step batch with shortlist=128 against
+     shortlist=None on the card (chosen, assigned, free_after bitwise),
+     then cuda vs cpu for each, every Decision field bitwise;
+  6. the port-insertion kernel vs the host replay on a port-heavy batch;
+  7. the main path: Cluster(...).start() with SchedulerConfig() (the
+     pipelined, device-resident, shortlist cycle) on the card, bench
      profile, 50,000 nodes x 10,000 pods, all bound, no node over its
-     allocatable, the kernel launched in every batch;
-  6. the reference's README scenario on the card.
+     allocatable, the shortlist scan and the port insertion launched in
+     every batch, one residency resync and hits after it;
+  8. the earlier path: pipeline, residency and shortlist off, 50,000
+     nodes x 2,048 pods, the greedy kernel launched in every batch;
+  9. the reference's README scenario on the card (default config).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -28,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,15 +47,24 @@ import torch
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
-from minisched_tpu_torch.ops import greedy_kernel, prng
+from minisched_tpu_torch.ops import _cuda_build, prng
+from minisched_tpu_torch.ops import residency as RES
+from minisched_tpu_torch.ops._cuda_build import LAUNCHES
+from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.pipeline import build_step, evaluate
-from minisched_tpu_torch.ops.select import NEG, greedy_assign_plain
+from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
+from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
+                                            greedy_assign_shortlist_plain,
+                                            shortlist_select)
+from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
 from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as O
 
-N_NODES, N_PODS, BATCH = 50_000, 10_000, 1024
+N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
+EARLIER_PODS = 2048
+PORT_EVERY = 8              # every 8th main-path pod asks for a host port
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # The earlier kernel (one grid barrier per pod, commit 969202e) at the
 # full-width shape, for reference: PERF.md, NVIDIA H100 80GB HBM3, 700 W.
@@ -57,10 +78,14 @@ BENCH_PROFILE = Profile(
     plugin_args={"NodeResourcesFit": {"score_strategy": None}})
 
 
-def bench_workload(n_nodes: int, n_pods: int, seed: int = 0):
+def bench_workload(n_nodes: int, n_pods: int, seed: int = 0,
+                   port_every: int = 0):
     """The repo's benchmark cluster (bench_workload.make_workload): node
     CPU 4-32 cores, ~1% unschedulable, 16 zones; pods of 0.25-1.75 cores
-    + 2 GiB."""
+    + 2 GiB. With ``port_every`` every such pod also asks for a host
+    port; no plugin of the bench profile reads ports, so placements are
+    unchanged, but the engine books them into used_ports (the port
+    insertion kernel on the device, its replay on the host)."""
     rng = np.random.default_rng(seed)
     node_cpus = np.array([4000, 8000, 16000, 32000])[
         rng.integers(0, 4, n_nodes)]
@@ -72,11 +97,15 @@ def bench_workload(n_nodes: int, n_pods: int, seed: int = 0):
                         "cpu": float(node_cpus[i]),
                         "memory": float(64 << 30), "pods": 110.0}))
              for i in range(n_nodes)]
-    pods = [O.Pod(metadata=O.ObjectMeta(name=f"pod-{i}-{i % 10}",
-                                        namespace="bench"),
-                  spec=O.PodSpec(requests={"cpu": float(pod_cpus[i]),
-                                           "memory": float(2 << 30)}))
-            for i in range(n_pods)]
+    pods = []
+    for i in range(n_pods):
+        ports = ([O.ContainerPort(host_port=30000 + i % 1000)]
+                 if port_every and i % port_every == 0 else [])
+        pods.append(O.Pod(metadata=O.ObjectMeta(name=f"pod-{i}-{i % 10}",
+                                                namespace="bench"),
+                          spec=O.PodSpec(requests={
+                              "cpu": float(pod_cpus[i]),
+                              "memory": float(2 << 30)}, ports=ports)))
     return nodes, pods
 
 
@@ -107,16 +136,23 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def compare(kernel, plain) -> float:
-    """Bitwise equality of two AssignResults; returns the max abs error
-    (0.0 when equal)."""
-    check(torch.equal(kernel.chosen, plain.chosen), "chosen differs")
-    check(torch.equal(kernel.assigned, plain.assigned), "assigned differs")
-    check(torch.equal(kernel.free_after.view(torch.int32),
-                      plain.free_after.view(torch.int32)),
-          "free_after differs bitwise")
-    return max(float((kernel.chosen - plain.chosen).abs().max()),
-               float((kernel.free_after - plain.free_after).abs().max()))
+def bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def compare(kernel, plain, fields=("chosen", "assigned", "free_after")
+            ) -> float:
+    """Bitwise equality of two assignment results on ``fields``; returns
+    the max abs error (0.0 when equal)."""
+    err = 0.0
+    for f in fields:
+        a, b = getattr(kernel, f), getattr(plain, f)
+        check(torch.equal(bits(a), bits(b)), f"{f} differs bitwise")
+        if a.numel() and f in ("chosen", "free_after"):
+            err = max(err, float((a.cpu().double() - b.cpu().double())
+                                 .abs().max()))
+    return err
 
 
 def random_case(rng, P, N, R=4, quant=4, infeasible=0.2, cpu_free=500.0):
@@ -133,6 +169,23 @@ def random_case(rng, P, N, R=4, quant=4, infeasible=0.2, cpu_free=500.0):
     return [torch.from_numpy(a).cuda() for a in (s, req, free)]
 
 
+def shortlist_case(P, N, R, seed, *, plateau=False, contend=False):
+    """The random problem of tests/test_shortlist.py: scores in steps of
+    25 (ties), NEG on 5% of pairs; ``plateau`` makes every score 100,
+    ``contend`` starves all but a few nodes so the shortlists run out."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 5, (P, N)).astype(np.float32) * 25.0
+    if plateau:
+        s[:] = 100.0
+    s[rng.random((P, N)) < 0.05] = NEG
+    req = (rng.integers(1, 4, (P, R)) * 0.25).astype(np.float32)
+    free = (rng.integers(1, 6, (N, R)) * 0.5).astype(np.float32)
+    if contend:
+        free[:] = 0.25
+        free[: max(2, N // 64)] = 1000.0
+    return [torch.from_numpy(a).cuda() for a in (s, req, free)]
+
+
 def full_width_batch(nodes, pods):
     """The first 1024-pod batch of the bench workload against every node,
     encoded by the port's own cache and encoder (host numpy)."""
@@ -144,6 +197,112 @@ def full_width_batch(nodes, pods):
     eb = encode_pods(pods[:BATCH], step_bucket(BATCH), cfg=cache.cfg,
                      registry=cache.registry)
     return eb, nf, af
+
+
+def scan_pair(scores, requests, free, seed, k):
+    """The shortlist scan kernel and its plain version on one input:
+    (kernel result, plain result, selection, plain ms)."""
+    sel = shortlist_select(scores, seed, k)
+    got = shortlist_scan_cuda(scores, sel[0], sel[1], sel[2], requests,
+                              free, seed)
+    t = time.perf_counter()
+    plain = greedy_assign_shortlist_plain(scores, requests, free, seed, *sel)
+    torch.cuda.synchronize()
+    return got, plain, sel, (time.perf_counter() - t) * 1e3
+
+
+def scan_bound_s(P, N, K_, R, repairs):
+    """Least time for the scan's work on this input: bytes it must move
+    (candidates and their scores, the P*K*R gathered free values, the
+    requests and bounds, free in and out, the outputs, and each repaired
+    row's scores) over the memory rate, against its compares over the
+    float32 rate."""
+    moved = (8 * P * K_ + 4 * P * K_ * R + 4 * P * R + 8 * P
+             + 8 * N * R + 6 * P + 4 * repairs * N)
+    ops = (P * K_ + repairs * N) * (R + 2)
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
+        "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations")
+
+
+def drive(cfg, nodes, pods, label, smi):
+    """Boot a cluster with ``cfg``, load the nodes, zero the launch
+    counts, create the pods and wait until every pod is bound and every
+    batch folded into the metrics. Returns (metrics, launches, burst
+    create-to-bound, per-pod create-to-bound)."""
+    cluster = Cluster()
+    try:
+        cluster.create_objects(nodes)
+        cluster.start(BENCH_PROFILE, cfg)
+        check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
+                         == len(nodes), timeout=120),
+              f"{label}: informers did not sync the nodes")
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        cluster.create_objects(pods)
+        sched = cluster.service.scheduler
+
+        def settled() -> bool:
+            # A batch's pods may all be bound by the binder thread before
+            # the scheduling thread folds that batch into its metrics.
+            m = sched.metrics()
+            return m["cycle_errors"] > 0 or (
+                m["pods_bound"] >= len(pods) and m["kernel_launches"]
+                == sum(LAUNCHES.values()))
+
+        wait_until(settled, timeout=300, interval=0.05)
+        launches = dict(LAUNCHES)
+        m = sched.metrics()
+        check(m["cycle_errors"] == 0, f"{label}: a scheduling cycle failed")
+        check(m["pods_bound"] >= len(pods),
+              f"{label}: only {m['pods_bound']} of {len(pods)} pods bound")
+        for name, n in launches.items():
+            check(m[f"kernel_launches_{name}"] == n,
+                  f"{label}: {name} launches {n} vs engine "
+                  f"{m[f'kernel_launches_{name}']}")
+        placed = [p for p in cluster.list_pods() if p.spec.node_name]
+        check(len(placed) == len(pods),
+              f"{label}: {len(placed)} pods bound in the store")
+        # Store stamps: creation_timestamp at create, scheduled_time at bind.
+        created = np.array([p.metadata.creation_timestamp for p in placed])
+        bound_at = np.array([p.status.scheduled_time for p in placed])
+        used: dict = {}
+        for pod in placed:
+            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0])
+            u[0] += pod.spec.requests["cpu"]
+            u[1] += pod.spec.requests["memory"]
+            u[2] += 1
+        for node in cluster.list_nodes():
+            u = used.get(node.metadata.name)
+            if u is None:
+                continue
+            alloc = node.status.allocatable
+            check(u[0] <= alloc["cpu"] and u[1] <= alloc["memory"]
+                  and u[2] <= alloc["pods"],
+                  f"{label}: node {node.metadata.name} over-committed: {u}")
+            check(not node.spec.unschedulable,
+                  f"{label}: pod bound to unschedulable "
+                  f"{node.metadata.name}")
+        return (m, launches, float(bound_at.max() - created.min()),
+                bound_at - created)
+    finally:
+        cluster.shutdown()
+
+
+def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
+    b = m["batches"]
+    return (f"{label}: all {n_pods} bound, none over-committed, {b} "
+            f"batches, launches {launches}, shortlist repairs "
+            f"{m['shortlist_repairs']}, residency resyncs "
+            f"{m['residency_resyncs']} hits {m['residency_hits']}, h2d "
+            f"{m['h2d_bytes_total'] / b:.0f} B/batch, fetch "
+            f"{m['fetch_bytes_total'] / b:.0f} B/batch; create-to-bound "
+            f"{c2b:.3f} s for all, {n_pods / c2b:.1f} pods/s, per pod p50 "
+            f"{np.percentile(per_pod, 50):.3f} s p99 "
+            f"{np.percentile(per_pod, 99):.3f} s; prepare "
+            f"{m['prepare_s_total']:.3f} s, step {m['step_s_total']:.3f} s,"
+            f" resolve {m['resolve_s_total']:.3f} s, bind "
+            f"{m['bind_s_total']:.3f} s ({smi})")
 
 
 def main() -> int:
@@ -161,29 +320,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, all started together
     t = time.perf_counter()
-    lib = greedy_kernel.build()
-    print(f"build: greedy_assign {time.perf_counter() - t:.2f} s ({smi})")
-    with open(lib + ".log") as f:
-        print("ptxas: " + " | ".join(
-            ln.strip() for ln in f if "registers" in ln or "spill" in ln))
+    with ThreadPoolExecutor(len(_cuda_build.KERNELS)) as pool:
+        libs = dict(zip(_cuda_build.KERNELS,
+                        pool.map(_cuda_build.build, _cuda_build.KERNELS)))
+    print(f"build: {', '.join(libs)} in {time.perf_counter() - t:.2f} s "
+          f"({smi})")
+    for name, lib in libs.items():
+        with open(lib + ".log") as f:
+            print(f"ptxas {name}: " + " | ".join(
+                ln.strip() for ln in f if "registers" in ln or "spill" in ln))
 
-    # 3. kernel vs plain version on the card
+    # 3. the greedy kernel vs its plain version on the card
     rng = np.random.default_rng(0)
     seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 1))
-    err = 0.0
+    err = {"greedy_assign": 0.0, "shortlist_scan": 0.0, "insert_ports": 0.0}
     for name, P, N, kw in (("ties", 16, 128, {}),
                            ("scarce", 24, 128, {"cpu_free": 300.0}),
                            ("off-tile", 13, 200, {}),
                            ("uneven 132-block", 256, 8449, {"R": 10})):
         args = random_case(rng, P, N, **kw)
-        k = greedy_kernel.greedy_assign_cuda(*args, seed)
+        k = greedy_assign_cuda(*args, seed)
         p = greedy_assign_plain(*args, seed)
         torch.cuda.synchronize()
-        err = max(err, compare(k, p))
-        print(f"kernel vs plain {name} {P}x{N}x{args[1].shape[1]}: bitwise "
-              f"equal, {int(p.assigned.sum())} assigned")
+        err["greedy_assign"] = max(err["greedy_assign"], compare(k, p))
+        print(f"greedy kernel vs plain {name} {P}x{N}x{args[1].shape[1]}: "
+              f"bitwise equal, {int(p.assigned.sum())} assigned")
 
     plugin_set = BENCH_PROFILE.build()
     nodes, pods = bench_workload(N_NODES, N_PODS)
@@ -194,113 +357,178 @@ def main() -> int:
     args = (scores, eb_d.pf.requests, nf_d.free)
     P, N = scores.shape
     R = args[1].shape[1]
-    k = greedy_kernel.greedy_assign_cuda(*args, seed)
+    k = greedy_assign_cuda(*args, seed)
     p = greedy_assign_plain(*args, seed)
     torch.cuda.synchronize()
-    err = max(err, compare(k, p))
-    kernel_ms = cuda_ms(lambda: greedy_kernel.greedy_assign_cuda(*args, seed),
-                        reps=20)
-    plain_ms = host_ms(lambda: greedy_assign_plain(*args, seed))
+    err["greedy_assign"] = max(err["greedy_assign"], compare(k, p))
+    greedy_ms = cuda_ms(lambda: greedy_assign_cuda(*args, seed), reps=20)
+    greedy_plain_ms = host_ms(lambda: greedy_assign_plain(*args, seed))
     moved = 4 * (P * N + P * R + N * R) + 4 * P + P + 4 * N * R
     compares = P * N * (R + 2)  # fits per axis, score and noise order
-    bound_s = max(moved / HBM_BYTES_PER_S, compares / F32_OPS_PER_S)
-    bound_by = ("bytes" if moved / HBM_BYTES_PER_S
-                >= compares / F32_OPS_PER_S else "operations")
-    print(f"kernel vs plain full width {P}x{N}x{R}: bitwise equal, "
-          f"{int(p.assigned.sum())} assigned; kernel {kernel_ms:.3f} ms "
-          f"({kernel_ms * 1e3 / P:.3f} us per pod; grid-barrier kernel "
-          f"{GRID_BARRIER_KERNEL_MS} ms), plain {plain_ms:.1f} ms, bound "
-          f"{bound_s * 1e3:.4f} ms ({bound_by}) ({smi})")
+    greedy_bound_s = max(moved / HBM_BYTES_PER_S, compares / F32_OPS_PER_S)
+    greedy_bound_by = ("bytes" if moved / HBM_BYTES_PER_S
+                       >= compares / F32_OPS_PER_S else "operations")
+    print(f"greedy kernel vs plain full width {P}x{N}x{R}: bitwise equal, "
+          f"{int(p.assigned.sum())} assigned; kernel {greedy_ms:.3f} ms "
+          f"({greedy_ms * 1e3 / P:.3f} us per pod; grid-barrier kernel "
+          f"{GRID_BARRIER_KERNEL_MS} ms), plain {greedy_plain_ms:.1f} ms, "
+          f"bound {greedy_bound_s * 1e3:.4f} ms ({greedy_bound_by}) ({smi})")
+    full_greedy = k
+    del p
+
+    # 4. the shortlist scan kernel vs its plain version on the card
+    cases = ([(f"random s{s} K={kk}", 96, 384, 3, s, kk, {})
+              for s in (0, 1, 2) for kk in (1, 16, 128)]
+             + [("plateau K=16", 128, 512, 3, 7, 16, {"plateau": True}),
+                ("contention K=8", 128, 512, 3, 3, 8, {"contend": True})]
+             + [(f"width K={kk}", 64, 384, 3, 9, kk, {})
+                for kk in (1, 384, 4096)]
+             + [("off-tile K=16", 13, 200, 3, 5, 16, {})])
+    for name, cp, cn, cr, cs, kk, kw in cases:
+        case = shortlist_case(cp, cn, cr, cs, **kw)
+        got, plain, _sel, _ms = scan_pair(*case, seed, min(kk, cn))
+        err["shortlist_scan"] = max(
+            err["shortlist_scan"],
+            compare(got, plain, ("chosen", "assigned", "free_after",
+                                 "repaired")))
+        print(f"shortlist kernel vs plain {name} {cp}x{cn}x{cr}: bitwise "
+              f"equal, {int(plain.assigned.sum())} assigned, "
+              f"{int(plain.repaired.sum())} repaired")
+    got, plain, sel, scan_plain_ms = scan_pair(*args, seed, K)
+    err["shortlist_scan"] = max(err["shortlist_scan"], compare(
+        got, plain, ("chosen", "assigned", "free_after", "repaired")))
+    compare(got, full_greedy)  # the shortlist decides as the full kernel
+    scan_repairs = int(plain.repaired.sum())
+    scan_ms = cuda_ms(lambda: shortlist_scan_cuda(
+        scores, sel[0], sel[1], sel[2], args[1], args[2], seed), reps=20)
+    select_ms = cuda_ms(lambda: shortlist_select(scores, seed, K), reps=5)
+    topk_ms = cuda_ms(lambda: torch.topk(scores, K, dim=1), reps=5)
+    scan_bound_s_, scan_bound_by = scan_bound_s(P, N, K, R, scan_repairs)
+    print(f"shortlist kernel vs plain full width {P}x{N}x{R} K={K}: bitwise "
+          f"equal, equal to the full greedy kernel, "
+          f"{int(plain.assigned.sum())} assigned, {scan_repairs} repaired; "
+          f"kernel {scan_ms:.3f} ms ({scan_ms * 1e3 / P:.3f} us per pod), "
+          f"shortlist_select {select_ms:.3f} ms (one torch.topk of the "
+          f"scores {topk_ms:.3f} ms), plain {scan_plain_ms:.1f} ms, bound "
+          f"{scan_bound_s_ * 1e3:.4f} ms ({scan_bound_by}; the real limit "
+          f"is the chain of {P} dependent steps) ({smi})")
+    del got, plain, sel, full_greedy
+    cont = shortlist_case(BATCH, N, R, 3, contend=True)
+    got, plain, sel, cont_plain_ms = scan_pair(*cont, seed, K)
+    err["shortlist_scan"] = max(err["shortlist_scan"], compare(
+        got, plain, ("chosen", "assigned", "free_after", "repaired")))
+    cont_repairs = int(plain.repaired.sum())
+    check(cont_repairs > 0, "the contention batch made no repairs")
+    cont_ms = cuda_ms(lambda: shortlist_scan_cuda(
+        cont[0], sel[0], sel[1], sel[2], cont[1], cont[2], seed), reps=5)
+    # Per repair: the batch's time less its certified steps at the bench
+    # batch's time per step, over the repairs.
+    per_repair_us = (cont_ms - scan_ms / P * (BATCH - cont_repairs)) \
+        * 1e3 / cont_repairs
+    print(f"shortlist kernel vs plain contention {BATCH}x{N}x{R} K={K}: "
+          f"bitwise equal, {int(plain.assigned.sum())} assigned, "
+          f"{cont_repairs} repaired; kernel {cont_ms:.3f} ms, about "
+          f"{per_repair_us:.2f} us per repair (one block scans the "
+          f"{N}-column row), plain {cont_plain_ms:.1f} ms ({smi})")
     print(f"step parts at full width: filters+scores {eval_ms:.3f} ms, "
-          f"greedy kernel {kernel_ms:.3f} ms ({smi})")
-    del scores, args, k, p
+          f"greedy kernel {greedy_ms:.3f} ms, or shortlist_select "
+          f"{select_ms:.3f} ms + shortlist scan {scan_ms:.3f} ms ({smi})")
+    del got, plain, sel, cont, scores, args
 
-    # 4. one full-width step, cuda vs cpu
-    step = build_step(plugin_set)
+    # 5. one full-width step: shortlist vs full kernel, then cuda vs cpu
     key = prng.fold_in(prng.PRNGKey(0), 1)
-    t = time.perf_counter()
-    d_gpu = step(eb_d, nf_d, af_d, key)
+    steps = {}
+    for kk in (K, None):
+        step = build_step(plugin_set, shortlist=kk)
+        step(eb_d, nf_d, af_d, key)  # warm
+        t = time.perf_counter()
+        d_gpu = step(eb_d, nf_d, af_d, key)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t
+        t = time.perf_counter()
+        d_cpu = step(to_torch(eb, "cpu"), to_torch(nf, "cpu"),
+                     to_torch(af, "cpu"), key)
+        cpu_s = time.perf_counter() - t
+        for field in d_cpu._fields:
+            check(torch.equal(bits(getattr(d_gpu, field)),
+                              bits(getattr(d_cpu, field))),
+                  f"step shortlist={kk} field {field}: cuda != cpu")
+        steps[kk] = (d_gpu, gpu_s, cpu_s)
+        print(f"step full width {P}x{N} shortlist={kk}: every Decision "
+              f"field bitwise equal cuda vs cpu; cuda {gpu_s * 1e3:.3f} ms, "
+              f"cpu {cpu_s:.3f} s ({smi})")
+    compare(steps[K][0], steps[None][0])
+    print(f"step full width shortlist={K} vs None on cuda: chosen, assigned "
+          f"and free_after bitwise equal; {steps[K][1] * 1e3:.3f} ms vs "
+          f"{steps[None][1] * 1e3:.3f} ms per step ({smi})")
+    del eb_d, nf_d, af_d, steps
+
+    # 6. the port-insertion kernel vs the host replay, port-heavy batch
+    prng_ports = np.random.default_rng(6)
+    state = np.zeros((N, 8), dtype=np.int32)
+    state[: N // 2] = prng_ports.integers(0, 2, (N // 2, 8)) * 30000
+    rows = np.full(BATCH, -1, dtype=np.int32)
+    rows[: BATCH - 24] = prng_ports.integers(0, 300, BATCH - 24)
+    ports = prng_ports.integers(20000, 40000, (BATCH, 4)).astype(np.int32)
+    ports[prng_ports.random((BATCH, 4)) < 0.25] = 0
+    state_d = torch.from_numpy(state).cuda()
+    rows_d, ports_d = (torch.from_numpy(a).cuda() for a in (rows, ports))
+    got = insert_ports_cuda(state_d, rows_d, ports_d)
+    mirror = state.copy()
+    RES.replay_ports_host(mirror, rows, ports)
+    check(torch.equal(got.cpu(), torch.from_numpy(mirror)),
+          "insert_ports kernel != host replay")
+    plain_t = time.perf_counter()
+    plain = RES.insert_ports_plain(state_d, rows_d, ports_d)
     torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t
-    t = time.perf_counter()
-    d_cpu = step(to_torch(eb, "cpu"), to_torch(nf, "cpu"),
-                 to_torch(af, "cpu"), key)
-    cpu_s = time.perf_counter() - t
-    for field in d_cpu._fields:
-        a, b = getattr(d_gpu, field).cpu(), getattr(d_cpu, field)
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        check(torch.equal(a, b), f"step field {field}: cuda != cpu")
-    print(f"step full width {P}x{N}: every Decision field bitwise equal "
-          f"cuda vs cpu; cuda {gpu_s:.3f} s, cpu {cpu_s:.3f} s ({smi})")
-    del eb_d, nf_d, af_d, d_gpu, d_cpu
+    ports_plain_ms = (time.perf_counter() - plain_t) * 1e3
+    check(torch.equal(got, plain), "insert_ports kernel != plain version")
+    ports_ms = cuda_ms(lambda: insert_ports_cuda(state_d, rows_d, ports_d),
+                       reps=20)
+    ports_moved = 2 * state.nbytes + rows.nbytes + ports.nbytes
+    ports_bound_s = ports_moved / HBM_BYTES_PER_S
+    print(f"port-insertion kernel vs host replay and plain {BATCH} pods x 4 "
+          f"ports into {N}x8: bitwise equal, "
+          f"{int((mirror != state).sum())} slots written; kernel "
+          f"{ports_ms:.4f} ms, plain {ports_plain_ms:.1f} ms, bound "
+          f"{ports_bound_s * 1e3:.4f} ms (bytes) ({smi})")
+    del state_d, rows_d, ports_d, got, plain
 
-    # 5. the main path
-    cfg = SchedulerConfig(platform="")
-    cluster = Cluster()
-    try:
-        cluster.create_objects(nodes)
-        cluster.start(BENCH_PROFILE, cfg)
-        check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
-                         == N_NODES, timeout=120),
-              "informers did not sync the nodes")
-        greedy_kernel.LAUNCHES["greedy_assign"] = 0
-        cluster.create_objects(pods)
-        sched = cluster.service.scheduler
+    # 7. the main path: SchedulerConfig(), the default cycle
+    nodes, pods = bench_workload(N_NODES, N_PODS, port_every=PORT_EVERY)
+    m, main_launches, c2b, per_pod = drive(
+        SchedulerConfig(platform=""), nodes, pods, "main path", smi)
+    b = m["batches"]
+    check(main_launches["shortlist_scan"] >= b > 0,
+          f"shortlist scan launched {main_launches['shortlist_scan']} "
+          f"times in {b} batches")
+    check(main_launches["insert_ports"] >= b,
+          f"port insertion launched {main_launches['insert_ports']} "
+          f"times in {b} batches")
+    check(m["residency_resyncs"] == 1 and m["residency_hits"] == b - 1,
+          f"residency resyncs {m['residency_resyncs']} hits "
+          f"{m['residency_hits']} in {b} batches")
+    print(path_line(f"main path (pipeline, device_resident, shortlist "
+                    f"K={K}) {N_NODES} nodes x {N_PODS} pods",
+                    m, main_launches, c2b, per_pod, N_PODS, smi))
 
-        def settled() -> bool:
-            # A batch's pods may all be bound by the binder thread before
-            # the scheduling thread folds that batch into its metrics.
-            m = sched.metrics()
-            return m["cycle_errors"] > 0 or (
-                m["pods_bound"] >= N_PODS and m["kernel_launches"]
-                == greedy_kernel.LAUNCHES["greedy_assign"])
+    # 8. the earlier path: synchronous, upload every batch, full kernel
+    nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
+    m, early_launches, c2b, per_pod = drive(
+        SchedulerConfig(platform="", pipeline=False, device_resident=False,
+                        shortlist=False), nodes, pods, "earlier path", smi)
+    b = m["batches"]
+    check(early_launches["greedy_assign"] >= b > 0,
+          f"greedy kernel launched {early_launches['greedy_assign']} times "
+          f"in {b} batches")
+    check(early_launches["shortlist_scan"] == 0,
+          "the shortlist scan ran with shortlist=False")
+    print(path_line(f"earlier path (synchronous, full greedy kernel) "
+                    f"{N_NODES} nodes x {EARLIER_PODS} pods", m,
+                    early_launches, c2b, per_pod, EARLIER_PODS, smi))
+    del nodes, pods
 
-        wait_until(settled, timeout=300, interval=0.05)
-        launches = greedy_kernel.LAUNCHES["greedy_assign"]
-        m = sched.metrics()
-        check(m["cycle_errors"] == 0, "a scheduling cycle failed")
-        check(m["pods_bound"] >= N_PODS,
-              f"only {m['pods_bound']} of {N_PODS} pods bound")
-        placed = [p for p in cluster.list_pods() if p.spec.node_name]
-        check(len(placed) == N_PODS, f"{len(placed)} pods bound in the store")
-        # Store stamps: creation_timestamp at create, scheduled_time at bind.
-        created = np.array([p.metadata.creation_timestamp for p in placed])
-        bound_at = np.array([p.status.scheduled_time for p in placed])
-        c2b = float(bound_at.max() - created.min())
-        per_pod = bound_at - created
-        used: dict = {}
-        for pod in placed:
-            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0])
-            u[0] += pod.spec.requests["cpu"]
-            u[1] += pod.spec.requests["memory"]
-            u[2] += 1
-        for node in cluster.list_nodes():
-            u = used.get(node.metadata.name)
-            if u is None:
-                continue
-            alloc = node.status.allocatable
-            check(u[0] <= alloc["cpu"] and u[1] <= alloc["memory"]
-                  and u[2] <= alloc["pods"],
-                  f"node {node.metadata.name} over-committed: {u}")
-            check(not node.spec.unschedulable,
-                  f"pod bound to unschedulable {node.metadata.name}")
-        check(launches >= m["batches"] > 0 and m["kernel_launches"]
-              == launches, f"kernel launches {launches} for "
-              f"{m['batches']} batches")
-        print(f"main path {N_NODES} nodes x {N_PODS} pods: all bound, none "
-              f"over-committed, {m['batches']} batches, {launches} kernel "
-              f"launches; create-to-bound {c2b:.3f} s for all, "
-              f"{N_PODS / c2b:.1f} pods/s, per pod p50 "
-              f"{np.percentile(per_pod, 50):.3f} s p99 "
-              f"{np.percentile(per_pod, 99):.3f} s; prepare "
-              f"{m['prepare_s_total']:.3f} s, step {m['step_s_total']:.3f} s,"
-              f" resolve {m['resolve_s_total']:.3f} s, bind "
-              f"{m['bind_s_total']:.3f} s ({smi})")
-    finally:
-        cluster.shutdown()
-
-    # 6. the README scenario on the card
+    # 9. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -310,12 +538,36 @@ def main() -> int:
         "route": "cuda",
         "source": "minisched_tpu_torch/csrc/greedy_assign.cu",
         "replaces": "minisched_tpu/ops/pallas_select.py:151",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by,
+        "launches": early_launches["greedy_assign"],
+        "max_abs_err": err["greedy_assign"],
+        "ms": greedy_ms,
+        "plain_ms": greedy_plain_ms,
+        "bound_ms": greedy_bound_s * 1e3,
+        "bound_by": greedy_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "shortlist_scan",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/shortlist_scan.cu",
+        "replaces": "minisched_tpu/ops/select.py:238",
+        "launches": main_launches["shortlist_scan"],
+        "max_abs_err": err["shortlist_scan"],
+        "ms": scan_ms,
+        "plain_ms": scan_plain_ms,
+        "bound_ms": scan_bound_s_ * 1e3,
+        "bound_by": scan_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "insert_ports",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/insert_ports.cu",
+        "replaces": "minisched_tpu/ops/residency.py:195",
+        "launches": main_launches["insert_ports"],
+        "max_abs_err": err["insert_ports"],
+        "ms": ports_ms,
+        "plain_ms": ports_plain_ms,
+        "bound_ms": ports_bound_s * 1e3,
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Engine configuration.
 
 Only the knobs this package implements, with the JAX package's names and
-defaults (minisched_tpu/config.py); a knob joins together with its code.
+defaults; a knob joins together with its code.
 """
 from __future__ import annotations
 
@@ -31,6 +31,37 @@ class SchedulerConfig:
     assignment: str = "greedy"
     seed: int = 0                    # PRNG seed for tie-breaking parity
     bind_workers: int = 16           # async binding-cycle pool size
+    # Pipelined engine cycle (engine/scheduler.py _run_pipelined): while
+    # batch k's step runs on the device, the host flushes batch k-1's
+    # commit work (store status writes, queue requeues, events) on a
+    # commit worker and gathers batch k+1 from the queue on a gather
+    # worker; batch k+1 is encoded only after batch k's arbitration and
+    # assume accounting, so decisions equal the synchronous loop's.
+    # False restores the strictly synchronous cycle.
+    pipeline: bool = True
+    # Device-resident dynamic cluster state + slim decision readback
+    # (engine/scheduler.py _DeviceResidency, ops/residency.py): the
+    # dynamic node-feature leaves (free/used_ports) stay loop-carried on
+    # the device — the step's free_after is the next batch's input — and
+    # the host uploads only sparse correction rows where its cache
+    # diverged from the device's view (revocations, failed binds,
+    # informer churn); the per-batch decision fetch packs bool planes as
+    # bits and narrows counts to i16. Decisions are bit-identical either
+    # way. False restores the upload-every-batch path and the all-i32
+    # fetch.
+    device_resident: bool = True
+    # Shortlist-compressed arbitration (ops/select.py
+    # greedy_assign_shortlist, wired through ops/pipeline.build_step):
+    # the greedy scan's per-pod argmax runs over per-pod top-K candidate
+    # shortlists computed in one parallel pass, with an exactness
+    # certificate per step and a counted full-row repair where it fails
+    # — decisions are bit-identical to the full scan. False restores the
+    # full-width greedy kernel.
+    shortlist: bool = True
+    # Shortlist width K: per-step sequential argmax width, clamped to the
+    # node pad. Widen it if shortlist_repairs climbs (contention
+    # exhausting K candidates forces full-row rescans).
+    shortlist_k: int = 128
     # Device of the scheduling step: "" = the first CUDA device (raises
     # when there is none), "cpu", "cuda" or "cuda:<n>".
     platform: str = ""

@@ -1,16 +1,24 @@
-"""Core scheduling engine: synchronous batched cycles over the step.
+"""Core scheduling engine: batched cycles over the step.
 
 Rebuild of reference minisched/minisched.go + initialize.go. One cycle
 (reference scheduleOne, minisched.go:32-112) becomes one *batch* cycle,
-three phases back to back on the scheduling thread:
+three phases:
 
   prepare  pop batch → priority sort → encode pods → snapshot node
-           features (cache) → tensors on the device → step: filters ∧ →
-           scores → normalize → weigh → sum → greedy capacity-aware
-           assignment (the CUDA kernel on a card)
-  resolve  read the decision back → per pod: assume + permit plugins
-           (host) or a failure verdict → async bulk bind
+           features (cache) → tensors on the device (with device
+           residency: sparse corrections to the carried free/used_ports)
+           → step: filters ∧ → scores → normalize → weigh → sum → greedy
+           capacity-aware assignment (the shortlist scan or the full
+           greedy kernel on a card) → pack the decision on the device
+  resolve  read the packed decision back (one fetch) → replay the
+           device's debits and port insertions into the residency mirror
+           → per pod: assume + permit plugins (host) or a failure verdict
+           → async bulk bind
   commit   flush the batch's failure verdicts in bulk, fold the metrics
+
+With ``config.pipeline`` (the default) the loop is the bounded two-deep
+pipeline of ``_run_pipelined``; otherwise the three phases run back to
+back on the scheduling thread.
 
 The scheduler "assumes" a pod onto its node at selection time (cache
 accounting) and unassumes on any later failure — upstream
@@ -28,13 +36,20 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Set
 
+import numpy as np
+import torch
+
 from ..config import SchedulerConfig
 from ..encode import NodeFeatureCache, encode_pods, to_torch
 from ..encode.cache import bucket_for, step_bucket
 from ..errors import ConflictError, NotFoundError
 from ..ops import prng
-from ..ops.greedy_kernel import LAUNCHES
+from ..ops._cuda_build import KERNELS, LAUNCHES
 from ..ops.pipeline import Decision, build_step
+from ..ops.residency import (apply_rows, apply_rows_bytes, insert_ports,
+                             insert_ports_bytes, pack_decision_i32,
+                             pack_decision_slim, replay_ports_host,
+                             unpack_decision_i32, unpack_decision_slim)
 from ..plugins.base import PluginSet
 from ..state.events import ActionType, ClusterEvent, EventBroadcaster, GVK
 from ..state.objects import gang_key
@@ -50,13 +65,200 @@ class _Batch:
     """One batch moving through prepare → resolve → commit."""
 
     __slots__ = ("batch", "eb", "names", "row_incs", "decision",
-                 "failures", "n_assigned", "launches", "t0", "t_step",
-                 "t_fetched")
+                 "packed_dev", "res_carried", "failures", "n_assigned",
+                 "launches", "sl_repairs", "t0", "t_encode", "t_dispatch",
+                 "t_fetch_start", "t_fetched", "t_resolved")
 
     def __init__(self):
         self.failures: List[tuple] = []  # (qpi, plugins, message, retryable)
         self.n_assigned = 0
         self.decision: Optional[Decision] = None
+        self.packed_dev = None
+        # This batch's free/used_ports input is the device-resident chain:
+        # its free_after is carried and its debits replayed into the host
+        # mirror at resolve time.
+        self.res_carried = False
+        self.launches: Dict[str, int] = {}  # kernel launches by name
+        self.sl_repairs = 0
+
+
+def _count_launches(b: _Batch, fn, *args):
+    """Run ``fn`` and book the kernel launches it made into ``b``. Only
+    the scheduling thread launches kernels, so the deltas are this
+    batch's."""
+    before = dict(LAUNCHES)
+    out = fn(*args)
+    for name, n in LAUNCHES.items():
+        if n != before[name]:
+            b.launches[name] = b.launches.get(name, 0) + n - before[name]
+    return out
+
+
+def _device_copy(a: np.ndarray, device) -> torch.Tensor:
+    """A device tensor that never shares memory with ``a`` (on the CPU
+    ``from_numpy(a).to("cpu")`` would alias the host mirror)."""
+    return torch.tensor(a, device=device)
+
+
+class _DeviceResidency:
+    """Loop-carried device residency of the dynamic node-feature leaves
+    (``free`` / ``used_ports``): the step's ``free_after`` stays on the
+    device as the next batch's input, and the host uploads only sparse
+    host-truth corrections (ops/residency.apply_rows) for the rows where
+    its cache diverged from the device's optimistic view — revoked
+    placements, failed binds, informer churn and node lifecycle all
+    surface through the cache's DynDeltaListener. ``used_ports`` carries
+    its own optimistic update: the batch's host-port insertions run on
+    the resident copy (ops/residency.insert_ports, the CUDA kernel on a
+    card) and are replayed into the host mirror in the same integer op
+    order (note_ports), so a port-heavy steady state stays upload-free.
+
+    Invariants (held end to end by tests/test_torch_residency.py and
+    tests/test_torch_engine.py against the JAX engine):
+
+      I1. the host mirrors equal the device arrays: the mirror replay is
+          an order-free per-node debit aggregate (the batch's requests
+          summed per debited node with ``np.add.at``, then one subtract
+          per node). Every request and capacity component is an
+          integer-valued f32 inside the 2**24 exact-integer window, so
+          the aggregate equals the scan's sequential pod-order debits
+          bitwise.
+      I2. after ``attach`` the device arrays equal the cache's truth on
+          every row, so the step consumes exactly what the
+          upload-every-batch path would feed it.
+      I3. the correction candidate set is complete: a row diverges only
+          through a host mutation (the cache marks it into the listener)
+          or a device debit (``note_debits`` records it with its
+          pre-replay truth). The epoch counter carried on both sides
+          turns any protocol break into a full re-upload (counted in
+          ``residency_resyncs``), never a silent desync.
+    """
+
+    __slots__ = ("listener", "epoch", "free_dev", "ports_dev",
+                 "mirror_free", "mirror_ports", "pending_rows",
+                 "pending_pre", "pending_prows", "pending_ppre")
+
+    def __init__(self, listener):
+        self.listener = listener
+        self.epoch = -1          # engine-side epoch; -1 = no device state
+        self.free_dev = None     # device (N,R) f32 — next step input
+        self.ports_dev = None    # device (N,PORT) i32
+        self.mirror_free = None  # host twins of the device arrays
+        self.mirror_ports = None
+        self.pending_rows = None  # rows the last step debited (unique)
+        self.pending_pre = None   # their pre-replay mirror rows
+        self.pending_prows = None  # rows the last port insertion touched
+        self.pending_ppre = None   # and their pre-insert mirror rows
+
+    def attach(self, eng, nf, delta):
+        """Bring the device-resident dynamic leaves up to host truth for
+        this batch and splice them into ``nf``. ``delta`` None = full
+        rebase (the snapshot returned real leaves and rebased the
+        listener); else apply the sparse correction. Raises on epoch
+        desync — the caller drops residency and re-snapshots."""
+        dev = eng.device
+        if delta is None:
+            free_np, ports_np = nf.free, nf.used_ports
+            self.free_dev = _device_copy(free_np, dev)
+            self.ports_dev = _device_copy(ports_np, dev)
+            # The snapshot copies are private — they become the mirrors.
+            self.mirror_free, self.mirror_ports = free_np, ports_np
+            self.epoch = self.listener.epoch
+            self.pending_rows = self.pending_pre = None
+            self.pending_prows = self.pending_ppre = None
+            eng._res_count(resync=True,
+                           h2d=free_np.nbytes + ports_np.nbytes)
+            return nf._replace(free=self.free_dev,
+                               used_ports=self.ports_dev)
+        if delta.epoch != self.epoch + 1 or self.free_dev is None:
+            raise RuntimeError(
+                f"residency epoch desync: device at {self.epoch}, delta "
+                f"at {delta.epoch}")
+        self.epoch = delta.epoch
+        h2d = 0
+        self.free_dev, self.mirror_free, n = self._correct(
+            self.free_dev, self.mirror_free, delta.rows, delta.free,
+            self.pending_rows, self.pending_pre, donate=False)
+        h2d += n
+        self.ports_dev, self.mirror_ports, n = self._correct(
+            self.ports_dev, self.mirror_ports, delta.rows,
+            delta.used_ports, self.pending_prows, self.pending_ppre,
+            donate=True)
+        h2d += n
+        self.pending_rows = self.pending_pre = None
+        self.pending_prows = self.pending_ppre = None
+        eng._res_count(resync=False, h2d=h2d)
+        return nf._replace(free=self.free_dev, used_ports=self.ports_dev)
+
+    @staticmethod
+    def _correct(state, mirror, rows, vals, pending_rows, pending_pre, *,
+                 donate):
+        """Upload the rows whose truth differs from the mirror. Rows the
+        device changed that the host never touched take their
+        pre-replay mirror value as truth (a host-mutated row lands in
+        the delta and wins here by exclusion). ``free`` is never
+        donated: the carried array is the last Decision's free_after,
+        which its batch object still holds."""
+        rows = rows.astype(np.int64)
+        if pending_rows is not None:
+            extra = ~np.isin(pending_rows, rows)
+            if extra.any():
+                rows = np.concatenate([rows, pending_rows[extra]])
+                vals = np.concatenate([vals, pending_pre[extra]])
+        if not rows.size:
+            return state, mirror, 0
+        diff = np.any(vals != mirror[rows], axis=1)
+        if not diff.any():
+            return state, mirror, 0
+        up_r = rows[diff].astype(np.int32)
+        up_v = np.ascontiguousarray(vals[diff])
+        state = apply_rows(state, up_r, up_v, donate=donate)
+        mirror[up_r] = up_v
+        return state, mirror, apply_rows_bytes(up_r.shape[0], up_v)
+
+    def note_debits(self, chosen, assigned, requests, free_after_dev):
+        """Record the step's device-side debits: fold them into the host
+        mirror as the per-node commutative aggregate (exact — I1) and
+        adopt ``free_after`` as the carried device array."""
+        rows = chosen[assigned].astype(np.int64)
+        if rows.size:
+            reqs = requests[assigned]
+            uniq = np.unique(rows)
+            self.pending_pre = self.mirror_free[uniq].copy()
+            self.pending_rows = uniq
+            agg = np.zeros((uniq.shape[0], reqs.shape[1]),
+                           dtype=self.mirror_free.dtype)
+            np.add.at(agg, np.searchsorted(uniq, rows), reqs)
+            self.mirror_free[uniq] -= agg
+        else:
+            self.pending_rows = self.pending_pre = None
+        self.free_dev = free_after_dev
+
+    def note_ports(self, rows: np.ndarray, ports: np.ndarray) -> int:
+        """Run the batch's host-port insertions on the resident
+        used_ports (the device op) and replay them into the mirror (the
+        host op), tracking touched rows like the free carry's pending
+        set. ``rows`` is (P,) chosen with -1 for pods that insert
+        nothing. Returns the host→device bytes the insertion uploaded."""
+        uniq = np.unique(rows[rows >= 0])
+        self.pending_prows = uniq
+        self.pending_ppre = self.mirror_ports[uniq].copy()
+        replay_ports_host(self.mirror_ports, rows, ports)
+        self.ports_dev = insert_ports(self.ports_dev, rows, ports)
+        return insert_ports_bytes(rows.shape[0], ports.shape[1])
+
+    def drop(self, reason: str) -> None:
+        """Abandon the device state; the next residency batch does a
+        full re-upload (the listener rebases itself at collection)."""
+        if self.epoch >= 0:
+            log.info("device residency dropped (%s); next batch "
+                     "re-uploads the dynamic leaves", reason)
+        self.epoch = -1
+        self.free_dev = self.ports_dev = None
+        self.mirror_free = self.mirror_ports = None
+        self.pending_rows = self.pending_pre = None
+        self.pending_prows = self.pending_ppre = None
+        self.listener.invalidate()
 
 
 class Scheduler:
@@ -95,13 +297,24 @@ class Scheduler:
             backoff_initial=self.config.backoff_initial_s,
             backoff_max=self.config.backoff_max_s)
 
-        self._step = build_step(plugin_set)
+        # Shortlist-compressed arbitration: None = the full greedy kernel.
+        self._shortlist_k = (self.config.shortlist_k
+                             if self.config.shortlist else None)
+        self._step = build_step(plugin_set, shortlist=self._shortlist_k)
         self._key = prng.PRNGKey(self.config.seed)
         self._step_counter = 0
         self.waiting_pods: Dict[str, WaitingPod] = {}
         self._waiting_lock = threading.Lock()
         self._binder = ThreadPoolExecutor(
             max_workers=self.config.bind_workers, thread_name_prefix="binder")
+        # Workers of the pipelined cycle (_run_pipelined): batch k-1's
+        # failure flush runs on the commit worker (ONE worker: commits
+        # apply in batch order) and batch k+1's queue pop on the gather
+        # worker, while the scheduling thread resolves batch k.
+        self._committer = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="commit")
+        self._gatherer = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="gather")
         # Deferred-failure sink: while the scheduling thread resolves a
         # batch, _handle_failure APPENDS verdicts here and _commit_batch
         # flushes them in bulk. Thread-gated: binder/permit threads always
@@ -114,18 +327,40 @@ class Scheduler:
         # Device copies of the static node-feature leaves, keyed on
         # (cache static version, pad). Scheduling thread only.
         self._nf_static_device = None
+        # Slim decision readback rides the residency knob, as in the JAX
+        # package: device_resident=False restores the all-i32 fetch.
+        self._slim = bool(self.config.device_resident)
+        self._residency: Optional[_DeviceResidency] = None
+        if self.config.device_resident:
+            self._residency = _DeviceResidency(
+                self.cache.register_dyn_listener())
         self._metrics_lock = threading.Lock()
         self._metrics: Dict[str, float] = {
             "batches": 0, "pods_seen": 0, "pods_assigned": 0,
             "pods_failed": 0, "pods_bound": 0, "bind_conflicts": 0,
             "cycle_errors": 0,
-            # Phase clocks (host seconds; the step window ends with the
-            # decision read back, so it includes the device time).
+            # Phase clocks (host seconds). The step window runs from the
+            # dispatch to the decision read back and replayed, less the
+            # next batch's gather in pipelined mode; it includes the
+            # device time.
             "prepare_s_total": 0.0, "step_s_total": 0.0,
             "resolve_s_total": 0.0, "bind_s_total": 0.0,
-            # Launches of the greedy-assignment kernel made by this
-            # engine's steps (one or more per batch on a card, 0 on CPU).
+            # Transfer ledger: host→device bytes (static-leaf uploads,
+            # full dynamic-leaf uploads, residency corrections, port
+            # insertions; the pod encode is not counted) and
+            # device→host bytes of the decision fetches; the residency
+            # protocol's hits (delta-corrected batches) and resyncs
+            # (full re-uploads).
+            "h2d_bytes_total": 0.0, "fetch_bytes_total": 0.0,
+            "residency_hits": 0, "residency_resyncs": 0,
+            # Shortlist repair events (full-row rescans) and their
+            # per-batch complement.
+            "shortlist_repairs": 0, "shortlist_certified": 0,
+            "last_shortlist_repairs": 0,
+            # Kernel launches made by this engine's batches (0 on the
+            # CPU): the sum, and one count per kernel.
             "kernel_launches": 0,
+            **{f"kernel_launches_{k}": 0 for k in KERNELS},
             "last_batch_size": 0,
         }
 
@@ -150,36 +385,144 @@ class Scheduler:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        self._committer.shutdown(wait=True)
+        self._gatherer.shutdown(wait=False)
         if self._owns_shared:
             self._shared.shutdown()
         self._binder.shutdown(wait=False)
         self.broadcaster.flush(timeout=2.0)
         self.broadcaster.close()
 
+    def _pop(self) -> List[QueuedPodInfo]:
+        cfg = self.config
+        return self.queue.pop_batch(
+            cfg.max_batch_size, timeout=0.2,
+            gather_window=cfg.batch_window_s, gather_idle=cfg.batch_idle_s)
+
     def run(self) -> None:
         """The scheduling loop (reference minisched.go:28-30
         wait.UntilWithContext(ctx, scheduleOne, 0)); each iteration
-        schedules a whole batch."""
-        cfg = self.config
+        schedules a whole batch. With ``config.pipeline`` the loop is the
+        bounded two-deep pipeline of _run_pipelined."""
+        if self.config.pipeline:
+            self._run_pipelined()
+            return
         while not self._stop.is_set():
-            batch = self.queue.pop_batch(
-                cfg.max_batch_size, timeout=0.2,
-                gather_window=cfg.batch_window_s,
-                gather_idle=cfg.batch_idle_s)
+            batch = self._pop()
             if not batch:
                 continue
             try:
                 self.schedule_batch(batch)
             except Exception:
-                # The loop must outlive a failed cycle; its pods retry.
-                # Counted, so a caller can tell a failing engine from a
-                # slow one.
-                log.exception("scheduling cycle failed; requeueing its "
-                              "%d pods with backoff", len(batch))
-                with self._metrics_lock:
-                    self._metrics["cycle_errors"] += 1
-                for qpi in batch:
+                self._cycle_failed(batch)
+
+    def _cycle_failed(self, batch: List[QueuedPodInfo]) -> None:
+        """The loop must outlive a failed cycle; its pods retry with
+        backoff. Counted, so a caller can tell a failing engine from a
+        slow one. The device state is dropped: the next batch
+        re-uploads it from the cache's truth."""
+        log.exception("scheduling cycle failed; requeueing its %d pods "
+                      "with backoff", len(batch))
+        with self._metrics_lock:
+            self._metrics["cycle_errors"] += 1
+        if self._residency is not None:
+            self._residency.drop("cycle error")
+        for qpi in batch:
+            self.queue.requeue_backoff(qpi)
+
+    def _run_pipelined(self) -> None:
+        """Bounded two-deep pipelined scheduling loop.
+
+        While batch k's step runs on the device, the host (a) flushes
+        batch k-1's commit work on the commit worker and (b) gathers
+        batch k+1 from the queue on the gather worker. Batch k+1 is
+        ENCODED only after batch k's arbitration + assume accounting
+        (_resolve_batch): encode sees cache state that already includes
+        k's assumed placements, so decisions are bit-identical to the
+        synchronous loop. In-flight work is bounded: one dispatched
+        step + one commit flush.
+
+        Where the host waits: PyTorch launches the step's kernels
+        asynchronously, but gang_admission reads ``failing.any()`` on
+        the host after the first assignment attempt, so the dispatch
+        returns only once that attempt has run on the device. The
+        overlap is then the commit and gather workers' host work against
+        the next prepare, the pack and the fetch.
+
+            sched:  ...| resolve k | commit k-1 wait | enc+step k+1 |
+            commit:    [... flush k-1 (worker) ...]   [... flush k ...
+            gather:    [pop k+1]                      [pop k+2 ...
+        """
+        inflight = None            # prepared + dispatched, not resolved
+        pending = None             # commit future in flight
+        gather_fut = None          # in-flight pop on the gather worker
+        try:
+            while not self._stop.is_set():
+                if inflight is None:
+                    if gather_fut is not None:
+                        batch = gather_fut.result()
+                        gather_fut = None
+                    else:
+                        batch = self._pop()
+                    if not batch:
+                        pending = self._await_commit(pending)
+                        continue
+                    inflight = self._prepare_guarded(batch)
+                    continue
+                if gather_fut is None and not self._stop.is_set():
+                    try:
+                        gather_fut = self._gatherer.submit(self._pop)
+                    except RuntimeError:  # executor torn down (shutdown)
+                        gather_fut = None
+                pending = self._finish(inflight, pending)
+                nxt = []
+                if gather_fut is not None and not self._stop.is_set():
+                    nxt = gather_fut.result() or []
+                    gather_fut = None
+                inflight = self._prepare_guarded(nxt) if nxt else None
+        finally:
+            # Drain: a dispatched batch is completed, then the last
+            # commit is awaited. A gather that raced the stop and popped
+            # pods must not lose them.
+            if inflight is not None:
+                pending = self._finish(inflight, pending)
+            if gather_fut is not None:
+                for qpi in gather_fut.result():
                     self.queue.requeue_backoff(qpi)
+            self._await_commit(pending)
+
+    def _prepare_guarded(self, batch) -> Optional[_Batch]:
+        try:
+            return self._prepare_batch(batch)
+        except Exception:
+            self._cycle_failed(batch)
+            return None
+
+    def _finish(self, b: _Batch, pending):
+        """Resolve ``b``, then commit it: on the commit worker when it
+        has failure verdicts to flush (after the previous commit lands),
+        inline when the commit is only a metrics fold."""
+        try:
+            self._resolve_batch(b)
+        except Exception:
+            self._cycle_failed(b.batch)
+            return pending
+        if not b.failures:
+            self._commit_batch(b)
+            return pending
+        pending = self._await_commit(pending)
+        try:
+            return self._committer.submit(self._commit_batch, b)
+        except RuntimeError:  # executor torn down (shutdown race)
+            self._commit_batch(b)
+            return None
+
+    @staticmethod
+    def _await_commit(pending):
+        """Bound the pipeline at ONE commit in flight."""
+        if pending is not None:
+            pending.result()
+        return None
 
     # ---- one batched scheduling cycle ----------------------------------
 
@@ -199,23 +542,63 @@ class Scheduler:
     def _af_pad(self, hw: int) -> int:
         return bucket_for(max(hw, 1), 16)
 
-    def _node_features(self):
-        """Node features on the device: dynamic leaves (free/used_ports)
-        uploaded every batch, static leaves cached per (static version,
-        pad)."""
+    def _count_h2d(self, nbytes: int) -> None:
+        with self._metrics_lock:
+            self._metrics["h2d_bytes_total"] += nbytes
+
+    def _res_count(self, *, resync: bool, h2d: int) -> None:
+        with self._metrics_lock:
+            self._metrics["h2d_bytes_total"] += h2d
+            if resync:
+                self._metrics["residency_resyncs"] += 1
+            else:
+                self._metrics["residency_hits"] += 1
+
+    def _with_device_static(self, nf, static_version: int, pad: int):
+        """Swap the static node-feature leaves for device copies cached
+        per (static version, pad); on a hit the snapshot elided their
+        host copies."""
+        key = (static_version, pad)
         cached = self._nf_static_device
-        nf, names, static_v, row_incs = self.cache.snapshot_versioned(
-            pad=self._node_pad, known_static=cached[0] if cached else None)
-        key = (static_v, row_incs.shape[0])
         dynamic = NodeFeatureCache.DYNAMIC_NF_FIELDS
         if cached is None or cached[0] != key:
-            leaves = {f: to_torch(getattr(nf, f), self.device)
-                      for f in nf._fields if f not in dynamic}
+            host = {f: getattr(nf, f) for f in nf._fields
+                    if f not in dynamic}
+            leaves = {f: to_torch(a, self.device) for f, a in host.items()}
             self._nf_static_device = cached = (key, leaves)
-        nf = nf._replace(
-            **cached[1],
-            **{f: to_torch(getattr(nf, f), self.device) for f in dynamic})
-        return nf, names, row_incs
+            self._count_h2d(sum(a.nbytes for a in host.values()))
+        return nf._replace(**cached[1])
+
+    def _snapshot(self):
+        """Node features for this batch: (nf with device leaves, names,
+        row incarnations, carried). With residency the dynamic leaves
+        are the carried device arrays brought up to the cache's truth by
+        a sparse correction; an attach error drops residency and falls
+        back to a full snapshot. Without it they are uploaded whole."""
+        cached = self._nf_static_device
+        known = cached[0] if cached else None
+        res = self._residency
+        if res is not None:
+            nf, names, static_v, row_incs, delta = (
+                self.cache.snapshot_resident(pad=self._node_pad,
+                                             known_static=known,
+                                             dyn=res.listener))
+            nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+            try:
+                return res.attach(self, nf, delta), names, row_incs, True
+            except Exception:
+                log.exception("device residency attach failed; resyncing "
+                              "through a full snapshot")
+                res.drop("attach error")
+                cached = self._nf_static_device
+                known = cached[0] if cached else None
+        nf, names, static_v, row_incs = self.cache.snapshot_versioned(
+            pad=self._node_pad, known_static=known)
+        nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+        self._count_h2d(nf.free.nbytes + nf.used_ports.nbytes)
+        nf = nf._replace(free=to_torch(nf.free, self.device),
+                         used_ports=to_torch(nf.used_ports, self.device))
+        return nf, names, row_incs, False
 
     def _prepare_batch(self, batch: List[QueuedPodInfo]) -> _Batch:
         b = _Batch()
@@ -237,19 +620,35 @@ class Scheduler:
                          cfg=self.cache.cfg, registry=self.cache.registry,
                          overflow=self.cache.overflow,
                          gang_bound_fn=self.cache.gang_bound_count)
-        nf, names, row_incs = self._node_features()
+        nf, names, row_incs, b.res_carried = self._snapshot()
         af = to_torch(self.cache.snapshot_assigned(pad=self._af_pad),
                       self.device)
         eb_dev = to_torch(eb, self.device)
         self._step_counter += 1
         key = prng.fold_in(self._key, self._step_counter)
-        t_step = time.perf_counter()
-        launches0 = LAUNCHES["greedy_assign"]
-        b.decision = self._step(eb_dev, nf, af, key)
-        b.launches = LAUNCHES["greedy_assign"] - launches0
+        b.t_encode = time.perf_counter()
+        d = _count_launches(b, self._step, eb_dev, nf, af, key)
+        # One device buffer for the whole decision: the slim layout with
+        # residency, else the all-i32 stack.
+        pack = pack_decision_slim if self._slim else pack_decision_i32
+        b.packed_dev = pack(d.chosen, d.assigned, d.gang_rejected,
+                            d.feasible_counts, d.feasible_static,
+                            d.reject_counts, d.shortlist_repaired)
+        b.decision = d
         b.batch, b.eb, b.names, b.row_incs = batch, eb, names, row_incs
-        b.t_step = t_step
+        b.t_dispatch = time.perf_counter()
         return b
+
+    def _fetch_decision(self, packed_dev, p: int, f: int):
+        """Block on the ONE packed decision fetch and unpack it into
+        writable host arrays: (chosen, assigned, gang_rejected, feasible,
+        feasible_static, rejects (F,P), repaired)."""
+        buf = np.array(packed_dev.cpu().numpy())
+        with self._metrics_lock:
+            self._metrics["fetch_bytes_total"] += buf.nbytes
+        if self._slim:
+            return unpack_decision_slim(buf, p, f)
+        return unpack_decision_i32(buf)
 
     def _resolve_batch(self, b: _Batch) -> None:
         self._fail_sink = b.failures
@@ -258,23 +657,53 @@ class Scheduler:
             self._resolve_batch_impl(b)
         finally:
             self._fail_sink = None
+            b.t_resolved = time.perf_counter()
+
+    def _replay_on_residency(self, b: _Batch, chosen, assigned) -> None:
+        """Replay the step's device debits into the host mirror and adopt
+        free_after as the carried next-batch input, then model the
+        batch's host-port insertions on the resident used_ports (only the
+        port-carrying pods, padded to a power-of-two bucket; -1 rows are
+        skipped)."""
+        res = self._residency
+        res.note_debits(chosen, assigned, b.eb.pf.requests,
+                        b.decision.free_after)
+        ports = np.asarray(b.eb.pf.ports)
+        live = assigned & (ports != 0).any(axis=1)
+        if live.any():
+            idx = np.nonzero(live)[0]
+            k = bucket_for(idx.size, 16)
+            rows_pad = np.full((k,), -1, dtype=np.int32)
+            rows_pad[:idx.size] = chosen[idx]
+            ports_pad = np.zeros((k, ports.shape[1]), dtype=ports.dtype)
+            ports_pad[:idx.size] = ports[idx]
+            self._count_h2d(_count_launches(b, res.note_ports, rows_pad,
+                                            ports_pad))
 
     def _resolve_batch_impl(self, b: _Batch) -> None:
-        batch, names, d = b.batch, b.names, b.decision
+        batch, names = b.batch, b.names
         L = len(batch)
-        # The read back blocks on the device: the step window ends here.
-        chosen = d.chosen[:L].cpu().numpy()
-        assigned = d.assigned[:L].cpu().numpy()
-        gang_rejected = d.gang_rejected[:L].cpu().numpy()
-        feasible = d.feasible_counts[:L].cpu().numpy()
-        rejects = d.reject_counts[:, :L].cpu().numpy()
-        b.t_fetched = time.perf_counter()
-        if assigned.any():
-            ch = chosen[assigned]
+        # The read back blocks on the device. In pipelined mode the next
+        # batch's gather sits between dispatch and here; the fetch-start
+        # stamp keeps it out of the step window.
+        b.t_fetch_start = time.perf_counter()
+        (chosen, assigned, gang_rejected, feasible, _feasible_static,
+         rejects, sl_repaired) = self._fetch_decision(
+            b.packed_dev, b.eb.pf.valid.shape[0], len(self.filter_names))
+        if assigned[:L].any():
+            ch = chosen[:L][assigned[:L]]
             if int(ch.min()) < 0 or int(ch.max()) >= len(names):
                 raise RuntimeError(
                     "decision readback failed its sanity check: chosen "
                     f"node row outside [0, {len(names)})")
+        if self._shortlist_k is not None:
+            b.sl_repairs += int(sl_repaired[:L].sum())
+        if b.res_carried:
+            self._replay_on_residency(b, chosen, assigned)
+        b.t_fetched = time.perf_counter()
+        chosen, assigned = chosen[:L], assigned[:L]
+        gang_rejected, feasible = gang_rejected[:L], feasible[:L]
+        rejects = rejects[:, :L]
 
         to_bind: List[tuple] = []  # permit-free (qpi, node_name) pairs
         # With no permit plugins in the profile the per-pod binding cycle
@@ -392,7 +821,9 @@ class Scheduler:
 
     def _commit_batch(self, b: _Batch) -> None:
         """Flush the deferred failure verdicts (one store transaction, one
-        queue lock hold, one event payload) and fold the metrics."""
+        queue lock hold, one event payload) and fold the metrics. Runs on
+        the commit worker in pipelined mode when the batch has failures."""
+        t_commit = time.perf_counter()
         if b.failures:
             try:
                 self._flush_failures(b.failures)
@@ -403,16 +834,25 @@ class Scheduler:
                 for qpi, _plugins, _msg, _retry in b.failures:
                     self.queue.requeue_backoff(qpi)
         t_end = time.perf_counter()
+        # The step window: dispatch to fetch, less the next batch's
+        # gather that ran between them in pipelined mode.
+        gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
         with self._metrics_lock:
             m = self._metrics
             m["batches"] += 1
             m["pods_seen"] += len(b.batch)
             m["pods_assigned"] += b.n_assigned
             m["pods_failed"] += len(b.batch) - b.n_assigned
-            m["prepare_s_total"] += b.t_step - b.t0
-            m["step_s_total"] += b.t_fetched - b.t_step
-            m["resolve_s_total"] += t_end - b.t_fetched
-            m["kernel_launches"] += b.launches
+            m["prepare_s_total"] += b.t_encode - b.t0
+            m["step_s_total"] += b.t_fetched - b.t_encode - gather_gap
+            m["resolve_s_total"] += ((b.t_resolved - b.t_fetched)
+                                     + (t_end - t_commit))
+            m["shortlist_repairs"] += b.sl_repairs
+            m["shortlist_certified"] += max(0, len(b.batch) - b.sl_repairs)
+            m["last_shortlist_repairs"] = b.sl_repairs
+            for name, n in b.launches.items():
+                m["kernel_launches"] += n
+                m[f"kernel_launches_{name}"] += n
             m["last_batch_size"] = len(b.batch)
 
     def _flush_failures(self, items: List[tuple]) -> None:
@@ -442,6 +882,7 @@ class Scheduler:
             out = dict(self._metrics)
         out.update({f"queue_{k}": v for k, v in self.queue.stats().items()})
         out["waiting_pods"] = len(self.waiting_pods)
+        out["shortlist_width"] = int(self._shortlist_k or 0)
         return out
 
     # ---- binding cycle -------------------------------------------------

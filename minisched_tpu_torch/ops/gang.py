@@ -31,6 +31,9 @@ class GangResult(NamedTuple):
     free_after: torch.Tensor     # (N,R) float32 remaining free resources
     gang_rejected: torch.Tensor  # (P,) bool — pod's group missed quorum
     group_ok: torch.Tensor       # (G,) bool — group met min_count
+    repaired: torch.Tensor       # (P,) bool — shortlist repair ledger of
+    #   the kept attempt; all False when the inner assignment has no
+    #   shortlist stage
 
 
 def gang_assign(scores: torch.Tensor, requests: torch.Tensor,
@@ -107,6 +110,10 @@ def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
                 ok, res = ok2, res2
 
     gang_rejected = grouped & ~ok[gidx]
+    repaired = getattr(res, "repaired", None)
+    if repaired is None:
+        repaired = torch.zeros_like(res.assigned)
     return GangResult(chosen=res.chosen, assigned=res.assigned,
                       free_after=res.free_after,
-                      gang_rejected=gang_rejected, group_ok=ok)
+                      gang_rejected=gang_rejected, group_ok=ok,
+                      repaired=repaired)

@@ -1,100 +1,34 @@
-"""Build, load and launch the CUDA greedy-assignment kernel.
+"""Launch the CUDA greedy-assignment kernel (csrc/greedy_assign.cu).
 
-The kernel (csrc/greedy_assign.cu) is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at first use,
-into ``_build/`` beside the package sources, and loaded with ``ctypes``.
-The library's file name carries a hash of the source, so an edited
-source is rebuilt. Nothing is compiled when this module is imported.
-
-``greedy_assign_cuda`` is the kernel's wrapper: it checks its inputs,
+The kernel is built at first use by ops/_cuda_build.py (nvcc, sm_90a,
+ctypes). ``greedy_assign_cuda`` is its wrapper: it checks its inputs,
 allocates the outputs, launches on PyTorch's current stream and counts
-the launch in ``LAUNCHES``. It never falls back to the plain version.
+the launch in ``_cuda_build.LAUNCHES["greedy_assign"]``. It never falls
+back to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
+from ._cuda_build import check_launch, load
 from .select import AssignResult
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "greedy_assign.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _MAX_BLOCKS = 256  # grid-size cap; the scratch holds 2 slots per block
 _MAX_R = 32
 
-# Launches of the kernel since the last reset: the main path's evidence
-# that it ran through the kernel. Only greedy_assign_cuda increments it.
-LAUNCHES = {"greedy_assign": 0}
 
-_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build the greedy-assignment kernel")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libgreedy_assign-{digest}.so")
-
-
-def build() -> str:
-    """Compile the kernel library unless this source's build exists.
-    Returns the library path; raises with nvcc's output on failure."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(out + ".log", "w") as f:  # ptxas: registers, smem, spills
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.greedy_assign_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p]
-            lib.greedy_assign_slot_bytes.restype = ctypes.c_int
-            lib.greedy_assign_slot_bytes.argtypes = []
-            lib.greedy_assign_error_string.restype = ctypes.c_char_p
-            lib.greedy_assign_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.greedy_assign_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    lib.greedy_assign_slot_bytes.restype = ctypes.c_int
+    lib.greedy_assign_slot_bytes.argtypes = []
 
 
 def greedy_assign_cuda(scores: torch.Tensor, requests: torch.Tensor,
@@ -126,7 +60,7 @@ def greedy_assign_cuda(scores: torch.Tensor, requests: torch.Tensor,
     scores = scores.contiguous()
     requests = requests.contiguous()
     free0 = free0.contiguous()
-    lib = _load()
+    lib = load("greedy_assign", _bind)
     dev = scores.device
     chosen = torch.empty((P,), dtype=torch.int32, device=dev)
     assigned = torch.empty((P,), dtype=torch.bool, device=dev)
@@ -141,9 +75,5 @@ def greedy_assign_cuda(scores: torch.Tensor, requests: torch.Tensor,
             int(seed) & 0xFFFFFFFF, P, N, R, chosen.data_ptr(),
             assigned.data_ptr(), free_after.data_ptr(), scratch.data_ptr(),
             _MAX_BLOCKS, stream)
-    if err != 0:
-        msg = lib.greedy_assign_error_string(err).decode()
-        raise RuntimeError(f"greedy_assign kernel launch failed: cudaError "
-                           f"{err} ({msg}) at P={P} N={N} R={R}")
-    LAUNCHES["greedy_assign"] += 1
+    check_launch(lib, "greedy_assign", err, f"P={P} N={N} R={R}")
     return AssignResult(chosen, assigned, free_after)

@@ -10,19 +10,21 @@ normalization, and NormalizeScore runs once per plugin over the whole
 matrix.
 
 The step runs eagerly on whatever device its input tensors live on; the
-assignment stage goes through ``select.greedy_assign``, which launches
-the CUDA kernel for CUDA tensors.
+assignment stage goes through ``select.greedy_assign`` or, with a
+shortlist, ``select.greedy_assign_shortlist``, which launch their CUDA
+kernels for CUDA tensors.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import functools
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from ..plugins.base import PluginSet
 from . import prng
 from .gang import gang_assign
-from .select import NEG, greedy_assign
+from .select import NEG, greedy_assign, greedy_assign_shortlist
 
 
 class Decision(NamedTuple):
@@ -37,6 +39,9 @@ class Decision(NamedTuple):
     feasible_static: torch.Tensor  # (P,) int32
     reject_counts: torch.Tensor    # (F,P) int32 nodes rejected per filter
     free_after: torch.Tensor       # (N,R) float32
+    # Shortlist repair ledger: pods whose step fell back to a full-row
+    # rescan (all False without the shortlist).
+    shortlist_repaired: torch.Tensor  # (P,) bool
 
 
 def max_normalize_100(scores: torch.Tensor,
@@ -83,19 +88,27 @@ def evaluate(plugin_set: PluginSet, eb, nf, af):
     return torch.where(feasible, total, NEG), feasible_counts, reject_counts
 
 
-def build_step(plugin_set: PluginSet):
+def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None):
     """The scheduling step for a plugin profile:
     ``step(eb, nf, af, key) -> Decision`` where ``eb`` is an EncodedBatch,
     ``nf`` the NodeFeatures and ``af`` the AssignedPodFeatures, all as
     tensors on one device (encode.to_torch), and ``key`` the batch's
-    PRNG key (ops/prng)."""
+    PRNG key (ops/prng).
+
+    ``shortlist=K`` (K >= 1) assigns with the shortlist-compressed scan
+    (select.greedy_assign_shortlist, K clamped to the node pad); None or
+    K < 1 keeps the full greedy assignment. Decisions are bit-identical
+    either way; only ``shortlist_repaired`` tells them apart."""
+    greedy_fn = greedy_assign
+    if shortlist is not None and shortlist >= 1:
+        greedy_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
 
     def step(eb, nf, af, key) -> Decision:
         masked_total, feasible_counts, reject_counts = evaluate(
             plugin_set, eb, nf, af)
         assign = gang_assign(masked_total, eb.pf.requests, nf.free,
                              eb.gang.group, eb.gang.min_count,
-                             prng.bits(key), greedy_fn=greedy_assign)
+                             prng.bits(key), greedy_fn=greedy_fn)
         return Decision(
             chosen=assign.chosen,
             assigned=assign.assigned,
@@ -104,6 +117,7 @@ def build_step(plugin_set: PluginSet):
             feasible_static=feasible_counts,
             reject_counts=reject_counts,
             free_after=assign.free_after,
+            shortlist_repaired=assign.repaired,
         )
 
     return step

@@ -9,9 +9,10 @@ Ties among the best-scoring fitting nodes break on seeded noise: a
 murmur3 finalizer of (seed, pod row, node column). The definition is the
 JAX package's, bit for bit, so both packages pick the same node.
 
-``greedy_assign`` dispatches on the device of its inputs: CPU tensors
-take the plain PyTorch version below, CUDA tensors the hand-written
-kernel (ops/greedy_kernel.py), which raises rather than fall back.
+``greedy_assign`` and ``greedy_assign_shortlist`` dispatch on the device
+of their inputs: CPU tensors take the plain PyTorch versions below, CUDA
+tensors the hand-written kernels (ops/greedy_kernel.py,
+ops/shortlist_kernel.py), which raise rather than fall back.
 """
 from __future__ import annotations
 
@@ -59,6 +60,22 @@ class AssignResult(NamedTuple):
     free_after: torch.Tensor  # (N,R) float32 remaining free resources
 
 
+def _full_row_pick(srow: torch.Tensor, req: torch.Tensor,
+                   free: torch.Tensor, seed: int, i: int, cols):
+    """One pod's pick over the whole row: among nodes whose free row
+    covers ``req`` on every axis, the largest score, then the largest
+    tie noise, then the smallest column. Returns (column, ok) with ok
+    False when no fitting node scores above NEG."""
+    fits = (free >= req[None, :]).all(dim=1)
+    s = torch.where(fits, srow, NEG)
+    m = s.max()
+    if not bool(m > NEG):
+        return -1, False
+    noise = tie_noise_from_cols(seed, i, cols)
+    key = torch.where((s >= m) & fits, noise, -1.0)
+    return int(cols[key == key.max()].min()), True
+
+
 def greedy_assign_plain(scores: torch.Tensor, requests: torch.Tensor,
                         free0: torch.Tensor, seed: int) -> AssignResult:
     """The plain PyTorch version of the greedy-assignment kernel.
@@ -79,20 +96,12 @@ def greedy_assign_plain(scores: torch.Tensor, requests: torch.Tensor,
     cols = torch.arange(N, dtype=torch.int64, device=device)
     chosen = torch.full((P,), -1, dtype=torch.int32, device=device)
     assigned = torch.zeros((P,), dtype=torch.bool, device=device)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=device)
     for i in range(P):
-        req = requests[i]
-        fits = (free >= req[None, :]).all(dim=1)
-        s = torch.where(fits, scores[i], neg)
-        m = s.max()
-        if not bool(m > neg):
-            continue
-        noise = tie_noise_from_cols(seed, i, cols)
-        key = torch.where((s >= m) & fits, noise, -1.0)
-        idx = int(cols[key == key.max()].min())
-        free[idx] = free[idx] - req
-        chosen[i] = idx
-        assigned[i] = True
+        idx, ok = _full_row_pick(scores[i], requests[i], free, seed, i, cols)
+        if ok:
+            free[idx] = free[idx] - requests[i]
+            chosen[i] = idx
+            assigned[i] = True
     return AssignResult(chosen, assigned, free)
 
 
@@ -106,3 +115,141 @@ def greedy_assign(scores: torch.Tensor, requests: torch.Tensor,
     from .greedy_kernel import greedy_assign_cuda
 
     return greedy_assign_cuda(scores, requests, free0, seed)
+
+
+class ShortlistAssignResult(NamedTuple):
+    """AssignResult plus the repair ledger of a certified shortlist
+    scan."""
+
+    chosen: torch.Tensor      # (P,) int32 node row, -1 if unassigned
+    assigned: torch.Tensor    # (P,) bool
+    free_after: torch.Tensor  # (N,R) float32 remaining free resources
+    repaired: torch.Tensor    # (P,) bool — the step fell back to a
+    #                           full-row rescan (the certificate could not
+    #                           prove the true argmax was in the shortlist)
+
+
+_NOISE_ONE = 1 << 24  # the noise key of 2.0 in shortlist_select's key2
+
+
+def shortlist_select(scores: torch.Tensor, seed: int, k: int):
+    """Per-pod top-K candidate shortlists, ordered by (score, tie noise)
+    — the order the greedy scan consults — plus the certification bound.
+
+    Returns ``(cand (P,K) int32 node columns, kth (P,) float32,
+    kth_noise (P,) float32)``: ``kth`` is the K-th largest score, and
+    every node outside the shortlist is lexicographically at most
+    ``(kth, kth_noise)``.
+
+    Two top-k passes, as the JAX package's lax.top_k pair:
+      1. ``kth`` = the K-th largest raw score: at most K-1 nodes score
+         above it, so all of them are in the shortlist.
+      2. a composite key — 2.0 for score > kth, the node's tie noise for
+         score == kth, -1 otherwise — whose top K fills the remaining
+         slots with the boundary nodes of largest noise.
+
+    ``torch.topk`` breaks ties among equal keys differently from
+    ``lax.top_k`` (which takes the lower index first), so the second
+    pass runs over a unique int64 key: the composite key as an exact
+    integer (2.0 → 2^24, noise → its 24-bit integer x >> 8, -1 → -1)
+    shifted up 32 bits, with 0xFFFFFFFF - column below. Its descending
+    order is (key descending, column ascending), lax.top_k's order, so
+    ``cand`` equals the JAX package's column for column. The first pass
+    needs no care: only the K-th value is used.
+    """
+    P, N = scores.shape
+    device = scores.device
+    kth = torch.topk(scores, k, dim=1).values[:, -1].contiguous()
+    cols = torch.arange(N, dtype=torch.int64, device=device)[None, :]
+    rows = torch.arange(P, dtype=torch.int64, device=device)[:, None]
+    # The noise lattice as 24-bit integers (int64 masked to 32 bits: the
+    # CPU has no u32 add or shift); as float it is key * 2^-24 exactly.
+    x = (cols * _COL_MULT + seed + (rows * GOLDEN) % (1 << 32)) & _M32
+    key2 = fmix32(x) >> 8
+    del x
+    kcol = kth[:, None]
+    key2 = torch.where(scores > kcol, _NOISE_ONE,
+                       torch.where(scores == kcol, key2, -1))
+    key2 = key2 * (1 << 32) + (_M32 - cols)
+    top = torch.topk(key2, k, dim=1)
+    del key2
+    cand = top.indices.to(torch.int32)
+    last = top.values[:, -1] >> 32
+    kth_noise = torch.where(
+        last == _NOISE_ONE, 2.0,
+        torch.where(last < 0, -1.0,
+                    last.to(torch.float32) * (1.0 / (1 << 24))))
+    return cand, kth, kth_noise.to(torch.float32)
+
+
+def greedy_assign_shortlist_plain(scores: torch.Tensor,
+                                  requests: torch.Tensor,
+                                  free0: torch.Tensor, seed: int,
+                                  cand: torch.Tensor, kth: torch.Tensor,
+                                  kth_noise: torch.Tensor
+                                  ) -> ShortlistAssignResult:
+    """The plain PyTorch version of the shortlist scan kernel: the
+    certified K-wide greedy scan over ``shortlist_select``'s output.
+
+    Per pod, in row order: gather the candidates' free rows; among the
+    fitting candidates take m = the best score, wn = the best noise at
+    m, win = the smallest column at (m, wn). The step is certified when
+    m > kth, or m == kth and wn > kth_noise, or kth <= NEG (fewer than K
+    feasible nodes: the shortlist is the row); then win is the full
+    row's winner. Otherwise the pod takes the full-row pick and is
+    marked repaired. A winner above NEG is debited, as in the full scan,
+    so every output equals greedy_assign_plain's.
+    """
+    P, N = scores.shape
+    device = scores.device
+    free = free0.clone()
+    cols = torch.arange(N, dtype=torch.int64, device=device)
+    cand_scores = torch.gather(scores, 1, cand.long())
+    chosen = torch.full((P,), -1, dtype=torch.int32, device=device)
+    assigned = torch.zeros((P,), dtype=torch.bool, device=device)
+    repaired = torch.zeros((P,), dtype=torch.bool, device=device)
+    for i in range(P):
+        req = requests[i]
+        cids = cand[i].long()
+        fits = (free[cids] >= req[None, :]).all(dim=1)
+        s = torch.where(fits, cand_scores[i], NEG)
+        m = s.max()
+        noise = tie_noise_from_cols(seed, i, cids)
+        tie = (s >= m) & fits
+        wn = torch.where(tie, noise, -1.0).max()
+        win = torch.where(tie & (noise == wn), cids, N).min()
+        certified = bool((m > kth[i]) | ((m == kth[i]) & (wn > kth_noise[i]))
+                         | (kth[i] <= NEG))
+        if certified:
+            idx, ok = int(win), bool(m > NEG)
+        else:
+            idx, ok = _full_row_pick(scores[i], req, free, seed, i, cols)
+            repaired[i] = True
+        if ok:
+            free[idx] = free[idx] - req
+            chosen[i] = idx
+            assigned[i] = True
+    return ShortlistAssignResult(chosen, assigned, free, repaired)
+
+
+def greedy_assign_shortlist(scores: torch.Tensor, requests: torch.Tensor,
+                            free0: torch.Tensor, seed: int,
+                            k: int = 128) -> ShortlistAssignResult:
+    """``greedy_assign`` with the sequential scan compressed to per-pod
+    top-K shortlists: bit-identical decisions, certified per step, with
+    a counted full-row repair where the certificate fails.
+
+    The selection (``shortlist_select``) is parallel PyTorch work on any
+    device. The scan dispatches on the device of its inputs: CPU tensors
+    take the plain version, CUDA tensors the hand-written kernel
+    (ops/shortlist_kernel.py), which raises rather than fall back."""
+    P, N = scores.shape
+    k = min(max(int(k), 1), N)
+    cand, kth, kth_noise = shortlist_select(scores, seed, k)
+    if scores.device.type == "cpu":
+        return greedy_assign_shortlist_plain(scores, requests, free0, seed,
+                                             cand, kth, kth_noise)
+    from .shortlist_kernel import shortlist_scan_cuda
+
+    return shortlist_scan_cuda(scores, cand, kth, kth_noise, requests,
+                               free0, seed)

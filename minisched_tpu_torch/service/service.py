@@ -42,8 +42,11 @@ class SchedulerService:
         sched = Scheduler(self._store, plugin_set, config, shared=shared)
         self._shared_state, self._sched = shared, sched
         sched.start()
-        log.info("scheduler started (profile=%s, device=%s)",
-                 profile.name, sched.device)
+        cfg = sched.config
+        log.info("scheduler started (profile=%s, device=%s, pipeline=%s, "
+                 "device_resident=%s, shortlist=%s k=%d)", profile.name,
+                 sched.device, cfg.pipeline, cfg.device_resident,
+                 cfg.shortlist, cfg.shortlist_k)
         return sched
 
     def shutdown_scheduler(self) -> None:

@@ -1,7 +1,11 @@
-"""The port's synchronous engine against the JAX engine (synchronous,
-uploads every batch, full greedy scan): one store content and one seed
-give the same pod→node placements over several batches. The README
-scenario passes on the port."""
+"""The port's engine against the JAX engine: one store content, one seed
+and one SchedulerConfig give the same pod→node placements and the same
+counters over several batches, in every mode of (pipeline,
+device_resident, shortlist); device residency uploads only deltas in
+steady state and corrects failed binds, node deletes and pad changes
+without losing a pod. The README scenario passes on the port."""
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +29,17 @@ from torch_parity import BENCH_PROFILE, bench_cluster, mixed_cluster
 def _jax_config(**kw):
     return JConfig(pipeline=False, device_resident=False, shortlist=False,
                    **kw)
+
+
+# (pipeline, device_resident, shortlist): all off, all on (the default),
+# and the mixed modes of tests/test_shortlist.py and
+# tests/test_device_residency.py.
+MODES = [(False, False, False), (True, True, True), (False, False, True),
+         (True, False, True), (False, True, True), (True, True, False)]
+# Metrics both engines define alike.
+SHARED_METRICS = ("pods_seen", "pods_assigned", "pods_failed", "pods_bound",
+                  "batches", "shortlist_repairs", "residency_hits",
+                  "residency_resyncs", "fetch_bytes_total")
 
 
 def _placements(cluster):
@@ -61,6 +76,184 @@ def test_engine_placements_match_jax(seed):
     assert m["batches"] == jm["batches"] >= 5
     assert m["pods_bound"] == 300
     assert m["kernel_launches"] == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("pipeline,resident,shortlist", MODES)
+def test_engine_modes_match_jax(pipeline, resident, shortlist):
+    """300 pods in batches of 64 under the same config on both packages:
+    placements and every shared counter equal. K=2 makes some of the
+    shortlist's steps repair and certifies the rest."""
+    kw = dict(max_batch_size=64, seed=1, pipeline=pipeline,
+              device_resident=resident, shortlist=shortlist, shortlist_k=2)
+    want, jm = _run_cluster(JCluster, JO, JProfile(**BENCH_PROFILE),
+                            JConfig(**kw), 120, 300, 1)
+    got, m = _run_cluster(Cluster, TO, Profile(**BENCH_PROFILE),
+                          SchedulerConfig(platform="cpu", **kw), 120, 300, 1)
+    assert got == want
+    for k in SHARED_METRICS:
+        assert m[k] == jm[k], k
+    assert m["shortlist_width"] == jm["shortlist_width"] == (
+        2 if shortlist else 0)
+    if shortlist:
+        assert 0 < m["shortlist_repairs"] < m["pods_seen"]
+    if resident:
+        assert m["residency_resyncs"] == 1
+        assert m["residency_hits"] == m["batches"] - 1
+    assert m["kernel_launches"] == 0 and all(
+        m[f"kernel_launches_{k}"] == 0
+        for k in ("greedy_assign", "shortlist_scan", "insert_ports"))
+
+
+def test_pipelined_loop_matches_sync_loop():
+    """The pipelined loop is bit-identical to the synchronous one, with
+    ports (the device-side port insertion) and residency on."""
+    def run(pipeline):
+        nodes, pods = bench_cluster(TO, 60, 200, 4)
+        for i, p in enumerate(pods[:80]):
+            p.spec.ports = [TO.ContainerPort(host_port=20000 + i % 9)]
+        c = Cluster()
+        c.create_objects(nodes)
+        c.create_objects(pods)
+        c.start(Profile(**BENCH_PROFILE),
+                SchedulerConfig(platform="cpu", max_batch_size=32, seed=4,
+                                pipeline=pipeline))
+        try:
+            assert wait_until(
+                lambda: all(p.spec.node_name for p in c.list_pods()),
+                timeout=60)
+            sched = c.service.scheduler
+            res = sched._residency
+            assert np.array_equal(res.ports_dev.numpy(), res.mirror_ports)
+            assert (res.mirror_ports != 0).sum() > 0
+            assert np.array_equal(res.free_dev.numpy(), res.mirror_free)
+            return _placements(c), sched.metrics()
+        finally:
+            c.shutdown()
+
+    sync, sm = run(False)
+    pipe, pm = run(True)
+    assert pipe == sync
+    assert pm["batches"] == sm["batches"] >= 6
+    assert pm["residency_resyncs"] == sm["residency_resyncs"] == 1
+
+
+def _burst(config, fault=None, n_nodes=30, n_pods=120):
+    """Bench-cluster burst through Cluster(); returns (placements,
+    metrics, cluster) with the cluster still running."""
+    nodes, pods = bench_cluster(TO, n_nodes, n_pods, 2)
+    c = Cluster()
+    c.create_objects(nodes)
+    c.start(Profile(**BENCH_PROFILE), config)
+    if fault is not None:
+        fault(c)
+    c.create_objects(pods)
+    assert wait_until(lambda: all(p.spec.node_name for p in c.list_pods()),
+                      timeout=60)
+    return _placements(c), c.service.scheduler.metrics(), c
+
+
+def _cfg(**kw):
+    kw.setdefault("max_batch_size", 16)
+    kw.setdefault("backoff_initial_s", 0.05)
+    kw.setdefault("backoff_max_s", 0.2)
+    return SchedulerConfig(platform="cpu", **kw)
+
+
+def test_steady_state_uploads_only_deltas():
+    """One full dynamic-leaf upload (the establish), then delta-corrected
+    hits only; fewer bytes up than the upload-every-batch path and a
+    slimmer fetch per batch."""
+    _p, fb, c = _burst(_cfg(device_resident=False))
+    c.shutdown()
+    _p, rs, c = _burst(_cfg())
+    c.shutdown()
+    assert rs["residency_resyncs"] == 1, rs
+    assert rs["residency_hits"] == rs["batches"] - 1
+    assert fb["residency_hits"] == fb["residency_resyncs"] == 0
+    assert rs["h2d_bytes_total"] < fb["h2d_bytes_total"]
+    assert (rs["fetch_bytes_total"] / rs["batches"]
+            < fb["fetch_bytes_total"] / fb["batches"])
+
+
+def test_failed_bind_corrects_without_resync():
+    """A bind conflict unassumes pods after the device debited their
+    rows: the listener marks the rows, the next batch uploads the
+    correction, the pods bind on retry; no resync."""
+    tripped = threading.Event()
+
+    def fault(c):
+        orig = c.store.bind_pods
+
+        def flaky(items):
+            if not tripped.is_set():
+                tripped.set()
+                return orig(items[: len(items) // 2])
+            return orig(items)
+
+        c.store.bind_pods = flaky
+
+    _p, m, c = _burst(_cfg(), fault=fault)
+    try:
+        res = c.service.scheduler._residency
+        assert wait_until(lambda: np.array_equal(
+            res.free_dev.numpy(), res.mirror_free), timeout=5)
+    finally:
+        c.shutdown()
+    assert tripped.is_set() and m["bind_conflicts"] > 0
+    assert m["residency_resyncs"] == 1, m
+    assert m["residency_hits"] >= 2
+
+
+def test_node_delete_mid_stream_stays_consistent():
+    c = Cluster()
+    try:
+        c.start(Profile(**BENCH_PROFILE), _cfg())
+        for i in range(6):
+            c.create_node(f"n{i}", cpu=64000)
+        for i in range(6):
+            c.create_pod(f"wave1-{i}", cpu=100)
+        for i in range(6):
+            c.wait_for_pod_bound(f"wave1-{i}", timeout=30)
+        c.store.delete("Node", "n5")
+        assert wait_until(
+            lambda: c.service.scheduler.cache.row_of("n5") is None,
+            timeout=10)
+        for i in range(6):
+            c.create_pod(f"wave2-{i}", cpu=100)
+        for i in range(6):
+            p = c.wait_for_pod_bound(f"wave2-{i}", timeout=30)
+            assert p.spec.node_name != "n5"
+        m = c.service.scheduler.metrics()
+        assert m["residency_hits"] >= 1
+        assert m["cycle_errors"] == 0
+    finally:
+        c.shutdown()
+
+
+def test_pad_change_forces_rebase():
+    """Nodes added past the node pad's bucket: the next snapshot resolves
+    a new pad, the listener rebases, and the engine re-establishes (a
+    second resync) and keeps binding."""
+    c = Cluster()
+    try:
+        c.start(Profile(**BENCH_PROFILE), _cfg())
+        for i in range(10):
+            c.create_node(f"a{i}", cpu=8000)
+        c.create_pod("first", cpu=100)
+        c.wait_for_pod_bound("first", timeout=30)
+        for i in range(30):
+            c.create_node(f"b{i}", cpu=8000)
+        assert wait_until(
+            lambda: c.service.scheduler.cache.node_count() == 40, timeout=10)
+        for i in range(5):
+            c.create_pod(f"later-{i}", cpu=100)
+        for i in range(5):
+            c.wait_for_pod_bound(f"later-{i}", timeout=30)
+        m = c.service.scheduler.metrics()
+        assert m["residency_resyncs"] == 2, m
+        assert m["cycle_errors"] == 0
+    finally:
+        c.shutdown()
 
 
 def _engine(sched_cls, store_cls, O, profile, config, seed):
@@ -135,3 +328,34 @@ def test_default_cluster_needs_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         c.start()
     assert c.service.scheduler is None
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_failure_verdicts_flush_in_both_loops(pipeline):
+    """Pods that can never fit take the failure path (flushed on the
+    commit worker in pipelined mode): their rejecting plugin is recorded
+    while every pod that fits binds, and the resident state still equals
+    its host mirror."""
+    c = Cluster()
+    try:
+        c.start(Profile(**BENCH_PROFILE), _cfg(pipeline=pipeline))
+        for i in range(4):
+            c.create_node(f"n{i}", cpu=2000)
+        c.create_node("cordoned", cpu=64000, unschedulable=True)
+        for i in range(12):
+            c.create_pod(f"fits-{i}", cpu=500)
+        for i in range(3):
+            c.create_pod(f"huge-{i}", cpu=10000)
+        for i in range(12):
+            c.wait_for_pod_bound(f"fits-{i}", timeout=30)
+        for i in range(3):
+            pod = c.wait_for_pod_pending(f"huge-{i}", timeout=30)
+            assert not pod.spec.node_name
+            assert "NodeResourcesFit" in pod.status.unschedulable_plugins
+        sched = c.service.scheduler
+        m = sched.metrics()
+        assert m["pods_failed"] >= 3 and m["cycle_errors"] == 0
+        res = sched._residency
+        assert np.array_equal(res.free_dev.numpy(), res.mirror_free)
+    finally:
+        c.shutdown()

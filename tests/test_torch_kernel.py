@@ -1,4 +1,5 @@
-"""The CUDA greedy-assignment kernel against its plain PyTorch version.
+"""The CUDA kernels (greedy assignment, shortlist scan, port insertion)
+against their plain PyTorch versions.
 
 This file imports neither jax nor minisched_tpu, so it also runs on a
 machine that has only the port's dependencies. The card tests skip
@@ -11,10 +12,15 @@ import pytest
 import torch
 
 from minisched_tpu_torch.ops import prng
+from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops import select as S
-from minisched_tpu_torch.ops.greedy_kernel import LAUNCHES, greedy_assign_cuda
-from torch_parity import (GREEDY_SHAPES, NEG, bits_equal, greedy_case,
-                          scarce_case)
+from minisched_tpu_torch.ops._cuda_build import LAUNCHES
+from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
+from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
+from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
+from torch_parity import (GREEDY_SHAPES, NEG, SHORTLIST_CASES, bits_equal,
+                          greedy_case, ports_case, scarce_case,
+                          shortlist_case)
 
 
 def _need_card():
@@ -26,6 +32,30 @@ def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         greedy_assign_cuda(torch.zeros((2, 3)), torch.zeros((2, 4)),
                            torch.zeros((3, 4)), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        shortlist_scan_cuda(torch.zeros((2, 3)),
+                            torch.zeros((2, 1), dtype=torch.int32),
+                            torch.zeros(2), torch.zeros(2),
+                            torch.zeros((2, 4)), torch.zeros((3, 4)), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        insert_ports_cuda(*(torch.zeros(shape, dtype=torch.int32)
+                            for shape in ((3, 8), (2,), (2, 4))))
+
+
+def test_shortlist_and_ports_on_cpu_take_the_plain_versions():
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a) for a in shortlist_case(32, 100, 3, 1)]
+    n0 = dict(LAUNCHES)
+    got = S.greedy_assign_shortlist(*args, 77, k=4)
+    cand, kth, kthn = S.shortlist_select(args[0], 77, 4)
+    want = S.greedy_assign_shortlist_plain(*args, 77, cand, kth, kthn)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    state, rows, ports = ports_case(rng)
+    assert torch.equal(RES.insert_ports(torch.from_numpy(state), rows, ports),
+                       RES.insert_ports_plain(*(torch.from_numpy(a) for a in
+                                                (state, rows, ports))))
+    assert LAUNCHES == n0
 
 
 def test_dispatch_on_cpu_is_the_plain_version():
@@ -120,3 +150,77 @@ def test_kernel_rejects_bad_inputs_on_card():
         greedy_assign_cuda(s, req, free.double(), 0)
     with pytest.raises(ValueError, match="shape"):
         greedy_assign_cuda(s, req[:3], free, 0)
+
+
+def _scan_on_card(scores, req, free, seed, k):
+    """The shortlist scan kernel and its plain version on one input."""
+    args = [torch.from_numpy(a) for a in (scores, req, free)]
+    k = min(max(k, 1), scores.shape[1])
+    cand, kth, kthn = S.shortlist_select(args[0], seed, k)
+    plain = S.greedy_assign_shortlist_plain(*args, seed, cand, kth, kthn)
+    n0 = LAUNCHES["shortlist_scan"]
+    dev = [a.cuda() for a in args]
+    got = S.greedy_assign_shortlist(*dev, seed, k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["shortlist_scan"] == n0 + 1
+    for field in ("chosen", "assigned", "free_after", "repaired"):
+        assert bits_equal(getattr(plain, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    # The selection on the card equals the selection on the CPU.
+    for a, b in zip(S.shortlist_select(dev[0], seed, k), (cand, kth, kthn)):
+        assert bits_equal(a.cpu().numpy(), b.numpy())
+    return plain
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name,P,N,R,seed,k,kw", SHORTLIST_CASES,
+                         ids=[c[0] for c in SHORTLIST_CASES])
+def test_shortlist_scan_matches_plain_on_card(name, P, N, R, seed, k, kw):
+    _need_card()
+    plain = _scan_on_card(*shortlist_case(P, N, R, seed, **kw),
+                          prng.bits(prng.fold_in(prng.PRNGKey(seed), k)), k)
+    if name == "contention":
+        assert int(plain.repaired.sum()) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["contention-wide", "k1", "k-equals-n",
+                                  "max-r", "scarce", "empty-batch"])
+def test_shortlist_scan_edge_cases_on_card(kind):
+    _need_card()
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    seed = prng.bits(prng.fold_in(prng.PRNGKey(11), len(kind)))
+    if kind == "contention-wide":  # repairs over a row wider than the block
+        case, k = shortlist_case(256, 20000, 10, 5, contend=True), 16
+    elif kind == "k1":  # every live pod repairs
+        case, k = shortlist_case(64, 3000, 4, 6), 1
+    elif kind == "k-equals-n":  # the shortlist is the row
+        case, k = shortlist_case(64, 700, 4, 7), 700
+    elif kind == "max-r":
+        case, k = greedy_case(rng, 96, 5000, R=32), 128
+    elif kind == "scarce":
+        case, k = scarce_case(rng, 512, 4000), 32
+    else:
+        s, req, free = greedy_case(rng, 1, 500, R=10)
+        case, k = (s[:0], req[:0], free), 16
+    plain = _scan_on_card(*case, seed, k)
+    if kind in ("contention-wide", "k1"):
+        assert int(plain.repaired.sum()) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed", [0, 1])
+def test_insert_ports_matches_plain_on_card(seed):
+    _need_card()
+    state, rows, ports = ports_case(np.random.default_rng(seed), N=300,
+                                    PORT=40, P=200, PP=6)
+    want = RES.insert_ports_plain(*(torch.from_numpy(a)
+                                    for a in (state, rows, ports)))
+    n0 = LAUNCHES["insert_ports"]
+    got = RES.insert_ports(torch.from_numpy(state).cuda(), rows, ports)
+    torch.cuda.synchronize()
+    assert LAUNCHES["insert_ports"] == n0 + 1
+    assert bits_equal(want.numpy(), got.cpu().numpy())
+    mirror = state.copy()
+    RES.replay_ports_host(mirror, rows, ports)
+    assert bits_equal(mirror, got.cpu().numpy())

@@ -148,3 +148,54 @@ def bits_equal(a, b) -> bool:
     if a.dtype.kind == "f":
         return np.array_equal(a.view(np.uint8), b.view(np.uint8))
     return np.array_equal(a, b)
+
+
+def shortlist_problem(P, N, R, seed, *, plateau=False, contend=False):
+    """tests/test_shortlist.py's random problem: scores in steps of 25
+    (ties), NEG on 5% of pairs, requests and free in steps of 0.25/0.5;
+    ``plateau`` makes every score 100 (the regime the noise-ordered
+    boundary selection exists for), ``contend`` starves every node but a
+    few so the shortlists run out and the scan repairs. Returns float32
+    (scores, requests, free)."""
+    rng = np.random.default_rng(seed)
+    scores = rng.integers(0, 5, (P, N)).astype(np.float32) * 25.0
+    if plateau:
+        scores[:] = 100.0
+    scores[rng.random((P, N)) < 0.05] = NEG
+    requests = (rng.integers(1, 4, (P, R)) * 0.25).astype(np.float32)
+    free = (rng.integers(1, 6, (N, R)) * 0.5).astype(np.float32)
+    if contend:
+        free[:] = 0.25
+        free[: max(2, N // 64)] = 1000.0
+    return scores, requests, free
+
+
+# Shortlist scan cases (name, P, N, R, seed, K, kwargs): the cases of
+# tests/test_shortlist.py (seeds x K, the plateau that stays certified,
+# contention with repairs, the degenerate widths) plus rows of NEG only.
+SHORTLIST_CASES = (
+    [(f"random-s{s}-k{k}", 96, 384, 3, s, k, {})
+     for s in (0, 1, 2) for k in (1, 16, 128)]
+    + [("plateau", 128, 512, 3, 7, 16, {"plateau": True}),
+       ("contention", 128, 512, 3, 3, 8, {"contend": True})]
+    + [(f"width-k{k}", 64, 384, 3, 9, k, {}) for k in (1, 384, 4096)]
+    + [("all-neg-rows", 48, 200, 3, 4, 16, {"neg_rows": (0, 5, 47)})])
+
+
+def shortlist_case(P, N, R, seed, neg_rows=(), **kw):
+    scores, requests, free = shortlist_problem(P, N, R, seed, **kw)
+    scores[list(neg_rows)] = NEG
+    return scores, requests, free
+
+
+def ports_case(rng, N=40, PORT=8, P=48, PP=4):
+    """A port-heavy batch for the port-insertion op: node rows partly
+    filled (some full, so ports overflow), pods with 0-4 nonzero ports on
+    a few hot rows, -1 rows skipped. Returns int32 (state, rows, ports)."""
+    state = rng.integers(0, 3, (N, PORT)).astype(np.int32) * rng.integers(
+        1000, 2000, (N, PORT)).astype(np.int32)
+    state[:3] = 7  # full rows: every insertion there is dropped
+    rows = rng.integers(-1, 8, P).astype(np.int32)
+    ports = rng.integers(0, 9000, (P, PP)).astype(np.int32)
+    ports[rng.random((P, PP)) < 0.3] = 0
+    return state, rows, ports

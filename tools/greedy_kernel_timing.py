@@ -43,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import chip_smoke as cs  # noqa: E402
 from minisched_tpu_torch.encode import to_torch  # noqa: E402
-from minisched_tpu_torch.ops import greedy_kernel, prng  # noqa: E402
+from minisched_tpu_torch.ops import _cuda_build, prng  # noqa: E402
 from minisched_tpu_torch.ops.pipeline import evaluate  # noqa: E402
 from minisched_tpu_torch.ops.select import (AssignResult,  # noqa: E402
                                             greedy_assign_plain)
@@ -203,7 +203,7 @@ def build(name: str, src: str, stamped: bool = False):
     if not os.path.exists(so):
         with open(cu, "w") as f:
             f.write(src)
-        p = subprocess.run([greedy_kernel._nvcc(), *greedy_kernel.NVCC_FLAGS,
+        p = subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS,
                             "-o", so, cu], capture_output=True, text=True)
         if p.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{p.stderr}")
@@ -277,7 +277,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
-    with open(greedy_kernel.SOURCE) as f:
+    with open(_cuda_build.source("greedy_assign")) as f:
         pkg_src = f.read()
     builds = {"package": (pkg_src, build("package", pkg_src))}
     if opts.other:
