@@ -20,15 +20,25 @@ them, and on any mismatch. Phases, each printing its own lines:
   5. one full-width build_step batch with shortlist=128 against
      shortlist=None on the card (chosen, assigned, free_after bitwise),
      then cuda vs cpu for each, every Decision field bitwise;
-  6. the port-insertion kernel vs the host replay on a port-heavy batch;
+  6. the port-insertion kernel vs the host replay and its plain version
+     at the engine's shapes (a 128-pod bucket of port pods x 4 requested
+     ports into the bench cluster's 53248 x 8 used_ports) and on a
+     port-heavy 1024-pod batch;
   7. the main path: Cluster(...).start() with SchedulerConfig() (the
      pipelined, device-resident, shortlist cycle) on the card, bench
      profile, 50,000 nodes x 10,000 pods, all bound, no node over its
-     allocatable, the shortlist scan and the port insertion launched in
-     every batch, one residency resync and hits after it;
-  8. the earlier path: pipeline, residency and shortlist off, 50,000
+     allocatable, the shortlist scan launched in every batch, one
+     residency resync and hits after it, and the carried device state
+     equal to its host mirror bitwise at the end;
+  8. the port path: the JAX package's port-heavy residency burst
+     (tests/test_device_residency.py:491: 4 nodes, 24 pods with two host
+     ports each, NodeUnschedulable + NodeResourcesFit + NodePorts) with
+     SchedulerConfig(): the port insertion kernel launched, the device
+     used_ports equal to the host mirror, placements equal to the
+     synchronous upload-every-batch run, no host port twice on a node;
+  9. the earlier path: pipeline, residency and shortlist off, 50,000
      nodes x 2,048 pods, the greedy kernel launched in every batch;
-  9. the reference's README scenario on the card (default config).
+ 10. the reference's README scenario on the card (default config).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -64,7 +74,7 @@ from minisched_tpu_torch.state import objects as O
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
 EARLIER_PODS = 2048
-PORT_EVERY = 8              # every 8th main-path pod asks for a host port
+PORT_BUCKET, POD_PORTS, NODE_PORTS = 128, 4, 8  # the engine's port shapes
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # The earlier kernel (one grid barrier per pod, commit 969202e) at the
 # full-width shape, for reference: PERF.md, NVIDIA H100 80GB HBM3, 700 W.
@@ -76,16 +86,18 @@ BENCH_PROFILE = Profile(
              "NodeResourcesLeastAllocated",
              "NodeResourcesBalancedAllocation"],
     plugin_args={"NodeResourcesFit": {"score_strategy": None}})
+# The NodePorts profile of the JAX package's port-heavy residency test
+# (tests/test_device_residency.py:491).
+PORTS_PROFILE = Profile(
+    name="ports",
+    plugins=["NodeUnschedulable", "NodeResourcesFit", "NodePorts"],
+    plugin_args={"NodeResourcesFit": {"score_strategy": None}})
 
 
-def bench_workload(n_nodes: int, n_pods: int, seed: int = 0,
-                   port_every: int = 0):
+def bench_workload(n_nodes: int, n_pods: int, seed: int = 0):
     """The repo's benchmark cluster (bench_workload.make_workload): node
     CPU 4-32 cores, ~1% unschedulable, 16 zones; pods of 0.25-1.75 cores
-    + 2 GiB. With ``port_every`` every such pod also asks for a host
-    port; no plugin of the bench profile reads ports, so placements are
-    unchanged, but the engine books them into used_ports (the port
-    insertion kernel on the device, its replay on the host)."""
+    + 2 GiB."""
     rng = np.random.default_rng(seed)
     node_cpus = np.array([4000, 8000, 16000, 32000])[
         rng.integers(0, 4, n_nodes)]
@@ -97,15 +109,29 @@ def bench_workload(n_nodes: int, n_pods: int, seed: int = 0,
                         "cpu": float(node_cpus[i]),
                         "memory": float(64 << 30), "pods": 110.0}))
              for i in range(n_nodes)]
-    pods = []
-    for i in range(n_pods):
-        ports = ([O.ContainerPort(host_port=30000 + i % 1000)]
-                 if port_every and i % port_every == 0 else [])
-        pods.append(O.Pod(metadata=O.ObjectMeta(name=f"pod-{i}-{i % 10}",
-                                                namespace="bench"),
-                          spec=O.PodSpec(requests={
-                              "cpu": float(pod_cpus[i]),
-                              "memory": float(2 << 30)}, ports=ports)))
+    pods = [O.Pod(metadata=O.ObjectMeta(name=f"pod-{i}-{i % 10}",
+                                        namespace="bench"),
+                  spec=O.PodSpec(requests={"cpu": float(pod_cpus[i]),
+                                           "memory": float(2 << 30)}))
+            for i in range(n_pods)]
+    return nodes, pods
+
+
+def port_heavy_workload(n_nodes: int = 4, n_pods: int = 24):
+    """The port-heavy burst of tests/test_device_residency.py:491: nodes
+    of Cluster.create_node(f"pn{i}", cpu=64000), pods of decreasing
+    priority asking for two distinct host ports each."""
+    nodes = [O.Node(metadata=O.ObjectMeta(name=f"pn{i}"),
+                    status=O.NodeStatus(allocatable={
+                        "cpu": 64000, "memory": 16 << 30, "pods": 110,
+                        "accelerator": 0}))
+             for i in range(n_nodes)]
+    pods = [O.Pod(metadata=O.ObjectMeta(name=f"pp-{i}", namespace="default"),
+                  spec=O.PodSpec(requests={"cpu": 100 + i},
+                                 priority=200 - i,
+                                 ports=[O.ContainerPort(host_port=20000 + i),
+                                        O.ContainerPort(host_port=30000 + i)]))
+            for i in range(n_pods)]
     return nodes, pods
 
 
@@ -225,15 +251,18 @@ def scan_bound_s(P, N, K_, R, repairs):
         else "operations")
 
 
-def drive(cfg, nodes, pods, label, smi):
+def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
     """Boot a cluster with ``cfg``, load the nodes, zero the launch
     counts, create the pods and wait until every pod is bound and every
-    batch folded into the metrics. Returns (metrics, launches, burst
-    create-to-bound, per-pod create-to-bound)."""
+    batch folded into the metrics. With residency on, the carried device
+    free/used_ports must then equal their host mirrors bitwise (the
+    kernels' outputs at the path's own shapes against the host replay).
+    Returns (metrics, launches, burst create-to-bound, per-pod
+    create-to-bound, placements)."""
     cluster = Cluster()
     try:
         cluster.create_objects(nodes)
-        cluster.start(BENCH_PROFILE, cfg)
+        cluster.start(profile, cfg)
         check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
                          == len(nodes), timeout=120),
               f"{label}: informers did not sync the nodes")
@@ -260,6 +289,17 @@ def drive(cfg, nodes, pods, label, smi):
             check(m[f"kernel_launches_{name}"] == n,
                   f"{label}: {name} launches {n} vs engine "
                   f"{m[f'kernel_launches_{name}']}")
+        res = sched._residency
+        if res is not None:
+            def mirrored() -> bool:
+                return (torch.equal(bits(res.free_dev),
+                                    torch.from_numpy(res.mirror_free)
+                                    .view(torch.int32))
+                        and torch.equal(res.ports_dev.cpu(),
+                                        torch.from_numpy(res.mirror_ports)))
+
+            check(wait_until(mirrored, timeout=10),
+                  f"{label}: device free/used_ports != host mirror")
         placed = [p for p in cluster.list_pods() if p.spec.node_name]
         check(len(placed) == len(pods),
               f"{label}: {len(placed)} pods bound in the store")
@@ -268,10 +308,11 @@ def drive(cfg, nodes, pods, label, smi):
         bound_at = np.array([p.status.scheduled_time for p in placed])
         used: dict = {}
         for pod in placed:
-            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0])
+            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0, []])
             u[0] += pod.spec.requests["cpu"]
-            u[1] += pod.spec.requests["memory"]
+            u[1] += pod.spec.requests.get("memory", 0.0)
             u[2] += 1
+            u[3] += [p.host_port for p in pod.spec.ports if p.host_port]
         for node in cluster.list_nodes():
             u = used.get(node.metadata.name)
             if u is None:
@@ -279,12 +320,17 @@ def drive(cfg, nodes, pods, label, smi):
             alloc = node.status.allocatable
             check(u[0] <= alloc["cpu"] and u[1] <= alloc["memory"]
                   and u[2] <= alloc["pods"],
-                  f"{label}: node {node.metadata.name} over-committed: {u}")
+                  f"{label}: node {node.metadata.name} over-committed: "
+                  f"{u[:3]}")
+            check(len(set(u[3])) == len(u[3]),
+                  f"{label}: a host port taken twice on "
+                  f"{node.metadata.name}")
             check(not node.spec.unschedulable,
                   f"{label}: pod bound to unschedulable "
                   f"{node.metadata.name}")
         return (m, launches, float(bound_at.max() - created.min()),
-                bound_at - created)
+                bound_at - created,
+                {p.key: p.spec.node_name for p in placed})
     finally:
         cluster.shutdown()
 
@@ -463,60 +509,102 @@ def main() -> int:
           f"{steps[None][1] * 1e3:.3f} ms per step ({smi})")
     del eb_d, nf_d, af_d, steps
 
-    # 6. the port-insertion kernel vs the host replay, port-heavy batch
+    # 6. the port-insertion kernel vs the host replay and the plain version:
+    # first at the engine's shapes (resolve passes only the batch's port
+    # pods, padded with -1 rows to a power-of-two bucket, against the
+    # whole used_ports), then on a port-heavy 1024-pod batch
     prng_ports = np.random.default_rng(6)
-    state = np.zeros((N, 8), dtype=np.int32)
-    state[: N // 2] = prng_ports.integers(0, 2, (N // 2, 8)) * 30000
-    rows = np.full(BATCH, -1, dtype=np.int32)
-    rows[: BATCH - 24] = prng_ports.integers(0, 300, BATCH - 24)
-    ports = prng_ports.integers(20000, 40000, (BATCH, 4)).astype(np.int32)
-    ports[prng_ports.random((BATCH, 4)) < 0.25] = 0
-    state_d = torch.from_numpy(state).cuda()
-    rows_d, ports_d = (torch.from_numpy(a).cuda() for a in (rows, ports))
-    got = insert_ports_cuda(state_d, rows_d, ports_d)
-    mirror = state.copy()
-    RES.replay_ports_host(mirror, rows, ports)
-    check(torch.equal(got.cpu(), torch.from_numpy(mirror)),
-          "insert_ports kernel != host replay")
-    plain_t = time.perf_counter()
-    plain = RES.insert_ports_plain(state_d, rows_d, ports_d)
-    torch.cuda.synchronize()
-    ports_plain_ms = (time.perf_counter() - plain_t) * 1e3
-    check(torch.equal(got, plain), "insert_ports kernel != plain version")
-    ports_ms = cuda_ms(lambda: insert_ports_cuda(state_d, rows_d, ports_d),
-                       reps=20)
-    ports_moved = 2 * state.nbytes + rows.nbytes + ports.nbytes
-    ports_bound_s = ports_moved / HBM_BYTES_PER_S
-    print(f"port-insertion kernel vs host replay and plain {BATCH} pods x 4 "
-          f"ports into {N}x8: bitwise equal, "
-          f"{int((mirror != state).sum())} slots written; kernel "
-          f"{ports_ms:.4f} ms, plain {ports_plain_ms:.1f} ms, bound "
-          f"{ports_bound_s * 1e3:.4f} ms (bytes) ({smi})")
-    del state_d, rows_d, ports_d, got, plain
+    port_cases = []
+    for name, P_, live, hot in (("engine shape", PORT_BUCKET, 113, N),
+                                ("port-heavy", BATCH, BATCH - 24, 300)):
+        state = np.zeros((N, NODE_PORTS), dtype=np.int32)
+        state[: N // 2] = prng_ports.integers(
+            0, 2, (N // 2, NODE_PORTS)) * 30000
+        rows = np.full(P_, -1, dtype=np.int32)
+        rows[:live] = prng_ports.integers(0, hot, live)
+        ports = prng_ports.integers(20000, 40000,
+                                    (P_, POD_PORTS)).astype(np.int32)
+        ports[prng_ports.random((P_, POD_PORTS)) < 0.25] = 0
+        ports[live:] = 0
+        port_cases.append((name, state, rows, ports))
+    for name, state, rows, ports in port_cases:
+        state_d = torch.from_numpy(state).cuda()
+        rows_d, ports_d = (torch.from_numpy(a).cuda() for a in (rows, ports))
+        got = insert_ports_cuda(state_d, rows_d, ports_d)
+        mirror = state.copy()
+        RES.replay_ports_host(mirror, rows, ports)
+        check(torch.equal(got.cpu(), torch.from_numpy(mirror)),
+              f"insert_ports kernel != host replay ({name})")
+        plain_t = time.perf_counter()
+        plain = RES.insert_ports_plain(state_d, rows_d, ports_d)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - plain_t) * 1e3
+        check(torch.equal(got, plain),
+              f"insert_ports kernel != plain version ({name})")
+        err["insert_ports"] = max(err["insert_ports"], float(
+            (got.cpu().double() - plain.cpu().double()).abs().max()))
+        ms = cuda_ms(lambda: insert_ports_cuda(state_d, rows_d, ports_d),
+                     reps=20)
+        # The state is read and written whole (the kernel's copy).
+        moved = 2 * state.nbytes + rows.nbytes + ports.nbytes
+        bound_s = moved / HBM_BYTES_PER_S
+        if name == "engine shape":
+            ports_ms, ports_plain_ms, ports_bound_s = ms, plain_ms, bound_s
+        print(f"port-insertion kernel vs host replay and plain, {name}: "
+              f"{int((rows >= 0).sum())} port pods in a bucket of "
+              f"{len(rows)} x {ports.shape[1]} ports into {N}x{NODE_PORTS}: "
+              f"bitwise equal, {int((mirror != state).sum())} slots "
+              f"written; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms (bytes) ({smi})")
+        del state_d, rows_d, ports_d, got, plain
 
     # 7. the main path: SchedulerConfig(), the default cycle
-    nodes, pods = bench_workload(N_NODES, N_PODS, port_every=PORT_EVERY)
-    m, main_launches, c2b, per_pod = drive(
-        SchedulerConfig(platform=""), nodes, pods, "main path", smi)
+    nodes, pods = bench_workload(N_NODES, N_PODS)
+    m, main_launches, c2b, per_pod, _ = drive(
+        SchedulerConfig(platform=""), nodes, pods, "main path")
     b = m["batches"]
     check(main_launches["shortlist_scan"] >= b > 0,
           f"shortlist scan launched {main_launches['shortlist_scan']} "
-          f"times in {b} batches")
-    check(main_launches["insert_ports"] >= b,
-          f"port insertion launched {main_launches['insert_ports']} "
           f"times in {b} batches")
     check(m["residency_resyncs"] == 1 and m["residency_hits"] == b - 1,
           f"residency resyncs {m['residency_resyncs']} hits "
           f"{m['residency_hits']} in {b} batches")
     print(path_line(f"main path (pipeline, device_resident, shortlist "
                     f"K={K}) {N_NODES} nodes x {N_PODS} pods",
-                    m, main_launches, c2b, per_pod, N_PODS, smi))
+                    m, main_launches, c2b, per_pod, N_PODS, smi)
+          + "; device free/used_ports = host mirror bitwise")
 
-    # 8. the earlier path: synchronous, upload every batch, full kernel
-    nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
-    m, early_launches, c2b, per_pod = drive(
+    # 8. the port path: the default cycle books host ports on the device
+    nodes, pods = port_heavy_workload()
+    m, port_launches, c2b, per_pod, placed = drive(
+        SchedulerConfig(platform=""), nodes, pods, "port path",
+        PORTS_PROFILE)
+    b = m["batches"]
+    check(port_launches["insert_ports"] >= 1,
+          f"port insertion launched {port_launches['insert_ports']} times "
+          f"in {b} batches")
+    check(m["residency_resyncs"] == 1 and m["residency_hits"] == b - 1,
+          f"port path: residency resyncs {m['residency_resyncs']} hits "
+          f"{m['residency_hits']} in {b} batches")
+    nodes, pods = port_heavy_workload()
+    *_, placed_sync = drive(
         SchedulerConfig(platform="", pipeline=False, device_resident=False,
-                        shortlist=False), nodes, pods, "earlier path", smi)
+                        shortlist=False), nodes, pods, "port path, sync",
+        PORTS_PROFILE)
+    check(placed == placed_sync,
+          "port path: placements differ from the synchronous run")
+    print(path_line(f"port path (default config, NodePorts profile) "
+                    f"{len(nodes)} nodes x {len(pods)} pods with 2 host "
+                    f"ports each", m, port_launches, c2b, per_pod,
+                    len(pods), smi)
+          + "; device used_ports = host mirror bitwise, placements = the "
+            "synchronous upload-every-batch run")
+
+    # 9. the earlier path: synchronous, upload every batch, full kernel
+    nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
+    m, early_launches, c2b, per_pod, _ = drive(
+        SchedulerConfig(platform="", pipeline=False, device_resident=False,
+                        shortlist=False), nodes, pods, "earlier path")
     b = m["batches"]
     check(early_launches["greedy_assign"] >= b > 0,
           f"greedy kernel launched {early_launches['greedy_assign']} times "
@@ -528,7 +616,7 @@ def main() -> int:
                     early_launches, c2b, per_pod, EARLIER_PODS, smi))
     del nodes, pods
 
-    # 9. the README scenario on the card, default config
+    # 10. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -562,7 +650,7 @@ def main() -> int:
         "route": "cuda",
         "source": "minisched_tpu_torch/csrc/insert_ports.cu",
         "replaces": "minisched_tpu/ops/residency.py:195",
-        "launches": main_launches["insert_ports"],
+        "launches": port_launches["insert_ports"],
         "max_abs_err": err["insert_ports"],
         "ms": ports_ms,
         "plain_ms": ports_plain_ms,

@@ -95,8 +95,10 @@
 // 1,424 bytes of static shared memory, for both instantiations.
 //
 // Interface: a plain C function that launches on the caller's stream and
-// returns the cudaError_t of the launch. It allocates nothing: the caller
-// passes the outputs and a scratch buffer of 2 * max_blocks slots.
+// returns the cudaError_t of the launch, or kNoLaunch (-1) for an empty
+// batch, where it only copies free0 into free_after. It allocates nothing:
+// the caller passes the outputs and a scratch buffer of 2 * max_blocks
+// slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,6 +113,7 @@ constexpr int kStages = 8;
 constexpr int kPollPerLane = 8;
 constexpr int kMaxBlocks = 32 * kPollPerLane;  // block index fits 8 bits
 constexpr float kNeg = -3.0e38f;
+constexpr int kNoLaunch = -1;  // no cudaError_t is negative
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kColMult = 0x85EBCA77u;
 constexpr uint32_t kFull = 0xffffffffu;
@@ -427,8 +430,9 @@ extern "C" int greedy_assign_launch(const float* scores, const float* requests,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 0) {
-    return cudaMemcpyAsync(free_after, free0, sizeof(float) * N * R,
-                           cudaMemcpyDeviceToDevice, st);
+    const cudaError_t err = cudaMemcpyAsync(
+        free_after, free0, sizeof(float) * N * R, cudaMemcpyDeviceToDevice, st);
+    return err != cudaSuccess ? err : kNoLaunch;
   }
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);

@@ -21,7 +21,9 @@
 // and __syncwarp orders the write before the next search.
 //
 // Interface: a plain C function that copies state into out on the caller's
-// stream, launches on it, and returns the cudaError_t. It allocates nothing.
+// stream, launches on it, and returns the cudaError_t, or kNoLaunch (-1)
+// when there was nothing to insert and only the copy ran. It allocates
+// nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +31,7 @@
 namespace {
 
 constexpr uint32_t kFull = 0xffffffffu;
+constexpr int kNoLaunch = -1;  // no cudaError_t is negative
 
 __global__ void __launch_bounds__(32, 1)
     insert_ports_kernel(int32_t* state, const int32_t* __restrict__ rows,
@@ -63,7 +66,8 @@ extern "C" int insert_ports_launch(const int32_t* state, const int32_t* rows,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyAsync(out, state, sizeof(int32_t) * N * PORT,
                                     cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess || P == 0 || PP == 0 || N == 0) return err;
+  if (err != cudaSuccess) return err;
+  if (P == 0 || PP == 0 || N == 0) return kNoLaunch;
   insert_ports_kernel<<<1, 32, 0, st>>>(out, rows, ports, P, PP, PORT);
   return cudaGetLastError();
 }

@@ -65,7 +65,8 @@
 // the only float arithmetic is the __fsub_rn debit.
 //
 // Interface: a plain C function that launches on the caller's stream and
-// returns the cudaError_t of the launch. It allocates nothing.
+// returns the cudaError_t of the launch, or kNoLaunch (-1) for an empty
+// batch, where it only copies free0 into free_after. It allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +79,7 @@ constexpr int kGroup = 128;  // threads that walk the pods: one candidate each
 constexpr int kGroupWarps = kGroup / 32;
 constexpr int kMaxR = 32;  // the kernel is built for R <= 16 and R <= 32
 constexpr float kNeg = -3.0e38f;
+constexpr int kNoLaunch = -1;  // no cudaError_t is negative
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kColMult = 0x85EBCA77u;
 constexpr uint32_t kFull = 0xffffffffu;
@@ -339,7 +341,8 @@ extern "C" int shortlist_scan_launch(const float* scores, const int32_t* cand,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyAsync(free_after, free0, sizeof(float) * N * R,
                                     cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess || P == 0) return err;
+  if (err != cudaSuccess) return err;
+  if (P == 0) return kNoLaunch;
   if (R <= 16)
     shortlist_scan_kernel<16><<<1, kThreads, 0, st>>>(
         scores, cand, cand_scores, kth, kth_noise, requests, free_after, seed,

@@ -9,7 +9,8 @@ rebuilt. Nothing is compiled when this module is imported.
 ``LAUNCHES`` counts the launches of every kernel by name since the last
 reset: the main path's evidence that it ran through the kernels. Only a
 kernel's wrapper increments its entry, right after a launch that the
-CUDA runtime accepted.
+CUDA runtime accepted. A launcher that had no work (an empty batch)
+launches nothing and returns ``NO_LAUNCH``, which is not counted.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("greedy_assign", "shortlist_scan", "insert_ports")
+NO_LAUNCH = -1  # a launcher's return when it had no work to launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -93,7 +95,9 @@ def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
 def check_launch(lib: ctypes.CDLL, prefix: str, err: int, where: str
                  ) -> None:
     """Raise on a refused launch (``err`` is the launch's cudaError_t);
-    else count it."""
+    count it if it launched (``err`` is 0, not ``NO_LAUNCH``)."""
+    if err == NO_LAUNCH:
+        return
     if err != 0:
         fn = getattr(lib, f"{prefix}_error_string")
         fn.restype = ctypes.c_char_p

@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Union
 
 from ..plugins.base import BatchedPlugin, PluginSet
 from ..plugins.nodenumber import NodeNumber
+from ..plugins.nodeports import NodePorts
 from ..plugins.noderesources import (NodeResourcesBalancedAllocation,
                                      NodeResourcesFit,
                                      NodeResourcesLeastAllocated,
@@ -23,6 +24,7 @@ from ..plugins.nodeunschedulable import NodeUnschedulable
 _REGISTRY: Dict[str, Callable[..., BatchedPlugin]] = {
     "NodeUnschedulable": NodeUnschedulable,
     "NodeNumber": NodeNumber,
+    "NodePorts": NodePorts,
     "NodeResourcesFit": NodeResourcesFit,
     "NodeResourcesLeastAllocated": NodeResourcesLeastAllocated,
     "NodeResourcesMostAllocated": NodeResourcesMostAllocated,

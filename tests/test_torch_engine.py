@@ -23,7 +23,8 @@ from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
 from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as TO
 from minisched_tpu_torch.state.store import ClusterStore
-from torch_parity import BENCH_PROFILE, bench_cluster, mixed_cluster
+from torch_parity import (BENCH_PROFILE, PORTS_PROFILE, bench_cluster,
+                          mixed_cluster, port_heavy_cluster)
 
 
 def _jax_config(**kw):
@@ -46,8 +47,10 @@ def _placements(cluster):
     return {p.key: p.spec.node_name for p in cluster.list_pods()}
 
 
-def _run_cluster(cluster_cls, O, profile, config, n_nodes, n_pods, seed):
-    nodes, pods = bench_cluster(O, n_nodes, n_pods, seed)
+def _run_cluster(cluster_cls, O, profile, config, n_nodes, n_pods, seed,
+                 recipe=None, white_box=None):
+    nodes, pods = (bench_cluster(O, n_nodes, n_pods, seed) if recipe is None
+                   else recipe(O))
     c = cluster_cls()
     c.create_objects(nodes)
     c.create_objects(pods)  # everything in the store before start
@@ -56,6 +59,8 @@ def _run_cluster(cluster_cls, O, profile, config, n_nodes, n_pods, seed):
         assert wait_until(
             lambda: all(p.spec.node_name for p in c.list_pods()),
             timeout=60)
+        if white_box is not None:
+            white_box(c.service.scheduler)
         return _placements(c), c.service.scheduler.metrics()
     finally:
         c.shutdown()
@@ -102,6 +107,40 @@ def test_engine_modes_match_jax(pipeline, resident, shortlist):
     assert m["kernel_launches"] == 0 and all(
         m[f"kernel_launches_{k}"] == 0
         for k in ("greedy_assign", "shortlist_scan", "insert_ports"))
+
+
+@pytest.mark.parametrize("pipeline,resident,shortlist",
+                         [(False, False, False), (True, True, True)])
+def test_port_heavy_burst_matches_jax(pipeline, resident, shortlist):
+    """The JAX package's port-heavy residency burst
+    (tests/test_device_residency.py:491) under its NodePorts profile, in
+    batches of 8: placements and shared counters equal the JAX engine's;
+    with residency on, the device-side port insertions equal the host
+    mirror and fill most rows."""
+    kw = dict(max_batch_size=8, seed=2, pipeline=pipeline,
+              device_resident=resident, shortlist=shortlist)
+
+    def device_equals_mirror(sched):
+        res = sched._residency
+        assert np.array_equal(res.ports_dev.numpy(), res.mirror_ports)
+        assert np.array_equal(res.free_dev.numpy(), res.mirror_free)
+        assert (res.mirror_ports != 0).sum() >= 24
+
+    want, jm = _run_cluster(JCluster, JO, JProfile(**PORTS_PROFILE),
+                            JConfig(**kw), 0, 0, 0,
+                            recipe=port_heavy_cluster)
+    got, m = _run_cluster(Cluster, TO, Profile(**PORTS_PROFILE),
+                          SchedulerConfig(platform="cpu", **kw), 0, 0, 0,
+                          recipe=port_heavy_cluster,
+                          white_box=device_equals_mirror if resident
+                          else None)
+    assert got == want and len(got) == 24
+    for k in SHARED_METRICS:
+        assert m[k] == jm[k], k
+    assert m["batches"] == 3
+    if resident:
+        assert m["residency_resyncs"] == 1
+        assert m["residency_hits"] == 2
 
 
 def test_pipelined_loop_matches_sync_loop():

@@ -131,7 +131,8 @@ def test_kernel_matches_plain_on_card_multiblock(kind):
     n0 = LAUNCHES["greedy_assign"]
     got = greedy_assign_cuda(*(a.cuda() for a in args), seed)
     torch.cuda.synchronize()
-    assert LAUNCHES["greedy_assign"] == n0 + 1
+    # An empty batch only copies free0: no launch, so no count.
+    assert LAUNCHES["greedy_assign"] == n0 + (kind != "empty-batch")
     for field in ("chosen", "assigned", "free_after"):
         assert bits_equal(getattr(plain, field).numpy(),
                           getattr(got, field).cpu().numpy()), field
@@ -162,7 +163,8 @@ def _scan_on_card(scores, req, free, seed, k):
     dev = [a.cuda() for a in args]
     got = S.greedy_assign_shortlist(*dev, seed, k=k)
     torch.cuda.synchronize()
-    assert LAUNCHES["shortlist_scan"] == n0 + 1
+    # An empty batch only copies free0: no launch, so no count.
+    assert LAUNCHES["shortlist_scan"] == n0 + (scores.shape[0] > 0)
     for field in ("chosen", "assigned", "free_after", "repaired"):
         assert bits_equal(getattr(plain, field).numpy(),
                           getattr(got, field).cpu().numpy()), field
@@ -209,17 +211,20 @@ def test_shortlist_scan_edge_cases_on_card(kind):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("seed", [0, 1])
-def test_insert_ports_matches_plain_on_card(seed):
+@pytest.mark.parametrize("seed,P", [(0, 200), (1, 200), (2, 0)],
+                         ids=["0", "1", "empty"])
+def test_insert_ports_matches_plain_on_card(seed, P):
     _need_card()
     state, rows, ports = ports_case(np.random.default_rng(seed), N=300,
-                                    PORT=40, P=200, PP=6)
+                                    PORT=40, P=max(P, 1), PP=6)
+    rows, ports = rows[:P], ports[:P]
     want = RES.insert_ports_plain(*(torch.from_numpy(a)
                                     for a in (state, rows, ports)))
     n0 = LAUNCHES["insert_ports"]
     got = RES.insert_ports(torch.from_numpy(state).cuda(), rows, ports)
     torch.cuda.synchronize()
-    assert LAUNCHES["insert_ports"] == n0 + 1
+    # With no pods the launcher only copies the state: no count.
+    assert LAUNCHES["insert_ports"] == n0 + (P > 0)
     assert bits_equal(want.numpy(), got.cpu().numpy())
     mirror = state.copy()
     RES.replay_ports_host(mirror, rows, ports)

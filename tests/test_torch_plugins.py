@@ -15,7 +15,8 @@ from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.ops.pipeline import max_normalize_100
 from minisched_tpu_torch.service.defaultconfig import make_plugin
 from minisched_tpu_torch.state import objects as TO
-from torch_parity import bits_equal, build_cache, leaves, mixed_cluster
+from torch_parity import (bits_equal, build_cache, leaves, mixed_cluster,
+                          ports_cluster)
 
 PLUGINS = [
     ("NodeUnschedulable", {}),
@@ -30,12 +31,16 @@ PLUGINS = [
 ]
 
 
-def _both(seed, n_nodes=96, n_pods=40, p_pad=48, n_pad=128):
+def _both(seed, n_nodes=96, n_pods=40, p_pad=48, n_pad=128,
+          recipe=None):
     """One cluster built in both packages: (jax leaves, port leaves)."""
     out = []
     for O, cache_cls, enc in ((JO, JCache, jencode),
                               (TO, NodeFeatureCache, encode_pods)):
-        nodes, pods, bound = mixed_cluster(O, n_nodes, n_pods, seed)
+        if recipe is None:
+            nodes, pods, bound = mixed_cluster(O, n_nodes, n_pods, seed)
+        else:
+            nodes, pods, bound = recipe(O, seed)
         cache = build_cache(cache_cls, nodes, bound)
         nf, names, _sv, _incs = cache.snapshot_versioned(pad=n_pad)
         af = cache.snapshot_assigned(pad=64)
@@ -83,6 +88,20 @@ def test_plugin_matches_jax(name, args, seed):
         got_n = tp.normalize(got, torch.from_numpy(feasible))
         assert bits_equal(want_n.astype(np.float32),
                           got_n.to(torch.float32).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nodeports_matches_jax(seed):
+    """Bound and pending pods hold host ports from a small pool: the
+    filter rejects some pairs and agrees with the JAX plugin bitwise."""
+    (jeb, jnf, _jaf, _), (teb, tnf, _taf, _) = _both(seed,
+                                                      recipe=ports_cluster)
+    assert int(np.asarray(jnf.used_ports).astype(bool).sum()) > 0
+    want = np.asarray(jmake("NodePorts").filter(jeb.pf, jnf, {}))
+    eb, nf = to_torch(teb, "cpu"), to_torch(tnf, "cpu")
+    got = make_plugin("NodePorts").filter(eb.pf, nf, {}).numpy()
+    assert bits_equal(want, got)
+    assert 0 < got.sum() < got.size
 
 
 def test_nodenumber_permit_matches_jax():

@@ -199,3 +199,41 @@ def ports_case(rng, N=40, PORT=8, P=48, PP=4):
     ports = rng.integers(0, 9000, (P, PP)).astype(np.int32)
     ports[rng.random((P, PP)) < 0.3] = 0
     return state, rows, ports
+
+
+# The NodePorts profile and port-heavy burst of the JAX package's own
+# residency test (tests/test_device_residency.py:491): four 64-core nodes,
+# 24 pods of decreasing priority, each asking for two distinct host ports.
+PORTS_PROFILE = dict(name="ports",
+                     plugins=["NodeUnschedulable", "NodeResourcesFit",
+                              "NodePorts"],
+                     plugin_args={"NodeResourcesFit": {"score_strategy": None}})
+
+
+def port_heavy_cluster(O, n_nodes: int = 4, n_pods: int = 24):
+    # The nodes of Cluster.create_node(f"pn{i}", cpu=64000).
+    nodes = [O.Node(metadata=O.ObjectMeta(name=f"pn{i}"),
+                    status=O.NodeStatus(allocatable={
+                        "cpu": 64000, "memory": 16 << 30, "pods": 110,
+                        "accelerator": 0}))
+             for i in range(n_nodes)]
+    pods = [O.Pod(metadata=O.ObjectMeta(name=f"pp-{i}", namespace="default"),
+                  spec=O.PodSpec(requests={"cpu": 100 + i},
+                                 priority=200 - i,
+                                 ports=[O.ContainerPort(host_port=20000 + i),
+                                        O.ContainerPort(host_port=30000 + i)]))
+            for i in range(n_pods)]
+    return nodes, pods
+
+
+def ports_cluster(O, seed: int):
+    """mixed_cluster with host ports from a small pool on the bound and
+    the pending pods, so that NodePorts rejects some (pod, node) pairs."""
+    nodes, pending, bound = mixed_cluster(O, 96, 40, seed)
+    rng = np.random.default_rng(seed + 100)
+    pool = [8080, 8081, 9090, 9091, 30000]
+    for pod in pending + [p for p, _ in bound]:
+        k = int(rng.integers(0, 3))
+        pod.spec.ports = [O.ContainerPort(host_port=int(h))
+                          for h in rng.choice(pool, k, replace=False)]
+    return nodes, pending, bound

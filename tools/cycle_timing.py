@@ -9,8 +9,8 @@ phases as clusters accumulate): it first drives a small warm-up burst
 under the same mode (2,000 nodes x 1,024 pods: kernel builds, CUDA
 context and allocator), then boots a fresh Cluster with the bench
 profile, loads 50,000 nodes, zeroes the kernel launch counts, creates
-the pods (every 8th with a host port, as chip_smoke.py's main path) and
-waits until all are bound. Each run prints the burst create-to-bound,
+the pods (chip_smoke.py's main-path workload) and waits until all are
+bound. Each run prints the burst create-to-bound,
 the per-pod p50/p99, the engine's phase clocks, per-batch transfer
 bytes and the kernel launches. Modes run in the order given, then
 reversed, ``--rounds`` times (A B C C B A ...); the medians per mode
@@ -65,20 +65,17 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
     """One run in this process: warm up, then the measured burst; the
     last line is the run's numbers as JSON."""
     cfg = SchedulerConfig(platform="", **MODES[mode])
-    nodes, pods = cs.bench_workload(2_000, 1_024, seed=1,
-                                    port_every=cs.PORT_EVERY)
-    cs.drive(cfg, nodes, pods, f"{mode} warm-up", smi)
-    nodes, pods = cs.bench_workload(cs.N_NODES, n_pods,
-                                    port_every=cs.PORT_EVERY)
+    nodes, pods = cs.bench_workload(2_000, 1_024, seed=1)
+    cs.drive(cfg, nodes, pods, f"{mode} warm-up")
+    nodes, pods = cs.bench_workload(cs.N_NODES, n_pods)
     if profile:
         from torch.profiler import ProfilerActivity
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
-            m, launches, c2b, per_pod = cs.drive(cfg, nodes, pods, mode,
-                                                 smi)
+            m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode)
         print(f"{mode} under the profiler: " + device_busy(prof, c2b, smi))
     else:
-        m, launches, c2b, per_pod = cs.drive(cfg, nodes, pods, mode, smi)
+        m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode)
     print(cs.path_line(f"{mode} {cs.N_NODES} nodes x {n_pods} pods", m,
                        launches, c2b, per_pod, n_pods, smi))
     b = m["batches"]
