@@ -6,17 +6,21 @@ Needs a CUDA card and the CUDA toolkit (nvcc); exits non-zero without
 them, and on any mismatch. Phases, each printing its own lines:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
-  2. build the three kernels with nvcc, one process each, all at once,
+  2. build the four kernels with nvcc, one process each, all at once,
      and print each ptxas report;
   3. the greedy-assignment kernel vs its plain PyTorch version on the
      card, bitwise, at the shapes of tests/test_pallas_select.py, at a
      shape that runs 132 blocks with uneven slices, and at full width
      (one 1024-pod batch against 50,000 nodes, R=10, bench workload);
-  4. the shortlist scan kernel vs its plain version, bitwise on all four
-     outputs, at the shapes of tests/test_shortlist.py (random, plateau,
-     contention, K in {1, 16, 128, N}), off-tile (13x200) and at full
-     width (the bench batch, K=128), with shortlist_select's time; then a
-     full-width contention batch that forces repairs;
+  4. the shortlist selection kernel vs shortlist_select_plain and the
+     shortlist scan kernel vs its plain version, bitwise on all four
+     outputs each, at the shapes of tests/test_shortlist.py (random,
+     plateau, contention, K in {1, 16, 128, N}), off-tile (13x200), a
+     6,000-pod batch whose overlay does not fit in shared memory (the
+     scan's device layout), rows of signed zeros, of NEG only and K = N,
+     and at full width (the bench batch, K=128) with each kernel's time,
+     plain time and bound and one torch.topk's time; then a full-width
+     contention batch that forces repairs;
   5. one full-width build_step batch with shortlist=128 against
      shortlist=None on the card (chosen, assigned, free_after bitwise),
      then cuda vs cpu for each, every Decision field bitwise;
@@ -27,7 +31,8 @@ them, and on any mismatch. Phases, each printing its own lines:
   7. the main path: Cluster(...).start() with SchedulerConfig() (the
      pipelined, device-resident, shortlist cycle) on the card, bench
      profile, 50,000 nodes x 10,000 pods, all bound, no node over its
-     allocatable, the shortlist scan launched in every batch, one
+     allocatable, the selection and scan kernels launched in every
+     batch, one
      residency resync and hits after it, and the carried device state
      equal to its host mirror bitwise at the end;
   8. the port path: the JAX package's port-heavy residency burst
@@ -65,7 +70,9 @@ from minisched_tpu_torch.ops.pipeline import build_step, evaluate
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
                                             greedy_assign_shortlist_plain,
-                                            shortlist_select)
+                                            shortlist_select,
+                                            shortlist_select_plain)
+from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
@@ -225,6 +232,34 @@ def full_width_batch(nodes, pods):
     return eb, nf, af
 
 
+def select_pair(scores, seed, k) -> float:
+    """The selection kernel against shortlist_select_plain on one input,
+    bitwise on all four outputs (cand_scores against a gather of the
+    plain cand); returns the max abs error (0.0 when equal)."""
+    got = shortlist_select_cuda(scores, seed, k)
+    want = shortlist_select_plain(scores, seed, k)
+    want = (*want, torch.gather(scores, 1, want[0].long()))
+    err = 0.0
+    for name, a, b in zip(("cand", "kth", "kth_noise", "cand_scores"),
+                          got, want):
+        check(torch.equal(bits(a), bits(b)),
+              f"shortlist_select {name} differs bitwise "
+              f"({tuple(scores.shape)}, K={k})")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def select_bound_s(P, N, K_):
+    """Least time for the selection's work: the scores read once and the
+    outputs written once over the memory rate, against one compare per
+    score for each of its eight passes over the float32 rate."""
+    moved = 4 * P * N + 8 * P * K_ + 8 * P
+    ops = 8 * P * N
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
+        "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations")
+
+
 def scan_pair(scores, requests, free, seed, k):
     """The shortlist scan kernel and its plain version on one input:
     (kernel result, plain result, selection, plain ms)."""
@@ -381,7 +416,7 @@ def main() -> int:
     # 3. the greedy kernel vs its plain version on the card
     rng = np.random.default_rng(0)
     seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 1))
-    err = {"greedy_assign": 0.0, "shortlist_scan": 0.0, "insert_ports": 0.0}
+    err = {name: 0.0 for name in _cuda_build.KERNELS}
     for name, P, N, kw in (("ties", 16, 128, {}),
                            ("scarce", 24, 128, {"cpu_free": 300.0}),
                            ("off-tile", 13, 200, {}),
@@ -422,43 +457,75 @@ def main() -> int:
     full_greedy = k
     del p
 
-    # 4. the shortlist scan kernel vs its plain version on the card
+    # 4. the selection and scan kernels vs their plain versions on the card
     cases = ([(f"random s{s} K={kk}", 96, 384, 3, s, kk, {})
               for s in (0, 1, 2) for kk in (1, 16, 128)]
              + [("plateau K=16", 128, 512, 3, 7, 16, {"plateau": True}),
                 ("contention K=8", 128, 512, 3, 3, 8, {"contend": True})]
              + [(f"width K={kk}", 64, 384, 3, 9, kk, {})
                 for kk in (1, 384, 4096)]
-             + [("off-tile K=16", 13, 200, 3, 5, 16, {})])
+             + [("off-tile K=16", 13, 200, 3, 5, 16, {}),
+                ("device layout K=16", 6000, 20000, 10, 4, 16, {})])
     for name, cp, cn, cr, cs, kk, kw in cases:
         case = shortlist_case(cp, cn, cr, cs, **kw)
-        got, plain, _sel, _ms = scan_pair(*case, seed, min(kk, cn))
+        kk = min(kk, cn)
+        err["shortlist_select"] = max(err["shortlist_select"],
+                                      select_pair(case[0], seed, kk))
+        got, plain, _sel, _ms = scan_pair(*case, seed, kk)
         err["shortlist_scan"] = max(
             err["shortlist_scan"],
             compare(got, plain, ("chosen", "assigned", "free_after",
                                  "repaired")))
-        print(f"shortlist kernel vs plain {name} {cp}x{cn}x{cr}: bitwise "
-              f"equal, {int(plain.assigned.sum())} assigned, "
+        print(f"selection and scan kernels vs plain {name} {cp}x{cn}x{cr}: "
+              f"bitwise equal, {int(plain.assigned.sum())} assigned, "
               f"{int(plain.repaired.sum())} repaired")
+        del case, got, plain, _sel
+    zrng = np.random.default_rng(4)
+    signed = np.where(zrng.random((12, 300)) < 0.5, 0.0, -0.0)
+    for row in signed:
+        row[zrng.choice(300, 3, replace=False)] = 5.0
+    wide = zrng.random((4, 60_000), dtype=np.float32)
+    for name, rows, kks in (
+            ("signed zeros", signed, (1, 7, 128, 300)),
+            ("NEG only", np.full((8, 1000), NEG), (1, 16, 1000)),
+            ("K = N", np.round(zrng.random((16, 777)) * 4) / 4, (777,)),
+            ("wide, K up to N", wide, (4096, 30_000, 60_000))):
+        rows_d = torch.from_numpy(rows.astype(np.float32)).cuda()
+        for kk in kks:
+            err["shortlist_select"] = max(err["shortlist_select"],
+                                          select_pair(rows_d, seed, kk))
+        print(f"selection kernel vs plain {name} {tuple(rows.shape)} K in "
+              f"{kks}: bitwise equal")
+    err["shortlist_select"] = max(err["shortlist_select"],
+                                  select_pair(scores, seed, K))
+    sel4 = shortlist_select_cuda(scores, seed, K)
+    select_ms = cuda_ms(lambda: shortlist_select_cuda(scores, seed, K),
+                        reps=20)
+    select_plain_ms = cuda_ms(
+        lambda: shortlist_select_plain(scores, seed, K), reps=5)
+    topk_ms = cuda_ms(lambda: torch.topk(scores, K, dim=1), reps=10)
+    select_bound_s_, select_bound_by = select_bound_s(P, N, K)
+    print(f"selection kernel vs plain full width {P}x{N} K={K}: bitwise "
+          f"equal; kernel {select_ms:.4f} ms, plain {select_plain_ms:.3f} "
+          f"ms, one torch.topk of the scores {topk_ms:.3f} ms, bound "
+          f"{select_bound_s_ * 1e3:.4f} ms ({select_bound_by}) ({smi})")
     got, plain, sel, scan_plain_ms = scan_pair(*args, seed, K)
     err["shortlist_scan"] = max(err["shortlist_scan"], compare(
         got, plain, ("chosen", "assigned", "free_after", "repaired")))
     compare(got, full_greedy)  # the shortlist decides as the full kernel
     scan_repairs = int(plain.repaired.sum())
     scan_ms = cuda_ms(lambda: shortlist_scan_cuda(
-        scores, sel[0], sel[1], sel[2], args[1], args[2], seed), reps=20)
-    select_ms = cuda_ms(lambda: shortlist_select(scores, seed, K), reps=5)
-    topk_ms = cuda_ms(lambda: torch.topk(scores, K, dim=1), reps=5)
+        scores, sel4[0], sel4[1], sel4[2], args[1], args[2], seed,
+        cand_scores=sel4[3]), reps=20)
     scan_bound_s_, scan_bound_by = scan_bound_s(P, N, K, R, scan_repairs)
     print(f"shortlist kernel vs plain full width {P}x{N}x{R} K={K}: bitwise "
           f"equal, equal to the full greedy kernel, "
           f"{int(plain.assigned.sum())} assigned, {scan_repairs} repaired; "
-          f"kernel {scan_ms:.3f} ms ({scan_ms * 1e3 / P:.3f} us per pod), "
-          f"shortlist_select {select_ms:.3f} ms (one torch.topk of the "
-          f"scores {topk_ms:.3f} ms), plain {scan_plain_ms:.1f} ms, bound "
-          f"{scan_bound_s_ * 1e3:.4f} ms ({scan_bound_by}; the real limit "
-          f"is the chain of {P} dependent steps) ({smi})")
-    del got, plain, sel, full_greedy
+          f"kernel {scan_ms:.4f} ms ({scan_ms * 1e3 / P:.3f} us per pod), "
+          f"plain {scan_plain_ms:.1f} ms, bound {scan_bound_s_ * 1e3:.4f} "
+          f"ms ({scan_bound_by}; the real limit is the chain of {P} "
+          f"dependent steps) ({smi})")
+    del got, plain, sel, sel4, full_greedy
     cont = shortlist_case(BATCH, N, R, 3, contend=True)
     got, plain, sel, cont_plain_ms = scan_pair(*cont, seed, K)
     err["shortlist_scan"] = max(err["shortlist_scan"], compare(
@@ -474,8 +541,9 @@ def main() -> int:
     print(f"shortlist kernel vs plain contention {BATCH}x{N}x{R} K={K}: "
           f"bitwise equal, {int(plain.assigned.sum())} assigned, "
           f"{cont_repairs} repaired; kernel {cont_ms:.3f} ms, about "
-          f"{per_repair_us:.2f} us per repair (one block scans the "
-          f"{N}-column row), plain {cont_plain_ms:.1f} ms ({smi})")
+          f"{per_repair_us:.2f} us per repair (the walker and 11 helper "
+          f"warps scan the {N}-column row), plain {cont_plain_ms:.1f} ms "
+          f"({smi})")
     print(f"step parts at full width: filters+scores {eval_ms:.3f} ms, "
           f"greedy kernel {greedy_ms:.3f} ms, or shortlist_select "
           f"{select_ms:.3f} ms + shortlist scan {scan_ms:.3f} ms ({smi})")
@@ -563,9 +631,9 @@ def main() -> int:
     m, main_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform=""), nodes, pods, "main path")
     b = m["batches"]
-    check(main_launches["shortlist_scan"] >= b > 0,
-          f"shortlist scan launched {main_launches['shortlist_scan']} "
-          f"times in {b} batches")
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(main_launches[name] >= b > 0,
+              f"{name} launched {main_launches[name]} times in {b} batches")
     check(m["residency_resyncs"] == 1 and m["residency_hits"] == b - 1,
           f"residency resyncs {m['residency_resyncs']} hits "
           f"{m['residency_hits']} in {b} batches")
@@ -609,8 +677,9 @@ def main() -> int:
     check(early_launches["greedy_assign"] >= b > 0,
           f"greedy kernel launched {early_launches['greedy_assign']} times "
           f"in {b} batches")
-    check(early_launches["shortlist_scan"] == 0,
-          "the shortlist scan ran with shortlist=False")
+    check(early_launches["shortlist_scan"] == 0
+          and early_launches["shortlist_select"] == 0,
+          "the shortlist kernels ran with shortlist=False")
     print(path_line(f"earlier path (synchronous, full greedy kernel) "
                     f"{N_NODES} nodes x {EARLIER_PODS} pods", m,
                     early_launches, c2b, per_pod, EARLIER_PODS, smi))
@@ -632,6 +701,18 @@ def main() -> int:
         "plain_ms": greedy_plain_ms,
         "bound_ms": greedy_bound_s * 1e3,
         "bound_by": greedy_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "shortlist_select",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/shortlist_select.cu",
+        "replaces": "minisched_tpu/ops/select.py:144",
+        "launches": main_launches["shortlist_select"],
+        "max_abs_err": err["shortlist_select"],
+        "ms": select_ms,
+        "plain_ms": select_plain_ms,
+        "bound_ms": select_bound_s_ * 1e3,
+        "bound_by": select_bound_by,
         "library_ms": None,
     }, {
         "name": "shortlist_scan",

@@ -9,10 +9,11 @@ Ties among the best-scoring fitting nodes break on seeded noise: a
 murmur3 finalizer of (seed, pod row, node column). The definition is the
 JAX package's, bit for bit, so both packages pick the same node.
 
-``greedy_assign`` and ``greedy_assign_shortlist`` dispatch on the device
-of their inputs: CPU tensors take the plain PyTorch versions below, CUDA
-tensors the hand-written kernels (ops/greedy_kernel.py,
-ops/shortlist_kernel.py), which raise rather than fall back.
+``greedy_assign``, ``shortlist_select`` and ``greedy_assign_shortlist``
+dispatch on the device of their inputs: CPU tensors take the plain
+PyTorch versions below, CUDA tensors the hand-written kernels
+(ops/greedy_kernel.py, ops/select_kernel.py, ops/shortlist_kernel.py),
+which raise rather than fall back.
 """
 from __future__ import annotations
 
@@ -129,12 +130,22 @@ class ShortlistAssignResult(NamedTuple):
     #                           prove the true argmax was in the shortlist)
 
 
-_NOISE_ONE = 1 << 24  # the noise key of 2.0 in shortlist_select's key2
+_NOISE_ONE = 1 << 24  # the noise key of 2.0 in the plain selection's key2
 
 
-def shortlist_select(scores: torch.Tensor, seed: int, k: int):
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 values as int32 keys in lax.top_k's total order: the bits
+    of a negative float with the 31 low bits flipped, so -0.0 (key -1)
+    sorts below +0.0 (key 0). Its own inverse on int32 keys."""
+    b = x.view(torch.int32) if x.dtype == torch.float32 else x
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def shortlist_select_plain(scores: torch.Tensor, seed: int, k: int):
     """Per-pod top-K candidate shortlists, ordered by (score, tie noise)
     — the order the greedy scan consults — plus the certification bound.
+    The plain PyTorch version of the selection kernel
+    (ops/select_kernel.py).
 
     Returns ``(cand (P,K) int32 node columns, kth (P,) float32,
     kth_noise (P,) float32)``: ``kth`` is the K-th largest score, and
@@ -142,11 +153,17 @@ def shortlist_select(scores: torch.Tensor, seed: int, k: int):
     ``(kth, kth_noise)``.
 
     Two top-k passes, as the JAX package's lax.top_k pair:
-      1. ``kth`` = the K-th largest raw score: at most K-1 nodes score
-         above it, so all of them are in the shortlist.
+      1. ``kth`` = the K-th largest raw score in lax.top_k's total order
+         (+0.0 above -0.0): the first pass runs over ``order_key`` of the
+         scores and maps the K-th key back to its float. At most K-1
+         nodes score above it (float compare), so all of them are in the
+         shortlist.
       2. a composite key — 2.0 for score > kth, the node's tie noise for
-         score == kth, -1 otherwise — whose top K fills the remaining
-         slots with the boundary nodes of largest noise.
+         score == kth (float compares, as in JAX), -1 otherwise — whose
+         top K fills the remaining slots with the boundary nodes of
+         largest noise. At least K nodes score >= kth and at most K-1
+         above it, so the K-th composite key is always a boundary node's
+         noise: that is ``kth_noise``.
 
     ``torch.topk`` breaks ties among equal keys differently from
     ``lax.top_k`` (which takes the lower index first), so the second
@@ -154,12 +171,12 @@ def shortlist_select(scores: torch.Tensor, seed: int, k: int):
     integer (2.0 → 2^24, noise → its 24-bit integer x >> 8, -1 → -1)
     shifted up 32 bits, with 0xFFFFFFFF - column below. Its descending
     order is (key descending, column ascending), lax.top_k's order, so
-    ``cand`` equals the JAX package's column for column. The first pass
-    needs no care: only the K-th value is used.
+    ``cand`` equals the JAX package's column for column.
     """
     P, N = scores.shape
     device = scores.device
-    kth = torch.topk(scores, k, dim=1).values[:, -1].contiguous()
+    kkey = torch.topk(order_key(scores), k, dim=1).values[:, -1]
+    kth = order_key(kkey).view(torch.float32).contiguous()
     cols = torch.arange(N, dtype=torch.int64, device=device)[None, :]
     rows = torch.arange(P, dtype=torch.int64, device=device)[:, None]
     # The noise lattice as 24-bit integers (int64 masked to 32 bits: the
@@ -174,12 +191,20 @@ def shortlist_select(scores: torch.Tensor, seed: int, k: int):
     top = torch.topk(key2, k, dim=1)
     del key2
     cand = top.indices.to(torch.int32)
-    last = top.values[:, -1] >> 32
-    kth_noise = torch.where(
-        last == _NOISE_ONE, 2.0,
-        torch.where(last < 0, -1.0,
-                    last.to(torch.float32) * (1.0 / (1 << 24))))
-    return cand, kth, kth_noise.to(torch.float32)
+    kth_noise = ((top.values[:, -1] >> 32).to(torch.float32)
+                 * (1.0 / (1 << 24)))
+    return cand, kth, kth_noise
+
+
+def shortlist_select(scores: torch.Tensor, seed: int, k: int):
+    """``shortlist_select_plain``'s contract on any device: CPU tensors
+    take the plain version, CUDA tensors the hand-written selection
+    kernel (ops/select_kernel.py), which raises rather than fall back."""
+    if scores.device.type == "cpu":
+        return shortlist_select_plain(scores, seed, k)
+    from .select_kernel import shortlist_select_cuda
+
+    return shortlist_select_cuda(scores, seed, k)[:3]
 
 
 def greedy_assign_shortlist_plain(scores: torch.Tensor,
@@ -239,17 +264,20 @@ def greedy_assign_shortlist(scores: torch.Tensor, requests: torch.Tensor,
     top-K shortlists: bit-identical decisions, certified per step, with
     a counted full-row repair where the certificate fails.
 
-    The selection (``shortlist_select``) is parallel PyTorch work on any
-    device. The scan dispatches on the device of its inputs: CPU tensors
-    take the plain version, CUDA tensors the hand-written kernel
-    (ops/shortlist_kernel.py), which raises rather than fall back."""
+    The selection and the scan dispatch on the device of their inputs:
+    CPU tensors take the plain versions, CUDA tensors the hand-written
+    kernels (ops/select_kernel.py, ops/shortlist_kernel.py), which raise
+    rather than fall back; the selection kernel also hands the scan the
+    candidates' scores."""
     P, N = scores.shape
     k = min(max(int(k), 1), N)
-    cand, kth, kth_noise = shortlist_select(scores, seed, k)
     if scores.device.type == "cpu":
+        cand, kth, kth_noise = shortlist_select_plain(scores, seed, k)
         return greedy_assign_shortlist_plain(scores, requests, free0, seed,
                                              cand, kth, kth_noise)
+    from .select_kernel import shortlist_select_cuda
     from .shortlist_kernel import shortlist_scan_cuda
 
+    cand, kth, kth_noise, cand_scores = shortlist_select_cuda(scores, seed, k)
     return shortlist_scan_cuda(scores, cand, kth, kth_noise, requests,
-                               free0, seed)
+                               free0, seed, cand_scores=cand_scores)

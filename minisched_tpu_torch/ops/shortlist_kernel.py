@@ -2,10 +2,11 @@
 
 The kernel is built at first use by ops/_cuda_build.py (nvcc, sm_90a,
 ctypes). ``shortlist_scan_cuda`` is its wrapper: it checks its inputs,
-gathers the candidates' scores, allocates the outputs, launches on
-PyTorch's current stream and counts the launch in
-``_cuda_build.LAUNCHES["shortlist_scan"]``. It never falls back to the
-plain version (select.greedy_assign_shortlist_plain).
+gathers the candidates' scores unless the selection kernel handed them
+over, allocates the outputs, launches on PyTorch's current stream and
+counts the launch in ``_cuda_build.LAUNCHES["shortlist_scan"]``. It
+never falls back to the plain version
+(select.greedy_assign_shortlist_plain).
 """
 from __future__ import annotations
 
@@ -41,10 +42,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> torch.Tensor:
 def shortlist_scan_cuda(scores: torch.Tensor, cand: torch.Tensor,
                         kth: torch.Tensor, kth_noise: torch.Tensor,
                         requests: torch.Tensor, free0: torch.Tensor,
-                        seed: int) -> ShortlistAssignResult:
+                        seed: int, cand_scores: torch.Tensor | None = None
+                        ) -> ShortlistAssignResult:
     """The kernel's wrapper: same contract as
     select.greedy_assign_shortlist_plain, on CUDA tensors. ``cand``,
-    ``kth`` and ``kth_noise`` are select.shortlist_select's outputs."""
+    ``kth`` and ``kth_noise`` are select.shortlist_select's outputs;
+    ``cand_scores`` (P,K), the candidates' scores, is gathered here when
+    not given (ops/select_kernel.py returns it)."""
     if scores.device.type != "cuda":
         raise ValueError(f"shortlist_scan_cuda needs CUDA tensors, got "
                          f"{scores.device}")
@@ -63,7 +67,10 @@ def shortlist_scan_cuda(scores: torch.Tensor, cand: torch.Tensor,
     kth_noise = _check("kth_noise", kth_noise, torch.float32, (P,), dev)
     requests = _check("requests", requests, torch.float32, (P, R), dev)
     free0 = _check("free0", free0, torch.float32, (N, R), dev)
-    cand_scores = torch.gather(scores, 1, cand.long())
+    if cand_scores is None:
+        cand_scores = torch.gather(scores, 1, cand.long())
+    cand_scores = _check("cand_scores", cand_scores, torch.float32, (P, K),
+                         dev)
     lib = load("shortlist_scan", _bind)
     chosen = torch.empty((P,), dtype=torch.int32, device=dev)
     assigned = torch.empty((P,), dtype=torch.bool, device=dev)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (greedy assignment, shortlist scan, port insertion)
-against their plain PyTorch versions.
+"""The CUDA kernels (greedy assignment, shortlist selection, shortlist
+scan, port insertion) against their plain PyTorch versions.
 
 This file imports neither jax nor minisched_tpu, so it also runs on a
 machine that has only the port's dependencies. The card tests skip
@@ -17,6 +17,7 @@ from minisched_tpu_torch.ops import select as S
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
+from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from torch_parity import (GREEDY_SHAPES, NEG, SHORTLIST_CASES, bits_equal,
                           greedy_case, ports_case, scarce_case,
@@ -40,6 +41,8 @@ def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         insert_ports_cuda(*(torch.zeros(shape, dtype=torch.int32)
                             for shape in ((3, 8), (2,), (2, 4))))
+    with pytest.raises(ValueError, match="CUDA"):
+        shortlist_select_cuda(torch.zeros((2, 3)), 0, 2)
 
 
 def test_shortlist_and_ports_on_cpu_take_the_plain_versions():
@@ -159,12 +162,13 @@ def _scan_on_card(scores, req, free, seed, k):
     k = min(max(k, 1), scores.shape[1])
     cand, kth, kthn = S.shortlist_select(args[0], seed, k)
     plain = S.greedy_assign_shortlist_plain(*args, seed, cand, kth, kthn)
-    n0 = LAUNCHES["shortlist_scan"]
+    n0 = dict(LAUNCHES)
     dev = [a.cuda() for a in args]
     got = S.greedy_assign_shortlist(*dev, seed, k=k)
     torch.cuda.synchronize()
     # An empty batch only copies free0: no launch, so no count.
-    assert LAUNCHES["shortlist_scan"] == n0 + (scores.shape[0] > 0)
+    for name in ("shortlist_select", "shortlist_scan"):
+        assert LAUNCHES[name] == n0[name] + (scores.shape[0] > 0), name
     for field in ("chosen", "assigned", "free_after", "repaired"):
         assert bits_equal(getattr(plain, field).numpy(),
                           getattr(got, field).cpu().numpy()), field
@@ -187,7 +191,9 @@ def test_shortlist_scan_matches_plain_on_card(name, P, N, R, seed, k, kw):
 
 @pytest.mark.card
 @pytest.mark.parametrize("kind", ["contention-wide", "k1", "k-equals-n",
-                                  "max-r", "scarce", "empty-batch"])
+                                  "max-r", "max-r-k200", "odd-r",
+                                  "k-above-ring", "scarce", "empty-batch",
+                                  "device-layout", "no-bitmap"])
 def test_shortlist_scan_edge_cases_on_card(kind):
     _need_card()
     rng = np.random.default_rng(sum(map(ord, kind)))
@@ -198,8 +204,18 @@ def test_shortlist_scan_edge_cases_on_card(kind):
         case, k = shortlist_case(64, 3000, 4, 6), 1
     elif kind == "k-equals-n":  # the shortlist is the row
         case, k = shortlist_case(64, 700, 4, 7), 700
-    elif kind == "max-r":
+    elif kind == "max-r":  # the R <= 32 build
         case, k = greedy_case(rng, 96, 5000, R=32), 128
+    elif kind == "max-r-k200":  # R <= 32, candidates past the ring
+        case, k = scarce_case(rng, 200, 3000, R=24), 200
+    elif kind == "odd-r":  # 4-byte row copies
+        case, k = scarce_case(rng, 300, 2000, R=5), 64
+    elif kind == "k-above-ring":  # K > 128 at the R <= 16 build
+        case, k = scarce_case(rng, 300, 4000), 300
+    elif kind == "device-layout":  # the overlay does not fit: rows in
+        case, k = shortlist_case(6000, 20000, 10, 4), 16  # free_after
+    elif kind == "no-bitmap":  # nor N bits: every row from free_after
+        case, k = shortlist_case(8, 2_000_000, 2, 3), 16
     elif kind == "scarce":
         case, k = scarce_case(rng, 512, 4000), 32
     else:
@@ -208,6 +224,107 @@ def test_shortlist_scan_edge_cases_on_card(kind):
     plain = _scan_on_card(*case, seed, k)
     if kind in ("contention-wide", "k1"):
         assert int(plain.repaired.sum()) > 0
+
+
+def _select_case(kind, rng):
+    """Score rows for the selection kernel: (scores, K)."""
+    if kind == "signed-zero":  # lax.top_k orders +0.0 above -0.0
+        s = np.where(rng.random((12, 300)) < 0.5, 0.0, -0.0)
+        for row in s:
+            row[rng.choice(300, 3, replace=False)] = 5.0
+        return s.astype(np.float32), 128
+    if kind == "plateau":  # every node ties: only the noise orders them
+        return np.full((16, 5000), 100.0, np.float32), 128
+    if kind == "exact-tie":  # the K-th value shared far past K
+        s = np.full((16, 3000), 40.0, np.float32)
+        s[:, ::2] = 60.0
+        return s, 128
+    if kind == "all-neg":
+        return np.full((8, 1000), NEG, np.float32), 16
+    if kind == "k1":
+        return greedy_case(rng, 64, 3000)[0], 1
+    if kind == "k7":
+        return greedy_case(rng, 64, 3000)[0], 7
+    if kind == "k-equals-n":
+        return greedy_case(rng, 16, 777)[0], 777
+    if kind == "p-above-k":
+        return greedy_case(rng, 300, 50, quant=1)[0], 8
+    if kind == "row-not-cached":  # 60,000 columns do not fit in shared
+        return rng.random((4, 60000), dtype=np.float32), 128  # memory
+    if kind == "keys-not-in-shared":  # nor do 30,000 sort keys
+        return rng.random((4, 60000), dtype=np.float32), 30000
+    if kind == "wide-k-equals-n":
+        return rng.random((2, 60000), dtype=np.float32), 60000
+    raise ValueError(kind)
+
+
+SELECT_KINDS = ["signed-zero", "plateau", "exact-tie", "all-neg", "k1", "k7",
+                "k-equals-n", "p-above-k", "row-not-cached",
+                "keys-not-in-shared", "wide-k-equals-n"]
+
+
+def _select_on_card(scores, seed, k):
+    want = S.shortlist_select_plain(torch.from_numpy(scores), seed, k)
+    n0 = LAUNCHES["shortlist_select"]
+    got = shortlist_select_cuda(torch.from_numpy(scores).cuda(), seed, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["shortlist_select"] == n0 + (scores.shape[0] > 0)
+    for a, b, name in zip(got, want, ("cand", "kth", "kth_noise")):
+        assert bits_equal(b.numpy(), a.cpu().numpy()), name
+    gathered = np.take_along_axis(scores, want[0].numpy().astype(np.int64),
+                                  axis=1)
+    assert bits_equal(gathered, got[3].cpu().numpy()), "cand_scores"
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_shortlist_select_matches_plain_on_card(kind):
+    _need_card()
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    scores, k = _select_case(kind, rng)
+    _select_on_card(scores, prng.bits(prng.fold_in(prng.PRNGKey(13), k)), k)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name,P,N,R,seed,k,kw", SHORTLIST_CASES,
+                         ids=[c[0] for c in SHORTLIST_CASES])
+def test_shortlist_select_on_shortlist_cases_on_card(name, P, N, R, seed, k,
+                                                     kw):
+    _need_card()
+    scores = shortlist_case(P, N, R, seed, **kw)[0]
+    _select_on_card(scores, prng.bits(prng.fold_in(prng.PRNGKey(seed), k)),
+                    min(k, N))
+
+
+@pytest.mark.card
+def test_shortlist_select_empty_batch_and_bad_inputs_on_card():
+    _need_card()
+    _select_on_card(np.zeros((0, 50), np.float32), 3, 4)
+    s = torch.zeros((4, 8), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        shortlist_select_cuda(s.double(), 0, 2)
+    with pytest.raises(ValueError, match="k"):
+        shortlist_select_cuda(s, 0, 9)
+    with pytest.raises(ValueError, match="2-D"):
+        shortlist_select_cuda(s[0], 0, 2)
+
+
+@pytest.mark.card
+def test_shortlist_scan_rejects_bad_inputs_on_card():
+    _need_card()
+    s = torch.zeros((4, 8), device="cuda")
+    cand = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    kth = torch.zeros(4, device="cuda")
+    req, free = torch.zeros((4, 3), device="cuda"), torch.zeros((8, 3),
+                                                                device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        shortlist_scan_cuda(s, cand.long(), kth, kth, req, free, 0)
+    with pytest.raises(ValueError, match="shape"):
+        shortlist_scan_cuda(s, cand, kth[:3], kth, req, free, 0)
+    with pytest.raises(ValueError, match="R <= 32"):
+        shortlist_scan_cuda(s, cand, kth, kth, torch.zeros((4, 33),
+                                                           device="cuda"),
+                            torch.zeros((8, 33), device="cuda"), 0)
 
 
 @pytest.mark.card

@@ -43,10 +43,15 @@ def _select_rows(kind, rng, P=12, N=300):
     elif kind == "neg":
         s[rng.random((P, N)) < 0.6] = NEG
         s[3] = NEG
+    elif kind == "signed-zero":  # lax.top_k orders +0.0 above -0.0
+        s[:] = np.where(rng.random((P, N)) < 0.5, 0.0, -0.0)
+        for row in s:
+            row[rng.choice(N, 3, replace=False)] = 5.0
     return s
 
 
-@pytest.mark.parametrize("kind", ["random", "plateau", "exact-tie", "neg"])
+@pytest.mark.parametrize("kind", ["random", "plateau", "exact-tie", "neg",
+                                  "signed-zero"])
 @pytest.mark.parametrize("k", [1, 7, 128, 300])
 def test_shortlist_select_matches_jax(kind, k):
     """cand (column for column, in lax.top_k's order), kth and

@@ -1,7 +1,10 @@
 """Time the shortlist stage on one CUDA card: the CUDA shortlist scan
-kernel against another build of it, and shortlist_select by part.
+kernel beside other builds of it, and the CUDA selection kernel beside
+shortlist_select_plain by part.
 
     python tools/shortlist_timing.py [--other OLD.cu ...]
+                                     [--variants stages8,producers8]
+                                     [--split]
 
 Inputs: the bench workload's first full-width batch (1024 pods x 53248
 nodes x R=10, as chip_smoke.py builds it, K=128) and a contention batch
@@ -9,14 +12,24 @@ of the same shape (tests/test_shortlist.py's contention recipe: every
 node starved but N/64, so about one pod in eight repairs). Every build
 is first held bitwise against the plain version on all four outputs.
 
---other  a kernel source with the same C interface (for instance an
-         earlier commit's csrc/shortlist_scan.cu), repeatable; each is
-         timed beside the package's kernel in turns: others, package,
-         package, others reversed (CUDA events, 20 launches each).
+--other     a scan kernel source with the same C interface (for instance
+            an earlier commit's csrc/shortlist_scan.cu, written out with
+            ``git show <commit>:minisched_tpu_torch/csrc/shortlist_scan.cu``
+            on a machine with git), repeatable;
+--variants  named edits of the package's scan source (VARIANTS below);
+            every build is timed beside the package's kernel in turns:
+            others, package, package, others reversed (CUDA events, 20
+            launches each);
+--split     a copy of the package's scan with clock64 stamps (SPLIT):
+            the walker's cycles per pod waiting for a full stage, on the
+            candidates, on the reduction and certificate, on the debit,
+            outputs and release, in repairs and in all; a producer warp's
+            cycles waiting for an empty stage and in all.
 
-shortlist_select is split into its parts (CUDA events, 10 calls each):
-the noise lattice, the first top-k (kth), the composite key, the second
-top-k (cand), and the whole function.
+The selection is timed as the kernel and as shortlist_select_plain's
+parts (CUDA events, 10 calls each): the first top-k over the order key
+(kth), the noise lattice, the composite key, the second top-k (cand),
+and the whole plain function; one torch.topk of the scores beside them.
 
 Builds go to minisched_tpu_torch/_build/timing/ (gitignored).
 """
@@ -38,13 +51,94 @@ from minisched_tpu_torch.encode import to_torch  # noqa: E402
 from minisched_tpu_torch.ops import _cuda_build, prng  # noqa: E402
 from minisched_tpu_torch.ops import select as S  # noqa: E402
 from minisched_tpu_torch.ops.pipeline import evaluate  # noqa: E402
+from minisched_tpu_torch.ops.select_kernel import \
+    shortlist_select_cuda  # noqa: E402
 from minisched_tpu_torch.ops.shortlist_kernel import _bind  # noqa: E402
 
 BUILD = os.path.join(ROOT, "minisched_tpu_torch", "_build", "timing")
 FIELDS = ("chosen", "assigned", "free_after", "repaired")
 
+VARIANTS = {
+    # A ring of at most 8 stages.
+    "stages8": [("constexpr int kMaxStages = 32;",
+                 "constexpr int kMaxStages = 8;")],
+    # Eight producer warps, seven helpers.
+    "producers8": [("constexpr int kProducerWarps = 4;",
+                    "constexpr int kProducerWarps = 8;")],
+}
 
-def build(name: str, src: str):
+# The stamps of --split (cycles summed over the pods): the walker's
+# [0] wait for a full stage, [1] repairs, [2] all, [3] candidates, of
+# which [8] the best candidate's check, [9] the pods that looked at every
+# candidate (a count), [6] reduction and certificate, [7] debit, outputs
+# and release (repairs included); producer warp 0's [4] wait for an empty
+# stage, [5] all.
+SPLIT = [
+    ("struct Best {", "__device__ long long g_stamps[10];\n\nstruct Best {"),
+    ("  int nc[kQ];\n  float ns[kQ];\n",
+     "  int nc[kQ];\n  float ns[kQ];\n"
+     "  long long pe = 0;\n  const long long p0 = clock64();\n"),
+    ("    if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);\n",
+     "    const long long e0 = clock64();\n"
+     "    if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);\n"
+     "    pe += clock64() - e0;\n"),
+    ("      ++round;\n    }\n  }\n}\n",
+     "      ++round;\n    }\n  }\n"
+     "  if (w == 0 && lane == 0) {\n    g_stamps[4] = pe;\n"
+     "    g_stamps[5] = clock64() - p0;\n  }\n}\n"),
+    ("    const uint32_t kneg = score_key(kNeg);\n",
+     "    const uint32_t kneg = score_key(kNeg);\n"
+     "    long long aw = 0, ar = 0, ac = 0, ab = 0, ad = 0;\n"
+     "    long long ad0 = 0, ad1 = 0;\n"
+     "    const long long a0 = clock64();\n"),
+    ("      mbar_wait(&s_full[s], phase);\n",
+     "      const long long w0 = clock64();\n"
+     "      mbar_wait(&s_full[s], phase);\n"
+     "      aw += clock64() - w0;\n"),
+    ("      const float kth_i = st.bound[0], kthn_i = st.bound[1];\n",
+     "      const float kth_i = st.bound[0], kthn_i = st.bound[1];\n"
+     "      const long long c0 = clock64();\n"),
+    ("      if (!top_fits) {\n        auto consider",
+     "      ad0 += clock64() - c0;\n      ad1 += !top_fits;\n"
+     "      if (!top_fits) {\n        auto consider"),
+    ("      Best w = top_fits ? best : warp_best(best);\n",
+     "      const long long c1 = clock64();\n      ac += c1 - c0;\n"
+     "      Best w = top_fits ? best : warp_best(best);\n"),
+    ("      if (certified) {\n        if (ok && best.col",
+     "      const long long c2 = clock64();\n      ab += c2 - c1;\n"
+     "      if (certified) {\n        if (ok && best.col"),
+    ("        mbar_arrive(&s_empty[s]);\n      }\n",
+     "        mbar_arrive(&s_empty[s]);\n      }\n"
+     "      ad += clock64() - c2;\n"),
+    ("        __syncwarp();\n        bar_sync(kBarPost, kRepairThreads);\n"
+     "        w = repair_pick",
+     "        const long long r0 = clock64();\n        __syncwarp();\n"
+     "        bar_sync(kBarPost, kRepairThreads);\n        w = repair_pick"),
+    ("        ok = w.skey > kneg;\n        if (ok && lane == 0) {",
+     "        ok = w.skey > kneg;\n        ar += clock64() - r0;\n"
+     "        if (ok && lane == 0) {"),
+    ("    if (lane == 0) s_post[0] = -1;\n",
+     "    if (lane == 0) {\n      g_stamps[0] = aw;\n      g_stamps[1] = ar;\n"
+     "      g_stamps[2] = clock64() - a0;\n      g_stamps[3] = ac;\n"
+     "      g_stamps[6] = ab;\n      g_stamps[7] = ad;\n"
+     "      g_stamps[8] = ad0;\n      g_stamps[9] = ad1;\n    }\n"
+     "    if (lane == 0) s_post[0] = -1;\n"),
+    ('extern "C" const char* shortlist_scan_error_string',
+     'extern "C" int shortlist_scan_stamps(long long* out) {\n'
+     "  return cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));\n}\n\n"
+     'extern "C" const char* shortlist_scan_error_string'),
+]
+
+
+def edit(src: str, pairs) -> str:
+    for old, new in pairs:
+        if src.count(old) != 1:
+            raise SystemExit(f"edit anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build(name: str, src: str) -> ctypes.CDLL:
     digest = hashlib.sha256(src.encode()).hexdigest()[:12]
     os.makedirs(BUILD, exist_ok=True)
     cu = os.path.join(BUILD, f"scan-{name}-{digest}.cu")
@@ -58,10 +152,10 @@ def build(name: str, src: str):
             raise SystemExit(f"nvcc failed for {name}:\n{p.stderr}")
     lib = ctypes.CDLL(so)
     _bind(lib)
-    return lib.shortlist_scan_launch
+    return lib
 
 
-def launch(fn, scores, sel, cand_scores, req, free, seed):
+def launch(lib, scores, sel, cand_scores, req, free, seed):
     P, N = scores.shape
     K, R = sel[0].shape[1], req.shape[1]
     dev = scores.device
@@ -70,19 +164,20 @@ def launch(fn, scores, sel, cand_scores, req, free, seed):
         torch.empty((P,), dtype=torch.bool, device=dev),
         torch.empty((N, R), dtype=torch.float32, device=dev),
         torch.empty((P,), dtype=torch.bool, device=dev))
-    err = fn(scores.data_ptr(), sel[0].data_ptr(), cand_scores.data_ptr(),
-             sel[1].data_ptr(), sel[2].data_ptr(), req.data_ptr(),
-             free.data_ptr(), seed, P, N, K, R, out.chosen.data_ptr(),
-             out.assigned.data_ptr(), out.free_after.data_ptr(),
-             out.repaired.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    err = lib.shortlist_scan_launch(
+        scores.data_ptr(), sel[0].data_ptr(), cand_scores.data_ptr(),
+        sel[1].data_ptr(), sel[2].data_ptr(), req.data_ptr(),
+        free.data_ptr(), seed, P, N, K, R, out.chosen.data_ptr(),
+        out.assigned.data_ptr(), out.free_after.data_ptr(),
+        out.repaired.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise SystemExit(f"launch failed: cudaError {err}")
     return out
 
 
 def select_parts(scores, seed, k, smi):
-    """CUDA-event times of shortlist_select's parts, as the function
-    computes them."""
+    """CUDA-event times of the selection kernel, of one torch.topk, and of
+    shortlist_select_plain's parts as that function computes them."""
     P, N = scores.shape
     cols = torch.arange(N, dtype=torch.int64, device=scores.device)[None, :]
     rows = torch.arange(P, dtype=torch.int64, device=scores.device)[:, None]
@@ -92,8 +187,12 @@ def select_parts(scores, seed, k, smi):
             & S._M32
         return S.fmix32(x) >> 8
 
+    def first():
+        kkey = torch.topk(S.order_key(scores), k, dim=1).values[:, -1]
+        return S.order_key(kkey).view(torch.float32).contiguous()
+
     noise = lattice()
-    kth = torch.topk(scores, k, dim=1).values[:, -1].contiguous()
+    kth = first()
 
     def key():
         kcol = kth[:, None]
@@ -103,21 +202,48 @@ def select_parts(scores, seed, k, smi):
 
     key2 = key()
     parts = {
+        "selection kernel": lambda: shortlist_select_cuda(scores, seed, k),
+        "one torch.topk of the scores": lambda: torch.topk(scores, k, dim=1),
+        "plain: first top-k (kth, order key)": first,
         "noise lattice": lattice,
-        "first top-k (kth)": lambda: torch.topk(scores, k, dim=1),
         "composite key": key,
         "second top-k (cand)": lambda: torch.topk(key2, k, dim=1),
-        "shortlist_select": lambda: S.shortlist_select(scores, seed, k),
+        "shortlist_select_plain": lambda: S.shortlist_select_plain(
+            scores, seed, k),
     }
-    print(f"shortlist_select parts {P}x{N} K={k}: " + ", ".join(
-        f"{name} {cs.cuda_ms(fn, reps=10):.3f} ms"
+    print(f"selection {P}x{N} K={k}: " + ", ".join(
+        f"{name} {cs.cuda_ms(fn, reps=10):.4f} ms"
         for name, fn in parts.items()) + f" ({smi})")
+
+
+def split(lib, scores, sel, cand_scores, req, free, seed, label, smi):
+    """One stamped launch: the walker's and a producer's cycles per pod."""
+    P = scores.shape[0]
+    launch(lib, scores, sel, cand_scores, req, free, seed)
+    torch.cuda.synchronize()
+    out = (ctypes.c_longlong * 10)()
+    lib.shortlist_scan_stamps.restype = ctypes.c_int
+    if lib.shortlist_scan_stamps(out):
+        raise SystemExit("reading the stamps failed")
+    st = list(out)
+    print(f"split {label}: walker {st[2] / P:.0f} cycles per pod: waiting "
+          f"for a full stage {st[0] / P:.0f}, candidates {st[3] / P:.0f} "
+          f"(the best candidate {st[8] / P:.0f}, every candidate in "
+          f"{st[9]} of {P} pods {(st[3] - st[8]) / max(st[9], 1):.0f} per "
+          f"such pod), "
+          f"reduction and certificate {st[6] / P:.0f}, debit, outputs and "
+          f"release {(st[7] - st[1]) / P:.0f}, repairs {st[1] / P:.0f}; "
+          f"producer warp 0 {st[5] / P:.0f} cycles per pod, of which "
+          f"waiting for an empty stage {st[4] / P:.0f} ({smi})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", action="append", default=[],
                     help="another kernel source, same interface")
+    ap.add_argument("--variants", default="",
+                    help=f"comma-separated, of {sorted(VARIANTS)}")
+    ap.add_argument("--split", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
@@ -127,14 +253,19 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     with open(_cuda_build.source("shortlist_scan")) as f:
-        builds = {"package": build("package", f.read())}
+        pkg_src = f.read()
+    builds = {"package": build("package", pkg_src)}
     others = []
     for path in opts.other:
         name = os.path.splitext(os.path.basename(path))[0]
         with open(path) as f:
             builds[name] = build(name, f.read())
         others.append(name)
+    for v in filter(None, opts.variants.split(",")):
+        builds[v] = build(v, edit(pkg_src, VARIANTS[v]))
+        others.append(v)
     order = others + ["package", "package"] + others[::-1]
+    stamped = build("split", edit(pkg_src, SPLIT)) if opts.split else None
 
     seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 1))
     nodes, pods = cs.bench_workload(cs.N_NODES, cs.N_PODS)
@@ -148,20 +279,22 @@ def main() -> int:
                "contention": tuple(cs.shortlist_case(P, N, R, 3,
                                                      contend=True))}
     for name, (sc, req, free) in batches.items():
-        sel = S.shortlist_select(sc, seed, cs.K)
-        cand_scores = torch.gather(sc, 1, sel[0].long())
+        cand, kth, kthn, cand_scores = shortlist_select_cuda(sc, seed, cs.K)
+        sel = (cand, kth, kthn)
         plain = S.greedy_assign_shortlist_plain(sc, req, free, seed, *sel)
-        for b, fn in builds.items():
-            cs.compare(launch(fn, sc, sel, cand_scores, req, free, seed),
+        for b, lib in builds.items():
+            cs.compare(launch(lib, sc, sel, cand_scores, req, free, seed),
                        plain, FIELDS)
-        times = [(b, cs.cuda_ms(lambda fn=builds[b]: launch(
-            fn, sc, sel, cand_scores, req, free, seed), reps=20))
+        times = [(b, cs.cuda_ms(lambda lib=builds[b]: launch(
+            lib, sc, sel, cand_scores, req, free, seed), reps=20))
             for b in order]
         print(f"{name} {P}x{N}x{R} K={cs.K}: every build = plain bitwise "
               f"({int(plain.assigned.sum())} assigned, "
               f"{int(plain.repaired.sum())} repaired); "
               + ", ".join(f"{b} {ms:.4f} ms ({ms * 1e3 / P:.3f} us/pod)"
                           for b, ms in times) + f" ({smi})")
+        if stamped is not None:
+            split(stamped, sc, sel, cand_scores, req, free, seed, name, smi)
     select_parts(scores, seed, cs.K, smi)
     return 0
 
