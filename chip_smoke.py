@@ -18,7 +18,12 @@ them, and on any mismatch. Phases, each printing its own lines:
      plateau, contention, K in {1, 16, 128, N}), off-tile (13x200), a
      6,000-pod batch whose overlay does not fit in shared memory (the
      scan's device layout), rows of signed zeros, of NEG only and K = N,
-     and at full width (the bench batch, K=128) with each kernel's time,
+     rows aimed at each branch of the selection's list path (a plateau
+     served in one pass, distinct values, a list rebuilt, a list that
+     overflows into the exact path, 203 rows walked by 132 blocks:
+     tests/torch_parity.py select_list_case), and at full width (the
+     bench batch, K=128, and K=1000 for the selection's exact path on a
+     cached row) with each kernel's time,
      plain time and bound and one torch.topk's time; then a full-width
      contention batch that forces repairs;
   5. one full-width build_step batch with shortlist=128 against
@@ -26,8 +31,8 @@ them, and on any mismatch. Phases, each printing its own lines:
      then cuda vs cpu for each, every Decision field bitwise;
   6. the port-insertion kernel vs the host replay and its plain version
      at the engine's shapes (a 128-pod bucket of port pods x 4 requested
-     ports into the bench cluster's 53248 x 8 used_ports) and on a
-     port-heavy 1024-pod batch;
+     ports into the bench cluster's 53248 x 8 used_ports), on a
+     port-heavy 1024-pod batch and with 1024 pods on one row;
   7. the main path: Cluster(...).start() with SchedulerConfig() (the
      pipelined, device-resident, shortlist cycle) on the card, bench
      profile, 50,000 nodes x 10,000 pods, all bound, no node over its
@@ -51,6 +56,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,6 +84,11 @@ from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
 from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as O
+
+# The tests' numpy case builders (tests/torch_parity.py imports numpy only).
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_parity import SELECT_CARD_LIST_KINDS, select_list_case  # noqa: E402
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
 EARLIER_PODS = 2048
@@ -159,6 +170,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` (its kernels and copies, as the
+    profiler's CUDA activity records them) over ``reps`` calls: for a
+    call whose host side outlasts its device work, where CUDA events
+    around back-to-back calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def host_ms(fn) -> float:
@@ -250,11 +279,12 @@ def select_pair(scores, seed, k) -> float:
 
 
 def select_bound_s(P, N, K_):
-    """Least time for the selection's work: the scores read once and the
-    outputs written once over the memory rate, against one compare per
-    score for each of its eight passes over the float32 rate."""
+    """Least time for the selection's work, whatever the kernel's passes:
+    the scores read once and the outputs written once over the memory
+    rate, against one order-key compare per score over the float32
+    rate."""
     moved = 4 * P * N + 8 * P * K_ + 8 * P
-    ops = 8 * P * N
+    ops = P * N
     return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
         "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
         else "operations")
@@ -284,6 +314,27 @@ def scan_bound_s(P, N, K_, R, repairs):
     return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
         "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
         else "operations")
+
+
+def port_cases(N, rng):
+    """The port insertion at the engine's shape (113 port pods in a
+    bucket of 128, -1 rows after them, x 4 ports into N x 8 used_ports,
+    half the rows partly filled), on a port-heavy 1024-pod batch over 300
+    hot rows, and with 1024 pods on one row (the longest chain):
+    (name, state, rows, ports)."""
+    cases = []
+    for name, P_, live, hot in (("engine shape", PORT_BUCKET, 113, N),
+                                ("port-heavy", BATCH, BATCH - 24, 300),
+                                ("one row", BATCH, BATCH, 1)):
+        state = np.zeros((N, NODE_PORTS), dtype=np.int32)
+        state[: N // 2] = rng.integers(0, 2, (N // 2, NODE_PORTS)) * 30000
+        rows = np.full(P_, -1, dtype=np.int32)
+        rows[:live] = rng.integers(0, hot, live)
+        ports = rng.integers(20000, 40000, (P_, POD_PORTS)).astype(np.int32)
+        ports[rng.random((P_, POD_PORTS)) < 0.25] = 0
+        ports[live:] = 0
+        cases.append((name, state, rows, ports))
+    return cases
 
 
 def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
@@ -485,19 +536,25 @@ def main() -> int:
     for row in signed:
         row[zrng.choice(300, 3, replace=False)] = 5.0
     wide = zrng.random((4, 60_000), dtype=np.float32)
+    lrng = np.random.default_rng(5)
+    list_rows = [(kind, *select_list_case(kind, lrng))
+                 for kind in SELECT_CARD_LIST_KINDS]
     for name, rows, kks in (
             ("signed zeros", signed, (1, 7, 128, 300)),
             ("NEG only", np.full((8, 1000), NEG), (1, 16, 1000)),
             ("K = N", np.round(zrng.random((16, 777)) * 4) / 4, (777,)),
-            ("wide, K up to N", wide, (4096, 30_000, 60_000))):
+            ("wide, K up to N", wide, (4096, 30_000, 60_000)),
+            *((f"list path {kind}", rows, (kk,))
+              for kind, rows, kk in list_rows)):
         rows_d = torch.from_numpy(rows.astype(np.float32)).cuda()
         for kk in kks:
             err["shortlist_select"] = max(err["shortlist_select"],
                                           select_pair(rows_d, seed, kk))
         print(f"selection kernel vs plain {name} {tuple(rows.shape)} K in "
               f"{kks}: bitwise equal")
-    err["shortlist_select"] = max(err["shortlist_select"],
-                                  select_pair(scores, seed, K))
+    for kk in (K, 1000):  # the list path, and the exact path's cached row
+        err["shortlist_select"] = max(err["shortlist_select"],
+                                      select_pair(scores, seed, kk))
     sel4 = shortlist_select_cuda(scores, seed, K)
     select_ms = cuda_ms(lambda: shortlist_select_cuda(scores, seed, K),
                         reps=20)
@@ -505,9 +562,9 @@ def main() -> int:
         lambda: shortlist_select_plain(scores, seed, K), reps=5)
     topk_ms = cuda_ms(lambda: torch.topk(scores, K, dim=1), reps=10)
     select_bound_s_, select_bound_by = select_bound_s(P, N, K)
-    print(f"selection kernel vs plain full width {P}x{N} K={K}: bitwise "
-          f"equal; kernel {select_ms:.4f} ms, plain {select_plain_ms:.3f} "
-          f"ms, one torch.topk of the scores {topk_ms:.3f} ms, bound "
+    print(f"selection kernel vs plain full width {P}x{N} K={K} and K=1000: "
+          f"bitwise equal; K={K} kernel {select_ms:.4f} ms, plain "
+          f"{select_plain_ms:.3f} ms, one torch.topk of the scores {topk_ms:.3f} ms, bound "
           f"{select_bound_s_ * 1e3:.4f} ms ({select_bound_by}) ({smi})")
     got, plain, sel, scan_plain_ms = scan_pair(*args, seed, K)
     err["shortlist_scan"] = max(err["shortlist_scan"], compare(
@@ -580,22 +637,10 @@ def main() -> int:
     # 6. the port-insertion kernel vs the host replay and the plain version:
     # first at the engine's shapes (resolve passes only the batch's port
     # pods, padded with -1 rows to a power-of-two bucket, against the
-    # whole used_ports), then on a port-heavy 1024-pod batch
-    prng_ports = np.random.default_rng(6)
-    port_cases = []
-    for name, P_, live, hot in (("engine shape", PORT_BUCKET, 113, N),
-                                ("port-heavy", BATCH, BATCH - 24, 300)):
-        state = np.zeros((N, NODE_PORTS), dtype=np.int32)
-        state[: N // 2] = prng_ports.integers(
-            0, 2, (N // 2, NODE_PORTS)) * 30000
-        rows = np.full(P_, -1, dtype=np.int32)
-        rows[:live] = prng_ports.integers(0, hot, live)
-        ports = prng_ports.integers(20000, 40000,
-                                    (P_, POD_PORTS)).astype(np.int32)
-        ports[prng_ports.random((P_, POD_PORTS)) < 0.25] = 0
-        ports[live:] = 0
-        port_cases.append((name, state, rows, ports))
-    for name, state, rows, ports in port_cases:
+    # whole used_ports), then on a port-heavy 1024-pod batch and with
+    # 1024 pods on one row
+    port_cases_ = port_cases(N, np.random.default_rng(6))
+    for name, state, rows, ports in port_cases_:
         state_d = torch.from_numpy(state).cuda()
         rows_d, ports_d = (torch.from_numpy(a).cuda() for a in (rows, ports))
         got = insert_ports_cuda(state_d, rows_d, ports_d)
@@ -613,16 +658,21 @@ def main() -> int:
             (got.cpu().double() - plain.cpu().double()).abs().max()))
         ms = cuda_ms(lambda: insert_ports_cuda(state_d, rows_d, ports_d),
                      reps=20)
+        dev_ms = device_ms(lambda: insert_ports_cuda(state_d, rows_d,
+                                                     ports_d), reps=20)
         # The state is read and written whole (the kernel's copy).
         moved = 2 * state.nbytes + rows.nbytes + ports.nbytes
         bound_s = moved / HBM_BYTES_PER_S
         if name == "engine shape":
-            ports_ms, ports_plain_ms, ports_bound_s = ms, plain_ms, bound_s
+            ports_ms, ports_dev_ms = ms, dev_ms
+            ports_plain_ms, ports_bound_s = plain_ms, bound_s
         print(f"port-insertion kernel vs host replay and plain, {name}: "
               f"{int((rows >= 0).sum())} port pods in a bucket of "
               f"{len(rows)} x {ports.shape[1]} ports into {N}x{NODE_PORTS}: "
               f"bitwise equal, {int((mirror != state).sum())} slots "
-              f"written; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"written; kernel {ms:.4f} ms per call back to back "
+              f"(host-paced; {dev_ms:.4f} ms of device time, the state "
+              f"copy and the kernel), plain {plain_ms:.1f} ms, bound "
               f"{bound_s * 1e3:.4f} ms (bytes) ({smi})")
         del state_d, rows_d, ports_d, got, plain
 
@@ -734,6 +784,7 @@ def main() -> int:
         "launches": port_launches["insert_ports"],
         "max_abs_err": err["insert_ports"],
         "ms": ports_ms,
+        "device_ms": ports_dev_ms,
         "plain_ms": ports_plain_ms,
         "bound_ms": ports_bound_s * 1e3,
         "bound_by": "bytes",

@@ -19,9 +19,11 @@ from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
-from torch_parity import (GREEDY_SHAPES, NEG, SHORTLIST_CASES, bits_equal,
-                          greedy_case, ports_case, scarce_case,
-                          shortlist_case)
+from torch_parity import (GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
+                          SELECT_CARD_LIST_KINDS, SHORTLIST_CASES,
+                          bits_equal,
+                          greedy_case, ports_case, ports_design_case,
+                          scarce_case, select_list_case, shortlist_case)
 
 
 def _need_card():
@@ -255,12 +257,15 @@ def _select_case(kind, rng):
         return rng.random((4, 60000), dtype=np.float32), 30000
     if kind == "wide-k-equals-n":
         return rng.random((2, 60000), dtype=np.float32), 60000
+    if kind in SELECT_CARD_LIST_KINDS:
+        return select_list_case(kind, rng)
     raise ValueError(kind)
 
 
-SELECT_KINDS = ["signed-zero", "plateau", "exact-tie", "all-neg", "k1", "k7",
-                "k-equals-n", "p-above-k", "row-not-cached",
-                "keys-not-in-shared", "wide-k-equals-n"]
+SELECT_KINDS = (["signed-zero", "plateau", "exact-tie", "all-neg", "k1",
+                 "k7", "k-equals-n", "p-above-k", "row-not-cached",
+                 "keys-not-in-shared", "wide-k-equals-n"]
+                + SELECT_CARD_LIST_KINDS)
 
 
 def _select_on_card(scores, seed, k):
@@ -346,3 +351,29 @@ def test_insert_ports_matches_plain_on_card(seed, P):
     mirror = state.copy()
     RES.replay_ports_host(mirror, rows, ports)
     assert bits_equal(mirror, got.cpu().numpy())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", PORTS_DESIGN_KINDS + ["all-on-one-row-1024",
+                                                       "bucket-of-1"])
+def test_insert_ports_design_cases_on_card(kind):
+    """The grouped insertion's hard cases: 1024 pods on one row (the
+    longest chain), every pod on its own row, full rows, -1 padding,
+    duplicate ports, PORT = 3 and 40, a bucket of one pod."""
+    _need_card()
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "all-on-one-row-1024":
+        state, rows, ports = ports_design_case("one-row", rng, P=1024)
+    elif kind == "bucket-of-1":
+        state, rows, ports = ports_design_case("distinct-rows", rng, P=1)
+        ports[0, 0] = 8080
+    else:
+        state, rows, ports = ports_design_case(kind, rng)
+    want = RES.insert_ports_plain(*(torch.from_numpy(a)
+                                    for a in (state, rows, ports)))
+    n0 = LAUNCHES["insert_ports"]
+    got = RES.insert_ports(torch.from_numpy(state).cuda(), rows, ports)
+    torch.cuda.synchronize()
+    assert LAUNCHES["insert_ports"] == n0 + 1
+    assert bits_equal(want.numpy(), got.cpu().numpy())
+    assert not bits_equal(state, got.cpu().numpy())

@@ -1,28 +1,41 @@
-"""Numpy models of the two shortlist kernels' algorithms, held bitwise
-against the JAX package's shortlist_select and greedy_assign_shortlist.
+"""Numpy models of the shortlist and port kernels' algorithms, held
+bitwise against the JAX package's shortlist_select,
+greedy_assign_shortlist and port insertion.
 
 csrc/shortlist_select.cu selects each row's shortlist without the (P,N)
-noise lattice: radix selects over the order key of the scores (kth) and
-over the boundary's 24-bit noise (the threshold t), a column select where
-t is shared by more nodes than slots are left, then a bitonic network
-over the K picks' 64-bit keys. csrc/shortlist_scan.cu walks the pods
-against a ring of candidate rows copied from the constant free0 and a
-shared-memory overlay of the batch's debited rows (an open-addressing
-table from column to slot), repairs over free0 (+) overlay, and writes
-the overlay back at the end. Each kernel is exact only if its algorithm
-is; this file checks the algorithms on the CPU, step for step as the
-kernels take them (tolerance 0: one ulp moves a tie-break).
+noise lattice. Its list path: every thread's largest order key (pass 1,
+while the row lands in shared memory), L = the K-th largest of those
+maxima, a list of every node above L and of the nodes at L whose noise
+clears a floor T (pass 2), and the list sorted by the composite key; a
+list that overflowed or came up short is rebuilt once with a floor from
+exact counts, else the row takes the exact path. The exact path (and
+every row with K > 384): radix selects over the order key of the scores
+(kth) and over the boundary's 24-bit noise (the threshold t), a column
+select where t is shared by more nodes than slots are left, then a
+bitonic network over the K picks' 64-bit keys. csrc/shortlist_scan.cu
+walks the pods against a ring of candidate rows copied from the constant
+free0 and a shared-memory overlay of the batch's debited rows (an
+open-addressing table from column to slot), repairs over free0 (+)
+overlay, and writes the overlay back at the end. csrc/insert_ports.cu
+places each pod's ports by their rank among the node's ports: the k-th
+nonzero port of a node (pod order, then slot order) fills the k-th zero
+slot of the row as it entered the batch. Each kernel is exact only if
+its algorithm is; this file checks the algorithms on the CPU, step for
+step as the kernels take them (tolerance 0: one ulp moves a tie-break).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from minisched_tpu.ops import residency as JR
 from minisched_tpu.ops.select import greedy_assign_shortlist as jshortlist
 from minisched_tpu.ops.select import seed_from_key
 from minisched_tpu.ops.select import shortlist_select as jselect
 from minisched_tpu_torch.ops import prng
-from torch_parity import (NEG, SHORTLIST_CASES, bits_equal, scarce_case,
+from torch_parity import (NEG, PORTS_DESIGN_KINDS, SELECT_LIST_KINDS,
+                          SHORTLIST_CASES, bits_equal, ports_case,
+                          ports_design_case, scarce_case, select_list_case,
                           shortlist_case)
 
 M32 = 0xFFFFFFFF
@@ -96,53 +109,137 @@ def bitonic_desc(keys):
     return keys
 
 
+def exact_row(s, seed, i, k, stats=None):
+    """The kernel's exact path on one row: (cand, kth, kth_noise)."""
+    N = s.shape[0]
+    cols = np.arange(N)
+    every = np.ones(N, bool)
+    keys = order_key(s)
+    prefix = pmask = 0
+    krem = k
+    for shift in (24, 16, 8, 0):
+        prefix, pmask, krem, _ = radix_pass(keys, every, prefix, pmask,
+                                            shift, krem, True)
+    kv = order_key_inv(prefix)
+    above = s > kv
+    bnd = s == kv
+    need = k - int(above.sum())
+    assert need >= 1
+    nz = noise24(seed, i, cols)
+    t = tmask = 0
+    krem = need
+    for shift in (16, 8, 0):
+        t, tmask, krem, tcount = radix_pass(nz, bnd, t, tmask, shift,
+                                            krem, True)
+    ct = M32
+    if tcount > krem:  # the lowest columns among noise == t
+        if stats is not None:
+            stats["column passes"] += 1
+        top = 0
+        while top < 24 and (N - 1) >> (top + 8):
+            top += 8
+        ct = cmask = 0
+        tie = bnd & (nz == t)
+        for shift in range(top, -1, -8):
+            ct, cmask, krem, _ = radix_pass(cols, tie, ct, cmask, shift,
+                                            krem, False)
+    pick_b = bnd & ((nz > t) | ((nz == t) & (cols <= ct)))
+    picks = ([((1 << 24) << 32) | (~j & M32) for j in cols[above]]
+             + [(int(nz[j]) << 32) | (~j & M32) for j in cols[pick_b]])
+    assert len(picks) == k
+    return ([~int(x) & M32 for x in bitonic_desc(picks)], kv,
+            np.float32(t) * np.float32(1.0 / (1 << 24)))
+
+
+THREADS, CAP, FAST_K = 1024, 1024, 384
+ZERO_KEYS = (0x80000000, 0x7FFFFFFF)  # the order keys of +0.0 and -0.0
+
+
+def noise_floor(need, b):
+    """The floor T at which about 1.5 * need + 32 of b uniform 24-bit
+    noises are >= T."""
+    want = need + need // 2 + 32
+    return 0 if want >= b else (1 << 24) - (want << 24) // b
+
+
+def list_row(s, seed, i, k, stats):
+    """The kernel's list path on one row; None where it hands the row to
+    the exact path."""
+    N = s.shape[0]
+    keys = order_key(s).astype(np.int64)
+    tid = np.arange(N) % THREADS  # chunks of whole strides
+    mx = np.zeros(THREADS, np.int64)  # threads without nodes hold 0
+    np.maximum.at(mx, tid, keys)
+    cm = np.bincount(tid[keys == mx[tid]], minlength=THREADS)
+    L = int(np.sort(mx)[::-1][k - 1])  # the K-th largest thread maximum
+    over = int((mx > L).sum())
+    at_l = int(cm[mx == L].sum())
+    if L in ZERO_KEYS:
+        stats["signed-zero L"] += 1
+        return None
+    cols = np.arange(N)
+    nz_all = None
+
+    def compact(T):
+        nonlocal nz_all
+        up = keys > L
+        eq = keys == L
+        if nz_all is None:
+            nz_all = noise24(seed, i, cols)
+        take = eq & (nz_all >= T)
+        return up.sum(), eq.sum(), take.sum(), cols[up | take]
+
+    def fits(a, et):
+        return a + et <= CAP and (a >= k or a + et >= k)
+
+    a, e, et, lst = compact(noise_floor(k - over, at_l))
+    if not fits(a, et):
+        stats["rebuilt"] += 1
+        a, e, et, lst = compact(1 << 24 if a >= k else
+                                noise_floor(k - int(a), int(e)))
+        if not fits(a, et):
+            return None
+    kkey = L
+    if a >= k:  # kth lies above L: the K-th key of the list
+        stats["kth above L"] += 1
+        by_key = [(int(keys[j]) << 32) | (~int(j) & M32) for j in lst]
+        kkey = int(sorted(by_key, reverse=True)[k - 1] >> 32)
+    else:
+        stats["kth = L"] += 1
+    kv = order_key_inv(kkey)
+    comp = []
+    for j in lst:  # float compares, as JAX's composite key
+        cls = 0
+        if s[j] > kv:
+            cls = (1 << 24) + 1
+        elif s[j] == kv:
+            cls = int(noise24(seed, i, j)) + 1
+        comp.append((cls << 32) | (~int(j) & M32))
+    top = sorted(comp, reverse=True)[:k]  # the kernel's bitonic network
+    stats["list size"] = max(stats["list size"], len(lst))
+    return ([~int(x) & M32 for x in top], kv,
+            np.float32((top[-1] >> 32) - 1) * np.float32(1.0 / (1 << 24)))
+
+
 def select_model(scores, seed, k, stats=None):
     """csrc/shortlist_select.cu, row by row. Returns (cand, kth,
-    kth_noise) as the kernel writes them."""
+    kth_noise) as the kernel writes them; ``stats`` counts the branches
+    taken."""
+    if stats is None:
+        stats = {}
+    for name in ("column passes", "signed-zero L", "rebuilt", "exact",
+                 "kth above L", "kth = L", "list size"):
+        stats.setdefault(name, 0)
     P, N = scores.shape
     cand = np.zeros((P, k), np.int32)
     kth = np.zeros(P, np.float32)
     kthn = np.zeros(P, np.float32)
-    cols = np.arange(N)
-    every = np.ones(N, bool)
     for i in range(P):
-        s = scores[i]
-        keys = order_key(s)
-        prefix = pmask = 0
-        krem = k
-        for shift in (24, 16, 8, 0):
-            prefix, pmask, krem, _ = radix_pass(keys, every, prefix, pmask,
-                                                shift, krem, True)
-        kv = order_key_inv(prefix)
-        above = s > kv
-        bnd = s == kv
-        need = k - int(above.sum())
-        assert need >= 1
-        nz = noise24(seed, i, cols)
-        t = tmask = 0
-        krem = need
-        for shift in (16, 8, 0):
-            t, tmask, krem, tcount = radix_pass(nz, bnd, t, tmask, shift,
-                                                krem, True)
-        ct = M32
-        if tcount > krem:  # the lowest columns among noise == t
-            if stats is not None:
-                stats["column passes"] += 1
-            top = 0
-            while top < 24 and (N - 1) >> (top + 8):
-                top += 8
-            ct = cmask = 0
-            tie = bnd & (nz == t)
-            for shift in range(top, -1, -8):
-                ct, cmask, krem, _ = radix_pass(cols, tie, ct, cmask, shift,
-                                                krem, False)
-        pick_b = bnd & ((nz > t) | ((nz == t) & (cols <= ct)))
-        picks = ([((1 << 24) << 32) | (~j & M32) for j in cols[above]]
-                 + [(int(nz[j]) << 32) | (~j & M32) for j in cols[pick_b]])
-        assert len(picks) == k
-        cand[i] = [~int(x) & M32 for x in bitonic_desc(picks)]
-        kth[i] = kv
-        kthn[i] = np.float32(t) * np.float32(1.0 / (1 << 24))
+        row = list_row(scores[i], seed, i, k, stats) if k <= FAST_K else None
+        if row is None:
+            stats["exact"] += 1
+            row = exact_row(scores[i], seed, i, k, stats)
+        cand[i], kth[i], kthn[i] = row
     return cand, kth, kthn
 
 
@@ -363,9 +460,94 @@ def test_select_model_column_passes_on_forced_noise_ties():
             cls = np.where(s > kth[i], 1 << 24, np.where(s == kth[i], nz, -1))
             want = sorted(range(700), key=lambda j: (-cls[j], j))[:37]
             assert list(cand[i]) == want
-        assert stats["column passes"] == 6
+        # The list path cannot clear a floor with 2-bit noise: every row
+        # takes the exact path and its column passes.
+        assert stats["column passes"] == stats["exact"] == 6
     finally:
         noise24 = real
+
+
+# The branch of the list path that each list-path row is built to take.
+LIST_BRANCH = {"one-wider-than-k": "kth above L",
+               "all-distinct": "kth above L",
+               "top-exactly-k": "kth above L", "bench-like": "kth = L",
+               "rebuilt": "rebuilt", "exact-after-overflow": "exact"}
+
+
+@pytest.mark.parametrize("kind", SELECT_LIST_KINDS)
+def test_select_model_list_path_branches(kind):
+    """Rows aimed at each branch of the list path: a value held by K+1
+    nodes, distinct values, exactly K nodes on top, bench-like plateaus
+    (kth = L after one pass, the list about 1.5 K), a list rebuilt with
+    exact counts, and one that overflows twice and takes the exact path."""
+    scores, k = select_list_case(kind, np.random.default_rng(len(kind)))
+    jkey, seed = _keys(3, k)
+    want = _jax_select(scores, jkey, k)
+    stats = {}
+    got = select_model(scores, seed, k, stats)
+    for w, g, name in zip(want, got, ("cand", "kth", "kth_noise")):
+        assert bits_equal(w, g), name
+    assert stats[LIST_BRANCH[kind]] == scores.shape[0], stats
+    assert stats["list size"] <= CAP
+    if kind == "bench-like":
+        assert stats["list size"] < 2 * k
+
+
+def test_select_model_takes_the_list_path_on_the_test_rows():
+    """Every random, plateau and NEG row of the selection tests at K=128
+    is served by the list path (no exact fallback; with one node per
+    thread L is kth itself), and signed zeros at L go to the exact
+    path."""
+    stats = {}
+    for kind in ("random", "plateau", "neg"):
+        select_model(_select_rows(kind, np.random.default_rng(1)), 5, 128,
+                     stats)
+    assert stats["exact"] == 0 and stats["kth = L"] == 30
+    stats = {}
+    select_model(_select_rows("signed-zero", np.random.default_rng(7)), 5, 7,
+                 stats)
+    assert stats["signed-zero L"] == stats["exact"] > 0
+
+
+def ports_model(state, rows, ports, order):
+    """csrc/insert_ports.cu with its pods taken in ``order`` (any order:
+    each pod reads only the input state and writes its own slots): a
+    pod's prefix is the nonzero ports of the earlier pods on its row, and
+    its ports fill that row's input zero slots from that rank on."""
+    out = state.copy()
+    N = state.shape[0]
+    cnt = (ports != 0).sum(axis=1)
+    for i in order:
+        r = int(rows[i])
+        if r < 0 or r >= N:
+            continue
+        prefix = int(cnt[:i][rows[:i] == r].sum())
+        mine = [int(p) for p in ports[i] if p]
+        zeros = np.flatnonzero(state[r] == 0)[prefix:prefix + len(mine)]
+        out[r, zeros] = mine[:len(zeros)]
+    return out
+
+
+@pytest.mark.parametrize("kind", PORTS_DESIGN_KINDS)
+def test_ports_model_matches_jax(kind):
+    state, rows, ports = ports_design_case(kind, np.random.default_rng(9))
+    want = np.asarray(JR.insert_ports(jnp.asarray(state), rows, ports))
+    P = rows.shape[0]
+    for order in (range(P), range(P - 1, -1, -1),
+                  np.random.default_rng(1).permutation(P)):
+        assert bits_equal(want, ports_model(state, rows, ports, order))
+    assert not bits_equal(want, state)
+    if kind == "full-rows":  # some ports dropped
+        assert (want != state).sum() < (ports[rows >= 0] != 0).sum()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ports_model_on_ports_cases(seed):
+    state, rows, ports = ports_case(np.random.default_rng(seed))
+    want = np.asarray(JR.insert_ports(jnp.asarray(state), rows, ports))
+    got = ports_model(state, rows, ports,
+                      np.random.default_rng(seed).permutation(len(rows)))
+    assert bits_equal(want, got)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 8, 13, 64, 100, 128, 129])

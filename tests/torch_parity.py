@@ -188,6 +188,65 @@ def shortlist_case(P, N, R, seed, neg_rows=(), **kw):
     return scores, requests, free
 
 
+# Rows for the selection kernel's list path (csrc/shortlist_select.cu),
+# each aimed at one of its branches: (scores (P,N) float32, K). The card
+# also takes "rows-walked", too large for the CPU models.
+SELECT_LIST_KINDS = ["one-wider-than-k", "all-distinct", "top-exactly-k",
+                     "bench-like", "rebuilt", "exact-after-overflow"]
+SELECT_CARD_LIST_KINDS = SELECT_LIST_KINDS + ["rows-walked"]
+
+
+def select_list_case(kind, rng, P=4):
+    k, N = 128, 3000
+    if kind in ("one-wider-than-k", "top-exactly-k"):
+        # The K-th value held by K+1 nodes (all but one are taken), or
+        # exactly K nodes at the top.
+        s = rng.integers(0, 50, (P, N)).astype(np.float32)
+        for row in s:
+            row[rng.choice(N, k + (kind == "one-wider-than-k"),
+                           replace=False)] = 100.0
+    elif kind == "all-distinct":  # kth lies above L: compaction helps least
+        N = 20000
+        s = np.stack([rng.permutation(N) for _ in range(P)]) * 0.25
+    elif kind == "bench-like":  # a quarter of the row at each of 4 values
+        N = 8192
+        s = rng.choice(np.float32([181.25, 190.625, 195.3125, 196.875]),
+                       (P, N))
+        s[rng.random((P, N)) < 0.01] = NEG
+    elif kind == "rebuilt":
+        # Threads 0..K-2 (column j is thread j mod 1024) hold one node at
+        # 10 and otherwise nodes at 5; thread K-1 one node at 5: L = 5,
+        # whose count the thread maxima underestimate 5000-fold, so the
+        # first list overflows and the rebuilt one fits.
+        N = 1024 * 40
+        s = np.ones((P, N), np.float32)
+        s[:, np.arange(N) % 1024 < k - 1] = 5.0
+        s[:, :k - 1] = 10.0
+        s[:, k - 1] = 5.0
+    elif kind == "exact-after-overflow":
+        # K=384 threads hold four values above 10 each: about 1,200 nodes
+        # lie above L, more than the list holds, so the row takes the
+        # exact path.
+        k, N = 384, 1024 * 4
+        s = rng.random((P, N))
+        s[:, np.arange(N) % 1024 < k] += 10.0
+    elif kind == "rows-walked":
+        # 203 cached rows of 53,248 columns over 132 SMs: blocks walk one
+        # or two rows, each of another branch (a bench plateau, distinct
+        # values, signed zeros at L for the exact path, NEG only).
+        P, N = 203, 53248
+        s = rng.choice(np.float32([181.25, 190.625, 195.3125, 196.875]),
+                       (P, N))
+        s[1::4] = rng.random((len(range(1, P, 4)), N), dtype=np.float32)
+        s[2::4] = np.where(rng.random((len(range(2, P, 4)), N)) < 0.5,
+                           0.0, -0.0)
+        s[2::4, ::5000] = 5.0
+        s[3::4] = NEG
+    else:
+        raise ValueError(kind)
+    return s.astype(np.float32), k
+
+
 def ports_case(rng, N=40, PORT=8, P=48, PP=4):
     """A port-heavy batch for the port-insertion op: node rows partly
     filled (some full, so ports overflow), pods with 0-4 nonzero ports on
@@ -198,6 +257,45 @@ def ports_case(rng, N=40, PORT=8, P=48, PP=4):
     rows = rng.integers(-1, 8, P).astype(np.int32)
     ports = rng.integers(0, 9000, (P, PP)).astype(np.int32)
     ports[rng.random((P, PP)) < 0.3] = 0
+    return state, rows, ports
+
+
+
+PORTS_DESIGN_KINDS = ["one-row", "distinct-rows", "full-rows", "padding",
+                      "duplicates", "port-3", "port-40"]
+
+
+def ports_design_case(kind, rng, P=64):
+    """Batches for the port-insertion kernel's grouping by node: every
+    pod on one row (the longest chain), every pod on its own row, rows
+    so full that ports drop, -1 padding after the live pods, duplicate
+    port values, and PORT = 3 or 40. Returns int32 (state, rows, ports)."""
+    N, PORT, PP = 200, 8, 4
+    if kind == "port-3":
+        PORT = 3
+    elif kind == "port-40":
+        PORT, PP = 40, 6
+    state = (rng.integers(0, 2, (N, PORT))
+             * rng.integers(1000, 2000, (N, PORT))).astype(np.int32)
+    rows = rng.integers(0, 24, P).astype(np.int32)
+    ports = rng.integers(20000, 40000, (P, PP)).astype(np.int32)
+    ports[rng.random((P, PP)) < 0.3] = 0
+    if kind == "one-row":
+        rows[:] = 7
+        state[7] = 0
+        state[7, ::3] = 99
+    elif kind == "distinct-rows":
+        rows = rng.permutation(N)[:P].astype(np.int32)
+    elif kind == "full-rows":
+        state[: N // 2] = 5
+        state[N // 2:, : PORT - 1] = 5  # one free slot per row
+        rows = rng.integers(0, N, P).astype(np.int32)
+    elif kind == "padding":
+        rows[P // 2:] = -1
+        ports[P // 2:] = 0
+        rows[: P // 2: 5] = -1
+    elif kind == "duplicates":
+        ports = rng.choice(np.int32([0, 80, 443]), (P, PP))
     return state, rows, ports
 
 

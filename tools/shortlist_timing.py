@@ -4,7 +4,9 @@ shortlist_select_plain by part.
 
     python tools/shortlist_timing.py [--other OLD.cu ...]
                                      [--variants stages8,producers8]
-                                     [--split]
+                                     [--split] [--other-select OLD.cu]
+                                     [--split-select]
+                                     [--other-ports OLD.cu]
 
 Inputs: the bench workload's first full-width batch (1024 pods x 53248
 nodes x R=10, as chip_smoke.py builds it, K=128) and a contention batch
@@ -26,6 +28,24 @@ is first held bitwise against the plain version on all four outputs.
             outputs and release, in repairs and in all; a producer warp's
             cycles waiting for an empty stage and in all.
 
+--other-select  a selection kernel source with the same C interface
+            (for instance an earlier commit's csrc/shortlist_select.cu),
+            held bitwise against shortlist_select_plain and timed beside
+            the package's selection in turns (CUDA events, 20 launches
+            each), repeatable: on the bench batch at K=128 (the list
+            path) and K=1000 (the exact path, row cached), and on a
+            batch of +0.0 rows at K=128 (a signed zero at L: the exact
+            path on the list path's cached row);
+--split-select  a copy of the package's selection with clock64 stamps
+            (SELECT_SPLIT): thread 0's cycles per row of the bench batch
+            in pass 1 (and waiting for the row), L, pass 2 and the list;
+--other-ports   a port-insertion kernel source with the same C interface,
+            held bitwise against insert_ports_plain and timed beside the
+            package's in turns at chip_smoke.py's port shapes (the
+            engine's 128 bucket, a 1024-pod batch, 1024 pods on one row):
+            device time from torch.profiler (the state copy and the
+            kernel), and per call back to back with CUDA events.
+
 The selection is timed as the kernel and as shortlist_select_plain's
 parts (CUDA events, 10 calls each): the first top-k over the order key
 (kth), the noise lattice, the composite key, the second top-k (cand),
@@ -42,6 +62,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,10 +70,15 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from minisched_tpu_torch.encode import to_torch  # noqa: E402
 from minisched_tpu_torch.ops import _cuda_build, prng  # noqa: E402
+from minisched_tpu_torch.ops import residency as RES  # noqa: E402
 from minisched_tpu_torch.ops import select as S  # noqa: E402
 from minisched_tpu_torch.ops.pipeline import evaluate  # noqa: E402
 from minisched_tpu_torch.ops.select_kernel import \
     shortlist_select_cuda  # noqa: E402
+from minisched_tpu_torch.ops.ports_kernel import \
+    _bind as bind_ports  # noqa: E402
+from minisched_tpu_torch.ops.select_kernel import \
+    _bind as bind_select  # noqa: E402
 from minisched_tpu_torch.ops.shortlist_kernel import _bind  # noqa: E402
 
 BUILD = os.path.join(ROOT, "minisched_tpu_torch", "_build", "timing")
@@ -130,6 +156,53 @@ SPLIT = [
 ]
 
 
+# The stamps of --split-select (thread 0's cycles summed over the list
+# path's rows): [0] pass 1, of which [4] waiting for the row's chunks,
+# [1] L and the sums, [2] pass 2 (compaction, a rebuild), the list: [6]
+# kth and the composite keys, [7] their sort, [3] the outputs; [5] the
+# rows.
+SELECT_SPLIT = [
+    ("__global__ void __launch_bounds__(kThreads, 1)\n"
+     "    shortlist_select_kernel(",
+     "__device__ unsigned long long g_stamps[8];\n\n"
+     "__global__ void __launch_bounds__(kThreads, 1)\n"
+     "    shortlist_select_kernel("),
+    ("  uint32_t parity = 0;\n",
+     "  uint32_t parity = 0;\n"
+     "  unsigned long long st[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  long long c0 = 0, w0 = 0;\n"),
+    ("    uint32_t mx = 0, cm = 0;\n",
+     "    uint32_t mx = 0, cm = 0;\n    c0 = clock64();\n"),
+    ("      if (cached) mbar_wait(&sh.bar[c], parity);\n",
+     "      w0 = clock64();\n"
+     "      if (cached) mbar_wait(&sh.bar[c], parity);\n"
+     "      st[4] += clock64() - w0;\n"),
+    ("    // L: the K-th largest thread maximum",
+     "    st[0] += clock64() - c0;\n    c0 = clock64();\n"
+     "    // L: the K-th largest thread maximum"),
+    ("    // Pass 2: the list of every node above L",
+     "    st[1] += clock64() - c0;\n    c0 = clock64();\n"
+     "    // Pass 2: the list of every node above L"),
+    ("    if (!ok) {\n      select_exact(",
+     "    st[2] += clock64() - c0;\n    c0 = clock64();\n"
+     "    if (!ok) {\n      select_exact("),
+    ("    __syncthreads();\n    sort_list(lkeys, lpay, n);\n",
+     "    __syncthreads();\n"
+     "    st[6] += clock64() - c0;\n    c0 = clock64();\n"
+     "    sort_list(lkeys, lpay, n);\n"
+     "    st[7] += clock64() - c0;\n    c0 = clock64();\n"),
+    ("    __syncthreads();\n  }\n}\n\n// The device's attributes",
+     "    __syncthreads();\n    st[3] += clock64() - c0;\n    st[5] += 1;\n"
+     "  }\n  if (tid == 0)\n"
+     "    for (int q = 0; q < 8; ++q) atomicAdd(&g_stamps[q], st[q]);\n"
+     "}\n\n// The device's attributes"),
+    ('extern "C" const char* shortlist_select_error_string',
+     'extern "C" int shortlist_select_stamps(unsigned long long* out) {\n'
+     "  return cudaMemcpyFromSymbol(out, g_stamps, 8 * 8);\n}\n\n"
+     'extern "C" const char* shortlist_select_error_string'),
+]
+
+
 def edit(src: str, pairs) -> str:
     for old, new in pairs:
         if src.count(old) != 1:
@@ -138,10 +211,10 @@ def edit(src: str, pairs) -> str:
     return src
 
 
-def build(name: str, src: str) -> ctypes.CDLL:
+def build(name: str, src: str, bind=_bind) -> ctypes.CDLL:
     digest = hashlib.sha256(src.encode()).hexdigest()[:12]
     os.makedirs(BUILD, exist_ok=True)
-    cu = os.path.join(BUILD, f"scan-{name}-{digest}.cu")
+    cu = os.path.join(BUILD, f"{name}-{digest}.cu")
     so = cu[:-3] + ".so"
     if not os.path.exists(so):
         with open(cu, "w") as f:
@@ -151,8 +224,113 @@ def build(name: str, src: str) -> ctypes.CDLL:
         if p.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{p.stderr}")
     lib = ctypes.CDLL(so)
-    _bind(lib)
+    bind(lib)
     return lib
+
+
+def builds_of(kernel: str, others, bind):
+    """The package's source of ``kernel`` and each other source, built;
+    the names in turns: others, package, package, others reversed."""
+    src = open(_cuda_build.source(kernel)).read()
+    libs = {"package": build(f"{kernel}-package", src, bind)}
+    for path in others:
+        name = os.path.splitext(os.path.basename(path))[0]
+        libs[name] = build(f"{kernel}-{name}", open(path).read(), bind)
+    names = [n for n in libs if n != "package"]
+    return libs, names + ["package", "package"] + names[::-1]
+
+
+def checked(err: int) -> None:
+    if err not in (0, _cuda_build.NO_LAUNCH):
+        raise SystemExit(f"launch failed: cudaError {err}")
+
+
+def select_launch(lib, scores, seed, k):
+    P, N = scores.shape
+    dev = scores.device
+    out = (torch.empty((P, k), dtype=torch.int32, device=dev),
+           torch.empty((P,), device=dev), torch.empty((P,), device=dev),
+           torch.empty((P, k), device=dev))
+    checked(lib.shortlist_select_launch(
+        scores.data_ptr(), seed & 0xFFFFFFFF, P, N, k,
+        *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def ports_launch(lib, state, rows, ports):
+    out = torch.empty_like(state)
+    checked(lib.insert_ports_launch(
+        state.data_ptr(), rows.data_ptr(), ports.data_ptr(), state.shape[0],
+        state.shape[1], ports.shape[0], ports.shape[1], out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def select_ab(others, scores, seed, smi):
+    """The package's selection beside other sources, bitwise against the
+    plain version, then in turns: the bench batch at K=128 and K=1000,
+    and a batch of +0.0 rows at K=128."""
+    libs, order = builds_of("shortlist_select", others, bind_select)
+    for label, sc, k in (("bench", scores, cs.K),
+                         ("bench", scores, 1000),
+                         ("+0.0 rows", torch.zeros_like(scores), cs.K)):
+        want = S.shortlist_select_plain(sc, seed, k)
+        want = (*want, torch.gather(sc, 1, want[0].long()))
+        for name, lib in libs.items():
+            for a, b in zip(select_launch(lib, sc, seed, k), want):
+                if not torch.equal(cs.bits(a), cs.bits(b)):
+                    raise SystemExit(f"selection {name} differs from plain "
+                                     f"({label}, K={k})")
+        P, N = sc.shape
+        times = [(b, cs.cuda_ms(lambda lib=libs[b]: select_launch(
+            lib, sc, seed, k), reps=20)) for b in order]
+        print(f"selection A/B {label} {P}x{N} K={k}: every build = plain "
+              f"bitwise; " + ", ".join(f"{b} {ms:.4f} ms" for b, ms in times)
+              + f" ({smi})")
+
+
+def select_split(scores, seed, k, smi):
+    """One stamped launch of the selection: thread 0's cycles per row."""
+    src = edit(open(_cuda_build.source("shortlist_select")).read(),
+               SELECT_SPLIT)
+    lib = build("shortlist_select-split", src, bind_select)
+    select_launch(lib, scores, seed, k)
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 8)()
+    lib.shortlist_select_stamps.restype = ctypes.c_int
+    if lib.shortlist_select_stamps(out):
+        raise SystemExit("reading the stamps failed")
+    st = list(out)
+    rows = max(st[5], 1)
+    print(f"split selection {tuple(scores.shape)} K={k}: {st[5]} rows on "
+          f"the list path; cycles per row: pass 1 {st[0] / rows:.0f} (of "
+          f"which waiting for the row {st[4] / rows:.0f}), L and sums "
+          f"{st[1] / rows:.0f}, pass 2 {st[2] / rows:.0f}, list "
+          f"{(st[6] + st[7] + st[3]) / rows:.0f} (kth and keys "
+          f"{st[6] / rows:.0f}, sort {st[7] / rows:.0f}, outputs "
+          f"{st[3] / rows:.0f}) ({smi})")
+
+
+def ports_ab(others, N, smi):
+    """The package's port insertion beside other sources at chip_smoke's
+    port shapes, bitwise against the plain version, then in turns."""
+    libs, order = builds_of("insert_ports", others, bind_ports)
+    for name, state, rows, ports in cs.port_cases(
+            N, np.random.default_rng(6)):
+        args = [torch.from_numpy(a).cuda() for a in (state, rows, ports)]
+        want = RES.insert_ports_plain(*args)
+        for b, lib in libs.items():
+            if not torch.equal(ports_launch(lib, *args), want):
+                raise SystemExit(f"port insertion {b} differs ({name})")
+        times = [(b, cs.device_ms(lambda lib=libs[b]: ports_launch(
+            lib, *args), reps=20), cs.cuda_ms(lambda lib=libs[b]: ports_launch(
+                lib, *args), reps=20)) for b in order]
+        print(f"port insertion A/B {name}: {int((rows >= 0).sum())} pods in "
+              f"a bucket of {len(rows)} x {ports.shape[1]} ports into "
+              f"{N}x{state.shape[1]}: every build = plain bitwise; device "
+              f"time (copy and kernel; per call back to back): "
+              + ", ".join(f"{b} {dev:.4f} ms ({call:.4f})"
+                          for b, dev, call in times) + f" ({smi})")
 
 
 def launch(lib, scores, sel, cand_scores, req, free, seed):
@@ -244,6 +422,11 @@ def main() -> int:
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {sorted(VARIANTS)}")
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--other-select", action="append", default=[],
+                    help="another selection kernel source, same interface")
+    ap.add_argument("--split-select", action="store_true")
+    ap.add_argument("--other-ports", action="append", default=[],
+                    help="another port kernel source, same interface")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
@@ -296,6 +479,12 @@ def main() -> int:
         if stamped is not None:
             split(stamped, sc, sel, cand_scores, req, free, seed, name, smi)
     select_parts(scores, seed, cs.K, smi)
+    if opts.other_select:
+        select_ab(opts.other_select, scores, seed, smi)
+    if opts.split_select:
+        select_split(scores, seed, cs.K, smi)
+    if opts.other_ports:
+        ports_ab(opts.other_ports, N, smi)
     return 0
 
 
