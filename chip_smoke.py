@@ -29,26 +29,48 @@ them, and on any mismatch. Phases, each printing its own lines:
   5. one full-width build_step batch with shortlist=128 against
      shortlist=None on the card (chosen, assigned, free_after bitwise),
      then cuda vs cpu for each, every Decision field bitwise;
-  6. the port-insertion kernel vs the host replay and its plain version
+  6. the sampled step at bench-50k, as the default config runs it (K =
+     4,096 of the 53,248-row pad): the sample's rows cuda vs cpu,
+     picked with no host-device sync (torch's sync debug mode), the
+     greedy, selection and scan kernels vs their plain versions on the
+     sampled 1024 x 4096 scores (each kernel's time, plain time and
+     bound at this shape, which the main path runs), every Decision
+     field of the sampled step cuda vs cpu with and without the
+     shortlist, and the sampled against the unsampled step in CUDA
+     events and in device time (the profiler's; where it records none,
+     CUDA events around calls queued behind a spin kernel, or "not
+     measured" for a call that waits on the host);
+  7. BalancedAllocation's score at full width on the card equal to the
+     CPU's bitwise, and torch.sqrt of float32 on the card equal to
+     numpy's correctly rounded sqrt;
+  8. the port-insertion kernel vs the host replay and its plain version
      at the engine's shapes (a 128-pod bucket of port pods x 4 requested
      ports into the bench cluster's 53248 x 8 used_ports), on a
      port-heavy 1024-pod batch and with 1024 pods on one row;
-  7. the main path: Cluster(...).start() with SchedulerConfig() (the
-     pipelined, device-resident, shortlist cycle) on the card, bench
-     profile, 50,000 nodes x 10,000 pods, all bound, no node over its
-     allocatable, the selection and scan kernels launched in every
-     batch, one
-     residency resync and hits after it, and the carried device state
-     equal to its host mirror bitwise at the end;
-  8. the port path: the JAX package's port-heavy residency burst
+  9. the main path: Cluster(...).start() with SchedulerConfig() (the
+     pipelined, device-resident, shortlist cycle, sampling K nodes per
+     batch) on the card, bench profile, 50,000 nodes x 10,000 pods, all
+     bound, no node over its allocatable, the K the engine picks, the
+     selection and scan kernels launched in every batch, one residency
+     resync and hits after it, and the carried device state equal to
+     its host mirror bitwise at the end;
+ 10. the port path: the JAX package's port-heavy residency burst
      (tests/test_device_residency.py:491: 4 nodes, 24 pods with two host
      ports each, NodeUnschedulable + NodeResourcesFit + NodePorts) with
      SchedulerConfig(): the port insertion kernel launched, the device
      used_ports equal to the host mirror, placements equal to the
      synchronous upload-every-batch run, no host port twice on a node;
-  9. the earlier path: pipeline, residency and shortlist off, 50,000
+ 11. the earlier path: pipeline, residency and shortlist off, 50,000
      nodes x 2,048 pods, the greedy kernel launched in every batch;
- 10. the reference's README scenario on the card (default config).
+ 12. faults on the card: a 1,201-node bench cluster (sampled, with one
+     pod only the residual pass places and two pods that fit nowhere),
+     pipeline on and then off, fault-free and then under
+     step:err@2,fetch:corrupt@3,commit:err@1,informer:err@1: each gate
+     fires once, the ladder ends at "resident", the placements equal
+     the fault-free run's; then a fault-free run with
+     shortlist_check_every=1 and resident_check_every=1 (the cross-check
+     launches the greedy kernel, the carry check runs, no desync);
+ 13. the reference's README scenario on the card (default config).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -65,6 +87,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from minisched_tpu_torch import faults
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
@@ -72,7 +95,9 @@ from minisched_tpu_torch.ops import _cuda_build, prng
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
-from minisched_tpu_torch.ops.pipeline import build_step, evaluate
+from minisched_tpu_torch.ops.pipeline import (_gather_nodes,
+                                              _select_node_sample,
+                                              build_step, evaluate)
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
                                             greedy_assign_shortlist_plain,
@@ -88,9 +113,19 @@ from minisched_tpu_torch.state import objects as O
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_parity import SELECT_CARD_LIST_KINDS, select_list_case  # noqa: E402
+from torch_parity import (SELECT_CARD_LIST_KINDS, sampled_cluster,  # noqa: E402
+                          select_list_case)
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
+# The node sample of the default config at bench-50k: pct = max(5, 50 -
+# 50,000 / 125) = 5, want = max(256, 2,500, 2 x 1,024) = 2,500, K = its
+# power-of-two bucket (engine/scheduler.py _sampled_step).
+SAMPLE_K = 4096
+# The default before node sampling (commit 9577057) on this workload
+# (PERF.md, NVIDIA H100 80GB HBM3, 700 W): the full-width step and the
+# main-path bursts.
+UNSAMPLED_STEP_MS, UNSAMPLED_BURSTS_S = 14.865, (2.787, 1.643)
+FAULT_SPEC = "step:err@2,fetch:corrupt@3,commit:err@1,informer:err@1"
 EARLIER_PODS = 2048
 PORT_BUCKET, POD_PORTS, NODE_PORTS = 128, 4, 8  # the engine's port shapes
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -172,11 +207,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` (its kernels and copies, as the
-    profiler's CUDA activity records them) over ``reps`` calls: for a
-    call whose host side outlasts its device work, where CUDA events
-    around back-to-back calls time the host."""
+def device_ms(fn, reps: int) -> float | None:
+    """Mean device time of ``fn()`` over ``reps`` calls, for a call whose
+    host side outlasts its device work (where CUDA events around
+    back-to-back calls time the host). The profiler's CUDA activity
+    (kernels and copies) where it records any; a process whose CUPTI
+    is taken records none, and then ``queued_ms`` times the calls."""
+    prof_ms = profiler_ms(fn, reps)
+    if prof_ms is not None:
+        return prof_ms
+    print("device time: the profiler recorded none; CUDA events around "
+          "calls queued behind a spin kernel instead")
+    return queued_ms(fn, reps)
+
+
+def profiler_ms(fn, reps: int) -> float | None:
+    """Mean device time of ``fn()`` as the profiler's CUDA activity
+    records it, or None where it records none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -186,8 +233,45 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / reps
+    return us / 1e3 / reps if us > 0 else None
+
+
+def queued_ms(fn, reps: int, tries: int = 4) -> float | None:
+    """Mean device time of ``fn()`` by CUDA events, each call queued
+    behind a spin kernel so that the card runs it without waiting on the
+    host. A call counts only if the spin was still running when the host
+    had queued it all; the spin doubles until it is. None if a call
+    still waits on the host (a readback, or a full launch queue): then
+    nothing here times its device work alone."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # Cycles at about 2 GHz for twice a call's host time, plus 1 ms.
+    cycles = int((2 * (time.perf_counter() - t) + 1e-3) * 2e9)
+    total = 0.0
+    for _ in range(reps):
+        for _ in range(tries):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            fn()
+            end.record()
+            ahead = not start.query()
+            torch.cuda.synchronize()
+            if ahead:
+                total += start.elapsed_time(end)
+                break
+            cycles *= 2
+        else:
+            return None
+    return total / reps
+
+
+def fmt_ms(ms: float | None, digits: int) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def host_ms(fn) -> float:
@@ -337,14 +421,15 @@ def port_cases(N, rng):
     return cases
 
 
-def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
+def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None):
     """Boot a cluster with ``cfg``, load the nodes, zero the launch
     counts, create the pods and wait until every pod is bound and every
     batch folded into the metrics. With residency on, the carried device
     free/used_ports must then equal their host mirrors bitwise (the
     kernels' outputs at the path's own shapes against the host replay).
-    Returns (metrics, launches, burst create-to-bound, per-pod
-    create-to-bound, placements)."""
+    ``probe(scheduler)`` runs once the nodes are synced. Returns
+    (metrics, launches, burst create-to-bound, per-pod create-to-bound,
+    placements)."""
     cluster = Cluster()
     try:
         cluster.create_objects(nodes)
@@ -352,6 +437,8 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
         check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
                          == len(nodes), timeout=120),
               f"{label}: informers did not sync the nodes")
+        if probe is not None:
+            probe(cluster.service.scheduler)
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         cluster.create_objects(pods)
@@ -361,14 +448,14 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
             # A batch's pods may all be bound by the binder thread before
             # the scheduling thread folds that batch into its metrics.
             m = sched.metrics()
-            return m["cycle_errors"] > 0 or (
+            return m["batch_faults"] > 0 or (
                 m["pods_bound"] >= len(pods) and m["kernel_launches"]
                 == sum(LAUNCHES.values()))
 
         wait_until(settled, timeout=300, interval=0.05)
         launches = dict(LAUNCHES)
         m = sched.metrics()
-        check(m["cycle_errors"] == 0, f"{label}: a scheduling cycle failed")
+        check(m["batch_faults"] == 0, f"{label}: a scheduling cycle failed")
         check(m["pods_bound"] >= len(pods),
               f"{label}: only {m['pods_bound']} of {len(pods)} pods bound")
         for name, n in launches.items():
@@ -418,6 +505,55 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE):
                 bound_at - created,
                 {p.key: p.spec.node_name for p in placed})
     finally:
+        cluster.shutdown()
+
+
+def fault_burst(spec: str, cfg: SchedulerConfig, label: str):
+    """tests/test_torch_faults.py's burst on a cluster that samples:
+    sampled_cluster's 1,200 bench nodes, a big node and its resident pod,
+    then, with ``spec`` armed, its 257 pending pods (one placed only by
+    the residual pass) and two pods that fit nowhere (the last batch: a
+    failure tranche for the commit gate), in batches of 64 gathered over
+    a 0.3 s window. Waits until every pod is bound or parked, then
+    creates probe pods until the ladder is back at "resident". Returns
+    (placements, metrics)."""
+    first, pods = sampled_cluster(O)
+    doomed = [O.Pod(metadata=O.ObjectMeta(name=f"doom{i}", namespace="bench"),
+                    spec=O.PodSpec(requests={"cpu": 1e9}))
+              for i in range(2)]
+    cluster = Cluster()
+    try:
+        cluster.create_objects(first)
+        cluster.start(BENCH_PROFILE, cfg, with_pv_controller=False)
+        sched = cluster.service.scheduler
+        check(wait_until(lambda: sched.cache.node_count() == 1201,
+                         timeout=60), f"{label}: nodes not synced")
+        faults.configure(spec, 0)
+        cluster.create_objects(pods + doomed)
+        names = {p.metadata.name for p in pods}
+
+        def settled():
+            ps = cluster.list_pods()
+            return (sum(1 for p in ps if p.metadata.name in names
+                        and p.spec.node_name) == len(names)
+                    and sum(1 for p in ps if p.metadata.name.startswith(
+                        "doom") and p.status.unschedulable_plugins) == 2)
+
+        check(wait_until(settled, timeout=120), f"{label}: pods not settled")
+        placed = {p.metadata.name: p.spec.node_name
+                  for p in cluster.list_pods()
+                  if p.metadata.name in names}
+        check(sched.metrics()["pods_bound"] == len(placed),
+              f"{label}: a pod bound twice or lost")
+        probe = 0
+        while (sched.metrics()["degradation_state"] != "resident"
+               and probe < 40):
+            cluster.create_pod(f"probe{probe}", cpu=10)
+            cluster.wait_for_pod_bound(f"probe{probe}", timeout=30)
+            probe += 1
+        return placed, sched.metrics()
+    finally:
+        faults.configure("")
         cluster.shutdown()
 
 
@@ -632,9 +768,135 @@ def main() -> int:
     print(f"step full width shortlist={K} vs None on cuda: chosen, assigned "
           f"and free_after bitwise equal; {steps[K][1] * 1e3:.3f} ms vs "
           f"{steps[None][1] * 1e3:.3f} ms per step ({smi})")
-    del eb_d, nf_d, af_d, steps
+    del steps
 
-    # 6. the port-insertion kernel vs the host replay and the plain version:
+    # 6. the sampled step at bench-50k: the default config's K of the pad
+    skey_step, skey = prng.split(key)
+    sseed = prng.bits(skey_step)
+    nf_c = to_torch(nf, "cpu")
+    idx = _select_node_sample(nf_d, skey, SAMPLE_K)
+    check(torch.equal(idx.cpu(), _select_node_sample(nf_c, skey, SAMPLE_K)),
+          "node sample rows: cuda != cpu")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _select_node_sample(nf_d, skey, SAMPLE_K)
+    except RuntimeError as e:
+        check(False, f"picking the node sample waits on the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sample_ms = cuda_ms(lambda: _select_node_sample(nf_d, skey, SAMPLE_K),
+                        reps=10)
+    sample_dev_ms = device_ms(
+        lambda: _select_node_sample(nf_d, skey, SAMPLE_K), reps=10)
+    sample_spin_ms = queued_ms(
+        lambda: _select_node_sample(nf_d, skey, SAMPLE_K), reps=10)
+    nf_s = _gather_nodes(nf_d, idx)
+    s_scores, _fc, _rc = evaluate(plugin_set, eb_d, nf_s, af_d)
+    s_args = (s_scores, eb_d.pf.requests, nf_s.free)
+    SP, SN = s_scores.shape
+    k = greedy_assign_cuda(*s_args, sseed)
+    p = greedy_assign_plain(*s_args, sseed)
+    torch.cuda.synchronize()
+    err["greedy_assign"] = max(err["greedy_assign"], compare(k, p))
+    s_greedy_ms = cuda_ms(lambda: greedy_assign_cuda(*s_args, sseed), reps=20)
+    s_greedy_plain_ms = host_ms(lambda: greedy_assign_plain(*s_args, sseed))
+    moved = 4 * (SP * SN + SP * R + SN * R) + 4 * SP + SP + 4 * SN * R
+    compares = SP * SN * (R + 2)
+    s_greedy_bound_s = max(moved / HBM_BYTES_PER_S, compares / F32_OPS_PER_S)
+    s_greedy_bound_by = ("bytes" if moved / HBM_BYTES_PER_S
+                         >= compares / F32_OPS_PER_S else "operations")
+    s_greedy = k
+    del p
+    err["shortlist_select"] = max(err["shortlist_select"],
+                                  select_pair(s_scores, sseed, K))
+    s_sel = shortlist_select_cuda(s_scores, sseed, K)
+    s_select_ms = cuda_ms(lambda: shortlist_select_cuda(s_scores, sseed, K),
+                          reps=20)
+    s_select_plain_ms = cuda_ms(
+        lambda: shortlist_select_plain(s_scores, sseed, K), reps=5)
+    s_topk_ms = cuda_ms(lambda: torch.topk(s_scores, K, dim=1), reps=10)
+    s_select_bound_s, s_select_bound_by = select_bound_s(SP, SN, K)
+    got, plain, _sel, s_scan_plain_ms = scan_pair(*s_args, sseed, K)
+    err["shortlist_scan"] = max(err["shortlist_scan"], compare(
+        got, plain, ("chosen", "assigned", "free_after", "repaired")))
+    compare(got, s_greedy)  # the shortlist decides as the full kernel
+    s_repairs = int(plain.repaired.sum())
+    s_scan_ms = cuda_ms(lambda: shortlist_scan_cuda(
+        s_scores, s_sel[0], s_sel[1], s_sel[2], s_args[1], s_args[2], sseed,
+        cand_scores=s_sel[3]), reps=20)
+    s_scan_bound_s, s_scan_bound_by = scan_bound_s(SP, SN, K, R, s_repairs)
+    print(f"sampled kernels at {SP}x{SN}x{R} (the sample of {SAMPLE_K} "
+          f"nodes, rows cuda = cpu, picked with no host sync, {sample_ms:.3f} "
+          f"ms to pick back to back, "
+          f"{fmt_ms(sample_dev_ms, 3)} of it device time, "
+          f"{fmt_ms(sample_spin_ms, 3)} on the spin clock): greedy, "
+          f"selection (K={K}) and scan kernels bitwise equal to their plain "
+          f"versions, the scan equal to the greedy kernel, "
+          f"{int(plain.assigned.sum())} assigned, {s_repairs} repaired; "
+          f"greedy {s_greedy_ms:.4f} ms (plain {s_greedy_plain_ms:.1f} ms, "
+          f"bound {s_greedy_bound_s * 1e3:.4f} ms {s_greedy_bound_by}); "
+          f"selection {s_select_ms:.4f} ms (plain {s_select_plain_ms:.3f} "
+          f"ms, one torch.topk {s_topk_ms:.3f} ms, bound "
+          f"{s_select_bound_s * 1e3:.4f} ms {s_select_bound_by}); scan "
+          f"{s_scan_ms:.4f} ms (plain {s_scan_plain_ms:.1f} ms, bound "
+          f"{s_scan_bound_s * 1e3:.4f} ms {s_scan_bound_by}) ({smi})")
+    del got, plain, _sel, s_sel, s_greedy, s_scores, s_args, nf_s
+    step_ms = {}
+    for kk in (K, None):
+        step = build_step(plugin_set, shortlist=kk, sample_nodes=SAMPLE_K)
+        d_gpu = step(eb_d, nf_d, af_d, key)
+        d_cpu = step(to_torch(eb, "cpu"), nf_c, to_torch(af, "cpu"), key)
+        for field in d_cpu._fields:
+            check(torch.equal(bits(getattr(d_gpu, field)),
+                              bits(getattr(d_cpu, field))),
+                  f"sampled step shortlist={kk} field {field}: cuda != cpu")
+        if kk == K:
+            d_short = d_gpu
+        else:
+            compare(d_short, d_gpu)
+        step_ms[kk] = cuda_ms(lambda: step(eb_d, nf_d, af_d, key), reps=5)
+        if kk == K:
+            step_dev_ms = device_ms(lambda: step(eb_d, nf_d, af_d, key),
+                                    reps=5)
+    full_step = build_step(plugin_set, shortlist=K)
+    unsampled_ms = cuda_ms(lambda: full_step(eb_d, nf_d, af_d, key), reps=5)
+    unsampled_dev_ms = device_ms(lambda: full_step(eb_d, nf_d, af_d, key),
+                                 reps=5)
+    s_eval_ms = cuda_ms(lambda: evaluate(plugin_set, eb_d, _gather_nodes(
+        nf_d, idx), af_d), reps=5)
+    print(f"sampled step K={SAMPLE_K}: every Decision field bitwise equal "
+          f"cuda vs cpu with shortlist={K} and None (and chosen, assigned, "
+          f"free_after equal between them); CUDA events: sampled "
+          f"{step_ms[K]:.3f} ms (shortlist) / {step_ms[None]:.3f} ms (greedy "
+          f"kernel), unsampled {unsampled_ms:.3f} ms (shortlist; 9577057: "
+          f"{UNSAMPLED_STEP_MS} ms); device time sampled "
+          f"{fmt_ms(step_dev_ms, 3)}, unsampled "
+          f"{fmt_ms(unsampled_dev_ms, 3)}; "
+          f"filters+scores {s_eval_ms:.3f} ms sampled vs {eval_ms:.3f} ms "
+          f"full width ({smi})")
+    del d_gpu, d_cpu, d_short, full_step, idx
+
+    # 7. BalancedAllocation on the card: the score equals the CPU's
+    # correctly rounded one, and the card's float32 sqrt is IEEE
+    bal = next(p for p in plugin_set.score_plugins
+               if p.name == "NodeResourcesBalancedAllocation")
+    ctx = {"af": af_d, "gf": eb_d.gf, "naf": eb_d.naf}
+    bal_gpu = bal.score(eb_d.pf, nf_d, ctx)
+    ebc, afc = to_torch(eb, "cpu"), to_torch(af, "cpu")
+    bal_cpu = bal.score(ebc.pf, nf_c, {"af": afc, "gf": ebc.gf,
+                                       "naf": ebc.naf})
+    check(torch.equal(bits(bal_gpu), bits(bal_cpu)),
+          "BalancedAllocation score: cuda != cpu")
+    x = np.random.default_rng(7).random(1 << 22, dtype=np.float32) * 4
+    check(torch.equal(bits(torch.sqrt(torch.from_numpy(x).cuda())),
+                      torch.from_numpy(np.sqrt(x)).view(torch.int32)),
+          "torch.sqrt(float32) on the card is not correctly rounded")
+    print(f"BalancedAllocation {tuple(bal_gpu.shape)}: score bitwise equal "
+          f"cuda vs cpu; torch.sqrt(float32) on the card = numpy's "
+          f"correctly rounded sqrt on {x.size} floats in [0, 4)")
+    del eb_d, nf_d, af_d, nf_c, ebc, afc, bal_gpu, bal_cpu, x
+
+    # 8. the port-insertion kernel vs the host replay and the plain version:
     # first at the engine's shapes (resolve passes only the batch's port
     # pods, padded with -1 rows to a power-of-two bucket, against the
     # whole used_ports), then on a port-heavy 1024-pod batch and with
@@ -660,6 +922,8 @@ def main() -> int:
                      reps=20)
         dev_ms = device_ms(lambda: insert_ports_cuda(state_d, rows_d,
                                                      ports_d), reps=20)
+        spin_ms = queued_ms(lambda: insert_ports_cuda(state_d, rows_d,
+                                                      ports_d), reps=20)
         # The state is read and written whole (the kernel's copy).
         moved = 2 * state.nbytes + rows.nbytes + ports.nbytes
         bound_s = moved / HBM_BYTES_PER_S
@@ -671,15 +935,20 @@ def main() -> int:
               f"{len(rows)} x {ports.shape[1]} ports into {N}x{NODE_PORTS}: "
               f"bitwise equal, {int((mirror != state).sum())} slots "
               f"written; kernel {ms:.4f} ms per call back to back "
-              f"(host-paced; {dev_ms:.4f} ms of device time, the state "
-              f"copy and the kernel), plain {plain_ms:.1f} ms, bound "
+              f"(host-paced; {fmt_ms(dev_ms, 4)} of device time, the state "
+              f"copy and the kernel; {fmt_ms(spin_ms, 4)} on the spin "
+              f"clock), plain {plain_ms:.1f} ms, bound "
               f"{bound_s * 1e3:.4f} ms (bytes) ({smi})")
         del state_d, rows_d, ports_d, got, plain
 
-    # 7. the main path: SchedulerConfig(), the default cycle
+    # 9. the main path: SchedulerConfig(), the default cycle
     nodes, pods = bench_workload(N_NODES, N_PODS)
+    picked = []
     m, main_launches, c2b, per_pod, _ = drive(
-        SchedulerConfig(platform=""), nodes, pods, "main path")
+        SchedulerConfig(platform=""), nodes, pods, "main path",
+        probe=lambda sched: picked.append(sched._sampled_step(
+            step_bucket(N_NODES), BATCH, False)[1]))
+    check(picked == [SAMPLE_K], f"the engine picks K={picked}")
     b = m["batches"]
     for name in ("shortlist_select", "shortlist_scan"):
         check(main_launches[name] >= b > 0,
@@ -688,11 +957,15 @@ def main() -> int:
           f"residency resyncs {m['residency_resyncs']} hits "
           f"{m['residency_hits']} in {b} batches")
     print(path_line(f"main path (pipeline, device_resident, shortlist "
-                    f"K={K}) {N_NODES} nodes x {N_PODS} pods",
+                    f"K={K}, node sample K={picked[0]} as _sampled_step "
+                    f"picks it) {N_NODES} nodes x {N_PODS} pods",
                     m, main_launches, c2b, per_pod, N_PODS, smi)
-          + "; device free/used_ports = host mirror bitwise")
+          + f"; step {m['step_s_total'] / b * 1e3:.3f} ms per batch; "
+            f"device free/used_ports = host mirror bitwise; 9577057 "
+            f"(unsampled): bursts {UNSAMPLED_BURSTS_S} s, full-width step "
+            f"{UNSAMPLED_STEP_MS} ms")
 
-    # 8. the port path: the default cycle books host ports on the device
+    # 10. the port path: the default cycle books host ports on the device
     nodes, pods = port_heavy_workload()
     m, port_launches, c2b, per_pod, placed = drive(
         SchedulerConfig(platform=""), nodes, pods, "port path",
@@ -718,7 +991,7 @@ def main() -> int:
           + "; device used_ports = host mirror bitwise, placements = the "
             "synchronous upload-every-batch run")
 
-    # 9. the earlier path: synchronous, upload every batch, full kernel
+    # 11. the earlier path: synchronous, upload every batch, full kernel
     nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
     m, early_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform="", pipeline=False, device_resident=False,
@@ -735,7 +1008,47 @@ def main() -> int:
                     early_launches, c2b, per_pod, EARLIER_PODS, smi))
     del nodes, pods
 
-    # 10. the README scenario on the card, default config
+    # 12. faults on the card, on a cluster that samples
+    for pipeline in (True, False):
+        cfg = dict(platform="", pipeline=pipeline, max_batch_size=64,
+                   batch_window_s=0.3, backoff_initial_s=0.05,
+                   backoff_max_s=0.3, probation_batches=1)
+        label = f"faults, pipeline={pipeline}"
+        ref, ref_m = fault_burst("", SchedulerConfig(**cfg), label)
+        check(ref_m["batch_faults"] == 0 and ref["only-fits-big"]
+              == "big-node", f"{label}: the fault-free run")
+        placed, fm = fault_burst(FAULT_SPEC, SchedulerConfig(**cfg), label)
+        fires = {g: fm[f"fault_fires_{g}"]
+                 for g in ("step", "fetch", "commit", "informer")}
+        check(set(fires.values()) == {1}, f"{label}: fires {fires}")
+        check(fm["degradation_state"] == "resident",
+              f"{label}: ends at {fm['degradation_state']}")
+        check(placed == ref, f"{label}: placements differ from the "
+              "fault-free run")
+        print(f"{label}: {FAULT_SPEC} each fired once, {fm['batch_faults']} "
+              f"batch faults, {fm['batch_retries']} retries, "
+              f"{fm['supervisor_escalations']} escalations, "
+              f"{fm['supervisor_recoveries']} recoveries, ends at "
+              f"resident; {len(placed)} placements = the fault-free run's")
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    placed, cm = fault_burst("", SchedulerConfig(
+        platform="", max_batch_size=64, batch_window_s=0.3,
+        shortlist_check_every=1, resident_check_every=1), "cross-checks")
+    check(cm["shortlist_checks"] >= cm["batches"] - 1
+          and cm["resident_checks"] >= 1 and LAUNCHES["greedy_assign"] > 0,
+          f"cross-checks: {cm['shortlist_checks']} shortlist checks, "
+          f"{cm['resident_checks']} carry checks, greedy kernel launched "
+          f"{LAUNCHES['greedy_assign']} times")
+    check(cm["shortlist_desyncs"] == 0 and cm["residency_desyncs"] == 0
+          and cm["batch_faults"] == 0 and placed == ref,
+          "cross-checks: a desync, a fault or other placements")
+    print(f"cross-checks on the card: {cm['shortlist_checks']} shortlist "
+          f"checks (the greedy kernel launched {LAUNCHES['greedy_assign']} "
+          f"times), {cm['resident_checks']} carry checks, no desync, "
+          f"placements = the fault-free run's")
+
+    # 13. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -747,10 +1060,10 @@ def main() -> int:
         "replaces": "minisched_tpu/ops/pallas_select.py:151",
         "launches": early_launches["greedy_assign"],
         "max_abs_err": err["greedy_assign"],
-        "ms": greedy_ms,
-        "plain_ms": greedy_plain_ms,
-        "bound_ms": greedy_bound_s * 1e3,
-        "bound_by": greedy_bound_by,
+        "ms": s_greedy_ms,
+        "plain_ms": s_greedy_plain_ms,
+        "bound_ms": s_greedy_bound_s * 1e3,
+        "bound_by": s_greedy_bound_by,
         "library_ms": None,
     }, {
         "name": "shortlist_select",
@@ -759,10 +1072,10 @@ def main() -> int:
         "replaces": "minisched_tpu/ops/select.py:144",
         "launches": main_launches["shortlist_select"],
         "max_abs_err": err["shortlist_select"],
-        "ms": select_ms,
-        "plain_ms": select_plain_ms,
-        "bound_ms": select_bound_s_ * 1e3,
-        "bound_by": select_bound_by,
+        "ms": s_select_ms,
+        "plain_ms": s_select_plain_ms,
+        "bound_ms": s_select_bound_s * 1e3,
+        "bound_by": s_select_bound_by,
         "library_ms": None,
     }, {
         "name": "shortlist_scan",
@@ -771,10 +1084,10 @@ def main() -> int:
         "replaces": "minisched_tpu/ops/select.py:238",
         "launches": main_launches["shortlist_scan"],
         "max_abs_err": err["shortlist_scan"],
-        "ms": scan_ms,
-        "plain_ms": scan_plain_ms,
-        "bound_ms": scan_bound_s_ * 1e3,
-        "bound_by": scan_bound_by,
+        "ms": s_scan_ms,
+        "plain_ms": s_scan_plain_ms,
+        "bound_ms": s_scan_bound_s * 1e3,
+        "bound_by": s_scan_bound_by,
         "library_ms": None,
     }, {
         "name": "insert_ports",

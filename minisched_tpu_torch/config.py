@@ -62,6 +62,43 @@ class SchedulerConfig:
     # node pad. Widen it if shortlist_repairs climbs (contention
     # exhausting K candidates forces full-row rescans).
     shortlist_k: int = 128
+    # Node-axis sampling for the scoring step, the upstream
+    # percentageOfNodesToScore analog. 0 = auto (upstream's
+    # 50 - nodes/125, floored at 5); 100 = always evaluate every node.
+    # A sampled batch that finds a pod 0-feasible re-checks it against
+    # the full axis in the same cycle, so terminal verdicts never come
+    # from a sample.
+    percentage_of_nodes_to_score: int = 0
+    # Never sample below this many candidate nodes (upstream
+    # minFeasibleNodesToFind), and only sample at all when the cluster
+    # is at least twice this size.
+    min_sample_nodes: int = 256
+    # Engine supervisor (engine/scheduler.py _Supervisor): per-batch
+    # device-step watchdog deadline in seconds. A batch whose
+    # dispatch-to-fetch window exceeds it counts a watchdog trip and
+    # degrades the engine one ladder rung (the step completed; nothing
+    # is retried). 0 disables the deadline; fault, NaN and desync
+    # detection and the degradation ladder stay active regardless.
+    watchdog_s: float = 0.0
+    # Probation length for the degradation ladder: after this many
+    # consecutive clean batches at a degraded level, the supervisor
+    # climbs one rung back toward the full fast path
+    # (resident -> upload-every-batch -> synchronous -> quarantine).
+    probation_batches: int = 8
+    # Shortlist certification cross-check: every N batches re-run the
+    # same inputs through the full-width greedy assignment and compare
+    # decisions. A divergence counts a shortlist_desync, permanently
+    # reverts the engine to the full kernel, and aborts the batch into
+    # the supervised retry. 0 disables (the certificate already proves
+    # equality per step; the check covers defects outside the proof,
+    # such as a scribbled readback, which the shortlist_repair:corrupt
+    # fault gate models).
+    shortlist_check_every: int = 0
+    # Residency carry cross-check: every N device-resident batches,
+    # fetch the carried free array and compare it to the host mirror
+    # before the step consumes it. A mismatch counts a desync, forces a
+    # full re-upload and degrades the engine one rung. 0 disables.
+    resident_check_every: int = 0
     # Device of the scheduling step: "" = the first CUDA device (raises
     # when there is none), "cpu", "cuda" or "cuda:<n>".
     platform: str = ""

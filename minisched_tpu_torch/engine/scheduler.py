@@ -7,18 +7,28 @@ three phases:
   prepare  pop batch → priority sort → encode pods → snapshot node
            features (cache) → tensors on the device (with device
            residency: sparse corrections to the carried free/used_ports)
-           → step: filters ∧ → scores → normalize → weigh → sum → greedy
-           capacity-aware assignment (the shortlist scan or the full
-           greedy kernel on a card) → pack the decision on the device
+           → step (on K sampled nodes at >= 2 × min_sample_nodes): filters
+           ∧ → scores → normalize → weigh → sum → greedy capacity-aware
+           assignment (the shortlist scan or the full greedy kernel on a
+           card) → pack the decision on the device
   resolve  read the packed decision back (one fetch) → replay the
            device's debits and port insertions into the residency mirror
-           → per pod: assume + permit plugins (host) or a failure verdict
-           → async bulk bind
+           → the full-axis residual pass for pods the sample found no
+           node for → per pod: assume + permit plugins (host) or a
+           failure verdict → async bulk bind
   commit   flush the batch's failure verdicts in bulk, fold the metrics
 
 With ``config.pipeline`` (the default) the loop is the bounded two-deep
 pipeline of ``_run_pipelined``; otherwise the three phases run back to
 back on the scheduling thread.
+
+A supervisor (``_Supervisor``) contains batch faults: a raised phase, a
+readback that fails its sanity check, a resident carry that left its
+host mirror, a shortlist decision the full-width scan disagrees with.
+The batch's assumes are rolled back and it is replayed with the PRNG
+rewound (so it decides as the fault-free run would), one rung further
+down the degradation ladder resident → upload → sync → quarantine;
+clean batches climb back up after ``probation_batches``.
 
 The scheduler "assumes" a pod onto its node at selection time (cache
 accounting) and unassumes on any later failure — upstream
@@ -42,7 +52,11 @@ import torch
 from ..config import SchedulerConfig
 from ..encode import NodeFeatureCache, encode_pods, to_torch
 from ..encode.cache import bucket_for, step_bucket
+from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
+from ..faults import FAULTS, FaultWorkerDeath
+from ..obs import instant, span
+from ..obs.journal import note as jnote
 from ..ops import prng
 from ..ops._cuda_build import KERNELS, LAUNCHES
 from ..ops.pipeline import Decision, build_step
@@ -61,13 +75,94 @@ from .waitingpod import WaitingPod
 log = logging.getLogger(__name__)
 
 
+class EngineDesync(RuntimeError):
+    """A supervisor detector's verdict: the engine's view of device state
+    failed a sanity or cross check (decision readback out of range,
+    non-finite capacity after a device-debit replay, resident carry
+    diverged from the host mirror, shortlist decisions diverged from the
+    full-width scan). Contained like any batch fault: rollback, degrade,
+    retry."""
+
+
+#: The supervisor's degradation ladder, fastest first. Level indexes it.
+DEGRADATION_LADDER = ("resident", "upload", "sync", "quarantine")
+
+
+class _Supervisor:
+    """Fault detection and containment state for one engine.
+
+    A batch that faults is retried down a counted degradation ladder:
+
+        0 resident    the full fast path (device residency + pipeline)
+        1 upload      residency dropped; every batch uploads the dynamic
+                      leaves (the device_resident=False shape)
+        2 sync        additionally no pipelining: one batch at a time,
+                      prepare → resolve → commit inline
+        3 quarantine  the poisoned batch is requeued at the backoff
+                      ceiling instead of retried; later traffic keeps
+                      running at the sync rung
+
+    ``level`` is written only on the scheduling thread, the one thread
+    that also reads it for gating, so it needs no lock; counters live in
+    the engine's metrics under its lock. After ``probation_batches``
+    consecutive clean batches at a degraded level the supervisor climbs
+    one rung back toward the full fast path."""
+
+    __slots__ = ("_sched", "level", "_clean")
+
+    def __init__(self, sched: "Scheduler"):
+        self._sched = sched
+        self.level = 0
+        self._clean = 0
+
+    def allows_residency(self) -> bool:
+        return self.level == 0
+
+    def sync_only(self) -> bool:
+        return self.level >= 2
+
+    def escalate(self, reason: str) -> None:
+        self._clean = 0
+        if self.level >= len(DEGRADATION_LADDER) - 1:
+            return
+        self.level += 1
+        s = self._sched
+        s._sup_count("supervisor_escalations")
+        instant("supervisor.escalate", to=DEGRADATION_LADDER[self.level],
+                level=self.level, reason=reason)
+        jnote("supervisor.escalate", frm=DEGRADATION_LADDER[self.level - 1],
+              to=DEGRADATION_LADDER[self.level], level=self.level,
+              reason=reason, batch=s._batch_seq, step=s._step_counter)
+        log.warning("supervisor: degraded to %r (%s)",
+                    DEGRADATION_LADDER[self.level], reason)
+
+    def note_clean(self) -> None:
+        """One batch resolved with no fault: probation bookkeeping."""
+        if self.level == 0:
+            return
+        self._clean += 1
+        if self._clean >= max(1, self._sched.config.probation_batches):
+            self._clean = 0
+            self.level -= 1
+            self._sched._sup_count("supervisor_recoveries")
+            instant("supervisor.recover",
+                    to=DEGRADATION_LADDER[self.level], level=self.level)
+            jnote("supervisor.recover", frm=DEGRADATION_LADDER[self.level + 1],
+                  to=DEGRADATION_LADDER[self.level], level=self.level,
+                  batch=self._sched._batch_seq)
+            log.info("supervisor: probation passed; re-escalated to %r",
+                     DEGRADATION_LADDER[self.level])
+
+
 class _Batch:
     """One batch moving through prepare → resolve → commit."""
 
-    __slots__ = ("batch", "eb", "names", "row_incs", "decision",
-                 "packed_dev", "res_carried", "failures", "n_assigned",
-                 "launches", "sl_repairs", "t0", "t_encode", "t_dispatch",
-                 "t_fetch_start", "t_fetched", "t_resolved")
+    __slots__ = ("batch", "eb", "eb_dev", "nf", "af", "key", "sample_k",
+                 "names", "row_incs", "decision", "packed_dev",
+                 "res_carried", "failures", "n_assigned", "launches",
+                 "sl_repairs", "assumed", "detached", "seq", "t0",
+                 "t_encode", "t_dispatch", "t_fetch_start", "t_fetched",
+                 "t_resolved")
 
     def __init__(self):
         self.failures: List[tuple] = []  # (qpi, plugins, message, retryable)
@@ -80,6 +175,11 @@ class _Batch:
         self.res_carried = False
         self.launches: Dict[str, int] = {}  # kernel launches by name
         self.sl_repairs = 0
+        # Rollback ledger: pods this batch assumed that no async owner
+        # took over yet (key → qpi), and the pods an owner (the binder's
+        # bulk commit, a permit wait) now holds.
+        self.assumed: Dict[str, QueuedPodInfo] = {}
+        self.detached: Set[str] = set()
 
 
 def _count_launches(b: _Batch, fn, *args):
@@ -230,6 +330,12 @@ class _DeviceResidency:
                            dtype=self.mirror_free.dtype)
             np.add.at(agg, np.searchsorted(uniq, rows), reqs)
             self.mirror_free[uniq] -= agg
+            if not np.isfinite(self.mirror_free[uniq]).all():
+                # A non-finite request or feature reached the carried
+                # chain: abort before the poisoned mirror is trusted (the
+                # retry drops residency, which resets the mirrors).
+                raise EngineDesync(
+                    "non-finite free capacity after device-debit replay")
         else:
             self.pending_rows = self.pending_pre = None
         self.free_dev = free_after_dev
@@ -303,6 +409,25 @@ class Scheduler:
         self._step = build_step(plugin_set, shortlist=self._shortlist_k)
         self._key = prng.PRNGKey(self.config.seed)
         self._step_counter = 0
+        # Supervisor replay anchor: the step counter the batch in prepare
+        # started from (see _prepare_batch).
+        self._prep_step0 = 0
+        self._batch_seq = 0
+        # Engine supervisor: the degradation ladder and its detectors.
+        # Level state is scheduling-thread-only; counters ride _metrics.
+        self._sup = _Supervisor(self)
+        # The batch in resolve on the scheduling thread, whose assumes
+        # an abort rolls back (thread-gated like _fail_sink).
+        self._track: Optional[_Batch] = None
+        # Pods an async owner (the binder's bulk commit, a permit wait)
+        # holds right now: a supervised retry strips them before every
+        # attempt, since re-scheduling one would double-assume it and
+        # race the owner's bind. Owners release them on binder threads.
+        self._detached_live: Set[str] = set()
+        self._detached_lock = threading.Lock()
+        # Cross-check cadence counters (scheduling thread only).
+        self._res_check_tick = 0
+        self._sl_check_tick = 0
         self.waiting_pods: Dict[str, WaitingPod] = {}
         self._waiting_lock = threading.Lock()
         self._binder = ThreadPoolExecutor(
@@ -338,7 +463,15 @@ class Scheduler:
         self._metrics: Dict[str, float] = {
             "batches": 0, "pods_seen": 0, "pods_assigned": 0,
             "pods_failed": 0, "pods_bound": 0, "bind_conflicts": 0,
-            "cycle_errors": 0,
+            # Supervisor: detected batch faults and the inline degraded
+            # retries they triggered, watchdog deadline trips, ladder
+            # transitions, batches requeued at the quarantine rung,
+            # commit worker deaths, and the cross-checks' runs and trips.
+            "batch_faults": 0, "batch_retries": 0, "watchdog_trips": 0,
+            "supervisor_escalations": 0, "supervisor_recoveries": 0,
+            "quarantined_batches": 0, "worker_deaths": 0,
+            "resident_checks": 0, "residency_desyncs": 0,
+            "shortlist_checks": 0, "shortlist_desyncs": 0,
             # Phase clocks (host seconds). The step window runs from the
             # dispatch to the decision read back and replayed, less the
             # next batch's gather in pipelined mode; it includes the
@@ -409,26 +542,67 @@ class Scheduler:
             return
         while not self._stop.is_set():
             batch = self._pop()
-            if not batch:
-                continue
-            try:
-                self.schedule_batch(batch)
-            except Exception:
-                self._cycle_failed(batch)
+            if batch:
+                self._schedule_guarded(batch)
 
-    def _cycle_failed(self, batch: List[QueuedPodInfo]) -> None:
-        """The loop must outlive a failed cycle; its pods retry with
-        backoff. Counted, so a caller can tell a failing engine from a
-        slow one. The device state is dropped: the next batch
-        re-uploads it from the cache's truth."""
-        log.exception("scheduling cycle failed; requeueing its %d pods "
-                      "with backoff", len(batch))
-        with self._metrics_lock:
-            self._metrics["cycle_errors"] += 1
-        if self._residency is not None:
-            self._residency.drop("cycle error")
-        for qpi in batch:
-            self.queue.requeue_backoff(qpi)
+    def _schedule_guarded(self, batch: List[QueuedPodInfo]) -> None:
+        """One synchronous cycle; a fault engages the supervisor."""
+        try:
+            self.schedule_batch(batch)
+        except Exception:
+            log.exception("schedule_batch failed; engaging supervisor")
+            self._supervised_retry(batch)
+
+    def _supervised_retry(self, batch: List[QueuedPodInfo],
+                          b: Optional[_Batch] = None) -> None:
+        """Contain a batch fault. The aborted attempt's assumes were
+        rolled back (_resolve_batch) and pods it handed to async owners
+        are excluded, so nothing can double-bind. The rest retries inline
+        down the degradation ladder, each rung dropping one fast path; a
+        batch that still fails at the bottom rung is quarantined:
+        requeued at the backoff ceiling, so a poison batch can neither
+        wedge the loop nor lose its pods."""
+        self._sup_count("batch_faults")
+        # Every replay rewinds the step counter to the aborted attempt's
+        # anchor, so it draws the randomness the fault-free run would
+        # have drawn: recovered decisions are bit-identical.
+        anchor = self._prep_step0
+        retry = list(batch)
+        if b is not None and b.detached:
+            retry = [q for q in retry if q.pod.key not in b.detached]
+        while True:
+            with self._detached_lock:
+                live = self._detached_live
+                retry = [q for q in retry if q.pod.key not in live]
+            if not retry:
+                return
+            self._sup.escalate("batch fault")
+            if self._sup.level >= len(DEGRADATION_LADDER) - 1:
+                self._sup_count("quarantined_batches")
+                self._step_counter = anchor  # no decision consumed it
+                for qpi in retry:
+                    self.queue.quarantine(qpi)
+                jnote("supervisor.quarantine", pods=len(retry),
+                      batch=self._batch_seq, step=anchor)
+                log.error("supervisor: exhausted the degradation ladder; "
+                          "quarantined %d pods (requeued at the backoff "
+                          "ceiling)", len(retry))
+                return
+            self._sup_count("batch_retries")
+            self._step_counter = anchor  # replay, don't advance
+            try:
+                self.schedule_batch(list(retry))
+                jnote("supervisor.retry", outcome="ok",
+                      rung=DEGRADATION_LADDER[self._sup.level],
+                      pods=len(retry), batch=self._batch_seq, step=anchor)
+                return
+            except Exception:
+                jnote("supervisor.retry", outcome="failed",
+                      rung=DEGRADATION_LADDER[self._sup.level],
+                      pods=len(retry), batch=self._batch_seq, step=anchor)
+                log.exception("degraded retry failed at rung %r; "
+                              "escalating further",
+                              DEGRADATION_LADDER[self._sup.level])
 
     def _run_pipelined(self) -> None:
         """Bounded two-deep pipelined scheduling loop.
@@ -454,20 +628,22 @@ class Scheduler:
             gather:    [pop k+1]                      [pop k+2 ...
         """
         inflight = None            # prepared + dispatched, not resolved
-        pending = None             # commit future in flight
+        pending = None             # (future, batch) commit in flight
         gather_fut = None          # in-flight pop on the gather worker
         try:
             while not self._stop.is_set():
                 if inflight is None:
                     if gather_fut is not None:
-                        batch = gather_fut.result()
+                        with span("gather.wait"):
+                            batch = gather_fut.result()
                         gather_fut = None
                     else:
                         batch = self._pop()
                     if not batch:
                         pending = self._await_commit(pending)
                         continue
-                    inflight = self._prepare_guarded(batch)
+                    inflight, pending = self._prepare_guarded(batch,
+                                                              pending)
                     continue
                 if gather_fut is None and not self._stop.is_set():
                     try:
@@ -477,9 +653,12 @@ class Scheduler:
                 pending = self._finish(inflight, pending)
                 nxt = []
                 if gather_fut is not None and not self._stop.is_set():
-                    nxt = gather_fut.result() or []
+                    with span("gather.wait"):
+                        nxt = gather_fut.result() or []
                     gather_fut = None
-                inflight = self._prepare_guarded(nxt) if nxt else None
+                inflight = None
+                if nxt:
+                    inflight, pending = self._prepare_guarded(nxt, pending)
         finally:
             # Drain: a dispatched batch is completed, then the last
             # commit is awaited. A gather that raced the stop and popped
@@ -491,38 +670,77 @@ class Scheduler:
                     self.queue.requeue_backoff(qpi)
             self._await_commit(pending)
 
-    def _prepare_guarded(self, batch) -> Optional[_Batch]:
+    def _prepare_guarded(self, batch, pending):
+        """Prepare (encode + dispatch) a popped batch → (batch in flight
+        or None, pending). At the supervisor's sync rung the pipeline is
+        drained and the batch runs its whole cycle here; a failed prepare
+        engages the supervisor."""
+        if self._sup.sync_only():
+            pending = self._await_commit(pending)
+            self._schedule_guarded(batch)
+            return None, pending
         try:
-            return self._prepare_batch(batch)
+            return self._prepare_batch(batch), pending
         except Exception:
-            self._cycle_failed(batch)
-            return None
+            log.exception("batch prepare failed; engaging supervisor")
+            self._supervised_retry(batch)
+            return None, pending
 
     def _finish(self, b: _Batch, pending):
         """Resolve ``b``, then commit it: on the commit worker when it
         has failure verdicts to flush (after the previous commit lands),
-        inline when the commit is only a metrics fold."""
+        inline when the commit is only a metrics fold. A failed resolve
+        engages the supervisor and skips the commit."""
         try:
             self._resolve_batch(b)
         except Exception:
-            self._cycle_failed(b.batch)
+            log.exception("batch resolve failed; engaging supervisor")
+            self._supervised_retry(b.batch, b)
             return pending
         if not b.failures:
-            self._commit_batch(b)
+            self._commit_guarded(b)
             return pending
         pending = self._await_commit(pending)
         try:
-            return self._committer.submit(self._commit_batch, b)
+            return self._committer.submit(self._commit_guarded, b), b
         except RuntimeError:  # executor torn down (shutdown race)
-            self._commit_batch(b)
+            self._commit_guarded(b)
             return None
 
-    @staticmethod
-    def _await_commit(pending):
-        """Bound the pipeline at ONE commit in flight."""
+    def _commit_guarded(self, b: _Batch) -> None:
+        try:
+            self._commit_batch(b)
+        except FaultWorkerDeath:
+            raise  # worker death: _await_commit restarts the worker
+        except Exception:
+            log.exception("batch commit failed")
+
+    def _await_commit(self, pending):
+        """Bound the pipeline at ONE commit in flight; a commit worker
+        that died mid-flush is replaced."""
         if pending is not None:
-            pending.result()
+            fut, b = pending
+            try:
+                with span("commit.wait"):
+                    fut.result()
+            except FaultWorkerDeath:
+                self._restart_commit_worker(b)
         return None
+
+    def _restart_commit_worker(self, b: _Batch) -> None:
+        """The commit worker died mid-flush: replace the executor,
+        requeue the dead flush's tranche with backoff (its status writes
+        never applied, and nothing else would revive the popped pods),
+        and degrade."""
+        log.error("commit worker died mid-flush; restarting the worker "
+                  "and requeueing its %d-pod tranche", len(b.failures))
+        self._sup_count("worker_deaths")
+        self._sup.escalate("commit worker death")
+        self._committer.shutdown(wait=False)
+        self._committer = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="commit")
+        for qpi, _plugins, _msg, _retry in b.failures:
+            self.queue.requeue_backoff(qpi)
 
     # ---- one batched scheduling cycle ----------------------------------
 
@@ -530,7 +748,18 @@ class Scheduler:
         """One synchronous cycle: prepare → resolve → commit."""
         b = self._prepare_batch(batch)
         self._resolve_batch(b)
-        self._commit_batch(b)
+        try:
+            self._commit_batch(b)
+        except FaultWorkerDeath:
+            # No worker to restart in the synchronous cycle: requeue the
+            # tranche (retrying the whole batch would re-schedule pods
+            # the binder already owns) and degrade.
+            log.error("commit flush died in the synchronous cycle; "
+                      "requeueing its %d-pod tranche", len(b.failures))
+            self._sup_count("worker_deaths")
+            self._sup.escalate("commit flush death")
+            for qpi, _plugins, _msg, _retry in b.failures:
+                self.queue.requeue_backoff(qpi)
         return b.decision
 
     def _node_pad(self, hw: int) -> int:
@@ -545,6 +774,14 @@ class Scheduler:
     def _count_h2d(self, nbytes: int) -> None:
         with self._metrics_lock:
             self._metrics["h2d_bytes_total"] += nbytes
+
+    def _count_fetch(self, nbytes: int) -> None:
+        with self._metrics_lock:
+            self._metrics["fetch_bytes_total"] += nbytes
+
+    def _sup_count(self, key: str, n: int = 1) -> None:
+        with self._metrics_lock:
+            self._metrics[key] = self._metrics.get(key, 0) + n
 
     def _res_count(self, *, resync: bool, h2d: int) -> None:
         with self._metrics_lock:
@@ -571,27 +808,53 @@ class Scheduler:
 
     def _snapshot(self):
         """Node features for this batch: (nf with device leaves, names,
-        row incarnations, carried). With residency the dynamic leaves
-        are the carried device arrays brought up to the cache's truth by
-        a sparse correction; an attach error drops residency and falls
-        back to a full snapshot. Without it they are uploaded whole."""
+        row incarnations, carried). With residency (and the supervisor
+        at its top rung) the dynamic leaves are the carried device arrays
+        brought up to the cache's truth by a sparse correction; an
+        attach error drops residency and falls back to a full snapshot,
+        and a carry that fails its cross-check also degrades the engine.
+        Otherwise they are uploaded whole."""
         cached = self._nf_static_device
         known = cached[0] if cached else None
         res = self._residency
-        if res is not None:
+        if res is not None and not self._sup.allows_residency():
+            # Degraded: drop the carry; probation re-establishes it
+            # through a counted full re-upload.
+            res.drop("supervisor degradation")
+        elif res is not None:
             nf, names, static_v, row_incs, delta = (
                 self.cache.snapshot_resident(pad=self._node_pad,
                                              known_static=known,
                                              dyn=res.listener))
             nf = self._with_device_static(nf, static_v, row_incs.shape[0])
             try:
-                return res.attach(self, nf, delta), names, row_incs, True
+                # Fault gate: residency delta/carry. err → the resync
+                # fallback below; corrupt → diverge the host mirror from
+                # the device so the carry cross-check has a defect to
+                # catch.
+                act = FAULTS.hit("residency")
+                with span("h2d.dyn"):
+                    nf = res.attach(self, nf, delta)
+                if act == "corrupt" and res.mirror_free is not None:
+                    res.mirror_free[0, :] += 1.0
+                if self.config.resident_check_every:
+                    self._check_resident_carry(res, nf)
+                return nf, names, row_incs, True
+            except EngineDesync as e:
+                log.warning("resident carry cross-check failed (%s); "
+                            "forcing a full re-upload", e)
+                self._sup_count("residency_desyncs")
+                instant("residency.desync", reason=str(e))
+                jnote("residency.desync", reason=str(e),
+                      batch=self._batch_seq)
+                self._sup.escalate("resident carry desync")
+                res.drop("carry cross-check mismatch")
             except Exception:
                 log.exception("device residency attach failed; resyncing "
                               "through a full snapshot")
                 res.drop("attach error")
-                cached = self._nf_static_device
-                known = cached[0] if cached else None
+            cached = self._nf_static_device
+            known = cached[0] if cached else None
         nf, names, static_v, row_incs = self.cache.snapshot_versioned(
             pad=self._node_pad, known_static=known)
         nf = self._with_device_static(nf, static_v, row_incs.shape[0])
@@ -600,10 +863,67 @@ class Scheduler:
                          used_ports=to_torch(nf.used_ports, self.device))
         return nf, names, row_incs, False
 
+    def _check_resident_carry(self, res: _DeviceResidency, nf) -> None:
+        """Every ``resident_check_every`` carried batches, fetch the
+        carried device free and compare it to the host mirror before the
+        step consumes it. Raises EngineDesync on any divergence (NaN
+        included, which np.array_equal rejects)."""
+        self._res_check_tick += 1
+        if self._res_check_tick % self.config.resident_check_every:
+            return
+        dev = nf.free.cpu().numpy()
+        self._count_fetch(dev.nbytes)
+        self._sup_count("resident_checks")
+        if res.mirror_free is not None and not np.array_equal(
+                dev, res.mirror_free):
+            bad = int(np.sum(np.any(dev != res.mirror_free, axis=1)))
+            raise EngineDesync(
+                f"device-carried free diverged from the host mirror on "
+                f"{bad} row(s) at epoch {res.epoch}")
+
+    def _sampled_step(self, n_pad: int, batch_len: int, full_axis: bool):
+        """(step, K) for this batch, or (None, None) when node sampling
+        does not apply: gang batches (quorum must be judged against one
+        node set) pass ``full_axis``; the percentage is 100; the cluster
+        has fewer than 2 × min_sample_nodes real nodes; or K would reach
+        half the node pad (the gather and residual then cost more than
+        they save). K = the power-of-two bucket of
+        max(min_sample_nodes, n × pct / 100, 2 × batch), pct 0 meaning
+        upstream's max(5, 50 - n / 125)."""
+        cfg = self.config
+        if full_axis:
+            return None, None
+        # This package has no overload controller, so the dial is the
+        # configured percentage; the JAX engine's controller passes it
+        # through unchanged while it is off (engine/overload.py:536-537).
+        pct = cfg.percentage_of_nodes_to_score
+        if pct >= 100:
+            return None, None
+        n_real = self.cache.node_count()
+        if n_real < 2 * cfg.min_sample_nodes:
+            return None, None
+        if pct <= 0:
+            pct = max(5, 50 - n_real // 125)
+        want = max(cfg.min_sample_nodes, (n_real * pct) // 100,
+                   2 * batch_len)
+        k = bucket_for(want, cfg.node_bucket_min)
+        if k >= n_pad // 2:
+            return None, None
+        return build_step(self.plugin_set, shortlist=self._shortlist_k,
+                          sample_nodes=k), k
+
     def _prepare_batch(self, batch: List[QueuedPodInfo]) -> _Batch:
+        with span("prepare", pods=len(batch)):
+            return self._prepare_batch_impl(batch)
+
+    def _prepare_batch_impl(self, batch: List[QueuedPodInfo]) -> _Batch:
         b = _Batch()
         b.t0 = time.perf_counter()
         cfg = self.config
+        # Supervisor replay anchor: prepares run one after another on the
+        # scheduling thread, so at any batch fault this is the step
+        # counter the aborted attempt started from.
+        self._prep_step0 = self._step_counter
         # Pull queued gang-mates so no batch boundary splits a gang (the
         # step would reject the partial group for missing quorum).
         for group in {gang_key(q.pod) for q in batch
@@ -626,38 +946,207 @@ class Scheduler:
         eb_dev = to_torch(eb, self.device)
         self._step_counter += 1
         key = prng.fold_in(self._key, self._step_counter)
+        # Node-axis sampling: a batch against a large cluster runs on K
+        # candidate nodes; pods the sample finds no node for are
+        # re-checked against the full axis at resolve (_run_residual).
+        has_gang = any(q.pod.spec.pod_group for q in batch)
+        step_fn, b.sample_k = self._sampled_step(nf.free.shape[0],
+                                                 len(batch), has_gang)
+        step_fn = step_fn or self._step
         b.t_encode = time.perf_counter()
-        d = _count_launches(b, self._step, eb_dev, nf, af, key)
-        # One device buffer for the whole decision: the slim layout with
-        # residency, else the all-i32 stack.
-        pack = pack_decision_slim if self._slim else pack_decision_i32
-        b.packed_dev = pack(d.chosen, d.assigned, d.gang_rejected,
-                            d.feasible_counts, d.feasible_static,
-                            d.reject_counts, d.shortlist_repaired)
+        # Fault gate: step dispatch (err → supervised retry down the
+        # ladder; stall → lands in the watchdog's step window).
+        FAULTS.hit("step")
+        with span("step.dispatch"):
+            d = _count_launches(b, step_fn, eb_dev, nf, af, key)
+            b.packed_dev = self._pack(d)
         b.decision = d
         b.batch, b.eb, b.names, b.row_incs = batch, eb, names, row_incs
+        b.eb_dev, b.nf, b.af, b.key = eb_dev, nf, af, key
+        self._batch_seq += 1
+        b.seq = self._batch_seq
         b.t_dispatch = time.perf_counter()
         return b
+
+    def _pack(self, d: Decision):
+        """One device buffer for the whole decision: the slim layout with
+        residency, else the all-i32 stack."""
+        pack = pack_decision_slim if self._slim else pack_decision_i32
+        return pack(d.chosen, d.assigned, d.gang_rejected,
+                    d.feasible_counts, d.feasible_static, d.reject_counts,
+                    d.shortlist_repaired)
 
     def _fetch_decision(self, packed_dev, p: int, f: int):
         """Block on the ONE packed decision fetch and unpack it into
         writable host arrays: (chosen, assigned, gang_rejected, feasible,
         feasible_static, rejects (F,P), repaired)."""
-        buf = np.array(packed_dev.cpu().numpy())
-        with self._metrics_lock:
-            self._metrics["fetch_bytes_total"] += buf.nbytes
-        if self._slim:
-            return unpack_decision_slim(buf, p, f)
-        return unpack_decision_i32(buf)
+        # Fault gate: decision fetch. ``corrupt`` scribbles the chosen
+        # plane with absurd node rows, which the resolve sanity detector
+        # must catch.
+        act = FAULTS.hit("fetch")
+        with span("fetch.decision"):
+            buf = np.array(packed_dev.cpu().numpy())
+        self._count_fetch(buf.nbytes)
+        out = (unpack_decision_slim(buf, p, f) if self._slim
+               else unpack_decision_i32(buf))
+        if act == "corrupt":
+            out[0][:] = 0x7F7F7F7F
+        return out
 
     def _resolve_batch(self, b: _Batch) -> None:
         self._fail_sink = b.failures
         self._fail_sink_tid = threading.get_ident()
+        self._track = b
         try:
-            self._resolve_batch_impl(b)
+            with span("resolve", pods=len(b.batch), seq=b.seq):
+                self._resolve_batch_impl(b)
+        except BaseException:
+            # Crash-consistent abort: reverse every assume this batch
+            # made that no async owner took over, so a supervised retry
+            # never double-debits capacity.
+            self._rollback_assumed(b)
+            raise
         finally:
             self._fail_sink = None
+            self._track = None
             b.t_resolved = time.perf_counter()
+        self._watchdog_check(b)
+        self._sup.note_clean()
+
+    def _rollback_assumed(self, b: _Batch) -> None:
+        if not b.assumed:
+            return
+        n = 0
+        for key in list(b.assumed):
+            b.assumed.pop(key, None)
+            try:
+                self.cache.account_unbind(key)
+                n += 1
+            except Exception:  # rollback must reverse the rest regardless
+                log.exception("rollback unassume failed for %s", key)
+        log.warning("rolled back %d assumed placement(s) from an aborted "
+                    "batch", n)
+
+    def _watchdog_check(self, b: _Batch) -> None:
+        """Per-batch device-step watchdog: a step window (dispatch to
+        fetch, less the pipelined gather) past ``watchdog_s`` counts a
+        trip and degrades one rung. The batch itself completed; nothing
+        is retried: the next batches stop leaning on a path that just
+        blew its budget."""
+        wd = self.config.watchdog_s
+        if not wd:
+            return
+        gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
+        window = (b.t_fetched - b.t_encode) - gather_gap
+        if window > wd:
+            self._sup_count("watchdog_trips")
+            instant("watchdog.trip", window_s=round(window, 6),
+                    deadline_s=wd)
+            jnote("watchdog.trip", window_s=round(window, 6),
+                  deadline_s=wd, batch=b.seq)
+            self._sup.escalate(f"watchdog: device step took {window:.3f}s "
+                               f"(deadline {wd}s)")
+
+    def _note_assumed(self, qpi: QueuedPodInfo) -> None:
+        t = self._track
+        if t is not None and threading.get_ident() == self._fail_sink_tid:
+            t.assumed[qpi.pod.key] = qpi
+
+    def _note_detached(self, key: str) -> None:
+        """An async owner (the binder's bulk commit, a permit wait) now
+        owns the pod's placement: it leaves the rollback ledger and is
+        excluded from any supervised retry."""
+        t = self._track
+        if t is not None and threading.get_ident() == self._fail_sink_tid:
+            t.assumed.pop(key, None)
+            t.detached.add(key)
+            with self._detached_lock:
+                self._detached_live.add(key)
+
+    def _check_shortlist(self, b: _Batch, chosen, assigned) -> None:
+        """Every ``shortlist_check_every`` batches, re-run this batch's
+        exact inputs through the full-width greedy assignment and compare
+        decisions: the certificate made executable. A divergence counts a
+        shortlist_desync, permanently reverts the engine to the full
+        kernel, and aborts the batch into the supervised retry, which
+        replays it bit-identically on the reverted path."""
+        if not self.config.shortlist_check_every:
+            return
+        self._sl_check_tick += 1
+        if self._sl_check_tick % self.config.shortlist_check_every:
+            return
+        self._sup_count("shortlist_checks")
+        check_step = build_step(self.plugin_set, shortlist=None,
+                                sample_nodes=b.sample_k)
+        d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key)
+        ref_chosen = d.chosen.cpu().numpy()
+        ref_assigned = d.assigned.cpu().numpy()
+        self._count_fetch(ref_chosen.nbytes + ref_assigned.nbytes)
+        L = len(b.batch)
+        if (np.array_equal(chosen[:L], ref_chosen[:L])
+                and np.array_equal(assigned[:L], ref_assigned[:L])):
+            return
+        bad = int(np.sum((chosen[:L] != ref_chosen[:L])
+                         | (assigned[:L] != ref_assigned[:L])))
+        self._sup_count("shortlist_desyncs")
+        instant("shortlist.desync", pods=bad)
+        jnote("shortlist.desync", pods=bad, batch=b.seq)
+        self._disable_shortlist(
+            f"decisions diverged from the full scan on {bad} pod(s)")
+        raise EngineDesync(
+            "shortlist certification cross-check failed: decisions "
+            f"diverged from the full-width scan on {bad} pod(s)")
+
+    def _disable_shortlist(self, reason: str) -> None:
+        """Permanently revert to the full-width greedy assignment; sampled
+        steps read ``_shortlist_k`` per batch."""
+        log.error("disabling shortlist-compressed arbitration (%s); "
+                  "reverting to the full-width scan", reason)
+        jnote("shortlist.disable", reason=reason, batch=self._batch_seq)
+        self._shortlist_k = None
+        self._step = build_step(self.plugin_set, shortlist=None)
+
+    def _slice_eb(self, eb, rows):
+        """(eb_sub, P2): the pod rows ``rows`` of a host EncodedBatch,
+        padded to a fresh bucket, with the batch's group tables shared
+        (group ids stay aligned) and gangs stripped (the residual pass
+        never sees a gang batch)."""
+        n = len(rows)
+        P2 = bucket_for(n, self.config.pod_bucket_min)
+
+        def take(a):
+            out = np.zeros((P2,) + a.shape[1:], dtype=a.dtype)
+            out[:n] = a[rows]
+            return out
+
+        pf2 = type(eb.pf)(*[take(getattr(eb.pf, f)) for f in eb.pf._fields])
+        gang2 = GangFeatures(group=np.full(P2, -1, dtype=np.int32),
+                             min_count=np.asarray(eb.gang.min_count))
+        return eb._replace(pf=pf2, gang=gang2), P2
+
+    def _run_residual(self, b: _Batch, rows, chosen, assigned,
+                      gang_rejected, feasible, rejects) -> None:
+        """Full-axis re-evaluation of the pods the sampled step found no
+        node for, merged in place. The sub-batch sees the cluster's free
+        capacity after the sampled assignments (free_after is full-size
+        under sampling), read back to the host as the JAX engine does and
+        counted in fetch_bytes_total; its tie-breaks draw
+        ``fold_in(key, 0x5e5)``."""
+        n_res = len(rows)
+        eb2, P2 = self._slice_eb(b.eb, rows)
+        free2 = b.decision.free_after.cpu().numpy()
+        self._count_fetch(free2.nbytes)
+        nf2 = b.nf._replace(free=to_torch(free2, self.device))
+        d2 = _count_launches(b, self._step, to_torch(eb2, self.device), nf2,
+                             b.af, prng.fold_in(b.key, 0x5E5))
+        ch2, as2, gr2, fc2, _fs2, rj2, rep2 = self._fetch_decision(
+            self._pack(d2), P2, rejects.shape[0])
+        b.sl_repairs += int(rep2[:n_res].sum())
+        chosen[rows] = ch2[:n_res]
+        assigned[rows] = as2[:n_res]
+        gang_rejected[rows] = gr2[:n_res]
+        feasible[rows] = fc2[:n_res]
+        rejects[:, rows] = rj2[:, :n_res]
 
     def _replay_on_residency(self, b: _Batch, chosen, assigned) -> None:
         """Replay the step's device debits into the host mirror and adopt
@@ -690,16 +1179,39 @@ class Scheduler:
         (chosen, assigned, gang_rejected, feasible, _feasible_static,
          rejects, sl_repaired) = self._fetch_decision(
             b.packed_dev, b.eb.pf.valid.shape[0], len(self.filter_names))
+        # Supervisor sanity detector, before the residency replay trusts
+        # ``chosen``: a corrupted readback must abort the batch, not
+        # poison the carried mirror.
         if assigned[:L].any():
             ch = chosen[:L][assigned[:L]]
             if int(ch.min()) < 0 or int(ch.max()) >= len(names):
-                raise RuntimeError(
+                raise EngineDesync(
                     "decision readback failed its sanity check: chosen "
                     f"node row outside [0, {len(names)})")
         if self._shortlist_k is not None:
+            # Fault gate: shortlist decision accounting. ``corrupt``
+            # re-points one assigned pod at a different valid row, a
+            # mispick the range check cannot see; only the full-width
+            # cross-check below catches it.
+            if (FAULTS.hit("shortlist_repair") == "corrupt"
+                    and assigned[:L].any()):
+                j = int(np.argmax(assigned[:L]))
+                chosen[j] = (int(chosen[j]) + 1) % len(names)
+            self._check_shortlist(b, chosen, assigned)
             b.sl_repairs += int(sl_repaired[:L].sum())
         if b.res_carried:
+            # The main step's debits, before the residual merge mutates
+            # chosen/assigned: residual placements reach the device as
+            # next-batch corrections, like any host mutation.
             self._replay_on_residency(b, chosen, assigned)
+        if b.sample_k is not None:
+            # Residual pass: a pod with no feasible node in the sample may
+            # still fit elsewhere; terminal verdicts never come from a
+            # sample.
+            res_rows = np.nonzero((feasible[:L] == 0) & ~assigned[:L])[0]
+            if res_rows.size:
+                self._run_residual(b, res_rows, chosen, assigned,
+                                   gang_rejected, feasible, rejects)
         b.t_fetched = time.perf_counter()
         chosen, assigned = chosen[:L], assigned[:L]
         gang_rejected, feasible = gang_rejected[:L], feasible[:L]
@@ -788,6 +1300,10 @@ class Scheduler:
                 lost_rows.extend(assume_rows[m] for m in missed)
                 to_bind = [(q, n) for q, n in to_bind
                            if q.pod.key not in dead]
+            missed_set = set(missed) if missed else ()
+            for j in range(len(assume_items)):
+                if j not in missed_set:
+                    self._note_assumed(batch[assume_rows[j]])
 
         revoked = 0
         lost_gangs = {gang_key(batch[i].pod) for i in lost_rows
@@ -816,17 +1332,28 @@ class Scheduler:
             # One bulk commit for all permit-free pods: a single store
             # transaction (bind_pods), still async like the reference's
             # per-pod binding goroutine (minisched.go:96-112).
+            for q, _n in to_bind:
+                self._note_detached(q.pod.key)
             self._binder.submit(self._bind_many, to_bind)
         b.n_assigned = int(assigned.sum()) - n_ghost - revoked
 
     def _commit_batch(self, b: _Batch) -> None:
+        with span("commit", seq=b.seq, failures=len(b.failures)):
+            self._commit_batch_impl(b)
+
+    def _commit_batch_impl(self, b: _Batch) -> None:
         """Flush the deferred failure verdicts (one store transaction, one
         queue lock hold, one event payload) and fold the metrics. Runs on
         the commit worker in pipelined mode when the batch has failures."""
         t_commit = time.perf_counter()
         if b.failures:
             try:
-                self._flush_failures(b.failures)
+                with span("commit.flush", pods=len(b.failures)):
+                    self._flush_failures(b.failures)
+            except FaultWorkerDeath:
+                # A simulated worker death escapes every guard, so the
+                # supervisor's restart path handles it.
+                raise
             except Exception:
                 # The pods are popped; nothing else would requeue them.
                 log.exception("bulk failure flush failed; requeueing the "
@@ -858,6 +1385,7 @@ class Scheduler:
     def _flush_failures(self, items: List[tuple]) -> None:
         """Apply a cycle's deferred failure verdicts in bulk. Pods deleted
         mid-flight are forgotten."""
+        FAULTS.hit("commit")  # fault gate: commit-worker failure flush
         self.broadcaster.failed_scheduling_many(
             [(qpi.pod.key, qpi.pod.metadata.namespace, msg)
              for qpi, _plugins, msg, _retry in items])
@@ -883,6 +1411,11 @@ class Scheduler:
         out.update({f"queue_{k}": v for k, v in self.queue.stats().items()})
         out["waiting_pods"] = len(self.waiting_pods)
         out["shortlist_width"] = int(self._shortlist_k or 0)
+        out["degradation_state"] = DEGRADATION_LADDER[self._sup.level]
+        # Per-gate fault fire counts (a process-wide registry; all zeros
+        # with MINISCHED_FAULTS unset, proving a run was fault-free).
+        for gate, n in FAULTS.counts().items():
+            out[f"fault_fires_{gate}"] = n
         return out
 
     # ---- binding cycle -------------------------------------------------
@@ -904,6 +1437,7 @@ class Scheduler:
                 f"chosen node {node_name} was deleted during the "
                 "scheduling cycle", retryable=True)
             return None, True, False
+        self._note_assumed(qpi)
 
         waits = []
         for plugin in self.plugin_set.permit_plugins:
@@ -929,12 +1463,23 @@ class Scheduler:
             with self._waiting_lock:
                 self.waiting_pods[pod.key] = wp
             max_timeout = max(t for _, _, t in waits)
+            self._note_detached(pod.key)  # the wait owns the placement now
             self._binder.submit(self._wait_and_bind, qpi, wp, max_timeout)
             return None, False, False
         return (qpi, node_name), False, False
 
     def _wait_and_bind(self, qpi: QueuedPodInfo, wp: WaitingPod,
                        max_timeout: float) -> None:
+        try:
+            self._wait_and_bind_impl(qpi, wp, max_timeout)
+        finally:
+            # The wait no longer owns the placement (bound, requeued or
+            # parked): release the supervised-retry exclusion.
+            with self._detached_lock:
+                self._detached_live.discard(qpi.pod.key)
+
+    def _wait_and_bind_impl(self, qpi: QueuedPodInfo, wp: WaitingPod,
+                            max_timeout: float) -> None:
         sig = wp.get_signal(timeout=max_timeout + 1.0)
         with self._waiting_lock:
             self.waiting_pods.pop(qpi.pod.key, None)
@@ -974,11 +1519,19 @@ class Scheduler:
         exception on the binder pool would lose the whole tranche, so any
         failure reconciles per pod against store truth instead."""
         try:
-            self._bind_many_impl(items)
+            FAULTS.hit("bind")  # fault gate: bulk binding task
+            with span("bind.bulk", pods=len(items)):
+                self._bind_many_impl(items)
         except Exception:
             log.exception("bulk bind task failed; reconciling %d "
                           "placement(s) against store truth", len(items))
             self._reconcile_bind_failure(items)
+        finally:
+            # The bulk commit concluded for every pod (bound, requeued or
+            # forgotten): release the supervised-retry exclusions.
+            with self._detached_lock:
+                self._detached_live.difference_update(
+                    q.pod.key for q, _n in items)
 
     def _bind_many_impl(self, items: List[tuple]) -> None:
         """One store.bind_pods transaction for the whole tranche, then

@@ -12,7 +12,8 @@ matrix.
 The step runs eagerly on whatever device its input tensors live on; the
 assignment stage goes through ``select.greedy_assign`` or, with a
 shortlist, ``select.greedy_assign_shortlist``, which launch their CUDA
-kernels for CUDA tensors.
+kernels for CUDA tensors. With ``sample_nodes=K`` the step first picks
+K candidate nodes and runs on them alone (node-axis sampling).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from ..plugins.base import PluginSet
 from . import prng
 from .gang import gang_assign
-from .select import NEG, greedy_assign, greedy_assign_shortlist
+from .select import NEG, greedy_assign, greedy_assign_shortlist, order_key
 
 
 class Decision(NamedTuple):
@@ -88,7 +89,75 @@ def evaluate(plugin_set: PluginSet, eb, nf, af):
     return torch.where(feasible, total, NEG), feasible_counts, reject_counts
 
 
-def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None):
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as a fused
+    multiply-add does, on any device. The product is exact in float64;
+    the sum is rounded to float64 with round-to-odd (TwoSum gives its
+    error, and an inexact even result steps one ulp toward the error),
+    which makes the final rounding to float32 correct (53 >= 24 + 2)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def _sample_proxy(nf, key) -> torch.Tensor:
+    """The node sample's ranking value per node row: a cheap
+    LeastAllocated-flavoured proxy (mean free fraction over the resource
+    axes) plus uniform jitter in [0, 0.05) drawn with ``key``, and -inf
+    on unschedulable and padded rows.
+
+    It is the JAX package's value on XLA's CPU backend bit for bit: the
+    columns summed left to right, then ``fma(sum, float32(1/R), jitter)``
+    (XLA contracts the mean's multiply and the jitter's add into one
+    fused multiply-add). ``torch.mean``, ``torch.sum`` and an unfused
+    multiply-add all round differently, and a one-ulp difference
+    reorders the sample and every placement after it."""
+    frac = (torch.clamp_min(nf.free, 0.0)
+            / torch.clamp_min(nf.allocatable, 1e-9))
+    acc = frac[:, 0]
+    for j in range(1, frac.shape[1]):
+        acc = acc + frac[:, j]
+    # torch.full fills on the device; torch.tensor would copy from the
+    # host and make the step wait for the card.
+    inv_r = torch.full((), 1.0 / frac.shape[1], dtype=torch.float32,
+                       device=frac.device)
+    noise = prng.uniform(key, acc.shape[0], 0.05, device=frac.device)
+    ok = nf.valid & ~nf.unschedulable
+    return torch.where(ok, fma_f32(acc, inv_r, noise), float("-inf"))
+
+
+def _select_node_sample(nf, key, k: int) -> torch.Tensor:
+    """The K candidate node rows of a sampled step: the top K of
+    ``_sample_proxy`` in ``lax.top_k``'s order (value descending, lowest
+    row first on ties, the -inf rows of unschedulable and padded nodes
+    included). The sample's column order is read by later tie-breaks."""
+    v = _sample_proxy(nf, key)
+    # A unique int64 key: the value's total order above, the row's
+    # complement below, so ties go to the lowest row.
+    rows = torch.arange(v.shape[0], dtype=torch.int64, device=v.device)
+    key64 = order_key(v).to(torch.int64) * (1 << 32) + (0xFFFFFFFF - rows)
+    return torch.topk(key64, k).indices
+
+
+def _gather_nodes(nf, idx: torch.Tensor):
+    """NodeFeatures restricted to rows ``idx`` (topo_domains' node axis
+    is axis 1; every other leaf leads with N). Domain ids are not
+    remapped: they stay global."""
+    return nf._replace(
+        topo_domains=nf.topo_domains[:, idx],
+        **{f: getattr(nf, f)[idx]
+           for f in nf._fields if f != "topo_domains"})
+
+
+def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
+               sample_nodes: Optional[int] = None):
     """The scheduling step for a plugin profile:
     ``step(eb, nf, af, key) -> Decision`` where ``eb`` is an EncodedBatch,
     ``nf`` the NodeFeatures and ``af`` the AssignedPodFeatures, all as
@@ -98,25 +167,56 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None):
     ``shortlist=K`` (K >= 1) assigns with the shortlist-compressed scan
     (select.greedy_assign_shortlist, K clamped to the node pad); None or
     K < 1 keeps the full greedy assignment. Decisions are bit-identical
-    either way; only ``shortlist_repaired`` tells them apart."""
+    either way; only ``shortlist_repaired`` tells them apart.
+
+    ``sample_nodes=K`` (K < the node pad) evaluates the batch against K
+    candidate nodes (_select_node_sample, drawn with the second half of
+    ``split(key)``; the first half breaks the step's ties). A volume
+    claim mounted on a node outside the sample maps to row K, which
+    matches no node. Outputs are remapped to global node rows and
+    ``free_after`` is returned full-size, a new tensor (the input
+    ``free`` may be the engine's carried device state). A pod with no
+    feasible node in the sample must be re-evaluated against the full
+    axis before it is declared unschedulable (the engine's residual
+    pass)."""
     greedy_fn = greedy_assign
     if shortlist is not None and shortlist >= 1:
         greedy_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
 
     def step(eb, nf, af, key) -> Decision:
+        n = nf.valid.shape[0]
+        sample_idx = None
+        if sample_nodes is not None and sample_nodes < n:
+            key, skey = prng.split(key)
+            sample_idx = _select_node_sample(nf, skey, sample_nodes)
+            inv = torch.full((n,), sample_nodes, dtype=torch.int32,
+                             device=sample_idx.device)
+            inv[sample_idx] = torch.arange(sample_nodes, dtype=torch.int32,
+                                           device=sample_idx.device)
+            cr = eb.pf.claim_rows
+            eb = eb._replace(pf=eb.pf._replace(claim_rows=torch.where(
+                cr >= 0, inv[torch.clamp(cr, 0, n - 1).long()], cr)))
+            free_full = nf.free
+            nf = _gather_nodes(nf, sample_idx)
         masked_total, feasible_counts, reject_counts = evaluate(
             plugin_set, eb, nf, af)
         assign = gang_assign(masked_total, eb.pf.requests, nf.free,
                              eb.gang.group, eb.gang.min_count,
                              prng.bits(key), greedy_fn=greedy_fn)
+        chosen, free_after = assign.chosen, assign.free_after
+        if sample_idx is not None:
+            safe = torch.clamp(chosen, 0, sample_nodes - 1).long()
+            chosen = torch.where(assign.assigned,
+                                 sample_idx[safe].to(torch.int32), chosen)
+            free_after = free_full.index_copy(0, sample_idx, free_after)
         return Decision(
-            chosen=assign.chosen,
+            chosen=chosen,
             assigned=assign.assigned,
             gang_rejected=assign.gang_rejected,
             feasible_counts=feasible_counts,
             feasible_static=feasible_counts,
             reject_counts=reject_counts,
-            free_after=assign.free_after,
+            free_after=free_after,
             shortlist_repaired=assign.repaired,
         )
 

@@ -127,6 +127,17 @@ class NodeResourcesMostAllocated(_AllocationScorer):
         return 100.0 * torch.where(present, torch.clamp(util, 0.0, 1.0), 0.0).sum(dim=2) / denom
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, on every device.
+
+    torch's CPU ``sqrt`` is not IEEE: it misses the correctly rounded
+    result in about a fifth of random float32 inputs, so a score would
+    sit one ulp off XLA's and flip a tie-break. The root taken in float64
+    and rounded once to float32 is exact: double rounding is harmless for
+    sqrt because 53 >= 2*24 + 2."""
+    return torch.sqrt(x.double()).float()
+
+
 class NodeResourcesBalancedAllocation(_AllocationScorer):
     """Score 0..100, higher when per-resource utilizations are mutually
     close (upstream balanced-allocation: 100 - stddev×100 over fractions)."""
@@ -140,4 +151,4 @@ class NodeResourcesBalancedAllocation(_AllocationScorer):
         mean = u.sum(dim=2) / count
         d = u - mean[:, :, None]
         var = torch.where(present, d * d, 0.0).sum(dim=2) / count
-        return 100.0 - torch.sqrt(var) * 100.0
+        return 100.0 - sqrt_f32(var) * 100.0

@@ -15,6 +15,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
+from ..faults import FAULTS, FaultInjected
 from .store import ClusterStore, EventType, WatchEvent
 
 import logging
@@ -106,6 +107,17 @@ class InformerFactory:
             self._dispatch_adds(kind, initial[kind])
         self._synced.set()
         while not self._stop.is_set():
+            try:
+                # Fault gate: informer dispatch. Placed BEFORE the drain
+                # so an injected err/stall delays delivery (the real
+                # failure mode: a wedged/lagging pump) without ever
+                # dropping events already taken off the watch — and a
+                # raise here must not kill the pump thread.
+                FAULTS.hit("informer")
+            except FaultInjected:
+                log.warning("informer dispatch fault injected; pump "
+                            "continues next iteration")
+                continue
             try:
                 # Batch drain: one store-lock acquisition per burst instead
                 # of one per event (a 10k-pod submission would otherwise

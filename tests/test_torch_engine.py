@@ -25,7 +25,7 @@ from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as TO
 from minisched_tpu_torch.state.store import ClusterStore
 from torch_parity import (BENCH_PROFILE, PORTS_PROFILE, bench_cluster,
-                          mixed_cluster, port_heavy_cluster)
+                          mixed_cluster, port_heavy_cluster, sampled_cluster)
 
 
 def _jax_config(**kw):
@@ -114,6 +114,38 @@ def test_engine_modes_match_jax(pipeline, resident, shortlist):
         assert m["residency_hits"] == m["batches"] - 1
     assert m["kernel_launches"] == 0 and all(
         m[f"kernel_launches_{k}"] == 0 for k in _cuda_build.KERNELS)
+
+
+@pytest.mark.parametrize("pipeline,resident,shortlist", MODES)
+def test_sampled_engine_matches_jax(pipeline, resident, shortlist,
+                                    monkeypatch):
+    """1,200 nodes x 256 pods in batches of 64 under an otherwise
+    unmodified SchedulerConfig: the default samples K=512 of the nodes
+    per batch (percentage_of_nodes_to_score=0 is auto), and one pod
+    fits only on a node outside every sample, so its batch takes the
+    same-cycle full-axis residual pass. Placements and every shared
+    counter equal the JAX engine's."""
+    kw = dict(max_batch_size=64, pipeline=pipeline,
+              device_resident=resident, shortlist=shortlist)
+    residuals = []
+    orig = getattr(Scheduler, "_run_residual", None)
+
+    def counted(self, b, rows, *a):
+        residuals.append(len(rows))
+        return orig(self, b, rows, *a)
+
+    monkeypatch.setattr(Scheduler, "_run_residual", counted, raising=False)
+    want, jm = _run_cluster(JCluster, JO, JProfile(**BENCH_PROFILE),
+                            JConfig(**kw), 0, 0, 0, recipe=sampled_cluster)
+    got, m = _run_cluster(Cluster, TO, Profile(**BENCH_PROFILE),
+                          SchedulerConfig(platform="cpu", **kw), 0, 0, 0,
+                          recipe=sampled_cluster)
+    assert got == want
+    assert got["bench/only-fits-big"] == "big-node"
+    for k in SHARED_METRICS:
+        assert m[k] == jm[k], k
+    assert m["pods_failed"] == 0 and m["pods_bound"] == 257
+    assert residuals == [1]
 
 
 @pytest.mark.parametrize("pipeline,resident,shortlist",
@@ -271,7 +303,7 @@ def test_node_delete_mid_stream_stays_consistent():
             assert p.spec.node_name != "n5"
         m = c.service.scheduler.metrics()
         assert m["residency_hits"] >= 1
-        assert m["cycle_errors"] == 0
+        assert m["batch_faults"] == 0
     finally:
         c.shutdown()
 
@@ -297,7 +329,7 @@ def test_pad_change_forces_rebase():
             c.wait_for_pod_bound(f"later-{i}", timeout=30)
         m = c.service.scheduler.metrics()
         assert m["residency_resyncs"] == 2, m
-        assert m["cycle_errors"] == 0
+        assert m["batch_faults"] == 0
     finally:
         c.shutdown()
 
@@ -400,7 +432,7 @@ def test_failure_verdicts_flush_in_both_loops(pipeline):
             assert "NodeResourcesFit" in pod.status.unschedulable_plugins
         sched = c.service.scheduler
         m = sched.metrics()
-        assert m["pods_failed"] >= 3 and m["cycle_errors"] == 0
+        assert m["pods_failed"] >= 3 and m["batch_faults"] == 0
         res = sched._residency
         assert np.array_equal(res.free_dev.numpy(), res.mirror_free)
     finally:

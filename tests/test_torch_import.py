@@ -52,7 +52,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_whole_port_imports_with_jax_blocked():
     mods = _port_modules()
-    assert "minisched_tpu_torch.engine.scheduler" in mods
+    assert {"minisched_tpu_torch.engine.scheduler",
+            "minisched_tpu_torch.faults", "minisched_tpu_torch.obs",
+            "minisched_tpu_torch.obs.journal"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
             "    sys.modules[m] = None\n"

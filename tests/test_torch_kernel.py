@@ -377,3 +377,68 @@ def test_insert_ports_design_cases_on_card(kind):
     assert LAUNCHES["insert_ports"] == n0 + 1
     assert bits_equal(want.numpy(), got.cpu().numpy())
     assert not bits_equal(state, got.cpu().numpy())
+
+
+def _sampled_case(kind, rng, P=1024, N=4096, R=10):
+    """A batch at the sampled shape of bench-50k (1024 pods x the 4,096
+    sampled nodes): bench-like scores (a quarter of each row at each of
+    four values, 1% NEG), integer-valued requests and free capacity;
+    ``contention`` starves all but a few nodes so the scan repairs."""
+    s = rng.choice(np.float32([181.25, 190.625, 195.3125, 196.875]), (P, N))
+    s[rng.random((P, N)) < 0.01] = NEG
+    req = rng.integers(1, 8, (P, R)).astype(np.float32) * 250
+    free = rng.integers(8, 129, (N, R)).astype(np.float32) * 250
+    if kind == "contention":
+        free[:] = 250.0
+        free[: N // 64] = 1e7
+    return s.astype(np.float32), req, free
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["bench-like", "contention"])
+def test_selection_and_scan_at_the_sampled_shape_on_card(kind):
+    """The selection and scan kernels at 1024 x 4096 (the default
+    config's node sample at bench-50k) equal their plain versions, and
+    the scan equals the greedy kernel there."""
+    _need_card()
+    scores, req, free = _sampled_case(kind, np.random.default_rng(4096))
+    seed = prng.bits(prng.split(prng.fold_in(prng.PRNGKey(0), 1))[0])
+    _select_on_card(scores, seed, 128)
+    plain = _scan_on_card(scores, req, free, seed, 128)
+    full = greedy_assign_cuda(*(torch.from_numpy(a).cuda()
+                                for a in (scores, req, free)), seed)
+    for field in ("chosen", "assigned", "free_after"):
+        assert bits_equal(getattr(plain, field).numpy(),
+                          getattr(full, field).cpu().numpy()), field
+    if kind == "contention":
+        assert int(plain.repaired.sum()) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shortlist", [128, None])
+def test_sampled_step_on_card_equals_cpu(shortlist):
+    """A sampled build_step (3,000 bench nodes, 1,024 pods, K=1,024) on
+    the card: every Decision field equal to the CPU's."""
+    _need_card()
+    from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
+                                            to_torch)
+    from minisched_tpu_torch.ops.pipeline import build_step
+    from minisched_tpu_torch.service.defaultconfig import Profile
+    from minisched_tpu_torch.state import objects as TO
+    from torch_parity import BENCH_PROFILE, bench_cluster
+
+    nodes, pods = bench_cluster(TO, 3000, 1024, 5)
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes)
+    nf, _names, _sv, _incs = cache.snapshot_versioned(pad=3072)
+    eb = encode_pods(pods, 1024, cfg=cache.cfg, registry=cache.registry)
+    af = cache.snapshot_assigned(pad=16)
+    step = build_step(Profile(**BENCH_PROFILE).build(), shortlist=shortlist,
+                      sample_nodes=1024)
+    key = prng.fold_in(prng.PRNGKey(5), 1)
+    got = step(*(to_torch(x, "cuda") for x in (eb, nf, af)), key)
+    want = step(*(to_torch(x, "cpu") for x in (eb, nf, af)), key)
+    for field in want._fields:
+        assert bits_equal(getattr(want, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    assert int(want.assigned.sum()) == 1024

@@ -120,3 +120,23 @@ def test_max_normalize_100_matches_jax(seed):
     want = np.asarray(jnormalize(jnp.asarray(s), jnp.asarray(feas)))
     got = max_normalize_100(torch.from_numpy(s), torch.from_numpy(feas))
     assert bits_equal(want, got.numpy())
+
+
+def test_sqrt_f32_is_correctly_rounded():
+    """BalancedAllocation's square root equals numpy's correctly rounded
+    float32 sqrt on random floats in [0, 4) (the range of its variance
+    and beyond) and on the edges: zeros, subnormals, the smallest and
+    largest normal values, the largest finite value and infinity."""
+    from minisched_tpu_torch.plugins.noderesources import sqrt_f32
+
+    rng = np.random.default_rng(0)
+    x = (rng.random(1 << 20, dtype=np.float32) * 4).astype(np.float32)
+    tiny = np.finfo(np.float32).tiny
+    edges = np.array([0.0, -0.0, tiny, np.float32(tiny) / 2,
+                      np.float32(1.4e-45), np.finfo(np.float32).max,
+                      1.0, 2.0, 0.25, np.inf], dtype=np.float32)
+    sub = rng.integers(1, 1 << 23, 4096).astype(np.int32).view(np.float32)
+    for a in (x, edges, sub):
+        got = sqrt_f32(torch.from_numpy(a)).numpy()
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.int32), np.sqrt(a).view(np.int32))

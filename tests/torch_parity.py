@@ -335,3 +335,29 @@ def ports_cluster(O, seed: int):
         pod.spec.ports = [O.ContainerPort(host_port=int(h))
                           for h in rng.choice(pool, k, replace=False)]
     return nodes, pending, bound
+
+
+def sampled_cluster(O, n_nodes: int = 1200, n_pods: int = 256,
+                    seed: int = 0):
+    """bench_cluster at a size where the default config samples nodes,
+    plus one pod the sample cannot place: a 200-core node whose memory
+    and CPU a pod already bound there mostly use (so its free-capacity
+    proxy ranks it far below the K sampled nodes) and a pending pod of
+    100 cores that fits only there. The sampled step finds that pod
+    0-feasible and the same-cycle full-axis residual pass places it.
+    Returns (objects to create first: nodes and the bound pod, pending
+    pods)."""
+    nodes, pods = bench_cluster(O, n_nodes, n_pods, seed)
+    big = O.Node(metadata=O.ObjectMeta(name="big-node",
+                                       labels={"zone": "z0"}),
+                 status=O.NodeStatus(allocatable={
+                     "cpu": 200000.0, "memory": float(64 << 30),
+                     "pods": 110.0}))
+    resident = O.Pod(metadata=O.ObjectMeta(name="resident", namespace="bench"),
+                     spec=O.PodSpec(node_name="big-node", requests={
+                         "cpu": 60000.0, "memory": float(127 << 29)}))
+    pinned = O.Pod(metadata=O.ObjectMeta(name="only-fits-big",
+                                         namespace="bench"),
+                   spec=O.PodSpec(requests={"cpu": 100000.0,
+                                            "memory": float(1 << 28)}))
+    return nodes + [big, resident], pods[:100] + [pinned] + pods[100:]

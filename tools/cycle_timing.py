@@ -1,7 +1,7 @@
 """Time the port's engine cycle end to end at bench-50k under several
 configurations, in turns, on one CUDA card.
 
-    python tools/cycle_timing.py [--modes default,full-kernel,sync]
+    python tools/cycle_timing.py [--modes default,unsampled,full-kernel,sync]
                                  [--rounds 2] [--pods 10000] [--profile]
 
 Every run is a fresh process (a long-lived process slows its host
@@ -21,9 +21,12 @@ activity): the device's busy time over the burst (the sum of its kernel
 and copy times, one stream) and the five kernels that took the most.
 
 Modes: default (SchedulerConfig(): pipelined, device-resident,
-shortlist K=128); full-kernel (the same with shortlist=False: the
-greedy kernel); sync (pipeline, residency and shortlist off: the earlier
-path).
+shortlist K=128, node sampling at its auto percentage: K=4,096 of the
+53,248-row pad at bench-50k); unsampled (the same with
+percentage_of_nodes_to_score=100: every node evaluated); full-kernel
+(the default with shortlist=False: the greedy kernel); sync (pipeline,
+residency and shortlist off: the earlier path). The default list is
+default,unsampled.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from minisched_tpu_torch.config import SchedulerConfig  # noqa: E402
 
 MODES = {
     "default": {},
+    "unsampled": {"percentage_of_nodes_to_score": 100},
     "full-kernel": {"shortlist": False},
     "sync": {"pipeline": False, "device_resident": False,
              "shortlist": False},
@@ -86,7 +90,7 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--modes", default="default,full-kernel,sync")
+    ap.add_argument("--modes", default="default,unsampled")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--pods", type=int, default=cs.N_PODS)
     ap.add_argument("--profile", action="store_true")
