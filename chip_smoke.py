@@ -6,7 +6,7 @@ Needs a CUDA card and the CUDA toolkit (nvcc); exits non-zero without
 them, and on any mismatch. Phases, each printing its own lines:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
-  2. build the four kernels with nvcc, one process each, all at once,
+  2. build the five kernels with nvcc, one process each, all at once,
      and print each ptxas report;
   3. the greedy-assignment kernel vs its plain PyTorch version on the
      card, bitwise, at the shapes of tests/test_pallas_select.py, at a
@@ -47,22 +47,45 @@ them, and on any mismatch. Phases, each printing its own lines:
      at the engine's shapes (a 128-pod bucket of port pods x 4 requested
      ports into the bench cluster's 53248 x 8 used_ports), on a
      port-heavy 1024-pod batch and with 1024 pods on one row;
-  9. the main path: Cluster(...).start() with SchedulerConfig() (the
+  9. the caps scan kernel vs its plain version, bitwise on chosen,
+     assigned and free_after: tests/torch_parity.py's caps problems (the
+     shapes of tests/test_spreadcap.py, random hard batches, hostname
+     groups that do not compact, a batch with no slot enforced, 512 pods
+     over 3,000 nodes), and config 4 hard at full width (1,024 pods,
+     DoNotSchedule max_skew 1 over 16 zones, against 50,000 nodes) with
+     its time, plain time and bound; then the step of the eight label
+     and topology plugins at full width (tests/torch_parity.py
+     full_cluster: 50,000 nodes, 25,000 bound pods), every Decision field
+     cuda = cpu for a soft batch on the node sample and a hard batch
+     unsampled (the caps scan);
+ 10. the main path: Cluster(...).start() with SchedulerConfig() (the
      pipelined, device-resident, shortlist cycle, sampling K nodes per
      batch) on the card, bench profile, 50,000 nodes x 10,000 pods, all
      bound, no node over its allocatable, the K the engine picks, the
      selection and scan kernels launched in every batch, one residency
      resync and hits after it, and the carried device state equal to
      its host mirror bitwise at the end;
- 10. the port path: the JAX package's port-heavy residency burst
+ 11. config 4 soft, this slice's main path: the same with BASELINE
+     config 4's profile (NodeUnschedulable, NodeResourcesFit,
+     PodTopologySpread, InterPodAffinity; DefaultPreemption is not
+     ported yet) and make_c4_workload's pods (ScheduleAnyway max_skew 8,
+     preferred affinity on every other pod): every batch sampled, the
+     selection and scan kernels in each, no host sync in its step;
+ 12. config 4 hard (DoNotSchedule max_skew 1): every batch unsampled,
+     the caps kernel launched in each, no pod revoked by the host
+     arbitration on a scan-enforced group, all bound, app=bench per zone
+     within 1 of the least; the batches to drain and create-to-bound;
+ 13. a smaller hard burst (1,200 nodes x 512 pods): placements on the
+     card equal those on the CPU;
+ 14. the port path: the JAX package's port-heavy residency burst
      (tests/test_device_residency.py:491: 4 nodes, 24 pods with two host
      ports each, NodeUnschedulable + NodeResourcesFit + NodePorts) with
      SchedulerConfig(): the port insertion kernel launched, the device
      used_ports equal to the host mirror, placements equal to the
      synchronous upload-every-batch run, no host port twice on a node;
- 11. the earlier path: pipeline, residency and shortlist off, 50,000
+ 15. the earlier path: pipeline, residency and shortlist off, 50,000
      nodes x 2,048 pods, the greedy kernel launched in every batch;
- 12. faults on the card: a 1,201-node bench cluster (sampled, with one
+ 16. faults on the card: a 1,201-node bench cluster (sampled, with one
      pod only the residual pass places and two pods that fit nowhere),
      pipeline on and then off, fault-free and then under
      step:err@2,fetch:corrupt@3,commit:err@1,informer:err@1: each gate
@@ -70,7 +93,11 @@ them, and on any mismatch. Phases, each printing its own lines:
      the fault-free run's; then a fault-free run with
      shortlist_check_every=1 and resident_check_every=1 (the cross-check
      launches the greedy kernel, the carry check runs, no desync);
- 13. the reference's README scenario on the card (default config).
+ 17. the reference's README scenario on the card (default config).
+
+Phase 6 also runs the bench step, sampled and unsampled, under torch's
+sync debug mode "error" with the engine's host flags (no gang, no
+DoNotSchedule slot): the step never waits on the card.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -94,10 +121,12 @@ from minisched_tpu_torch.encode.cache import step_bucket
 from minisched_tpu_torch.ops import _cuda_build, prng
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
+from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
-from minisched_tpu_torch.ops.pipeline import (_gather_nodes,
+from minisched_tpu_torch.ops.pipeline import (_evaluate, _gather_nodes,
                                               _select_node_sample,
-                                              build_step, evaluate)
+                                              build_step, cycle_state,
+                                              evaluate)
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
                                             greedy_assign_shortlist_plain,
@@ -105,6 +134,7 @@ from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
                                             shortlist_select_plain)
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
+from minisched_tpu_torch.ops.spreadcap import build_domain_caps
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
 from minisched_tpu_torch.service.defaultconfig import Profile
@@ -113,7 +143,8 @@ from minisched_tpu_torch.state import objects as O
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_parity import (SELECT_CARD_LIST_KINDS, sampled_cluster,  # noqa: E402
+from torch_parity import (CAPS_KINDS, SELECT_CARD_LIST_KINDS,  # noqa: E402
+                          caps_problem, full_cluster, sampled_cluster,
                           select_list_case)
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
@@ -168,6 +199,47 @@ def bench_workload(n_nodes: int, n_pods: int, seed: int = 0):
                                            "memory": float(2 << 30)}))
             for i in range(n_pods)]
     return nodes, pods
+
+
+# BASELINE config 4 (BASELINE.md:33): topology spread + inter-pod
+# affinity over the fit filter, the JAX package's C4_PLUGINS
+# (bench_workload.py:51) without DefaultPreemption, which this package
+# does not have yet.
+C4_PROFILE = Profile(
+    name="c4",
+    plugins=["NodeUnschedulable", "NodeResourcesFit", "PodTopologySpread",
+             "InterPodAffinity"])
+
+
+def c4_workload(n_nodes: int, n_pods: int, seed: int = 0, *,
+                max_skew: int = 8, hard: bool = False):
+    """Config 4's cluster (bench_workload.make_c4_workload): the bench
+    cluster, pods labelled app=bench with a topology-spread constraint
+    over zone (DoNotSchedule when ``hard``, else ScheduleAnyway) and
+    preferred inter-pod affinity (weight 10, zone) on every other pod."""
+    nodes, pods = bench_workload(n_nodes, n_pods, seed)
+    return nodes, c4_pods(pods, max_skew=max_skew, hard=hard)
+
+
+def c4_pods(pods, *, max_skew: int = 8, hard: bool = False, objects=O):
+    """Give ``pods`` config 4's labels, spread constraint and (on every
+    other pod) preferred affinity, in place; returns them. ``objects`` is
+    the module whose object types to build."""
+    sel = objects.LabelSelector(match_labels={"app": "bench"})
+    when = "DoNotSchedule" if hard else "ScheduleAnyway"
+    for i, p in enumerate(pods):
+        p.metadata.labels["app"] = "bench"
+        p.spec.topology_spread_constraints = [
+            objects.TopologySpreadConstraint(
+                max_skew=max_skew, topology_key="zone",
+                when_unsatisfiable=when, label_selector=sel)]
+        if i % 2 == 0:
+            p.spec.affinity = objects.Affinity(
+                pod_affinity=objects.PodAffinity(preferred=[
+                    objects.WeightedPodAffinityTerm(
+                        weight=10, term=objects.PodAffinityTerm(
+                            label_selector=sel, topology_key="zone"))]))
+    return pods
 
 
 def port_heavy_workload(n_nodes: int = 4, n_pods: int = 24):
@@ -332,16 +404,25 @@ def shortlist_case(P, N, R, seed, *, plateau=False, contend=False):
     return [torch.from_numpy(a).cuda() for a in (s, req, free)]
 
 
-def full_width_batch(nodes, pods):
-    """The first 1024-pod batch of the bench workload against every node,
-    encoded by the port's own cache and encoder (host numpy)."""
+def full_width_batch(nodes, pods, bound=(), selector_spread=False):
+    """The first 1024-pod batch of a workload against every node, encoded
+    by the port's own cache and encoder (host numpy). The pods are
+    encoded first, as the engine does: their constraints register the
+    topology keys the node snapshot's domains reflect."""
     cache = NodeFeatureCache()
+    if selector_spread:
+        cache.enable_owner_pairs()
     cache.upsert_nodes_bulk(nodes)
+    for pod, node_name in bound:
+        pod.spec.node_name = node_name
+        cache.account_bind(pod)
+    eb = encode_pods(pods[:BATCH], step_bucket(BATCH), cfg=cache.cfg,
+                     registry=cache.registry,
+                     anti_forbidden_fn=cache.anti_forbidden_for,
+                     selector_spread=selector_spread)
     pad = step_bucket(len(nodes))
     nf, _names, _sv, _incs = cache.snapshot_versioned(pad=pad)
-    af = cache.snapshot_assigned(pad=16)
-    eb = encode_pods(pods[:BATCH], step_bucket(BATCH), cfg=cache.cfg,
-                     registry=cache.registry)
+    af = cache.snapshot_assigned(pad=None if bound else 16)
     return eb, nf, af
 
 
@@ -555,6 +636,174 @@ def fault_burst(spec: str, cfg: SchedulerConfig, label: str):
     finally:
         faults.configure("")
         cluster.shutdown()
+
+
+def check_no_sync(fn, label) -> None:
+    """``fn()`` (warmed first) runs under torch's sync debug mode
+    "error": the host never waits for the card in it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        check(False, f"{label} waits on the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def caps_bound_s(P, N, R, C, H, K_):
+    """Least time for the caps scan's work: the scores, requests, slots,
+    matches, domain rows and count tables read once, free in and out and
+    the outputs written once, over the memory rate, against its compares
+    (R fits, C domain verdicts, score and noise order per pair) over the
+    float32 rate."""
+    moved = (4 * P * N + 4 * P * R + 8 * N * R + 8 * P * C + P * H
+             + 4 * H * N + 5 * H * K_ + 5 * P)
+    ops = P * N * (R + C + 2)
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
+        "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations")
+
+
+def caps_on_card(scores, req, free, seed, caps, label):
+    """The caps scan kernel against its plain version on the card, bitwise
+    on chosen, assigned and free_after: (kernel result, plain ms, max
+    abs error)."""
+    caps_d = type(caps)(*[t.cuda() for t in caps])
+    args = [t.cuda() for t in (scores, req, free)]
+    got = caps_scan_cuda(*args, seed, caps_d)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain = greedy_assign_plain(*args, seed, caps_d)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = 0.0
+    for f in ("chosen", "assigned", "free_after"):
+        a, b = getattr(got, f), getattr(plain, f)
+        check(torch.equal(bits(a), bits(b)),
+              f"caps scan {label}: {f} differs bitwise from the plain "
+              "version")
+        if a.numel() and f != "assigned":
+            err = max(err, float((a.cpu().double() - b.cpu().double())
+                                 .abs().max()))
+    return got, plain_ms, err
+
+
+def c4_hard_problem():
+    """The caps scan's input at full width, as the step builds it: the
+    first 1,024 pods of config 4 hard (DoNotSchedule, max_skew 1, 16
+    zones) against 50,000 nodes on the card, scored by the config-4
+    profile with the caps' groups deferred to the scan. Returns
+    ((scores, requests, free), seed, caps, the zone of each node row)."""
+    nodes, pods = c4_workload(N_NODES, BATCH, max_skew=1, hard=True)
+    eb, nf, af = full_width_batch(nodes, pods)
+    eb_d, nf_d, af_d = (to_torch(x, "cuda") for x in (eb, nf, af))
+    plugin_set = C4_PROFILE.build()
+    ctx = cycle_state(plugin_set, eb_d, nf_d, af_d)
+    caps = build_domain_caps(eb_d.pf, eb_d.gf, nf_d, ctx["counts_dom"],
+                             ctx["dom_exists"])
+    ctx["spread_scan_groups"] = caps.scan_groups
+    scores = _evaluate(plugin_set, eb_d.pf, nf_d, ctx)[0]
+    seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 1))
+    return ((scores, eb_d.pf.requests, nf_d.free), seed, caps,
+            nf.topo_domains[int(eb.gf.key_idx[0])])
+
+
+def caps_phase(smi):
+    """The caps scan kernel vs its plain version: tests/torch_parity.py's
+    caps problems (tests/test_spreadcap.py's shapes, groups that do not
+    compact, no slot enforced, many blocks), then config 4 hard at full
+    width: the first 1,024 pods (DoNotSchedule, max_skew 1, 16 zones)
+    against 50,000 nodes, scored by the config-4 profile with the caps'
+    groups deferred to the scan, as the step scores them. Returns the
+    kernel table's numbers."""
+    err = 0.0
+    for kind in CAPS_KINDS:
+        scores, req, free, seed, caps = caps_problem(kind)
+        got, _ms, e = caps_on_card(scores, req, free, seed, caps, kind)
+        err = max(err, e)
+        print(f"caps scan kernel vs plain {kind} "
+              f"{tuple(scores.shape)}x{req.shape[1]} (H={caps.domc.shape[0]},"
+              f" K={caps.counts0.shape[1]}, {int((caps.slot_h >= 0).sum())} "
+              f"enforced slots): bitwise equal, {int(got.assigned.sum())} "
+              "assigned")
+    args, seed, caps, zone_of = c4_hard_problem()
+    check(bool(caps.any_enforced), "config 4 hard: no slot enforced")
+    scores = args[0]
+    got, plain_ms, e = caps_on_card(*args, seed, caps, "full width")
+    err = max(err, e)
+    P, N = scores.shape
+    R, C = args[1].shape[1], caps.slot_h.shape[1]
+    H, K_ = caps.counts0.shape
+    ms = cuda_ms(lambda: caps_scan_cuda(*args, seed, caps), reps=10)
+    bound_s, bound_by = caps_bound_s(P, N, R, C, H, K_)
+    zones = zone_of[got.chosen.cpu().numpy()[got.assigned.cpu().numpy()]]
+    _, per_zone = np.unique(zones, return_counts=True)
+    check(int(got.assigned.sum()) == BATCH
+          and per_zone.max() - per_zone.min() <= 1,
+          f"config 4 hard full width: {int(got.assigned.sum())} assigned, "
+          f"per-zone counts {per_zone.tolist()}")
+    print(f"caps scan kernel vs plain config 4 hard full width "
+          f"{P}x{N}x{R} (H={H}, K={K_}, C={C}): bitwise equal, "
+          f"{int(got.assigned.sum())} assigned over {len(per_zone)} zones "
+          f"within skew 1; kernel {ms:.4f} ms ({ms * 1e3 / P:.3f} us per "
+          f"pod), plain {plain_ms:.1f} ms, bound {bound_s * 1e3:.4f} ms "
+          f"({bound_by}; the real limit is the chain of {P} dependent "
+          f"steps) ({smi})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_s": bound_s,
+            "bound_by": bound_by, "err": err}
+
+
+def eight_plugin_phase(smi):
+    """The step of the eight label and topology plugins (with
+    NodeUnschedulable and NodeResourcesFit) at full width on
+    tests/torch_parity.py's full_cluster (50,000 nodes, 25,000 bound
+    pods, 1,024 pending): every Decision field cuda = cpu bitwise, spread
+    fields included, for a soft batch on the default config's node
+    sample and a hard batch unsampled (the caps scan)."""
+    profile = Profile(name="eight", plugins=[
+        "NodeUnschedulable", "NodeResourcesFit", "PodTopologySpread",
+        "InterPodAffinity", "SelectorSpread", "TaintToleration",
+        "NodeAffinity", "NodeName", "ImageLocality", "NodePreferAvoidPods"])
+    plugin_set = profile.build()
+    key = prng.fold_in(prng.PRNGKey(0), 1)
+    for hard, sample in ((False, SAMPLE_K), (True, None)):
+        nodes, pods, bound = full_cluster(O, N_NODES, BATCH, 7, hard=hard)
+        eb, nf, af = full_width_batch(nodes, pods, bound,
+                                      selector_spread=True)
+        step = build_step(plugin_set, shortlist=K, sample_nodes=sample)
+        d_gpu = step(*(to_torch(x, "cuda") for x in (eb, nf, af)), key)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d_cpu = step(*(to_torch(x, "cpu") for x in (eb, nf, af)), key)
+        cpu_s = time.perf_counter() - t
+        for field in d_cpu._fields:
+            check(torch.equal(bits(getattr(d_gpu, field)),
+                              bits(getattr(d_cpu, field))),
+                  f"eight-plugin step hard={hard} field {field}: "
+                  "cuda != cpu")
+        check(bool(d_cpu.scan_groups.any()) == hard,
+              f"eight-plugin step hard={hard}: scan groups "
+              f"{int(d_cpu.scan_groups.sum())}")
+        what = ("hard, unsampled (caps scan)" if hard
+                else f"soft, sampled K={sample}")
+        print(f"eight-plugin step {what} "
+              f"{eb.pf.valid.shape[0]}x{nf.valid.shape[0]}: every Decision "
+              f"field bitwise equal cuda vs cpu, {int(d_cpu.assigned.sum())}"
+              f" assigned, {int(d_cpu.scan_groups.sum())} groups enforced "
+              f"in the scan; cpu {cpu_s:.1f} s ({smi})")
+        del d_gpu, d_cpu, nodes, pods, bound
+
+
+def zone_counts(nodes, placed):
+    """Bound pods per zone label value, from drive()'s placements."""
+    zone_of = {n.metadata.name: n.metadata.labels["zone"] for n in nodes}
+    counts: dict = {}
+    for node_name in placed.values():
+        counts[zone_of[node_name]] = counts.get(zone_of[node_name], 0) + 1
+    return counts
 
 
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
@@ -859,13 +1108,19 @@ def main() -> int:
             step_dev_ms = device_ms(lambda: step(eb_d, nf_d, af_d, key),
                                     reps=5)
     full_step = build_step(plugin_set, shortlist=K)
+    sampled_step = build_step(plugin_set, shortlist=K, sample_nodes=SAMPLE_K)
+    for label, fn in (("sampled", sampled_step), ("unsampled", full_step)):
+        check_no_sync(lambda: fn(eb_d, nf_d, af_d, key, has_gang=False,
+                                 hard_spread=False),
+                      f"the bench step, {label}")
     unsampled_ms = cuda_ms(lambda: full_step(eb_d, nf_d, af_d, key), reps=5)
     unsampled_dev_ms = device_ms(lambda: full_step(eb_d, nf_d, af_d, key),
                                  reps=5)
     s_eval_ms = cuda_ms(lambda: evaluate(plugin_set, eb_d, _gather_nodes(
         nf_d, idx), af_d), reps=5)
     print(f"sampled step K={SAMPLE_K}: every Decision field bitwise equal "
-          f"cuda vs cpu with shortlist={K} and None (and chosen, assigned, "
+          f"cuda vs cpu with shortlist={K} and None, no host sync in the "
+          f"sampled or the unsampled step (and chosen, assigned, "
           f"free_after equal between them); CUDA events: sampled "
           f"{step_ms[K]:.3f} ms (shortlist) / {step_ms[None]:.3f} ms (greedy "
           f"kernel), unsampled {unsampled_ms:.3f} ms (shortlist; 9577057: "
@@ -941,7 +1196,14 @@ def main() -> int:
               f"{bound_s * 1e3:.4f} ms (bytes) ({smi})")
         del state_d, rows_d, ports_d, got, plain
 
-    # 9. the main path: SchedulerConfig(), the default cycle
+    # 9. the caps scan kernel vs its plain version, and the step of the
+    # eight label and topology plugins at full width, cuda = cpu
+    t_phase = time.perf_counter()
+    caps_t = caps_phase(smi)
+    eight_plugin_phase(smi)
+    print(f"phase 9 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 10. the main path: SchedulerConfig(), the default cycle
     nodes, pods = bench_workload(N_NODES, N_PODS)
     picked = []
     m, main_launches, c2b, per_pod, _ = drive(
@@ -965,7 +1227,79 @@ def main() -> int:
             f"(unsampled): bursts {UNSAMPLED_BURSTS_S} s, full-width step "
             f"{UNSAMPLED_STEP_MS} ms")
 
-    # 10. the port path: the default cycle books host ports on the device
+    # 11. config 4 soft, the main path of the topology slice: the default
+    # config, BASELINE config 4's profile, make_c4_workload's burst
+    t_phase = time.perf_counter()
+    nodes, pods = c4_workload(N_NODES, N_PODS)
+    picked = []
+    m, c4_launches, c2b, per_pod, _ = drive(
+        SchedulerConfig(platform=""), nodes, pods, "config 4 soft",
+        C4_PROFILE, probe=lambda sched: picked.append(sched._sampled_step(
+            step_bucket(N_NODES), BATCH, False)[1]))
+    b = m["batches"]
+    check(picked == [SAMPLE_K], f"config 4 soft: the engine picks K={picked}")
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(c4_launches[name] >= b > 0,
+              f"config 4 soft: {name} launched {c4_launches[name]} times in "
+              f"{b} batches")
+    check(m["sampled_batches"] == b and m["hard_spread_batches"] == 0,
+          f"config 4 soft: {m['sampled_batches']} of {b} batches sampled")
+    c4eb, c4nf, c4af = (to_torch(x, "cuda")
+                        for x in full_width_batch(nodes, pods))
+    c4_step = build_step(C4_PROFILE.build(), shortlist=K,
+                         sample_nodes=SAMPLE_K)
+    check_no_sync(lambda: c4_step(c4eb, c4nf, c4af, key, has_gang=False,
+                                  hard_spread=False),
+                  "the config 4 soft step")
+    del c4eb, c4nf, c4af, c4_step
+    print(path_line(f"config 4 soft (default config, node sample "
+                    f"K={picked[0]}, ScheduleAnyway max_skew 8, preferred "
+                    f"affinity on every other pod) {N_NODES} nodes x "
+                    f"{N_PODS} pods", m, c4_launches, c2b, per_pod, N_PODS,
+                    smi) + "; no host sync in its step")
+
+    # 12. config 4 hard: DoNotSchedule max_skew 1, the skew worst case
+    nodes, pods = c4_workload(N_NODES, N_PODS, max_skew=1, hard=True)
+    m, hard_launches, c2b, per_pod, placed = drive(
+        SchedulerConfig(platform=""), nodes, pods, "config 4 hard",
+        C4_PROFILE)
+    b = m["batches"]
+    check(m["sampled_batches"] == 0 and m["hard_spread_batches"] == b,
+          f"config 4 hard: {m['sampled_batches']} of {b} batches sampled")
+    check(hard_launches["caps_scan"] >= b > 0,
+          f"config 4 hard: caps scan launched {hard_launches['caps_scan']} "
+          f"times in {b} batches")
+    check(m["spread_revoked_enforced"] == 0,
+          f"config 4 hard: {m['spread_revoked_enforced']} pods revoked on "
+          "a scan-enforced group")
+    zc = zone_counts(nodes, placed)
+    check(max(zc.values()) - min(zc.values()) <= 1,
+          f"config 4 hard: per-zone counts {sorted(zc.values())}")
+    print(path_line(f"config 4 hard (default config, DoNotSchedule "
+                    f"max_skew 1, every batch unsampled on the caps scan) "
+                    f"{N_NODES} nodes x {N_PODS} pods", m, hard_launches,
+                    c2b, per_pod, N_PODS, smi)
+          + f"; {b} batches to drain, {m['spread_revoked']} revoked by the "
+            f"host arbitration ({m['spread_revoked_enforced']} on "
+            f"scan-enforced groups), {m['spread_repaired']} repaired; "
+            f"app=bench per zone {min(zc.values())}..{max(zc.values())} "
+            f"over {len(zc)} zones")
+
+    # 13. cross-device placements: a smaller hard burst, cuda = cpu
+    placements = {}
+    for platform in ("", "cpu"):
+        nodes, pods = c4_workload(1200, 512, max_skew=1, hard=True)
+        *_, placements[platform] = drive(
+            SchedulerConfig(platform=platform), nodes, pods,
+            f"config 4 hard 1,200 x 512 on {platform or 'cuda'}",
+            C4_PROFILE)
+    check(placements[""] == placements["cpu"],
+          "config 4 hard 1,200 x 512: placements cuda != cpu")
+    print(f"config 4 hard 1,200 nodes x 512 pods: placements equal on the "
+          f"card and on the CPU ({len(placements[''])} pods)")
+    print(f"phases 11-13 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 14. the port path: the default cycle books host ports on the device
     nodes, pods = port_heavy_workload()
     m, port_launches, c2b, per_pod, placed = drive(
         SchedulerConfig(platform=""), nodes, pods, "port path",
@@ -991,7 +1325,7 @@ def main() -> int:
           + "; device used_ports = host mirror bitwise, placements = the "
             "synchronous upload-every-batch run")
 
-    # 11. the earlier path: synchronous, upload every batch, full kernel
+    # 15. the earlier path: synchronous, upload every batch, full kernel
     nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
     m, early_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform="", pipeline=False, device_resident=False,
@@ -1008,7 +1342,7 @@ def main() -> int:
                     early_launches, c2b, per_pod, EARLIER_PODS, smi))
     del nodes, pods
 
-    # 12. faults on the card, on a cluster that samples
+    # 16. faults on the card, on a cluster that samples
     for pipeline in (True, False):
         cfg = dict(platform="", pipeline=pipeline, max_batch_size=64,
                    batch_window_s=0.3, backoff_initial_s=0.05,
@@ -1048,7 +1382,7 @@ def main() -> int:
           f"times), {cm['resident_checks']} carry checks, no desync, "
           f"placements = the fault-free run's")
 
-    # 13. the README scenario on the card, default config
+    # 17. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -1101,6 +1435,18 @@ def main() -> int:
         "plain_ms": ports_plain_ms,
         "bound_ms": ports_bound_s * 1e3,
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "caps_scan",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/caps_scan.cu",
+        "replaces": "minisched_tpu/ops/select.py:80",
+        "launches": hard_launches["caps_scan"],
+        "max_abs_err": caps_t["err"],
+        "ms": caps_t["ms"],
+        "plain_ms": caps_t["plain_ms"],
+        "bound_ms": caps_t["bound_s"] * 1e3,
+        "bound_by": caps_t["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

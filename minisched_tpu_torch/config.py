@@ -73,6 +73,13 @@ class SchedulerConfig:
     # minFeasibleNodesToFind), and only sample at all when the cluster
     # is at least twice this size.
     min_sample_nodes: int = 256
+    # In-cycle repair of topology-revoked pods (engine/scheduler.py
+    # _repair_spread): after the host arbitration revokes placements that
+    # would breach hard skew or required anti-affinity within the batch,
+    # re-run the step on them up to this many times against the refreshed
+    # counts (the survivors assumed), instead of a queue round trip and
+    # backoff per tranche. 0 disables.
+    spread_repair_iters: int = 8
     # Engine supervisor (engine/scheduler.py _Supervisor): per-batch
     # device-step watchdog deadline in seconds. A batch whose
     # dispatch-to-fetch window exceeds it counts a watchdog trip and

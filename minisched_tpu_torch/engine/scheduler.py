@@ -14,8 +14,11 @@ three phases:
   resolve  read the packed decision back (one fetch) → replay the
            device's debits and port insertions into the residency mirror
            → the full-axis residual pass for pods the sample found no
-           node for → per pod: assume + permit plugins (host) or a
-           failure verdict → async bulk bind
+           node for → the topology arbitration (hard skew and required
+           anti-affinity within the batch, arbitrate_spread) → per pod:
+           assume + permit plugins (host) or a failure verdict → the
+           in-cycle repair of revoked pods (_repair_spread) → async bulk
+           bind
   commit   flush the batch's failure verdicts in bulk, fold the metrics
 
 With ``config.pipeline`` (the default) the loop is the bounded two-deep
@@ -73,6 +76,12 @@ from .queue import (BATCH_CAPACITY, COSCHEDULING, QueuedPodInfo,
 from .waitingpod import WaitingPod
 
 log = logging.getLogger(__name__)
+
+# Shared by the arbitration and repair-leftover failure paths — the two
+# must never diverge on reason text or plugin attribution.
+_SPREAD_REVOKE_MSG = (
+    "placement would breach a topology constraint (max_skew / required "
+    "anti-affinity) within this batch; retrying against committed counts")
 
 
 class EngineDesync(RuntimeError):
@@ -159,6 +168,7 @@ class _Batch:
 
     __slots__ = ("batch", "eb", "eb_dev", "nf", "af", "key", "sample_k",
                  "names", "row_incs", "decision", "packed_dev",
+                 "spread_dev", "fail_closed",
                  "res_carried", "failures", "n_assigned", "launches",
                  "sl_repairs", "assumed", "detached", "seq", "t0",
                  "t_encode", "t_dispatch", "t_fetch_start", "t_fetched",
@@ -169,6 +179,13 @@ class _Batch:
         self.n_assigned = 0
         self.decision: Optional[Decision] = None
         self.packed_dev = None
+        # The spread-arbitration inputs packed on the device, staged only
+        # for batches the host must arbitrate (a DoNotSchedule slot or a
+        # required anti-affinity term); None otherwise.
+        self.spread_dev = None
+        # Pods whose hard constraint the encoding could not represent:
+        # key → (plugin, reason); they fail closed at resolve.
+        self.fail_closed: Dict[str, tuple] = {}
         # This batch's free/used_ports input is the device-resident chain:
         # its free_after is carried and its debits replayed into the host
         # mirror at resolve time.
@@ -182,16 +199,26 @@ class _Batch:
         self.detached: Set[str] = set()
 
 
-def _count_launches(b: _Batch, fn, *args):
+def _count_launches(b: _Batch, fn, *args, **kwargs):
     """Run ``fn`` and book the kernel launches it made into ``b``. Only
     the scheduling thread launches kernels, so the deltas are this
     batch's."""
     before = dict(LAUNCHES)
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     for name, n in LAUNCHES.items():
         if n != before[name]:
             b.launches[name] = b.launches.get(name, 0) + n - before[name]
     return out
+
+
+def _pack_spread(d: Decision) -> torch.Tensor:
+    """The spread-arbitration inputs as one (2P+2, G) float32 buffer, one
+    fetch: pre-counts, chosen-domain ids, the per-group pre-batch min and
+    the in-scan enforcement flags. Domain ids and counts are < 2**24,
+    exact in float32."""
+    return torch.cat([d.spread_pre, d.spread_dom.to(torch.float32),
+                      d.spread_min[None, :],
+                      d.scan_groups.to(torch.float32)[None, :]], dim=0)
 
 
 def _device_copy(a: np.ndarray, device) -> torch.Tensor:
@@ -367,6 +394,293 @@ class _DeviceResidency:
         self.listener.invalidate()
 
 
+def batch_group_match(batch: List[QueuedPodInfo], gf) -> np.ndarray:
+    """(P_live, G) bool: batch pod i's namespace+labels match selector
+    group g — the HOST twin of ops.topology.group_assigned_match (same
+    hash functions, same all-zero-selector = match-all and ns_hash 0 =
+    any-namespace semantics), evaluated over the batch pods themselves
+    (their labels are host objects; the device only encodes groups).
+    Label-pair rows are memoized per distinct signature — a deployment's
+    replicas share one."""
+    from ..encode import features as F
+
+    P, G = len(batch), gf.valid.shape[0]
+    sel = np.asarray(gf.sel_pairs, dtype=np.int64)   # (G,QT)
+    gvalid = np.asarray(gf.valid)
+    gns = np.asarray(gf.ns_hash, dtype=np.int64)
+    ns_memo: Dict[str, int] = {}
+    # per distinct label signature: the (G,) selector-match row
+    sig_memo: Dict[tuple, np.ndarray] = {}
+    match = np.zeros((P, G), dtype=bool)
+    for i, qpi in enumerate(batch):
+        pod = qpi.pod
+        sig = tuple(pod.metadata.labels.items())
+        sel_ok = sig_memo.get(sig)
+        if sel_ok is None:
+            s = {F.pair_hash(k, v) for k, v in sig}
+            sel_ok = np.array([
+                all((int(p) in s) for p in sel[g] if p != 0)
+                for g in range(G)])
+            sig_memo[sig] = sel_ok
+        nsv = ns_memo.get(pod.metadata.namespace)
+        if nsv is None:
+            nsv = ns_memo[pod.metadata.namespace] = (
+                F._h(pod.metadata.namespace) if pod.metadata.namespace else 0)
+        match[i] = gvalid & ((gns == 0) | (gns == nsv)) & sel_ok
+    return match
+
+
+class _SpreadGroupState:
+    """Running per-domain count table for ONE selector group — the exact
+    sequential-semantics core of arbitrate_spread. Maintains the count
+    of every topology domain plus the global min via a count-histogram,
+    so each admission is O(1) and the min is always exact (never the
+    conservative pre-batch min, which on a skew-constrained burst admits
+    only ~(domains x max_skew) pods per cycle)."""
+
+    __slots__ = ("counts", "hist", "min")
+
+    def __init__(self, counts_row: np.ndarray, exist_row: np.ndarray):
+        self.counts = counts_row.astype(np.int64)  # (D,) private copy
+        vals, freq = np.unique(self.counts[exist_row], return_counts=True)
+        self.hist = dict(zip(vals.tolist(), freq.tolist()))
+        self.min = int(vals[0]) if vals.size else 0
+
+    def admit(self, d: int) -> None:
+        c = int(self.counts[d])
+        self.counts[d] = c + 1
+        n = self.hist.get(c, 0) - 1
+        if n:
+            self.hist[c] = n
+        else:
+            self.hist.pop(c, None)
+        self.hist[c + 1] = self.hist.get(c + 1, 0) + 1
+        if c == self.min and n <= 0:
+            # every domain that sat at the min has moved up; the next
+            # occupied histogram bucket is the new exact min
+            while self.hist.get(self.min, 0) == 0:
+                self.min += 1
+
+
+def arbitrate_spread(batch: List[QueuedPodInfo], assigned, pf, gf,
+                     spread_pre, spread_dom, spread_min,
+                     dead: Set[int], anti_enabled: bool = True,
+                     exact_tables=None,
+                     scan_enforced=None) -> Set[int]:
+    """Intra-batch topology arbitration → additional revoked indices.
+
+    Every batch pod was filtered/scored against PRE-batch topology counts,
+    so a burst can jointly commit constraints none violates alone (the
+    sequential reference sees each prior placement):
+
+      * hard (DoNotSchedule) spread: a burst can stack one domain past
+        max_skew;
+      * required anti-affinity: two mutually-exclusive batch pods can
+        both land in one domain — direct (the later pod's own anti term
+        matches an earlier placement) and symmetric (an earlier pod's
+        anti term matches the later pod).
+
+    Walk assignments in priority order carrying in-batch per-(group,
+    domain) state — membership updates fed by EVERY matching assigned
+    pod, constraint or not, and anti-term deltas by each survivor's own
+    anti terms. Skew is judged with EXACT sequential semantics when
+    ``exact_tables`` supplies the step's full per-domain count tables
+    (``() -> (cdom (G,D) f32, dexist (G,D) bool)``, fetched lazily —
+    only batches with hard constraints pay the transfer): a running
+    count table + histogram-tracked min per group reproduces what a
+    sequential scheduler placing the same pods in the same order would
+    admit, so a skew-constrained burst drains in one cycle instead of
+    max_skew-per-domain per cycle. Without the tables it falls back to
+    judging against the conservative pre-batch min (in-batch additions
+    only raise the true min, so the fallback never under-revokes — it
+    over-revokes and converges over more cycles). Violators are revoked
+    and retried next cycle, where the committed counts are visible —
+    required AFFINITY needs no arbitration: in-batch blindness can only
+    under-admit, and the parked pod is revived by the peer's bind event.
+    Gang atomicity: one revoked member revokes its whole gang.
+
+    Inputs: pf/gf (host-side encoded batch), spread_pre/dom (P,G) and
+    spread_min (G,) from the step (state at each pod's chosen node),
+    ``dead`` = indices already revoked upstream (they never commit, so
+    they contribute no deltas).
+
+    ``scan_enforced`` ((G,) bool, Decision.scan_groups): groups whose
+    hard skew the in-scan domain caps (ops/spreadcap.py) already judged
+    against running counts AT CHOICE TIME, in this same batch order —
+    the host replay is skipped for them, and a batch whose hard groups
+    are all scan-enforced never calls ``exact_tables`` at all (the
+    (G,D) transfer exists solely to rebuild the running state the scan
+    already had)."""
+    from ..encode import features as F
+
+    if spread_pre.shape[0] == 0:
+        return set()
+    P = len(batch)
+    hard = ((pf.spread_group >= 0)
+            & (pf.spread_mode == F.SPREAD_DO_NOT_SCHEDULE))[:P]
+    anti = pf.anti_req_group[:P]                     # (P,T), -1 unused
+    # Anti terms are always encoded, but only the InterPodAffinity filter
+    # ENFORCES them — arbitrating them in a profile that ignores them
+    # would revoke pods the next cycle happily co-locates anyway.
+    has_anti = anti_enabled and bool((anti >= 0).any())
+    if not hard.any() and not has_anti:
+        return set()
+    match = batch_group_match(batch, gf)
+
+    hard_gids = {int(g) for g in np.unique(pf.spread_group[:P][hard])
+                 if g >= 0}
+    # (G,D) tables are fetched at most once across every walk iteration.
+    tables = {"fetched": False, "cdom": None, "dexist": None}
+
+    def fetch_tables():
+        if not tables["fetched"]:
+            tables["fetched"] = True
+            if exact_tables is not None:
+                fetched = exact_tables()
+                if fetched is not None and fetched[0].shape[0]:
+                    tables["cdom"], tables["dexist"] = fetched
+        return tables["cdom"], tables["dexist"]
+
+    def _walk(dead_all: Set[int]) -> Set[int]:
+        """One exact sequential replay with ``dead_all`` contributing
+        nothing. Mutable enforcement view: a group's scan verdict is
+        trusted only while every admission the scan COUNTED for it
+        survives. A host-side revocation (RWO/gang ``dead_all``, or an
+        anti revocation made in this very walk) removes a contribution
+        the scan's running counts relied on — lowering a domain min that
+        later admissions were judged against — so those groups fall back
+        to the exact replay, reconstructed mid-walk from the survivor
+        deltas."""
+        enf = (np.array(scan_enforced, dtype=bool, copy=True)
+               if scan_enforced is not None
+               else np.zeros(gf.valid.shape[0], dtype=bool))
+        delta: Dict[tuple, int] = {}      # (g,d) → matching pods placed
+        anti_delta: Dict[tuple, int] = {}  # (g,d) → anti terms placed in d
+        gstates: Dict[int, _SpreadGroupState] = {}
+
+        def build_state(g: int) -> None:
+            """Exact running state for group g AT THE CURRENT WALK
+            POSITION: pre-batch tables plus every surviving admission so
+            far (delta already tracks them for all matching groups,
+            enforced or not)."""
+            cdom, dexist = fetch_tables()
+            if cdom is None:
+                return  # fallback mode: pre-batch-min check (over-revokes)
+            st = _SpreadGroupState(cdom[g], dexist[g])
+            for (g2, d), cnt in delta.items():
+                if g2 == g:
+                    for _ in range(cnt):
+                        st.admit(d)
+            gstates[g] = st
+
+        def un_enforce(rows) -> None:
+            """Stop trusting the scan for every hard group the given
+            revoked pods match; rebuild their exact state from deltas."""
+            for i in rows:
+                for g in np.nonzero(match[i])[0]:
+                    gi = int(g)
+                    if enf[gi] and gi in hard_gids:
+                        enf[gi] = False
+                        build_state(gi)
+
+        # Pre-walk: revocations known before this walk were counted by
+        # the scan from their row onward — replay their groups from row
+        # 0 (the sequential scheduler would have rejected them at their
+        # turn).
+        dead_assigned = [i for i in dead_all if i < P and assigned[i]]
+        if dead_assigned:
+            un_enforce(dead_assigned)
+        for g in sorted(hard_gids):
+            if not enf[g] and g not in gstates:
+                build_state(g)
+
+        revoked: Set[int] = set()
+        for i in range(P):
+            if not assigned[i] or i in dead_all:
+                continue
+            viol = False
+            for c in np.nonzero(hard[i])[0]:
+                g = int(pf.spread_group[i, c])
+                if enf[g]:
+                    # the scan judged this admission against running
+                    # counts at choice time, and every admission it
+                    # counted so far survives — replaying is redundant
+                    continue
+                d = int(spread_dom[i, g])
+                st = gstates.get(g)
+                if st is not None:
+                    if d >= 0 and (int(st.counts[d]) + 1 - st.min
+                                   > int(pf.spread_max_skew[i, c])):
+                        viol = True
+                        break
+                else:
+                    after = (float(spread_pre[i, g])
+                             + delta.get((g, d), 0) + 1)
+                    if after - float(spread_min[g]) > float(
+                            pf.spread_max_skew[i, c]):
+                        viol = True
+                        break
+            if not viol and has_anti:
+                for t in np.nonzero(anti[i] >= 0)[0]:
+                    g = int(anti[i, t])
+                    d = int(spread_dom[i, g])
+                    # direct: an earlier matching placement in my domain
+                    if d >= 0 and delta.get((g, d), 0) > 0:
+                        viol = True
+                        break
+                if not viol:
+                    # symmetric: an earlier pod's anti term targets ME
+                    for g in np.nonzero(match[i])[0]:
+                        d = int(spread_dom[i, int(g)])
+                        if d >= 0 and anti_delta.get((int(g), d), 0) > 0:
+                            viol = True
+                            break
+            if viol:
+                revoked.add(i)
+                # this pod's admission WAS in the scan's running counts —
+                # groups it matches can no longer trust the scan verdict
+                # for the remaining rows
+                un_enforce((i,))
+                continue
+            for g in np.nonzero(match[i])[0]:
+                gi = int(g)
+                d = int(spread_dom[i, gi])
+                if d >= 0:  # node lacks the key → no domain membership
+                    # delta tracks IN-BATCH placements for the anti path
+                    # in both modes; the exact group states additionally
+                    # carry the running counts + min for the skew check.
+                    delta[(gi, d)] = delta.get((gi, d), 0) + 1
+                    st = gstates.get(gi)
+                    if st is not None:
+                        st.admit(d)
+            if has_anti:
+                for t in np.nonzero(anti[i] >= 0)[0]:
+                    g = int(anti[i, t])
+                    d = int(spread_dom[i, g])
+                    if d >= 0:
+                        anti_delta[(g, d)] = anti_delta.get((g, d), 0) + 1
+        return revoked
+
+    # Fixpoint over gang atomicity: a revoked member revokes its whole
+    # gang, and each revoked gang member's admission was counted by BOTH
+    # the scan and this walk's running state — later pods may hold
+    # placements only legal because of it. Re-walk with the gang's
+    # members dead until no new revocation appears (bounded by the
+    # number of gangs; a batch with no gang revocations exits after one
+    # pass, identical to the single-walk behavior).
+    extra: Set[int] = set()
+    while True:
+        revoked = _walk(dead | extra) | extra
+        gangs = {gang_key(batch[i].pod) for i in revoked
+                 if batch[i].pod.spec.pod_group}
+        cascade = {i for i, qpi in enumerate(batch)
+                   if (assigned[i] and i not in dead and i not in revoked
+                       and gang_key(qpi.pod) in gangs)}
+        if not cascade:
+            return revoked
+        extra = revoked | cascade
+
+
 class Scheduler:
     def __init__(self, store, plugin_set: PluginSet,
                  config: Optional[SchedulerConfig] = None,
@@ -449,6 +763,26 @@ class Scheduler:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.filter_names = [p.name for p in plugin_set.filter_plugins]
+        names = {p.name for p in plugin_set.plugins}
+        # Intra-batch topology arbitration (hard spread + required
+        # anti-affinity, arbitrate_spread) applies when either topology
+        # plugin is in the profile.
+        self._spread_enabled = bool(
+            names & {"PodTopologySpread", "InterPodAffinity"})
+        # Symmetric existing-pod anti-affinity is enforced by the
+        # InterPodAffinity filter via encode.anti_forbid slots.
+        self._anti_enabled = "InterPodAffinity" in names
+        # SelectorSpread consumes owner-derived selector groups; the
+        # shared assigned corpus must then carry owner pairs too, enabled
+        # here, before the informers sync.
+        self._selspread_enabled = "SelectorSpread" in names
+        if self._selspread_enabled:
+            self.cache.enable_owner_pairs()
+        # Which encode-side fail-closed verdicts apply: only constraints
+        # this profile's plugin set enforces may park a pod.
+        self._fail_closed_plugins = {
+            "InterPodAffinity": self._anti_enabled,
+            "PodTopologySpread": "PodTopologySpread" in names}
         # Device copies of the static node-feature leaves, keyed on
         # (cache static version, pad). Scheduling thread only.
         self._nf_static_device = None
@@ -494,6 +828,15 @@ class Scheduler:
             # CPU): the sum, and one count per kernel.
             "kernel_launches": 0,
             **{f"kernel_launches_{k}": 0 for k in KERNELS},
+            # Topology arbitration: batches with a DoNotSchedule slot
+            # (each reads the caps' any_enforced once, the step's one
+            # wait on the card there), batches run on a node sample,
+            # pods the host arbitration revoked
+            # (and of them, those with a hard slot on a group the caps
+            # scan enforced), pods the in-cycle repair placed.
+            "hard_spread_batches": 0, "sampled_batches": 0,
+            "spread_revoked": 0,
+            "spread_revoked_enforced": 0, "spread_repaired": 0,
             "last_batch_size": 0,
         }
 
@@ -884,7 +1227,8 @@ class Scheduler:
     def _sampled_step(self, n_pad: int, batch_len: int, full_axis: bool):
         """(step, K) for this batch, or (None, None) when node sampling
         does not apply: gang batches (quorum must be judged against one
-        node set) pass ``full_axis``; the percentage is 100; the cluster
+        node set) and hard-spread batches (the in-scan domain caps run
+        only unsampled) pass ``full_axis``; the percentage is 100; the cluster
         has fewer than 2 × min_sample_nodes real nodes; or K would reach
         half the node pad (the gather and residual then cost more than
         they save). K = the power-of-two bucket of
@@ -936,30 +1280,50 @@ class Scheduler:
         pods = [q.pod for q in batch]
         # Encode pods FIRST: constraints may register new topology keys,
         # which the node snapshot's domain tables must reflect.
-        eb = encode_pods(pods, step_bucket(len(pods), cfg.pod_bucket_min),
-                         cfg=self.cache.cfg, registry=self.cache.registry,
-                         overflow=self.cache.overflow,
-                         gang_bound_fn=self.cache.gang_bound_count)
+        b.fail_closed, eb = self._encode_batch(
+            batch, pods, step_bucket(len(pods), cfg.pod_bucket_min))
         nf, names, row_incs, b.res_carried = self._snapshot()
         af = to_torch(self.cache.snapshot_assigned(pad=self._af_pad),
                       self.device)
         eb_dev = to_torch(eb, self.device)
         self._step_counter += 1
         key = prng.fold_in(self._key, self._step_counter)
+        # Hard (DoNotSchedule) spread rows, known on the host from the
+        # encode: they keep the full node axis (the in-scan domain caps
+        # run only unsampled) and gate the spread-arbitration fetch.
+        L = len(batch)
+        dns = self._hard_spread(eb, L)
+        hard_spread = self._spread_enabled and dns
         # Node-axis sampling: a batch against a large cluster runs on K
         # candidate nodes; pods the sample finds no node for are
         # re-checked against the full axis at resolve (_run_residual).
         has_gang = any(q.pod.spec.pod_group for q in batch)
-        step_fn, b.sample_k = self._sampled_step(nf.free.shape[0],
-                                                 len(batch), has_gang)
+        step_fn, b.sample_k = self._sampled_step(
+            nf.free.shape[0], len(batch), has_gang or hard_spread)
         step_fn = step_fn or self._step
         b.t_encode = time.perf_counter()
         # Fault gate: step dispatch (err → supervised retry down the
         # ladder; stall → lands in the watchdog's step window).
         FAULTS.hit("step")
         with span("step.dispatch"):
-            d = _count_launches(b, step_fn, eb_dev, nf, af, key)
+            # The host flags spare the step its reads of the card: a
+            # gang-free batch skips the gang admission's, a batch with no
+            # DoNotSchedule slot the caps' any_enforced.
+            d = _count_launches(b, step_fn, eb_dev, nf, af, key,
+                                has_gang=has_gang, hard_spread=dns)
             b.packed_dev = self._pack(d)
+            # The spread/anti arbitration inputs are staged only when the
+            # batch carries something the host must arbitrate: a hard
+            # spread slot or a required anti-affinity term. A soft-only
+            # topology batch pays neither the pack nor the fetch.
+            needs_arb = hard_spread or bool(
+                self._spread_enabled and self._anti_enabled
+                and (eb.pf.anti_req_group[:L] >= 0).any())
+            b.spread_dev = _pack_spread(d) if needs_arb else None
+        if hard_spread:
+            self._sup_count("hard_spread_batches")
+        if b.sample_k is not None:
+            self._sup_count("sampled_batches")
         b.decision = d
         b.batch, b.eb, b.names, b.row_incs = batch, eb, names, row_incs
         b.eb_dev, b.nf, b.af, b.key = eb_dev, nf, af, key
@@ -967,6 +1331,64 @@ class Scheduler:
         b.seq = self._batch_seq
         b.t_dispatch = time.perf_counter()
         return b
+
+    def _encode_batch(self, batch: List[QueuedPodInfo], pods, p_pad: int):
+        """Encode the (priority-sorted) batch → (fail_closed, eb).
+        ``fail_closed`` maps pod key → (plugin, reason) for pods whose
+        required (anti-)affinity term or DoNotSchedule spread constraint
+        cannot fit the encoding slots, or whose forbidden domains exceed
+        the anti_forbid slots: they are rejected after the step rather
+        than scheduled against a silently weakened constraint. Only
+        constraints this profile enforces fail closed."""
+        fail_closed: Dict[str, tuple] = {}
+        anti_fn = None
+        if self._anti_enabled:
+            max_forbid = self.cache.cfg.max_anti_forbid
+
+            def anti_fn(pod) -> List[tuple]:
+                pairs = self.cache.anti_forbidden_for(pod)
+                if any(entry[0] < 0 for entry in pairs):
+                    # (-1, -1): a running pod's matching anti term has an
+                    # unregistrable topology key.
+                    fail_closed.setdefault(pod.key, (
+                        "InterPodAffinity",
+                        "a running pod's matching anti-affinity term "
+                        "has an unrepresentable topology key (registry "
+                        "full); failing closed"))
+                elif len(pairs) > max_forbid:
+                    fail_closed.setdefault(pod.key, (
+                        "InterPodAffinity",
+                        f"pod is repelled by more than {max_forbid} "
+                        "distinct anti-affinity domains; failing closed "
+                        "rather than evaluating a truncated constraint"))
+                return pairs
+
+        encode_hard: Dict[int, list] = {}
+        eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
+                         registry=self.cache.registry,
+                         overflow=self.cache.overflow,
+                         gang_bound_fn=self.cache.gang_bound_count,
+                         anti_forbidden_fn=anti_fn,
+                         hard_failed=encode_hard,
+                         selector_spread=self._selspread_enabled)
+        for idx, infos in encode_hard.items():
+            for info in infos:
+                if self._fail_closed_plugins.get(info[0], True):
+                    fail_closed.setdefault(batch[idx].pod.key, info)
+                    break
+        return fail_closed, eb
+
+    def _hard_spread(self, eb, n: int) -> bool:
+        """Does a live row of the host-encoded batch carry a DoNotSchedule
+        slot? Without one no slot can be enforced in the scan (the step's
+        caps follow the profile's topology plugins, whichever they are;
+        the sampling gate and the arbitration also need PodTopologySpread
+        or InterPodAffinity in the profile)."""
+        from ..encode import features as F
+
+        return bool(((eb.pf.spread_group[:n] >= 0)
+                     & (eb.pf.spread_mode[:n] == F.SPREAD_DO_NOT_SCHEDULE)
+                     ).any())
 
     def _pack(self, d: Decision):
         """One device buffer for the whole decision: the slim layout with
@@ -1106,13 +1528,14 @@ class Scheduler:
         self._shortlist_k = None
         self._step = build_step(self.plugin_set, shortlist=None)
 
-    def _slice_eb(self, eb, rows):
+    def _slice_eb(self, eb, rows, bucket: Optional[int] = None):
         """(eb_sub, P2): the pod rows ``rows`` of a host EncodedBatch,
-        padded to a fresh bucket, with the batch's group tables shared
-        (group ids stay aligned) and gangs stripped (the residual pass
-        never sees a gang batch)."""
+        padded to a fresh bucket (or the caller's ``bucket``), with the
+        batch's group tables shared (group ids stay aligned) and gangs
+        stripped (the residual pass and the spread repair never see a
+        gang pod)."""
         n = len(rows)
-        P2 = bucket_for(n, self.config.pod_bucket_min)
+        P2 = bucket or bucket_for(n, self.config.pod_bucket_min)
 
         def take(a):
             out = np.zeros((P2,) + a.shape[1:], dtype=a.dtype)
@@ -1125,28 +1548,91 @@ class Scheduler:
         return eb._replace(pf=pf2, gang=gang2), P2
 
     def _run_residual(self, b: _Batch, rows, chosen, assigned,
-                      gang_rejected, feasible, rejects) -> None:
+                      gang_rejected, feasible, rejects, feasible_static,
+                      sp) -> None:
         """Full-axis re-evaluation of the pods the sampled step found no
         node for, merged in place. The sub-batch sees the cluster's free
         capacity after the sampled assignments (free_after is full-size
         under sampling), read back to the host as the JAX engine does and
         counted in fetch_bytes_total; its tie-breaks draw
-        ``fold_in(key, 0x5e5)``."""
+        ``fold_in(key, 0x5e5)``. Only the per-pod spread rows merge into
+        ``sp``: a residual exists only for soft-spread batches (hard ones
+        never sample), where the min and scan rows are advisory."""
         n_res = len(rows)
         eb2, P2 = self._slice_eb(b.eb, rows)
         free2 = b.decision.free_after.cpu().numpy()
         self._count_fetch(free2.nbytes)
         nf2 = b.nf._replace(free=to_torch(free2, self.device))
         d2 = _count_launches(b, self._step, to_torch(eb2, self.device), nf2,
-                             b.af, prng.fold_in(b.key, 0x5E5))
-        ch2, as2, gr2, fc2, _fs2, rj2, rep2 = self._fetch_decision(
+                             b.af, prng.fold_in(b.key, 0x5E5),
+                             has_gang=False, hard_spread=False)
+        ch2, as2, gr2, fc2, fs2, rj2, rep2 = self._fetch_decision(
             self._pack(d2), P2, rejects.shape[0])
         b.sl_repairs += int(rep2[:n_res].sum())
         chosen[rows] = ch2[:n_res]
         assigned[rows] = as2[:n_res]
         gang_rejected[rows] = gr2[:n_res]
         feasible[rows] = fc2[:n_res]
+        feasible_static[rows] = fs2[:n_res]
         rejects[:, rows] = rj2[:, :n_res]
+        if sp is not None:
+            sp2 = self._fetch_spread(_pack_spread(d2))
+            sp_p = b.decision.spread_pre.shape[0]
+            if d2.spread_pre.shape[0]:
+                sp[rows] = sp2[:P2][:n_res]
+                sp[sp_p + rows] = sp2[P2:2 * P2][:n_res]
+
+    def _fetch_spread(self, payload) -> Optional[np.ndarray]:
+        """Read back a staged (2P+2, G) spread table (None stays None);
+        the ``fetch.spread`` span covers the wait."""
+        if payload is None:
+            return None
+        with span("fetch.spread"):
+            sp = np.array(payload.cpu().numpy())
+        self._count_fetch(sp.nbytes)
+        return sp
+
+    def _arbitrate_packed(self, batch, assigned, eb, decision, sp,
+                          dead: Set[int]) -> Set[int]:
+        """arbitrate_spread over the packed (2P+2, G) spread fetch: the
+        one place that decodes _pack_spread's row layout (pre | dom | min
+        | scan_groups). The (G,D) exact tables stay on the card until a
+        batch with hard rows the caps scan did not enforce asks for
+        them."""
+        sp_p = decision.spread_pre.shape[0]
+
+        def exact_tables():
+            cd = decision.spread_cdom.cpu().numpy()
+            de = decision.spread_dexist.cpu().numpy()
+            self._count_fetch(cd.nbytes + de.nbytes)
+            return cd, de
+
+        return arbitrate_spread(
+            batch, assigned, eb.pf, eb.gf,
+            sp[:sp_p], sp[sp_p:2 * sp_p].astype(np.int32), sp[2 * sp_p],
+            dead=dead, anti_enabled=self._anti_enabled,
+            exact_tables=exact_tables,
+            scan_enforced=sp[2 * sp_p + 1].astype(bool))
+
+    def _count_revoked(self, batch, eb, sp, rows) -> None:
+        """Book spread revocations, and those of them with a hard slot on
+        a group the caps scan enforced (which its running counts should
+        have made legal: a nonzero count there is a fault to chase)."""
+        if not rows:
+            return
+        from ..encode import features as F
+
+        sp_p = (sp.shape[0] - 2) // 2
+        enforced = sp[2 * sp_p + 1].astype(bool)
+        pf = eb.pf
+        n_enf = 0
+        for i in rows:
+            hard = ((pf.spread_group[i] >= 0)
+                    & (pf.spread_mode[i] == F.SPREAD_DO_NOT_SCHEDULE))
+            if any(enforced[int(g)] for g in pf.spread_group[i][hard]):
+                n_enf += 1
+        self._sup_count("spread_revoked", len(rows))
+        self._sup_count("spread_revoked_enforced", n_enf)
 
     def _replay_on_residency(self, b: _Batch, chosen, assigned) -> None:
         """Replay the step's device debits into the host mirror and adopt
@@ -1170,15 +1656,15 @@ class Scheduler:
                                             ports_pad))
 
     def _resolve_batch_impl(self, b: _Batch) -> None:
-        batch, names = b.batch, b.names
+        batch, names, eb = b.batch, b.names, b.eb
         L = len(batch)
         # The read back blocks on the device. In pipelined mode the next
         # batch's gather sits between dispatch and here; the fetch-start
         # stamp keeps it out of the step window.
         b.t_fetch_start = time.perf_counter()
-        (chosen, assigned, gang_rejected, feasible, _feasible_static,
+        (chosen, assigned, gang_rejected, feasible, feasible_static,
          rejects, sl_repaired) = self._fetch_decision(
-            b.packed_dev, b.eb.pf.valid.shape[0], len(self.filter_names))
+            b.packed_dev, eb.pf.valid.shape[0], len(self.filter_names))
         # Supervisor sanity detector, before the residency replay trusts
         # ``chosen``: a corrupted readback must abort the batch, not
         # poison the carried mirror.
@@ -1199,6 +1685,7 @@ class Scheduler:
                 chosen[j] = (int(chosen[j]) + 1) % len(names)
             self._check_shortlist(b, chosen, assigned)
             b.sl_repairs += int(sl_repaired[:L].sum())
+        sp = self._fetch_spread(b.spread_dev)
         if b.res_carried:
             # The main step's debits, before the residual merge mutates
             # chosen/assigned: residual placements reach the device as
@@ -1211,11 +1698,54 @@ class Scheduler:
             res_rows = np.nonzero((feasible[:L] == 0) & ~assigned[:L])[0]
             if res_rows.size:
                 self._run_residual(b, res_rows, chosen, assigned,
-                                   gang_rejected, feasible, rejects)
+                                   gang_rejected, feasible, rejects,
+                                   feasible_static, sp)
         b.t_fetched = time.perf_counter()
-        chosen, assigned = chosen[:L], assigned[:L]
-        gang_rejected, feasible = gang_rejected[:L], feasible[:L]
-        rejects = rejects[:, :L]
+
+        revoked: Set[int] = set()
+        if b.fail_closed:
+            # Before the spread arbitration: fail-closed pods (and their
+            # gangs) must be in its dead set, or a later placement could
+            # stay committed over max_skew on their counted admission.
+            dead_gangs = {gang_key(q.pod) for q in batch
+                          if q.pod.key in b.fail_closed
+                          and q.pod.spec.pod_group}
+            for i, qpi in enumerate(batch):
+                info = b.fail_closed.get(qpi.pod.key)
+                gk = gang_key(qpi.pod)
+                if info is None and gk not in dead_gangs:
+                    continue
+                if info is not None:
+                    plugins, reason = {info[0]}, info[1]
+                else:
+                    plugins = set()
+                    reason = (f"gang {qpi.pod.spec.pod_group} member "
+                              "failed closed on an unrepresentable hard "
+                              "constraint")
+                if gk in dead_gangs:
+                    plugins.add(COSCHEDULING)
+                self._handle_failure(qpi, plugins, reason, retryable=False)
+                revoked.add(i)
+
+        repair_rows: List[int] = []
+        if self._spread_enabled and sp is not None:
+            s_revoked = self._arbitrate_packed(batch, assigned, eb,
+                                               b.decision, sp, dead=revoked)
+            self._count_revoked(batch, eb, sp, s_revoked)
+            for i in sorted(s_revoked):
+                qpi = batch[i]
+                # In-cycle repair candidates: re-placed against refreshed
+                # counts after the survivors are assumed (_repair_spread),
+                # instead of a queue round trip and backoff per tranche.
+                # Gang members are excluded (repairing one member alone
+                # breaks gang atomicity).
+                if (self.config.spread_repair_iters
+                        and not qpi.pod.spec.pod_group):
+                    repair_rows.append(i)
+                else:
+                    self._handle_failure(qpi, {BATCH_CAPACITY},
+                                         _SPREAD_REVOKE_MSG, retryable=True)
+            revoked |= s_revoked
 
         to_bind: List[tuple] = []  # permit-free (qpi, node_name) pairs
         # With no permit plugins in the profile the per-pod binding cycle
@@ -1227,14 +1757,18 @@ class Scheduler:
         assume_incs: List[int] = []
         # Rows whose counted admission vanished after the fact (assume
         # misses, synchronous permit rejections): their gang-mates must
-        # not bind at sub-quorum.
+        # not bind at sub-quorum, and the spread arbitration runs again
+        # without them.
         lost_rows: List[int] = []
         n_ghost = 0
-        chosen_l = chosen.tolist()
-        assigned_l = assigned.tolist()
-        gang_rejected_l = gang_rejected.tolist()
-        feasible_l = feasible.tolist()
+        chosen_l = chosen[:L].tolist()
+        assigned_l = assigned[:L].tolist()
+        gang_rejected_l = gang_rejected[:L].tolist()
+        feasible_l = feasible[:L].tolist()
+        static_l = feasible_static[:L].tolist()
         for i, qpi in enumerate(batch):
+            if i in revoked:
+                continue
             if assigned_l[i]:
                 node_name = names[chosen_l[i]]
                 inc = int(b.row_incs[chosen_l[i]])
@@ -1264,7 +1798,7 @@ class Scheduler:
                     qpi, plugins,
                     f"gang {qpi.pod.spec.pod_group} missed quorum "
                     f"{qpi.pod.spec.pod_group_min}", retryable=False)
-            elif feasible_l[i] > 0:
+            elif feasible_l[i] > 0 and static_l[i] > 0:
                 # Nodes were feasible but earlier pods in the batch took
                 # the capacity — retryable, not unschedulable.
                 self._handle_failure(
@@ -1275,6 +1809,13 @@ class Scheduler:
                 plugins = {self.filter_names[f]
                            for f in range(rejects.shape[0])
                            if rejects[f, i] > 0} or {BATCH_CAPACITY}
+                if feasible_l[i] > 0:
+                    # The caps scan deferred the static skew check, so
+                    # the filter passed nodes the scan then refused under
+                    # the same pre-batch counts (feasible_static == 0):
+                    # the pod is statically over-skew everywhere, a
+                    # terminal PodTopologySpread verdict.
+                    plugins = {"PodTopologySpread"}
                 self._handle_failure(
                     qpi, plugins,
                     f"0/{self.cache.node_count()} nodes are available: "
@@ -1282,7 +1823,7 @@ class Scheduler:
 
         if assume_items:
             missed = self.cache.account_bind_bulk(
-                assume_items, req_rows=b.eb.pf.requests[assume_rows],
+                assume_items, req_rows=eb.pf.requests[assume_rows],
                 expected_inc=assume_incs)
             if missed:
                 # The chosen node's cache row vanished between the
@@ -1305,18 +1846,20 @@ class Scheduler:
                 if j not in missed_set:
                     self._note_assumed(batch[assume_rows[j]])
 
-        revoked = 0
-        lost_gangs = {gang_key(batch[i].pod) for i in lost_rows
-                      if batch[i].pod.spec.pod_group}
-        if lost_gangs:
-            # Gang atomicity: a lost member's siblings must not bind at
-            # sub-quorum. to_bind is not submitted yet, so dropped pairs
-            # never bind.
-            lost = set(lost_rows)
+        if lost_rows:
+            # Post-assume staleness: the scan (and the host replay)
+            # counted the lost rows' admissions, so a later placement may
+            # be legal only because of a contribution that just vanished:
+            # gang-mates must not bind at sub-quorum, and the spread
+            # arbitration runs again with the lost rows dead. to_bind is
+            # not submitted yet, so dropped pairs never bind.
+            g_set = set(lost_rows)
             bind_keys = {q.pod.key for q, _ in to_bind}
             drop: Set[str] = set()
+            lost_gangs = {gang_key(batch[i].pod) for i in g_set
+                          if batch[i].pod.spec.pod_group}
             for j, qpi in enumerate(batch):
-                if (j in lost or not assigned_l[j]
+                if (j in g_set or j in revoked or not assigned_l[j]
                         or gang_key(qpi.pod) not in lost_gangs):
                     continue
                 if self._revoke_post_assume(
@@ -1325,8 +1868,44 @@ class Scheduler:
                         "placement during the scheduling cycle",
                         in_bind=qpi.pod.key in bind_keys):
                     drop.add(qpi.pod.key)
-                    revoked += 1
-            to_bind = [(q, n) for q, n in to_bind if q.pod.key not in drop]
+                    revoked.add(j)
+            if sp is not None:
+                re_rev = self._arbitrate_packed(batch, assigned, eb,
+                                                b.decision, sp,
+                                                dead=revoked | g_set)
+                self._count_revoked(batch, eb, sp, re_rev)
+                for i in sorted(re_rev):
+                    qpi = batch[i]
+                    if (self.config.spread_repair_iters
+                            and not qpi.pod.spec.pod_group
+                            and qpi.pod.key in bind_keys):
+                        # the same in-cycle repair the first-pass
+                        # revocations get
+                        self._unassume(qpi)
+                        drop.add(qpi.pod.key)
+                        repair_rows.append(i)
+                        revoked.add(i)
+                    elif self._revoke_post_assume(
+                            qpi, {BATCH_CAPACITY}, _SPREAD_REVOKE_MSG,
+                            in_bind=qpi.pod.key in bind_keys):
+                        drop.add(qpi.pod.key)
+                        revoked.add(i)
+            if drop:
+                to_bind = [(q, n) for q, n in to_bind
+                           if q.pod.key not in drop]
+
+        n_repaired = 0
+        if repair_rows:
+            # In-cycle repair: with the survivors assumed, the refreshed
+            # snapshot carries the committed counts — re-run the step on
+            # the revoked rows so the next tranche places now.
+            more_bind, leftover, n_repaired = self._repair_spread(
+                b, repair_rows)
+            to_bind.extend(more_bind)
+            self._sup_count("spread_repaired", n_repaired)
+            for i in leftover:
+                self._handle_failure(batch[i], {BATCH_CAPACITY},
+                                     _SPREAD_REVOKE_MSG, retryable=True)
 
         if to_bind:
             # One bulk commit for all permit-free pods: a single store
@@ -1335,7 +1914,143 @@ class Scheduler:
             for q, _n in to_bind:
                 self._note_detached(q.pod.key)
             self._binder.submit(self._bind_many, to_bind)
-        b.n_assigned = int(assigned.sum()) - n_ghost - revoked
+        b.n_assigned = (int(assigned[:L].sum())
+                        - sum(1 for i in revoked if assigned[i])
+                        - n_ghost + n_repaired)
+
+    def _repair_spread(self, b: _Batch, rows: List[int]):
+        """In-cycle repair of topology-revoked pods → (bind pairs,
+        leftover rows, admitted count — permit-parked pods included).
+
+        Each iteration re-snapshots node and assigned state (the
+        survivors and earlier repair tranches are assumed, so the step's
+        filter and the exact arbitration see the committed counts),
+        re-runs the unsampled step on the remaining rows (padded to the
+        main batch's bucket), arbitrates the sub-batch and assumes the
+        admitted pods. Rows the step finds infeasible stay in the loop
+        while the iteration made progress — a zone at its skew cap
+        re-opens as other domains catch up — and the loop stops on no
+        progress or after ``spread_repair_iters`` iterations; leftovers
+        take the normal requeue path."""
+        batch, eb = b.batch, b.eb
+        rows = list(rows)
+        out_bind: List[tuple] = []
+        n_admitted = 0
+        bulk = not self.plugin_set.permit_plugins
+        for _ in range(self.config.spread_repair_iters):
+            if not rows:
+                break
+            cached = self._nf_static_device
+            nf, names, static_v, row_incs = self.cache.snapshot_versioned(
+                pad=self._node_pad,
+                known_static=cached[0] if cached else None)
+            af = self.cache.snapshot_assigned(pad=self._af_pad)
+            nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+            self._count_h2d(nf.free.nbytes + nf.used_ports.nbytes)
+            nf = nf._replace(free=to_torch(nf.free, self.device),
+                             used_ports=to_torch(nf.used_ports, self.device))
+            eb2, _P2 = self._slice_eb(eb, np.asarray(rows, dtype=np.int64),
+                                      bucket=eb.pf.valid.shape[0])
+            self._step_counter += 1
+            d2 = _count_launches(
+                b, self._step, to_torch(eb2, self.device), nf,
+                to_torch(af, self.device),
+                prng.fold_in(self._key, self._step_counter), False,
+                self._hard_spread(eb2, len(rows)))
+            (chosen2, assigned2, _gr2, _fc2, _fs2, _rj2, rep2) = (
+                self._fetch_decision(self._pack(d2), eb2.pf.valid.shape[0],
+                                     d2.reject_counts.shape[0]))
+            b.sl_repairs += int(rep2[:len(rows)].sum())
+            n_r = len(rows)
+            sub = [batch[i] for i in rows]
+            sp2 = self._fetch_spread(_pack_spread(d2))
+            rev2 = self._arbitrate_packed(sub, assigned2, eb2, d2, sp2,
+                                          dead=set())
+            items, req_rows, next_rows = [], [], []
+            iter_incs: List[int] = []
+            iter_rows: List[int] = []
+            iter_bind: List[tuple] = []
+            ghost_js: List[int] = []   # sub-rows lost to assume misses
+            for j in range(n_r):
+                i = rows[j]
+                if assigned2[j] and j not in rev2:
+                    # Counted admitted regardless of the permit outcome,
+                    # as the main cycle counts permit-parked pods.
+                    n_admitted += 1
+                    node_name = names[int(chosen2[j])]
+                    if bulk:
+                        items.append((batch[i].pod, node_name))
+                        req_rows.append(j)
+                        iter_incs.append(int(row_incs[int(chosen2[j])]))
+                        iter_rows.append(i)
+                        iter_bind.append((batch[i], node_name))
+                    else:
+                        pair, ghost, rej = self._start_binding_cycle(
+                            batch[i], node_name,
+                            expected_inc=int(row_incs[int(chosen2[j])]))
+                        if ghost:
+                            n_admitted -= 1
+                            next_rows.append(i)
+                            ghost_js.append(j)
+                        elif rej:
+                            ghost_js.append(j)
+                        elif pair is not None:
+                            out_bind.append(pair)
+                else:
+                    # still contended or currently infeasible — both can
+                    # succeed next iteration once this iteration's
+                    # admissions raise the domain min
+                    next_rows.append(i)
+            if items:
+                missed = self.cache.account_bind_bulk(
+                    items, req_rows=eb2.pf.requests[req_rows],
+                    expected_inc=iter_incs)
+                if missed:
+                    # Chosen node deleted mid-cycle: not accounted, must
+                    # not bind — back into the loop.
+                    n_admitted -= len(missed)
+                    dead = set(missed)
+                    next_rows.extend(iter_rows[m] for m in missed)
+                    ghost_js.extend(req_rows[m] for m in missed)
+                    iter_bind = [p for m, p in enumerate(iter_bind)
+                                 if m not in dead]
+                missed_set = set(missed) if missed else ()
+                for m in range(len(items)):
+                    if m not in missed_set:
+                        self._note_assumed(batch[iter_rows[m]])
+            if ghost_js:
+                # This iteration's walk counted the ghosts' admissions:
+                # re-arbitrate with them dead; newly violating survivors
+                # are unassumed and re-loop.
+                re3 = self._arbitrate_packed(
+                    sub, assigned2, eb2, d2, sp2,
+                    dead=rev2 | set(ghost_js)) - rev2 - set(ghost_js)
+                if re3:
+                    pair_keys = ({p[0].pod.key for p in iter_bind}
+                                 | {p[0].pod.key for p in out_bind})
+                    kill: Set[str] = set()
+                    for j in sorted(re3):
+                        qpi = batch[rows[j]]
+                        k = qpi.pod.key
+                        if k in pair_keys:
+                            self._unassume(qpi)
+                            kill.add(k)
+                            next_rows.append(rows[j])
+                            n_admitted -= 1
+                        elif self._revoke_post_assume(
+                                qpi, {BATCH_CAPACITY},
+                                _SPREAD_REVOKE_MSG, in_bind=False):
+                            n_admitted -= 1
+                    if kill:
+                        iter_bind = [p for p in iter_bind
+                                     if p[0].pod.key not in kill]
+                        out_bind = [p for p in out_bind
+                                    if p[0].pod.key not in kill]
+            out_bind.extend(iter_bind)
+            rows = next_rows
+            if len(next_rows) == n_r:  # no progress; stop burning steps
+                break
+        return out_bind, rows, n_admitted
 
     def _commit_batch(self, b: _Batch) -> None:
         with span("commit", seq=b.seq, failures=len(b.failures)):

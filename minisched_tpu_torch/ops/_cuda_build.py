@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("greedy_assign", "shortlist_select", "shortlist_scan",
-           "insert_ports")
+           "insert_ports", "caps_scan")
 NO_LAUNCH = -1  # a launcher's return when it had no work to launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -12,11 +12,13 @@ inside a two-phase loop over group admission:
      meets quorum.
 
 Ungrouped pods (group id -1) are always admitted. With no gangs in the
-batch this is one greedy assignment plus one count.
+batch this is one greedy assignment plus one count, and the caller that
+knows it on the host (``has_gang=False``) skips the count: the host
+never waits for the card.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -39,8 +41,8 @@ class GangResult(NamedTuple):
 def gang_assign(scores: torch.Tensor, requests: torch.Tensor,
                 free0: torch.Tensor, group_ids: torch.Tensor,
                 group_min: torch.Tensor, seed: int,
-                greedy_fn: Callable[..., AssignResult] = greedy_assign
-                ) -> GangResult:
+                greedy_fn: Callable[..., AssignResult] = greedy_assign,
+                has_gang: Optional[bool] = None) -> GangResult:
     """Jointly assign pods to nodes with all-or-nothing group semantics.
 
     scores:    (P,N) float32 with NEG on infeasible pairs (rows in
@@ -50,34 +52,35 @@ def gang_assign(scores: torch.Tensor, requests: torch.Tensor,
     group_ids: (P,) int32 gang id in [0,G), -1 for ungrouped pods
     group_min: (G,) int32 quorum per gang (0 for padding rows)
     seed:      the batch's u32 tie-break seed
+    has_gang:  whether any live pod has a group id, as the caller knows
+               it on the host; None reads it from the card
     """
-    neg = torch.tensor(NEG, dtype=scores.dtype, device=scores.device)
 
     def attempt_fn(pod_ok: torch.Tensor) -> AssignResult:
-        return greedy_fn(torch.where(pod_ok[:, None], scores, neg),
+        # A Python float, not a tensor made from one: torch.tensor would
+        # copy from the host and make the step wait for the card.
+        return greedy_fn(torch.where(pod_ok[:, None], scores, NEG),
                          requests, free0, seed)
 
-    return gang_admission(attempt_fn, group_ids, group_min)
+    return gang_admission(attempt_fn, group_ids, group_min, has_gang)
 
 
 def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
                    group_ids: torch.Tensor,
-                   group_min: torch.Tensor) -> GangResult:
+                   group_min: torch.Tensor,
+                   has_gang: Optional[bool] = None) -> GangResult:
     """The evict / re-admit loop around an opaque assignment.
-    ``attempt_fn(pod_ok)`` assigns with non-admitted pods masked out."""
+    ``attempt_fn(pod_ok)`` assigns with non-admitted pods masked out.
+    ``has_gang=False`` (no pod of the batch has a group) returns the
+    first attempt with every group admitted, without reading the card:
+    with no grouped pod no group can fail, which is what the loop would
+    have read. Batches with gangs keep the host loop, which reads the
+    card once per attempt."""
     P = group_ids.shape[0]
     G = group_min.shape[0]
     device = group_ids.device
     grouped = group_ids >= 0
     gidx = torch.where(grouped, group_ids, 0).long()
-    rows = torch.arange(P, dtype=torch.int32, device=device)
-    # Group priority = its best member's row; an empty group reads
-    # int32 max, like jax.ops.segment_min over an empty segment.
-    first_row = torch.full((G,), _I32_MAX, dtype=torch.int32, device=device)
-    first_row = first_row.scatter_reduce(
-        0, gidx, torch.where(grouped, rows, P), reduce="amin",
-        include_self=True)
-
     def attempt(ok: torch.Tensor):
         pod_ok = torch.where(grouped, ok[gidx], True)
         res = attempt_fn(pod_ok)
@@ -88,6 +91,15 @@ def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
 
     ok = torch.ones((G,), dtype=torch.bool, device=device)
     res, failing = attempt(ok)
+    if has_gang is False:
+        return _result(res, grouped, gidx, ok)
+    # Group priority = its best member's row; an empty group reads
+    # int32 max, like jax.ops.segment_min over an empty segment.
+    rows = torch.arange(P, dtype=torch.int32, device=device)
+    first_row = torch.full((G,), _I32_MAX, dtype=torch.int32, device=device)
+    first_row = first_row.scatter_reduce(
+        0, gidx, torch.where(grouped, rows, P), reduce="amin",
+        include_self=True)
     # Phase 1: evict the lowest-priority failing group until every
     # admitted group meets quorum.
     while bool(failing.any()):
@@ -109,6 +121,10 @@ def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
             if not bool(failing2.any()):
                 ok, res = ok2, res2
 
+    return _result(res, grouped, gidx, ok)
+
+
+def _result(res, grouped, gidx, ok) -> GangResult:
     gang_rejected = grouped & ~ok[gidx]
     repaired = getattr(res, "repaired", None)
     if repaired is None:

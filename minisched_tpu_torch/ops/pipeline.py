@@ -12,8 +12,10 @@ matrix.
 The step runs eagerly on whatever device its input tensors live on; the
 assignment stage goes through ``select.greedy_assign`` or, with a
 shortlist, ``select.greedy_assign_shortlist``, which launch their CUDA
-kernels for CUDA tensors. With ``sample_nodes=K`` the step first picks
-K candidate nodes and runs on them alone (node-axis sampling).
+kernels for CUDA tensors; a batch whose hard topology spread the in-scan
+domain caps enforce takes ``select.greedy_assign(caps=...)``, the caps
+scan. With ``sample_nodes=K`` the step first picks K candidate nodes and
+runs on them alone (node-axis sampling).
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..encode.features import DEFAULT_ENCODING
 from ..plugins.base import PluginSet
 from . import prng
 from .gang import gang_assign
 from .select import NEG, greedy_assign, greedy_assign_shortlist, order_key
+from .topology import group_topology_state
 
 
 class Decision(NamedTuple):
@@ -35,13 +39,32 @@ class Decision(NamedTuple):
     assigned: torch.Tensor         # (P,) bool
     gang_rejected: torch.Tensor    # (P,) bool — pod's gang missed quorum
     feasible_counts: torch.Tensor  # (P,) int32 nodes passing all filters
-    # Nodes passing all filters with the undeferred hard-spread check;
-    # equal to feasible_counts in this package (no in-scan spread caps).
+    # Nodes passing all filters WITH the undeferred hard-spread check.
+    # Where the in-scan domain caps enforce a group (ops/spreadcap.py),
+    # the PodTopologySpread filter defers its static skew check to the
+    # scan, so a statically over-skew pod shows feasible_counts > 0 yet
+    # the scan cannot place it; this count (one extra spread-filter pass,
+    # only in such batches) tells real in-batch contention (retry) from
+    # a static skew block (terminal). Equal to feasible_counts elsewhere.
     feasible_static: torch.Tensor  # (P,) int32
     reject_counts: torch.Tensor    # (F,P) int32 nodes rejected per filter
     free_after: torch.Tensor       # (N,R) float32
+    # Per-pod × per-selector-group state at the chosen node, for the
+    # engine's intra-batch spread arbitration; (P,G)/(G,)/(G,D) when the
+    # profile runs a topology plugin, else zero-size (as in JAX):
+    spread_pre: torch.Tensor       # (P,G) float32 pre-batch count in the
+    #                                chosen node's domain per group
+    spread_dom: torch.Tensor       # (P,G) int32 chosen node's domain id
+    #                                (-1: node lacks the key / unassigned)
+    spread_min: torch.Tensor       # (G,) float32 pre-batch min over domains
+    spread_cdom: torch.Tensor      # (G,D) float32 pre-batch count per domain
+    spread_dexist: torch.Tensor    # (G,D) bool domain exists on some node
+    # (G,) bool — the group's hard skew was enforced by the in-scan
+    # domain caps this batch (False everywhere when the caps scan did
+    # not run); the host arbitration skips its skew replay for these.
+    scan_groups: torch.Tensor
     # Shortlist repair ledger: pods whose step fell back to a full-row
-    # rescan (all False without the shortlist).
+    # rescan (all False without the shortlist and on the caps scan).
     shortlist_repaired: torch.Tensor  # (P,) bool
 
 
@@ -59,13 +82,31 @@ def max_normalize_100(scores: torch.Tensor,
                        masked)
 
 
-def evaluate(plugin_set: PluginSet, eb, nf, af):
-    """Filters and scores of one batch against every node:
-    ``(masked_total (P,N) float32 with NEG on infeasible pairs,
-    feasible_counts (P,) int32, reject_counts (F,P) int32)``."""
-    pf = eb.pf
-    P = pf.valid.shape[0]
+def cycle_state(plugin_set: PluginSet, eb, nf, af) -> dict:
+    """The shared cycle state (the reference's CycleState) the active
+    plugins ask for: the topology tables (ops/topology.py) when one
+    ``needs_topology``, the node-affinity group rows when one
+    ``needs_node_affinity``. Computed on the node axis given, which the
+    step keeps whole even under sampling (domain counts and minima must
+    be the cluster's)."""
+    active = plugin_set.filter_plugins + plugin_set.score_plugins
     ctx = {"af": af, "gf": eb.gf, "naf": eb.naf}
+    if any(p.needs_topology for p in active):
+        num_domains = max(nf.valid.shape[0], DEFAULT_ENCODING.domain_buckets)
+        ctx.update(group_topology_state(nf, af, eb.gf, num_domains))
+    if any(p.needs_node_affinity for p in active):
+        from ..plugins.nodeaffinity import (group_preferred_score,
+                                            group_required_match)
+
+        ctx["na_req_match"] = group_required_match(eb.naf, nf)
+        ctx["na_pref_score"] = group_preferred_score(eb.naf, nf)
+    return ctx
+
+
+def _evaluate(plugin_set: PluginSet, pf, nf, ctx):
+    """Filters and scores of one batch: ``(masked_total, feasible (P,N)
+    bool, feasible_counts, reject_counts)``."""
+    P = pf.valid.shape[0]
     valid_pair = pf.valid[:, None] & nf.valid[None, :]
     # One pass over filters: each (P,N) mask contributes its reject count
     # and the running AND, then dies.
@@ -86,7 +127,17 @@ def evaluate(plugin_set: PluginSet, eb, nf, af):
         raw = p.score(pf, nf, ctx).to(torch.float32)
         norm = p.normalize(raw, feasible).to(torch.float32)
         total = total + plugin_set.weight_of(p) * norm
-    return torch.where(feasible, total, NEG), feasible_counts, reject_counts
+    return (torch.where(feasible, total, NEG), feasible, feasible_counts,
+            reject_counts)
+
+
+def evaluate(plugin_set: PluginSet, eb, nf, af):
+    """Filters and scores of one batch against every node:
+    ``(masked_total (P,N) float32 with NEG on infeasible pairs,
+    feasible_counts (P,) int32, reject_counts (F,P) int32)``."""
+    ctx = cycle_state(plugin_set, eb, nf, af)
+    total, _feasible, counts, rejects = _evaluate(plugin_set, eb.pf, nf, ctx)
+    return total, counts, rejects
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor,
@@ -159,10 +210,10 @@ def _gather_nodes(nf, idx: torch.Tensor):
 def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                sample_nodes: Optional[int] = None):
     """The scheduling step for a plugin profile:
-    ``step(eb, nf, af, key) -> Decision`` where ``eb`` is an EncodedBatch,
-    ``nf`` the NodeFeatures and ``af`` the AssignedPodFeatures, all as
-    tensors on one device (encode.to_torch), and ``key`` the batch's
-    PRNG key (ops/prng).
+    ``step(eb, nf, af, key, has_gang=None, hard_spread=None) -> Decision``
+    where ``eb`` is an EncodedBatch, ``nf`` the NodeFeatures and ``af``
+    the AssignedPodFeatures, all as tensors on one device
+    (encode.to_torch), and ``key`` the batch's PRNG key (ops/prng).
 
     ``shortlist=K`` (K >= 1) assigns with the shortlist-compressed scan
     (select.greedy_assign_shortlist, K clamped to the node pad); None or
@@ -171,21 +222,42 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
 
     ``sample_nodes=K`` (K < the node pad) evaluates the batch against K
     candidate nodes (_select_node_sample, drawn with the second half of
-    ``split(key)``; the first half breaks the step's ties). A volume
-    claim mounted on a node outside the sample maps to row K, which
-    matches no node. Outputs are remapped to global node rows and
-    ``free_after`` is returned full-size, a new tensor (the input
-    ``free`` may be the engine's carried device state). A pod with no
-    feasible node in the sample must be re-evaluated against the full
-    axis before it is declared unschedulable (the engine's residual
-    pass)."""
-    greedy_fn = greedy_assign
-    if shortlist is not None and shortlist >= 1:
-        greedy_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
+    ``split(key)``; the first half breaks the step's ties). The topology
+    and node-affinity state is computed on the full node axis first and
+    its per-node tables gathered. A volume claim mounted on a node
+    outside the sample maps to row K, which matches no node. Outputs are
+    remapped to global node rows and ``free_after`` is returned
+    full-size, a new tensor (the input ``free`` may be the engine's
+    carried device state). A pod with no feasible node in the sample
+    must be re-evaluated against the full axis before it is declared
+    unschedulable (the engine's residual pass).
 
-    def step(eb, nf, af, key) -> Decision:
+    Hard topology spread: an unsampled step of a profile with a topology
+    plugin builds the in-scan domain caps (ops/spreadcap.py). Where they
+    enforce a slot (``caps.any_enforced``) the assignment is the caps
+    scan (select.greedy_assign with ``caps``, the caps kernel on a card)
+    instead of the shortlist scan or the greedy kernel: the JAX package's
+    ``lax.cond``. PyTorch has no branch on the device, so the host
+    decides. ``hard_spread`` is what the caller knows of the batch on
+    the host: False (no DoNotSchedule slot on a live pod, so no slot can
+    be enforced) skips the caps without reading the card; True or None
+    builds them and reads ``any_enforced`` once, the step's one wait on
+    the card in such a batch. ``has_gang=False`` likewise lets the gang
+    admission skip its read (ops/gang.py)."""
+    base_fn = greedy_assign
+    if shortlist is not None and shortlist >= 1:
+        base_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
+    active = plugin_set.filter_plugins + plugin_set.score_plugins
+    needs_topology = any(p.needs_topology for p in active)
+    spread_plugin = next((f for f in plugin_set.filter_plugins
+                          if f.name == "PodTopologySpread"), None)
+
+    def step(eb, nf, af, key, has_gang: Optional[bool] = None,
+             hard_spread: Optional[bool] = None) -> Decision:
         n = nf.valid.shape[0]
+        ctx = cycle_state(plugin_set, eb, nf, af)
         sample_idx = None
+        N = n
         if sample_nodes is not None and sample_nodes < n:
             key, skey = prng.split(key)
             sample_idx = _select_node_sample(nf, skey, sample_nodes)
@@ -198,11 +270,75 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                 cr >= 0, inv[torch.clamp(cr, 0, n - 1).long()], cr)))
             free_full = nf.free
             nf = _gather_nodes(nf, sample_idx)
-        masked_total, feasible_counts, reject_counts = evaluate(
-            plugin_set, eb, nf, af)
-        assign = gang_assign(masked_total, eb.pf.requests, nf.free,
+            for k2 in ("counts_node", "dom_valid", "na_req_match",
+                       "na_pref_score"):
+                if k2 in ctx:
+                    ctx[k2] = ctx[k2][:, sample_idx]
+            N = sample_nodes
+        pf = eb.pf
+
+        # In-scan hard-spread enforcement: unsampled steps only (a
+        # sampled running min would cover the sampled nodes' domains
+        # alone, while the filter's global-min check stands down).
+        caps, enforced = None, False
+        if (needs_topology and sample_idx is None
+                and hard_spread is not False):
+            from .spreadcap import build_domain_caps
+
+            caps = build_domain_caps(pf, eb.gf, nf, ctx["counts_dom"],
+                                     ctx["dom_exists"])
+            enforced = bool(caps.any_enforced)  # the one read of the card
+            if enforced:
+                ctx["spread_scan_groups"] = caps.scan_groups
+
+        masked_total, feasible, feasible_counts, reject_counts = _evaluate(
+            plugin_set, pf, nf, ctx)
+        feasible_static = feasible_counts
+        if enforced and spread_plugin is not None:
+            # The undeferred spread verdict, for the engine's terminal-
+            # versus-contention classification.
+            ctx_static = dict(ctx)
+            ctx_static.pop("spread_scan_groups")
+            m_static = spread_plugin.filter(pf, nf, ctx_static)
+            feasible_static = (feasible & m_static).sum(dim=1).to(
+                torch.int32)
+        del feasible
+        greedy_fn = (functools.partial(greedy_assign, caps=caps) if enforced
+                     else base_fn)
+        assign = gang_assign(masked_total, pf.requests, nf.free,
                              eb.gang.group, eb.gang.min_count,
-                             prng.bits(key), greedy_fn=greedy_fn)
+                             prng.bits(key), greedy_fn=greedy_fn,
+                             has_gang=has_gang)
+
+        # Spread-arbitration inputs, per (pod, group) at the chosen node.
+        gf = eb.gf
+        G = gf.valid.shape[0]
+        dev = assign.chosen.device
+        if enforced:
+            scan_groups = caps.scan_groups
+        else:
+            scan_groups = torch.zeros((G,), dtype=torch.bool, device=dev)
+        if needs_topology:
+            safe_row = torch.clamp(assign.chosen, 0, N - 1).long()
+            live = assign.assigned[:, None] & gf.valid[None, :]
+            spread_pre = torch.where(
+                live, ctx["counts_node"][:, safe_row].T, 0.0)
+            gkey = torch.clamp(gf.key_idx, 0,
+                               nf.topo_domains.shape[0] - 1).long()
+            spread_dom = torch.where(
+                live, nf.topo_domains[gkey][:, safe_row].T, -1)
+            spread_min = ctx["min_count"]
+            spread_cdom = ctx["counts_dom"]
+            spread_dexist = ctx["dom_exists"]
+        else:
+            spread_pre = torch.zeros((0, G), dtype=torch.float32, device=dev)
+            spread_dom = torch.full((0, G), -1, dtype=torch.int32,
+                                    device=dev)
+            spread_min = torch.zeros((0,), dtype=torch.float32, device=dev)
+            spread_cdom = torch.zeros((0, 0), dtype=torch.float32,
+                                      device=dev)
+            spread_dexist = torch.zeros((0, 0), dtype=torch.bool, device=dev)
+
         chosen, free_after = assign.chosen, assign.free_after
         if sample_idx is not None:
             safe = torch.clamp(chosen, 0, sample_nodes - 1).long()
@@ -214,9 +350,15 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             assigned=assign.assigned,
             gang_rejected=assign.gang_rejected,
             feasible_counts=feasible_counts,
-            feasible_static=feasible_counts,
+            feasible_static=feasible_static,
             reject_counts=reject_counts,
             free_after=free_after,
+            spread_pre=spread_pre,
+            spread_dom=spread_dom,
+            spread_min=spread_min,
+            spread_cdom=spread_cdom,
+            spread_dexist=spread_dexist,
+            scan_groups=scan_groups,
             shortlist_repaired=assign.repaired,
         )
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from .spreadcap import caps_mask, caps_update
+
 NEG = -3.0e38  # effectively -inf for masked scores (exact in float32)
 
 GOLDEN = 0x9E3779B9
@@ -62,12 +64,15 @@ class AssignResult(NamedTuple):
 
 
 def _full_row_pick(srow: torch.Tensor, req: torch.Tensor,
-                   free: torch.Tensor, seed: int, i: int, cols):
+                   free: torch.Tensor, seed: int, i: int, cols,
+                   mask=None):
     """One pod's pick over the whole row: among nodes whose free row
-    covers ``req`` on every axis, the largest score, then the largest
-    tie noise, then the smallest column. Returns (column, ok) with ok
-    False when no fitting node scores above NEG."""
+    covers ``req`` on every axis (and that ``mask`` allows), the largest
+    score, then the largest tie noise, then the smallest column. Returns
+    (column, ok) with ok False when no fitting node scores above NEG."""
     fits = (free >= req[None, :]).all(dim=1)
+    if mask is not None:
+        fits &= mask
     s = torch.where(fits, srow, NEG)
     m = s.max()
     if not bool(m > NEG):
@@ -78,19 +83,28 @@ def _full_row_pick(srow: torch.Tensor, req: torch.Tensor,
 
 
 def greedy_assign_plain(scores: torch.Tensor, requests: torch.Tensor,
-                        free0: torch.Tensor, seed: int) -> AssignResult:
-    """The plain PyTorch version of the greedy-assignment kernel.
+                        free0: torch.Tensor, seed: int,
+                        caps=None) -> AssignResult:
+    """The plain PyTorch version of the greedy-assignment kernel and,
+    with ``caps``, of the caps scan kernel (ops/caps_kernel.py).
 
     scores:   (P,N) float32 with NEG on infeasible pairs
     requests: (P,R) float32 per-pod resource requests
     free0:    (N,R) float32 free resources entering the batch
     seed:     the batch's u32 tie-break seed (ops/prng.bits)
+    caps:     optional ops/spreadcap.DomainCaps, the running
+              per-(group, domain) counts of the hard-spread skew caps
 
     Per pod: among nodes whose free resources cover the request on every
     axis, take the largest score, then the largest tie noise, then the
     smallest column; assign when that score is above NEG and debit the
-    node's free row by the request.
+    node's free row by the request. With ``caps``, the fitting nodes are
+    further masked by ``caps_mask`` against the counts as the earlier
+    pods of the batch left them, and each assignment adds one to the
+    chosen node's domain in every group the pod matches
+    (``caps_update``): the JAX package's ``greedy_assign(caps=...)``.
     """
+    counts = None if caps is None else caps.counts0.clone()
     P, N = scores.shape
     device = scores.device
     free = free0.clone()
@@ -98,21 +112,31 @@ def greedy_assign_plain(scores: torch.Tensor, requests: torch.Tensor,
     chosen = torch.full((P,), -1, dtype=torch.int32, device=device)
     assigned = torch.zeros((P,), dtype=torch.bool, device=device)
     for i in range(P):
-        idx, ok = _full_row_pick(scores[i], requests[i], free, seed, i, cols)
+        mask = None if caps is None else caps_mask(caps, counts, i)
+        idx, ok = _full_row_pick(scores[i], requests[i], free, seed, i, cols,
+                                 mask=mask)
         if ok:
             free[idx] = free[idx] - requests[i]
             chosen[i] = idx
             assigned[i] = True
+            if caps is not None:
+                counts = caps_update(caps, counts, i, idx)
     return AssignResult(chosen, assigned, free)
 
 
 def greedy_assign(scores: torch.Tensor, requests: torch.Tensor,
-                  free0: torch.Tensor, seed: int) -> AssignResult:
+                  free0: torch.Tensor, seed: int, caps=None) -> AssignResult:
     """Assign pods to nodes in row order (the caller pre-sorts rows by
-    priority). CPU tensors run the plain version; CUDA tensors launch
-    the hand-written kernel."""
+    priority). ``caps`` (ops/spreadcap.DomainCaps) masks each pod's
+    choice by the hard-spread skew of the running domain counts. CPU
+    tensors run the plain versions; CUDA tensors launch the hand-written
+    kernels (the greedy kernel, or with ``caps`` the caps scan kernel)."""
     if scores.device.type == "cpu":
-        return greedy_assign_plain(scores, requests, free0, seed)
+        return greedy_assign_plain(scores, requests, free0, seed, caps)
+    if caps is not None:
+        from .caps_kernel import caps_scan_cuda
+
+        return caps_scan_cuda(scores, requests, free0, seed, caps)
     from .greedy_kernel import greedy_assign_cuda
 
     return greedy_assign_cuda(scores, requests, free0, seed)

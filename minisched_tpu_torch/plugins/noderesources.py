@@ -85,6 +85,25 @@ class _AllocationScorer(BatchedPlugin):
     def __init__(self, resources=DEFAULT_SCORED_RESOURCES):
         self._resources = tuple(resources)
         self._axes = [RESOURCE_INDEX[r] for r in self._resources]
+        # Indexing with a Python list copies an index tensor from the
+        # host at every call, and the copy makes the step wait for the
+        # card. Contiguous axes take a slice; others an index tensor
+        # made once per device.
+        lo = self._axes[0] if self._axes else 0
+        self._slice = (slice(lo, lo + len(self._axes))
+                       if self._axes == list(range(lo, lo + len(self._axes)))
+                       else None)
+        self._index = {}
+
+    def _scored(self, a: torch.Tensor) -> torch.Tensor:
+        """``a[..., self._axes]`` without a host-to-device copy."""
+        if self._slice is not None:
+            return a[..., self._slice]
+        idx = self._index.get(a.device)
+        if idx is None:
+            idx = self._index[a.device] = torch.tensor(
+                self._axes, dtype=torch.long, device=a.device)
+        return a.index_select(-1, idx)
 
     def trace_key(self) -> tuple:
         return super().trace_key() + (self._resources,)
@@ -96,8 +115,9 @@ class _AllocationScorer(BatchedPlugin):
     def _utilization(self, pf, nf):
         """(P,N,S) requested fraction of allocatable after hypothetical
         placement over the scored axes, plus the (1,N,S) presence mask."""
-        alloc = nf.allocatable[None, :, self._axes]
-        used = alloc - nf.free[None, :, self._axes] + pf.requests[:, None, self._axes]
+        alloc = self._scored(nf.allocatable)[None, :, :]
+        used = (alloc - self._scored(nf.free)[None, :, :]
+                + self._scored(pf.requests)[:, None, :])
         util = torch.where(alloc > 0, used / torch.clamp_min(alloc, _EPS),
                            0.0)
         return util, alloc > 0

@@ -12,13 +12,21 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Union
 
 from ..plugins.base import BatchedPlugin, PluginSet
+from ..plugins.imagelocality import ImageLocality
+from ..plugins.interpodaffinity import InterPodAffinity
+from ..plugins.nodeaffinity import NodeAffinity
+from ..plugins.nodename import NodeName
 from ..plugins.nodenumber import NodeNumber
 from ..plugins.nodeports import NodePorts
+from ..plugins.nodepreferavoidpods import NodePreferAvoidPods
 from ..plugins.noderesources import (NodeResourcesBalancedAllocation,
                                      NodeResourcesFit,
                                      NodeResourcesLeastAllocated,
                                      NodeResourcesMostAllocated)
 from ..plugins.nodeunschedulable import NodeUnschedulable
+from ..plugins.podtopologyspread import PodTopologySpread
+from ..plugins.selectorspread import SelectorSpread
+from ..plugins.tainttoleration import TaintToleration
 
 # Registry of plugin factories by name (reference plugin.NewRegistry).
 _REGISTRY: Dict[str, Callable[..., BatchedPlugin]] = {
@@ -29,6 +37,26 @@ _REGISTRY: Dict[str, Callable[..., BatchedPlugin]] = {
     "NodeResourcesLeastAllocated": NodeResourcesLeastAllocated,
     "NodeResourcesMostAllocated": NodeResourcesMostAllocated,
     "NodeResourcesBalancedAllocation": NodeResourcesBalancedAllocation,
+    "PodTopologySpread": PodTopologySpread,
+    "InterPodAffinity": InterPodAffinity,
+    "SelectorSpread": SelectorSpread,
+    "TaintToleration": TaintToleration,
+    "NodeAffinity": NodeAffinity,
+    "NodeName": NodeName,
+    "ImageLocality": ImageLocality,
+    "NodePreferAvoidPods": NodePreferAvoidPods,
+}
+
+# Plugins of the JAX package's registry that this package does not have
+# yet, with the slice of the port that brings them.
+_NOT_YET = {
+    **{n: "the volume slice (with the engine's volume state and RWO "
+          "arbitration)"
+       for n in ("VolumeBinding", "VolumeRestrictions", "VolumeZone",
+                 "NodeVolumeLimits", "EBSLimits", "GCEPDLimits",
+                 "AzureDiskLimits", "CinderLimits")},
+    "DefaultPreemption": "the preemption slice (ops/preempt.py and the "
+                         "PostFilter)",
 }
 
 
@@ -40,6 +68,9 @@ def make_plugin(name: str, **args) -> BatchedPlugin:
     try:
         factory = _REGISTRY[name]
     except KeyError:
+        if name in _NOT_YET:
+            raise KeyError(f"plugin {name!r} is not ported yet; it comes "
+                           f"with {_NOT_YET[name]}") from None
         raise KeyError(f"unknown plugin {name!r}; registered: "
                        f"{registered_plugins()}") from None
     return factory(**args)

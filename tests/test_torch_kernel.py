@@ -1,5 +1,6 @@
 """The CUDA kernels (greedy assignment, shortlist selection, shortlist
-scan, port insertion) against their plain PyTorch versions.
+scan, port insertion, caps scan) against their plain PyTorch versions,
+and the step's host syncs on the card.
 
 This file imports neither jax nor minisched_tpu, so it also runs on a
 machine that has only the port's dependencies. The card tests skip
@@ -19,9 +20,10 @@ from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
-from torch_parity import (GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
+from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
+from torch_parity import (CAPS_KINDS, GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
                           SELECT_CARD_LIST_KINDS, SHORTLIST_CASES,
-                          bits_equal,
+                          bits_equal, caps_problem,
                           greedy_case, ports_case, ports_design_case,
                           scarce_case, select_list_case, shortlist_case)
 
@@ -442,3 +444,77 @@ def test_sampled_step_on_card_equals_cpu(shortlist):
         assert bits_equal(getattr(want, field).numpy(),
                           getattr(got, field).cpu().numpy()), field
     assert int(want.assigned.sum()) == 1024
+
+
+def test_caps_wrapper_refuses_cpu_tensors():
+    scores, req, free, seed, caps = caps_problem("spreadcap-burst")
+    with pytest.raises(ValueError, match="CUDA"):
+        caps_scan_cuda(scores, req, free, seed, caps)
+
+
+@pytest.mark.parametrize("kind", ["spreadcap-burst", "all-unenforced"])
+def test_caps_dispatch_on_cpu_is_the_plain_version(kind):
+    scores, req, free, seed, caps = caps_problem(kind)
+    n0 = dict(LAUNCHES)
+    got = S.greedy_assign(scores, req, free, seed, caps=caps)
+    want = S.greedy_assign_plain(scores, req, free, seed, caps)
+    assert LAUNCHES == n0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", CAPS_KINDS)
+def test_caps_kernel_matches_plain_on_card(kind):
+    """The caps scan kernel equals its plain version bitwise on chosen,
+    assigned and free_after: tests/test_spreadcap.py's shapes, random
+    hard batches, groups that do not compact, no slot enforced, and a
+    3,000-node batch over many blocks."""
+    _need_card()
+    scores, req, free, seed, caps = caps_problem(kind)
+    want = S.greedy_assign_plain(scores, req, free, seed, caps)
+    n0 = LAUNCHES["caps_scan"]
+    got = S.greedy_assign(scores.cuda(), req.cuda(), free.cuda(), seed,
+                          caps=type(caps)(*[t.cuda() for t in caps]))
+    torch.cuda.synchronize()
+    assert LAUNCHES["caps_scan"] == n0 + 1
+    for field in ("chosen", "assigned", "free_after"):
+        assert bits_equal(getattr(want, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("profile", ["bench", "c4-soft"])
+@pytest.mark.parametrize("sample", [None, 1024])
+def test_step_makes_no_host_sync_on_card(profile, sample):
+    """A gang-free step with no DoNotSchedule slot (the bench profile, and
+    config 4 soft), sampled and unsampled, runs under torch's sync debug
+    mode "error": the host never waits for the card."""
+    _need_card()
+    import chip_smoke
+    from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
+                                            to_torch)
+    from minisched_tpu_torch.ops.pipeline import build_step
+
+    if profile == "bench":
+        nodes, pods = chip_smoke.bench_workload(3000, 1024)
+        prof = chip_smoke.BENCH_PROFILE
+    else:
+        nodes, pods = chip_smoke.c4_workload(3000, 1024)
+        prof = chip_smoke.C4_PROFILE
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes)
+    eb = encode_pods(pods, 1024, cfg=cache.cfg, registry=cache.registry)
+    nf, _names, _sv, _incs = cache.snapshot_versioned(pad=3072)
+    af = cache.snapshot_assigned(pad=16)
+    step = build_step(prof.build(), shortlist=128, sample_nodes=sample)
+    key = prng.fold_in(prng.PRNGKey(5), 1)
+    args = [to_torch(x, "cuda") for x in (eb, nf, af)]
+    step(*args, key, has_gang=False, hard_spread=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = step(*args, key, has_gang=False, hard_spread=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(d.assigned.sum()) == 1024

@@ -361,3 +361,225 @@ def sampled_cluster(O, n_nodes: int = 1200, n_pods: int = 256,
                    spec=O.PodSpec(requests={"cpu": 100000.0,
                                             "memory": float(1 << 28)}))
     return nodes + [big, resident], pods[:100] + [pinned] + pods[100:]
+
+
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+AVOID = "scheduler.alpha.kubernetes.io/preferAvoidPods"
+
+
+def full_cluster(O, n_nodes: int, n_pods: int, seed: int = 0,
+                 hard: bool = True):
+    """A cluster for the eight label and topology plugins: nodes with
+    zone, rack and disk labels (some without a zone), taints of every
+    effect, cached images and the avoid annotation; pending pods with
+    spread constraints (DoNotSchedule when ``hard``, else ScheduleAnyway,
+    over zone or hostname), required and preferred pod (anti-)affinity,
+    node selectors and node affinity, tolerations, images, controller
+    owners and a required node name; bound pods with the same labels,
+    some with a required anti-affinity term (the symmetric slots).
+    Returns (nodes, pending pods, [(bound pod, node name)])."""
+    rng = np.random.default_rng(seed)
+    apps = ["web", "cache", "db"]
+    images = ["img/a:1", "img/b:2", "img/c:3", "img/d:4"]
+    nodes = []
+    for i in range(n_nodes):
+        labels = {"disk": str(rng.choice(["ssd", "hdd"])),
+                  "rack": f"r{i % 5}"}
+        if rng.random() < 0.9:
+            labels[ZONE] = f"z{i % 4}"
+        taints = []
+        if rng.random() < 0.25:
+            taints.append(O.Taint(
+                key=str(rng.choice(["dedicated", "maint", "gpu"])),
+                value=str(rng.choice(["ml", "web", ""])),
+                effect=str(rng.choice(["NoSchedule", "PreferNoSchedule",
+                                       "NoExecute"]))))
+        if rng.random() < 0.15:
+            taints.append(O.Taint(key="maint", value="",
+                                  effect="PreferNoSchedule"))
+        annotations = {AVOID: "x"} if rng.random() < 0.2 else {}
+        nodes.append(O.Node(
+            metadata=O.ObjectMeta(name=f"fn{i}", labels=labels,
+                                  annotations=annotations),
+            spec=O.NodeSpec(unschedulable=bool(rng.random() < 0.05),
+                            taints=taints),
+            status=O.NodeStatus(
+                allocatable={"cpu": float(rng.choice([2000, 4000, 8000])),
+                             "memory": float(16 << 30), "pods": 110.0},
+                images=[str(x) for x in rng.choice(images,
+                                                   int(rng.integers(0, 3)),
+                                                   replace=False)])))
+
+    def sel(app):
+        return O.LabelSelector(match_labels={"app": app})
+
+    def term(app, key):
+        return O.PodAffinityTerm(label_selector=sel(app), topology_key=key)
+
+    def make_pod(name, i, bound=False):
+        app = str(rng.choice(apps))
+        spec = dict(requests={"cpu": float(rng.integers(1, 8) * 100)},
+                    priority=int(rng.integers(0, 3)))
+        key = ZONE if rng.random() < 0.7 else HOST
+        if not bound and rng.random() < 0.6:
+            spec["topology_spread_constraints"] = [
+                O.TopologySpreadConstraint(
+                    max_skew=int(rng.integers(1, 3)), topology_key=key,
+                    when_unsatisfiable=("DoNotSchedule"
+                                        if hard and rng.random() < 0.7
+                                        else "ScheduleAnyway"),
+                    label_selector=sel(app))]
+        pa = O.PodAffinity()
+        anti = O.PodAntiAffinity()
+        r = rng.random()
+        if not bound and r < 0.15:
+            pa.required = [term(str(rng.choice(apps)), ZONE)]
+        if not bound and rng.random() < 0.4:
+            pa.preferred = [O.WeightedPodAffinityTerm(
+                weight=int(rng.integers(1, 20)),
+                term=term(str(rng.choice(apps)), ZONE))]
+        if rng.random() < 0.12:
+            anti.required = [term(str(rng.choice(apps)),
+                                  HOST if rng.random() < 0.5 else ZONE)]
+        if not bound and rng.random() < 0.2:
+            anti.preferred = [O.WeightedPodAffinityTerm(
+                weight=int(rng.integers(1, 20)), term=term(app, HOST))]
+        na = None
+        if not bound and rng.random() < 0.3:
+            na = O.NodeAffinity(
+                required=(O.NodeSelector(node_selector_terms=[
+                    O.NodeSelectorTerm(match_expressions=[
+                        O.NodeSelectorRequirement(
+                            key="rack", operator=str(rng.choice(
+                                ["In", "NotIn"])),
+                            values=["r0", "r1", "r2"])]),
+                    O.NodeSelectorTerm(match_expressions=[
+                        O.NodeSelectorRequirement(key="gpu",
+                                                  operator="Exists")])])
+                    if rng.random() < 0.5 else None),
+                preferred=[O.PreferredSchedulingTerm(
+                    weight=int(rng.integers(1, 50)),
+                    preference=O.NodeSelectorTerm(match_expressions=[
+                        O.NodeSelectorRequirement(
+                            key="disk", operator="In", values=["ssd"])]))])
+        if not bound and rng.random() < 0.2:
+            spec["node_selector"] = {"disk": str(rng.choice(["ssd", "hdd"]))}
+        spec["affinity"] = O.Affinity(node_affinity=na, pod_affinity=pa,
+                                      pod_anti_affinity=anti)
+        if rng.random() < 0.4:
+            spec["tolerations"] = [O.Toleration(
+                key=str(rng.choice(["dedicated", "maint", ""])),
+                operator=str(rng.choice(["Equal", "Exists"])),
+                value=str(rng.choice(["ml", "web", ""])),
+                effect=str(rng.choice(["", "NoSchedule",
+                                       "PreferNoSchedule"])))]
+        if rng.random() < 0.4:
+            spec["images"] = [str(x) for x in rng.choice(
+                images, int(rng.integers(1, 3)), replace=False)]
+        if not bound and rng.random() < 0.03:
+            spec["required_node_name"] = f"fn{int(rng.integers(0, n_nodes))}"
+        owners = []
+        if rng.random() < 0.5:
+            owners = [O.OwnerReference(
+                kind=str(rng.choice(["ReplicaSet", "ReplicationController",
+                                     "StatefulSet"])),
+                name=f"o{int(rng.integers(0, 3))}", controller=True)]
+        return O.Pod(metadata=O.ObjectMeta(
+            name=name, namespace=str(rng.choice(["default", "prod"])),
+            labels={"app": app}, owner_references=owners),
+            spec=O.PodSpec(**spec))
+
+    pending = [make_pod(f"fp{i}", i) for i in range(n_pods)]
+    bound = [(make_pod(f"fb{i}", i, bound=True),
+              f"fn{int(rng.integers(0, n_nodes))}")
+             for i in range(max(1, n_nodes // 2))]
+    return nodes, pending, bound
+
+
+CAPS_KINDS = ["spreadcap-burst", "prebatch-imbalance", "random-hard-0",
+              "random-hard-1", "hostname-overflow", "all-unenforced",
+              "multi-block"]
+
+
+def caps_problem(kind: str, seed: int = 0):
+    """A caps-scan input built with the port's own encoder, topology
+    tables and spreadcap (CPU tensors): (scores, requests, free, u32
+    seed, DomainCaps). Scores are random in steps of 25 (ties) with NEG
+    on 10% of pairs; requests and free are the encoded pods' and nodes'.
+    Kinds: tests/test_spreadcap.py's 48-pod burst over 4 zones and its
+    pre-batch imbalance; random full_cluster batches (zone and hostname
+    groups, both compact); hostname spread over 200 nodes (more domains
+    than the caps compact: those slots are not enforced); a soft-only
+    batch (no slot enforced); and a 512-pod DoNotSchedule burst over
+    3,000 nodes in 16 zones (many blocks on a card)."""
+    import torch
+
+    from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
+                                            to_torch)
+    from minisched_tpu_torch.ops.spreadcap import build_domain_caps
+    from minisched_tpu_torch.ops.topology import group_topology_state
+    from minisched_tpu_torch.state import objects as O
+
+    def spread(name, key=ZONE, skew=1, mode="DoNotSchedule", app="s"):
+        return O.Pod(metadata=O.ObjectMeta(name=name, namespace="default",
+                                           labels={"app": app}),
+                     spec=O.PodSpec(requests={"cpu": 100.0},
+                                    topology_spread_constraints=[
+                                        O.TopologySpreadConstraint(
+                                            max_skew=skew, topology_key=key,
+                                            when_unsatisfiable=mode,
+                                            label_selector=O.LabelSelector(
+                                                match_labels={"app": app}))]))
+
+    def zone_nodes(n, zones, cpu=64000.0):
+        return [O.Node(metadata=O.ObjectMeta(name=f"n{i:04d}", labels={
+            ZONE: f"z{i % zones}", HOST: f"n{i:04d}"}),
+            status=O.NodeStatus(allocatable={"cpu": cpu, "pods": 110.0}))
+            for i in range(n)]
+
+    bound = []
+    if kind == "spreadcap-burst":
+        nodes, pods = zone_nodes(16, 4), [spread(f"p{i}") for i in range(48)]
+    elif kind == "prebatch-imbalance":
+        nodes, pods = zone_nodes(16, 4), [spread(f"q{i}") for i in range(13)]
+        bound = [(O.Pod(metadata=O.ObjectMeta(name=f"pre{j}",
+                                              namespace="default",
+                                              labels={"app": "s"}),
+                        spec=O.PodSpec(requests={"cpu": 100.0})), "n0000")
+                 for j in range(3)]
+    elif kind.startswith("random-hard-"):
+        nodes, pods, bound = full_cluster(O, 48, 40, int(kind[-1]) + seed)
+    elif kind == "hostname-overflow":
+        nodes = zone_nodes(200, 4)
+        pods = ([spread(f"h{i}", key=HOST) for i in range(40)]
+                + [spread(f"z{i}", app="t") for i in range(24)])
+    elif kind == "all-unenforced":
+        nodes = zone_nodes(40, 4)
+        pods = [spread(f"u{i}", mode="ScheduleAnyway") for i in range(48)]
+    elif kind == "multi-block":
+        nodes = zone_nodes(3000, 16, cpu=4000.0)
+        pods = [spread(f"m{i}") for i in range(512)]
+    else:
+        raise ValueError(kind)
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes)
+    for pod, node_name in bound:
+        pod.spec.node_name = node_name
+        cache.account_bind(pod)
+    eb = encode_pods(pods, max(16, 1 << (len(pods) - 1).bit_length()),
+                     cfg=cache.cfg, registry=cache.registry)
+    nf, _names, _sv, _incs = cache.snapshot_versioned()
+    af = cache.snapshot_assigned()
+    eb, nf, af = (to_torch(x, "cpu") for x in (eb, nf, af))
+    num = max(nf.valid.shape[0], cache.cfg.domain_buckets)
+    topo = group_topology_state(nf, af, eb.gf, num)
+    caps = build_domain_caps(eb.pf, eb.gf, nf, topo["counts_dom"],
+                             topo["dom_exists"])
+    rng = np.random.default_rng(seed + 11)
+    P, N = eb.pf.valid.shape[0], nf.valid.shape[0]
+    scores = (rng.integers(0, 4, (P, N)) * 25.0).astype(np.float32)
+    scores[rng.random((P, N)) < 0.1] = NEG
+    scores[~eb.pf.valid.numpy()] = NEG
+    return (torch.from_numpy(scores), eb.pf.requests.clone(),
+            nf.free.clone(), int(rng.integers(0, 1 << 32)), caps)

@@ -25,8 +25,10 @@ shortlist K=128, node sampling at its auto percentage: K=4,096 of the
 53,248-row pad at bench-50k); unsampled (the same with
 percentage_of_nodes_to_score=100: every node evaluated); full-kernel
 (the default with shortlist=False: the greedy kernel); sync (pipeline,
-residency and shortlist off: the earlier path). The default list is
-default,unsampled.
+residency and shortlist off: the earlier path); c4-soft and c4-hard
+(the default config on BASELINE config 4: chip_smoke.py's C4_PROFILE and
+c4_workload, ScheduleAnyway max_skew 8, or DoNotSchedule max_skew 1, the
+caps scan). The default list is default,unsampled.
 """
 from __future__ import annotations
 
@@ -50,6 +52,15 @@ MODES = {
     "full-kernel": {"shortlist": False},
     "sync": {"pipeline": False, "device_resident": False,
              "shortlist": False},
+    "c4-soft": {},
+    "c4-hard": {},
+}
+# Modes with another workload and profile than the bench's.
+WORKLOADS = {
+    "c4-soft": (cs.c4_workload, cs.C4_PROFILE),
+    "c4-hard": (lambda n, p, seed=0: cs.c4_workload(n, p, seed, max_skew=1,
+                                                    hard=True),
+                cs.C4_PROFILE),
 }
 
 
@@ -69,17 +80,21 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
     """One run in this process: warm up, then the measured burst; the
     last line is the run's numbers as JSON."""
     cfg = SchedulerConfig(platform="", **MODES[mode])
-    nodes, pods = cs.bench_workload(2_000, 1_024, seed=1)
-    cs.drive(cfg, nodes, pods, f"{mode} warm-up")
-    nodes, pods = cs.bench_workload(cs.N_NODES, n_pods)
+    workload, prof_ = WORKLOADS.get(mode, (cs.bench_workload,
+                                           cs.BENCH_PROFILE))
+    nodes, pods = workload(2_000, 1_024, seed=1)
+    cs.drive(cfg, nodes, pods, f"{mode} warm-up", prof_)
+    nodes, pods = workload(cs.N_NODES, n_pods)
     if profile:
         from torch.profiler import ProfilerActivity
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
-            m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode)
+            m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode,
+                                                    prof_)
         print(f"{mode} under the profiler: " + device_busy(prof, c2b, smi))
     else:
-        m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode)
+        m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode,
+                                                prof_)
     print(cs.path_line(f"{mode} {cs.N_NODES} nodes x {n_pods} pods", m,
                        launches, c2b, per_pod, n_pods, smi))
     b = m["batches"]

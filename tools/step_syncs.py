@@ -8,8 +8,12 @@ the bench workload against 50,000 nodes), warms each function, then
 calls it once under torch's sync debug mode ("warn") and prints every
 synchronizing operation it reports, by the port's source lines on the
 stack: the node sample (K=4,096), the filters and scores at full width,
-the sampled step and the unsampled step (shortlist K=128). Each line
-ends with the card's name and power limit. The debug mode is a
+the sampled step and the unsampled step (shortlist K=128), each step
+called as the engine calls it (the host's flags: no gang, no
+DoNotSchedule slot); then config 4's batch (chip_smoke.c4_workload):
+the soft step sampled, and the hard step (DoNotSchedule, max_skew 1)
+unsampled, whose one read of the caps' any_enforced is expected. Each
+line ends with the card's name and power limit. The debug mode is a
 prototype in torch: it may miss a sync, never invents one.
 """
 from __future__ import annotations
@@ -80,12 +84,29 @@ def main() -> int:
     _, skey = prng.split(key)
     sampled = build_step(plugin_set, shortlist=cs.K, sample_nodes=cs.SAMPLE_K)
     full = build_step(plugin_set, shortlist=cs.K)
+    c4_set = cs.C4_PROFILE.build()
+    c4 = {}
+    for hard in (False, True):
+        nodes, pods = cs.c4_workload(cs.N_NODES, cs.N_PODS, hard=hard,
+                                     max_skew=1 if hard else 8)
+        c4[hard] = [to_torch(x, "cuda")
+                    for x in cs.full_width_batch(nodes, pods)]
+    c4_soft = build_step(c4_set, shortlist=cs.K, sample_nodes=cs.SAMPLE_K)
+    c4_hard = build_step(c4_set, shortlist=cs.K)
+    # The engine's host flags for a batch with no gang and no
+    # DoNotSchedule slot.
+    no_host = {"has_gang": False, "hard_spread": False}
     for name, fn in (
             ("node sample", lambda: _select_node_sample(nf, skey,
                                                         cs.SAMPLE_K)),
             ("filters and scores", lambda: evaluate(plugin_set, eb, nf, af)),
-            ("sampled step", lambda: sampled(eb, nf, af, key)),
-            ("unsampled step", lambda: full(eb, nf, af, key))):
+            ("sampled step", lambda: sampled(eb, nf, af, key, **no_host)),
+            ("unsampled step", lambda: full(eb, nf, af, key, **no_host)),
+            ("config 4 soft step, sampled",
+             lambda: c4_soft(*c4[False], key, **no_host)),
+            ("config 4 hard step, unsampled",
+             lambda: c4_hard(*c4[True], key, has_gang=False,
+                             hard_spread=True))):
         sites = sync_sites(fn)
         print(f"{name}: {sum(sites.values())} host syncs ({smi})")
         for (message, where), n in sites.items():
