@@ -58,34 +58,59 @@ them, and on any mismatch. Phases, each printing its own lines:
      full_cluster: 50,000 nodes, 25,000 bound pods), every Decision field
      cuda = cpu for a soft batch on the node sample and a hard batch
      unsampled (the caps scan);
- 10. the main path: Cluster(...).start() with SchedulerConfig() (the
-     pipelined, device-resident, shortlist cycle, sampling K nodes per
-     batch) on the card, bench profile, 50,000 nodes x 10,000 pods, all
-     bound, no node over its allocatable, the K the engine picks, the
-     selection and scan kernels launched in every batch, one residency
-     resync and hits after it, and the carried device state equal to
-     its host mirror bitwise at the end;
- 11. config 4 soft, this slice's main path: the same with BASELINE
-     config 4's profile (NodeUnschedulable, NodeResourcesFit,
-     PodTopologySpread, InterPodAffinity; DefaultPreemption is not
-     ported yet) and make_c4_workload's pods (ScheduleAnyway max_skew 8,
-     preferred affinity on every other pod): every batch sampled, the
-     selection and scan kernels in each, no host sync in its step;
- 12. config 4 hard (DoNotSchedule max_skew 1): every batch unsampled,
+ 10. this slice at full width: full_scheduler_profile()'s step (15
+     filters, 7 scorers) on a batch that mixes pinned, unused,
+     zone-bound and aws-ebs claims, host ports and tolerated taints
+     beside bench pods, encoded by the engine's own volume state, every
+     Decision field cuda = cpu on the node sample (1,024 x K=4,096 of
+     53,248) and unsampled (256 x 53,248), no host sync in the sampled
+     step; then bench.py's preemption candidate search (50,000 nodes, a
+     corpus of 100,000 priority-0 pods, 256 priority-100 preemptors,
+     NodeUnschedulable + NodeResourcesFit + PodTopologySpread +
+     InterPodAffinity): its four outputs cuda = cpu bitwise, its time,
+     bound and candidates;
+ 11. the bench main path: Cluster(...).start() with SchedulerConfig()
+     (the pipelined, device-resident, shortlist cycle, sampling K nodes
+     per batch) on the card, bench profile, 50,000 nodes x 10,000 pods,
+     all bound, no node over its allocatable, the K the engine picks,
+     the selection and scan kernels launched in every batch, one
+     residency resync and hits after it, and the carried device state
+     equal to its host mirror bitwise at the end;
+ 12. this slice's main path: the same with full_scheduler_profile()
+     and a fifth of the pods holding a Bound claim on a zone-labelled
+     PV (every claim Bound up front, no PV controller): all bound, no node over its allocatable (attach slots
+     included), no claim mounted on two nodes, each zone-bound pod in
+     its PV's zone, the selection and scan kernels in every batch, the
+     carried device state equal to its host mirror;
+ 13. config 4 soft: the same with BASELINE config 4's profile
+     (NodeUnschedulable, NodeResourcesFit, PodTopologySpread,
+     InterPodAffinity, DefaultPreemption) and make_c4_workload's pods
+     (ScheduleAnyway max_skew 8, preferred affinity on every other pod):
+     every batch sampled, the selection and scan kernels in each, no
+     host sync in its step, the ten 1,024-pod batches (no pod fails, so
+     the PostFilter never runs);
+ 14. config 4 hard (DoNotSchedule max_skew 1): every batch unsampled,
      the caps kernel launched in each, no pod revoked by the host
-     arbitration on a scan-enforced group, all bound, app=bench per zone
-     within 1 of the least; the batches to drain and create-to-bound;
- 13. a smaller hard burst (1,200 nodes x 512 pods): placements on the
+     arbitration on a scan-enforced group, all bound in ten batches,
+     app=bench per zone within 1 of the least; create-to-bound;
+ 15. a smaller hard burst (1,200 nodes x 512 pods): placements on the
      card equal those on the CPU;
- 14. the port path: the JAX package's port-heavy residency burst
+ 16. a preemption burst: 1,200 nodes exactly full of priority-1 pods,
+     then 8 priority-100 pods that each need two evictions (default
+     config, fast backoff): every preemptor bound on its
+     nominated_node_name, no victim evicted twice, no node over its
+     allocatable, a batch run with a nomination outstanding
+     (residency_nomination_carries), the first pass's op outputs cuda =
+     cpu on its snapshot;
+ 17. the port path: the JAX package's port-heavy residency burst
      (tests/test_device_residency.py:491: 4 nodes, 24 pods with two host
      ports each, NodeUnschedulable + NodeResourcesFit + NodePorts) with
      SchedulerConfig(): the port insertion kernel launched, the device
      used_ports equal to the host mirror, placements equal to the
      synchronous upload-every-batch run, no host port twice on a node;
- 15. the earlier path: pipeline, residency and shortlist off, 50,000
+ 18. the earlier path: pipeline, residency and shortlist off, 50,000
      nodes x 2,048 pods, the greedy kernel launched in every batch;
- 16. faults on the card: a 1,201-node bench cluster (sampled, with one
+ 19. faults on the card: a 1,201-node bench cluster (sampled, with one
      pod only the residual pass places and two pods that fit nowhere),
      pipeline on and then off, fault-free and then under
      step:err@2,fetch:corrupt@3,commit:err@1,informer:err@1: each gate
@@ -93,14 +118,16 @@ them, and on any mismatch. Phases, each printing its own lines:
      the fault-free run's; then a fault-free run with
      shortlist_check_every=1 and resident_check_every=1 (the cross-check
      launches the greedy kernel, the carry check runs, no desync);
- 17. the reference's README scenario on the card (default config).
+ 20. the reference's README scenario on the card (default config).
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
 DoNotSchedule slot): the step never waits on the card.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernel table as JSON (the shortlist
+kernels' launches are the full-profile burst's, with each path's beside
+them; the preemption op, PyTorch ops and no kernel, under "stages"); the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -128,6 +155,7 @@ from minisched_tpu_torch.ops.pipeline import (_evaluate, _gather_nodes,
                                               build_step, cycle_state,
                                               evaluate)
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
+from minisched_tpu_torch.ops.preempt import build_preempt_op, fetch_preempt
 from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
                                             greedy_assign_shortlist_plain,
                                             shortlist_select,
@@ -137,7 +165,8 @@ from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
-from minisched_tpu_torch.service.defaultconfig import Profile
+from minisched_tpu_torch.service.defaultconfig import (Profile,
+                                                       full_scheduler_profile)
 from minisched_tpu_torch.state import objects as O
 
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
@@ -202,13 +231,28 @@ def bench_workload(n_nodes: int, n_pods: int, seed: int = 0):
 
 
 # BASELINE config 4 (BASELINE.md:33): topology spread + inter-pod
-# affinity over the fit filter, the JAX package's C4_PLUGINS
-# (bench_workload.py:51) without DefaultPreemption, which this package
-# does not have yet.
+# affinity over the fit filter with upstream's default PostFilter, the
+# JAX package's C4_PLUGINS (bench_workload.py:51).
 C4_PROFILE = Profile(
     name="c4",
     plugins=["NodeUnschedulable", "NodeResourcesFit", "PodTopologySpread",
-             "InterPodAffinity"])
+             "InterPodAffinity", "DefaultPreemption"])
+# The upstream default lists, every plugin on (service/defaultconfig.py).
+FULL_PROFILE = full_scheduler_profile()
+# bench.py's preemption candidate search (bench.py:605-669): a corpus of
+# 100,000 priority-0 pods of 250 m bound round-robin over the 50,000
+# bench nodes, 256 priority-100 pods of 4,000 m, and its filter set.
+PREEMPT_CORPUS, PREEMPT_PODS = 100_000, 256
+PREEMPT_PROFILE = Profile(
+    name="preempt",
+    plugins=["NodeUnschedulable", "NodeResourcesFit", "PodTopologySpread",
+             "InterPodAffinity"],
+    plugin_args={"NodeResourcesFit": {"score_strategy": None}})
+# The preemption burst: tests/test_preemption.py:211's shape, scaled
+# (1,200 nodes exactly full of priority-1 pods, then 8 priority-100 pods
+# that each need two evictions).
+PREEMPT_NODES, PREEMPTORS = 1200, 8
+ZONE = "topology.kubernetes.io/zone"
 
 
 def c4_workload(n_nodes: int, n_pods: int, seed: int = 0, *,
@@ -502,21 +546,25 @@ def port_cases(N, rng):
     return cases
 
 
-def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None):
+def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
+          with_pv_controller=True):
     """Boot a cluster with ``cfg``, load the nodes, zero the launch
     counts, create the pods and wait until every pod is bound and every
     batch folded into the metrics. With residency on, the carried device
     free/used_ports must then equal their host mirrors bitwise (the
     kernels' outputs at the path's own shapes against the host replay).
-    ``probe(scheduler)`` runs once the nodes are synced. Returns
+    ``probe(scheduler)`` runs once the nodes are synced;
+    ``with_pv_controller=False`` boots without the PV controller, as
+    bench.py runs its engine cells (bench.py:1457). Returns
     (metrics, launches, burst create-to-bound, per-pod create-to-bound,
     placements)."""
     cluster = Cluster()
     try:
         cluster.create_objects(nodes)
-        cluster.start(profile, cfg)
+        cluster.start(profile, cfg, with_pv_controller=with_pv_controller)
+        n_nodes = sum(isinstance(o, O.Node) for o in nodes)
         check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
-                         == len(nodes), timeout=120),
+                         == n_nodes, timeout=120),
               f"{label}: informers did not sync the nodes")
         if probe is not None:
             probe(cluster.service.scheduler)
@@ -561,27 +609,54 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None):
         created = np.array([p.metadata.creation_timestamp for p in placed])
         bound_at = np.array([p.status.scheduled_time for p in placed])
         used: dict = {}
+        mounts: dict = {}   # claim key → nodes mounting it
         for pod in placed:
-            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0, []])
+            u = used.setdefault(pod.spec.node_name, [0.0, 0.0, 0, [], set()])
             u[0] += pod.spec.requests["cpu"]
             u[1] += pod.spec.requests.get("memory", 0.0)
             u[2] += 1
             u[3] += [p.host_port for p in pod.spec.ports if p.host_port]
+            for v in pod.spec.volumes:
+                ck = f"{pod.metadata.namespace}/{v.claim_name}"
+                mounts.setdefault(ck, set()).add(pod.spec.node_name)
+                if v.volume_type not in O.CLOUD_VOLUME_AXES:
+                    u[4].add(ck)
+        check(all(len(n) == 1 for n in mounts.values()),
+              f"{label}: a read-write-once claim mounted on two nodes")
+        pv_zone = {pv.metadata.name: pv.metadata.labels.get(ZONE)
+                   for pv in cluster.store.list("PersistentVolume")}
+        claim_zone = {c.key: pv_zone.get(c.volume_name)
+                      for c in cluster.store.list("PersistentVolumeClaim")
+                      if c.volume_name}
+        zone_of = {n.metadata.name: n.metadata.labels.get(ZONE)
+                   for n in cluster.list_nodes()}
+        n_zoned = 0
+        for pod in placed:
+            for v in pod.spec.volumes:
+                z = claim_zone.get(f"{pod.metadata.namespace}/"
+                                   f"{v.claim_name}")
+                if z is not None:
+                    n_zoned += 1
+                    check(zone_of[pod.spec.node_name] == z,
+                          f"{label}: {pod.key} outside its volume's zone")
         for node in cluster.list_nodes():
             u = used.get(node.metadata.name)
             if u is None:
                 continue
             alloc = node.status.allocatable
             check(u[0] <= alloc["cpu"] and u[1] <= alloc["memory"]
-                  and u[2] <= alloc["pods"],
+                  and u[2] <= alloc["pods"]
+                  and len(u[4]) <= alloc.get("attachable-volumes",
+                                             O.DEFAULT_ATTACHABLE_VOLUMES),
                   f"{label}: node {node.metadata.name} over-committed: "
-                  f"{u[:3]}")
+                  f"{u[:3]}, {len(u[4])} attached volumes")
             check(len(set(u[3])) == len(u[3]),
                   f"{label}: a host port taken twice on "
                   f"{node.metadata.name}")
             check(not node.spec.unschedulable,
                   f"{label}: pod bound to unschedulable "
                   f"{node.metadata.name}")
+        m["zone_bound_claims"] = n_zoned
         return (m, launches, float(bound_at.max() - created.min()),
                 bound_at - created,
                 {p.key: p.spec.node_name for p in placed})
@@ -795,6 +870,358 @@ def eight_plugin_phase(smi):
               f" assigned, {int(d_cpu.scan_groups.sum())} groups enforced "
               f"in the scan; cpu {cpu_s:.1f} s ({smi})")
         del d_gpu, d_cpu, nodes, pods, bound
+
+
+def full_workload(n_nodes: int, n_pods: int, seed: int = 0):
+    """The full-profile burst: the bench cluster with each node's zone
+    also under the well-known zone key, and every fifth pod holding its
+    own Bound claim on a PV in zone ``i % 16``. Returns (nodes, PVs and
+    claims; pods)."""
+    nodes, pods = bench_workload(n_nodes, n_pods, seed)
+    for n in nodes:
+        n.metadata.labels[ZONE] = n.metadata.labels["zone"]
+    first = list(nodes)
+    for i, p in enumerate(pods):
+        if i % 5:
+            continue
+        first.append(O.PersistentVolume(
+            metadata=O.ObjectMeta(name=f"fpv{i}",
+                                  labels={ZONE: f"z{i % 16}"}),
+            capacity={"ephemeral-storage": float(1 << 30)}, phase="Bound",
+            claim_ref=f"bench/fc{i}"))
+        first.append(O.PersistentVolumeClaim(
+            metadata=O.ObjectMeta(name=f"fc{i}", namespace="bench"),
+            request={"ephemeral-storage": float(1 << 30)},
+            volume_name=f"fpv{i}", phase="Bound"))
+        p.spec.volumes = [O.VolumeClaim(claim_name=f"fc{i}")]
+    return first, pods
+
+
+def full_profile_batch(n_pods: int):
+    """The first ``n_pods`` of a batch that mixes, beside bench pods,
+    claims pinned by a bound holder pod, unused claims, zone-bound claims
+    on PVs, cloud-typed (aws-ebs) claims, host ports and tolerations of a
+    NoSchedule taint that every 13th node carries, encoded by the
+    engine's own volume state (a Scheduler on the CPU over a store that
+    holds the claims and PVs) against the 50,000-node cluster: (eb, nf,
+    af), host numpy."""
+    from minisched_tpu_torch.engine.scheduler import Scheduler
+    from minisched_tpu_torch.engine.queue import QueuedPodInfo
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    nodes, pods = bench_workload(N_NODES, n_pods)
+    for i, n in enumerate(nodes):
+        n.metadata.labels[ZONE] = n.metadata.labels["zone"]
+        if i % 13 == 0:
+            n.spec.taints = [O.Taint(key="dedicated", value="ml",
+                                     effect="NoSchedule")]
+    store = ClusterStore()
+    eng = Scheduler(store, FULL_PROFILE.build(),
+                    SchedulerConfig(platform="cpu"))
+    try:
+        eng.cache.upsert_nodes_bulk(nodes)
+        for k in range(32):
+            store.create(O.PersistentVolumeClaim(
+                metadata=O.ObjectMeta(name=f"pin{k}", namespace="bench"),
+                phase="Bound"))
+            holder = O.Pod(metadata=O.ObjectMeta(name=f"holder{k}",
+                                                 namespace="bench"),
+                           spec=O.PodSpec(
+                               requests={"cpu": 100.0},
+                               volumes=[O.VolumeClaim(claim_name=f"pin{k}")],
+                               node_name=nodes[1 + 37 * k].metadata.name))
+            check(eng.cache.account_bind(holder), "holder not accounted")
+        for i, p in enumerate(pods):
+            kind = i % 8
+            if kind == 0:
+                p.spec.volumes = [O.VolumeClaim(claim_name=f"pin{i % 32}")]
+            elif kind in (1, 2, 3):
+                name = f"c{i}"
+                pv = ""
+                if kind == 2:
+                    pv = f"pv{i}"
+                    store.create(O.PersistentVolume(
+                        metadata=O.ObjectMeta(
+                            name=pv, labels={ZONE: f"z{i % 16}"}),
+                        capacity={"ephemeral-storage": float(1 << 30)},
+                        phase="Bound", claim_ref=f"bench/{name}"))
+                store.create(O.PersistentVolumeClaim(
+                    metadata=O.ObjectMeta(name=name, namespace="bench"),
+                    volume_name=pv, phase="Bound"))
+                p.spec.volumes = [O.VolumeClaim(
+                    claim_name=name,
+                    volume_type="aws-ebs" if kind == 3 else "")]
+            elif kind == 4:
+                p.spec.ports = [O.ContainerPort(host_port=8080 + i % 3)]
+            elif kind == 5:
+                p.spec.tolerations = [O.Toleration(
+                    key="dedicated", operator="Equal", value="ml",
+                    effect="NoSchedule")]
+        qs = [QueuedPodInfo(pod=p) for p in pods]
+        eb = eng._encode_batch(qs, pods, step_bucket(n_pods))[-1]
+        nf, _names, _sv, _incs = eng.cache.snapshot_versioned(
+            pad=step_bucket(N_NODES))
+        af = eng.cache.snapshot_assigned()
+        return eb, nf, af
+    finally:
+        eng.shutdown()
+
+
+def full_step_phase(smi, key):
+    """full_scheduler_profile()'s step at full width (50,000 nodes):
+    every Decision field cuda = cpu on the default config's node sample
+    (1,024 pods x K=4,096 of 53,248) and on one unsampled batch (256
+    pods x 53,248), and no host sync in the sampled step."""
+    plugin_set = FULL_PROFILE.build()
+    for n_pods, sample in ((BATCH, SAMPLE_K), (256, None)):
+        eb, nf, af = full_profile_batch(n_pods)
+        rows = np.asarray(eb.pf.claim_rows)[:n_pods]
+        check((rows >= 0).any() and (rows == -1).any()
+              and np.asarray(eb.pf.claim_typed).any()
+              and (np.asarray(eb.pf.zone_key)[:n_pods] > 0).any(),
+              "full-profile batch: a claim kind is missing")
+        step = build_step(plugin_set, shortlist=K, sample_nodes=sample)
+        dev = [to_torch(x, "cuda") for x in (eb, nf, af)]
+        d_gpu = step(*dev, key, has_gang=False, hard_spread=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d_cpu = step(*(to_torch(x, "cpu") for x in (eb, nf, af)), key,
+                     has_gang=False, hard_spread=False)
+        cpu_s = time.perf_counter() - t
+        for field in d_cpu._fields:
+            check(torch.equal(bits(getattr(d_gpu, field)),
+                              bits(getattr(d_cpu, field))),
+                  f"full-profile step K={sample}: field {field} cuda != cpu")
+        ms = cuda_ms(lambda: step(*dev, key, has_gang=False,
+                                  hard_spread=False), reps=3)
+        what = (f"sampled K={sample}" if sample else "unsampled")
+        if sample:
+            check_no_sync(lambda: step(*dev, key, has_gang=False,
+                                       hard_spread=False),
+                          "the full-profile sampled step")
+            what += ", no host sync"
+        print(f"full-profile step {what} {eb.pf.valid.shape[0]}x"
+              f"{nf.valid.shape[0]} (15 filters, 7 scorers; pinned, "
+              f"unused, zone-bound and aws-ebs claims, host ports, taints): "
+              f"every Decision field bitwise equal cuda vs cpu, "
+              f"{int(d_cpu.assigned[:n_pods].sum())} of {n_pods} assigned; "
+              f"{ms:.3f} ms per step back to back on the card, cpu "
+              f"{cpu_s:.1f} s ({smi})")
+        del d_gpu, d_cpu, dev
+
+
+def preempt_bound_s(eb, nf, af, R):
+    """Least time for the candidate search on this input: the leaves it
+    reads (the corpus, the node rows it filters and the pod rows) read
+    once and its four outputs written once over the memory rate, against
+    its operations (the masked corpus products and segment adds, R + 1
+    per pod and corpus row, and the per-node compares, R + 3 per pod and
+    node) over the float32 rate."""
+    Pf, A, N = eb.pf.valid.shape[0], af.valid.shape[0], nf.valid.shape[0]
+    moved = (sum(np.asarray(x).nbytes for x in af)
+             + sum(np.asarray(getattr(nf, f)).nbytes
+                   for f in ("valid", "free", "unschedulable",
+                             "topo_domains"))
+             + sum(np.asarray(x).nbytes for x in eb.pf)
+             + Pf * (4 + 1 + 4 + 4 * eb.pf.spread_group.shape[1]))
+    ops = Pf * A * (R + 2) + Pf * N * (R + 3)
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
+        "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations")
+
+
+def preempt_bench_inputs():
+    """bench.py's preemption candidate search input (bench.py:605-669):
+    the 50,000 bench nodes, 100,000 priority-0 pods of 250 m bound
+    round-robin through the cache's bulk bind, and 256 priority-100
+    preemptors of 4,000 m. Returns (eb, nf, af, cfg), host numpy."""
+    from minisched_tpu_torch.engine.clusterstate import _request_rows
+
+    nodes, _ = bench_workload(N_NODES, 0)
+    cache = NodeFeatureCache(capacity=N_NODES)
+    cache.upsert_nodes_bulk(nodes)
+    vics = [(O.Pod(metadata=O.ObjectMeta(name=f"vic-{i}", namespace="bench",
+                                         labels={"app": "bench"}),
+                   spec=O.PodSpec(requests={"cpu": 250.0}, priority=0)),
+             nodes[i % N_NODES].metadata.name)
+            for i in range(PREEMPT_CORPUS)]
+    check(not cache.account_bind_bulk(vics, req_rows=_request_rows(vics)),
+          "preemption corpus: a bind missed")
+    hi = [O.Pod(metadata=O.ObjectMeta(name=f"hi-{i}", namespace="bench"),
+                spec=O.PodSpec(requests={"cpu": 4000.0}, priority=100))
+          for i in range(PREEMPT_PODS)]
+    eb = encode_pods(hi, PREEMPT_PODS, cfg=cache.cfg,
+                     registry=cache.registry)
+    nf, _names, _sv, _incs = cache.snapshot_versioned(
+        pad=step_bucket(N_NODES))
+    af = cache.snapshot_assigned()
+    return eb, nf, af, cache.cfg
+
+
+def preempt_op_phase(smi):
+    """bench.py's preemption candidate search on the card: 50,000 nodes,
+    100,000 corpus pods, 256 preemptors, NodeUnschedulable +
+    NodeResourcesFit + PodTopologySpread + InterPodAffinity. The four
+    outputs cuda = cpu bitwise (the card's segment sums add by atomics:
+    exact on integer-valued requests), its time in CUDA events and device
+    time, its bound and the candidates found. Returns the op's numbers."""
+    eb, nf, af, cfg = preempt_bench_inputs()
+    op = build_preempt_op(PREEMPT_PROFILE.build(), cfg=cfg)
+    dev = [to_torch(x, "cuda") for x in (eb, nf, af)]
+    got = op(*dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = op(*(to_torch(x, "cpu") for x in (eb, nf, af)))
+    cpu_s = time.perf_counter() - t
+    for name, a, b in zip(("chosen", "ok", "victim_count", "spread_evict"),
+                          got, want):
+        check(torch.equal(bits(a), bits(b)),
+              f"preemption op {name}: cuda != cpu")
+    ms = cuda_ms(lambda: op(*dev), reps=5)
+    dev_ms = device_ms(lambda: op(*dev), reps=5)
+    bound_s, bound_by = preempt_bound_s(eb, nf, af, eb.pf.requests.shape[1])
+    chosen, ok, cnt, _sev = fetch_preempt(got)
+    found = int(ok.sum())
+    check(found == PREEMPT_PODS and len(set(chosen.tolist())) == 1,
+          f"preemption op: {found} candidates, rows {set(chosen.tolist())}")
+    print(f"preemption op {PREEMPT_PODS} preemptors x {nf.valid.shape[0]} "
+          f"nodes x {af.valid.shape[0]} corpus rows ({PREEMPT_CORPUS} "
+          f"bound): chosen, ok, victim_count, spread_evict bitwise equal "
+          f"cuda vs cpu; {found} candidates found, every victim count "
+          f"{sorted(set(cnt.tolist()))} tied on row {int(chosen[0])} "
+          f"(the first maximum); {ms:.3f} ms per call back to back, "
+          f"{fmt_ms(dev_ms, 3)} of device time, bound "
+          f"{bound_s * 1e3:.4f} ms ({bound_by}), cpu {cpu_s:.1f} s ({smi})")
+    return {"ms": ms, "device_ms": dev_ms, "bound_s": bound_s,
+            "bound_by": bound_by, "found": found}
+
+
+def preempt_burst_phase(smi):
+    """The preemption burst on the card: 1,200 nodes of 200 m exactly
+    full of 2,400 priority-1 pods of 100 m, then 8 priority-100 pods of
+    200 m, each needing two evictions, under SchedulerConfig() with the
+    tests' fast backoff. Victim counts tie, so a batch's preemptors all
+    pick one node; the first wins, the rest park until its victims'
+    deletions revive them: about one win per cycle. Every preemptor must
+    bind on its nominated node, no victim be evicted twice, no node be
+    over its allocatable, a batch must have run with a nomination
+    outstanding (residency_nomination_carries), and the first pass's op
+    outputs must equal on the card and on the CPU for that snapshot."""
+    from minisched_tpu_torch.engine.scheduler import Scheduler
+
+    nodes = [O.Node(metadata=O.ObjectMeta(name=f"pe-{i:04d}"),
+                    status=O.NodeStatus(allocatable={"cpu": 200.0,
+                                                     "pods": 110.0}))
+             for i in range(PREEMPT_NODES)]
+    fillers = [O.Pod(metadata=O.ObjectMeta(name=f"fill-{i}",
+                                           namespace="bench"),
+                     spec=O.PodSpec(requests={"cpu": 100.0}, priority=1))
+               for i in range(2 * PREEMPT_NODES)]
+    vips = [O.Pod(metadata=O.ObjectMeta(name=f"vip-{i}", namespace="bench"),
+                  spec=O.PodSpec(requests={"cpu": 200.0}, priority=100))
+            for i in range(PREEMPTORS)]
+    first_pass = []
+    orig = Scheduler._preempt_inputs
+
+    def tree_to(x, device):
+        """A (nested) NamedTuple of tensors, copied to ``device``."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device, copy=True)
+        return type(x)(*[tree_to(v, device) for v in x])
+
+    def recorded(self, eb, rows):
+        out = orig(self, eb, rows)
+        if not first_pass:
+            first_pass.append([tree_to(x, "cpu") for x in out[:3]])
+        return out
+
+    cfg = SchedulerConfig(platform="", backoff_initial_s=0.05,
+                          backoff_max_s=0.2)
+    Scheduler._preempt_inputs = recorded
+    cluster = Cluster()
+    try:
+        cluster.create_objects(nodes)
+        cluster.start(C4_PROFILE, cfg)
+        sched = cluster.service.scheduler
+        check(wait_until(lambda: sched.cache.node_count() == PREEMPT_NODES,
+                         timeout=60), "preemption burst: nodes not synced")
+        cluster.create_objects(fillers)
+        check(wait_until(lambda: sched.metrics()["pods_bound"]
+                         == len(fillers), timeout=120),
+              "preemption burst: the fillers did not all bind")
+        # A spare node, too small for a preemptor, for a trickle of small
+        # pods that arrive while the preemptors win one by one: their
+        # batches run with nominations outstanding, which reserve the
+        # freed capacity from them.
+        cluster.create_objects([O.Node(
+            metadata=O.ObjectMeta(name="pe-spare"),
+            status=O.NodeStatus(allocatable={"cpu": 150.0,
+                                             "pods": 110.0}))])
+        check(wait_until(lambda: sched.cache.node_count()
+                         == PREEMPT_NODES + 1, timeout=60),
+              "preemption burst: the spare node not synced")
+        t0 = time.perf_counter()
+        cluster.create_objects(vips)
+        trickle = []
+        while len(trickle) < 100 and not all(
+                cluster.get_pod(v.metadata.name, "bench").spec.node_name
+                for v in vips):
+            trickle.append(cluster.create_pod(
+                f"small-{len(trickle)}", namespace="bench", cpu=1))
+            time.sleep(0.01)
+        check(wait_until(lambda: all(
+            cluster.get_pod(v.metadata.name, "bench").spec.node_name
+            for v in vips), timeout=180, interval=0.05),
+            "preemption burst: a preemptor did not bind")
+        burst_s = time.perf_counter() - t0
+        check(wait_until(lambda: all(
+            cluster.get_pod(p.metadata.name, "bench").spec.node_name
+            == "pe-spare" for p in trickle), timeout=60),
+            "preemption burst: a small pod not bound on the spare node")
+        m = sched.metrics()
+        for v in vips:
+            p = cluster.get_pod(v.metadata.name, "bench")
+            check(p.status.nominated_node_name == p.spec.node_name,
+                  f"preemption burst: {p.key} bound on {p.spec.node_name}, "
+                  f"nominated {p.status.nominated_node_name}")
+        check(wait_until(lambda: sum(
+            e.reason == "Preempted" for e in cluster.store.list("Event"))
+            >= 2 * PREEMPTORS, timeout=10),
+            "preemption burst: Preempted events missing")
+        evicted = [e.involved_object for e in cluster.store.list("Event")
+                   if e.reason == "Preempted"]
+        check(len(evicted) == len(set(evicted)) == 2 * PREEMPTORS,
+              f"preemption burst: {len(evicted)} evictions, "
+              f"{len(set(evicted))} distinct")
+        used: dict = {}
+        for p in cluster.list_pods():
+            if p.spec.node_name:
+                used[p.spec.node_name] = (used.get(p.spec.node_name, 0.0)
+                                          + p.spec.requests["cpu"])
+        check(all(u <= (150.0 if n == "pe-spare" else 200.0)
+                  for n, u in used.items()),
+              "preemption burst: a node over its allocatable")
+        check(m["residency_nomination_carries"] > 0,
+              "preemption burst: no batch ran with a nomination outstanding")
+    finally:
+        Scheduler._preempt_inputs = orig
+        cluster.shutdown()
+    check(bool(first_pass), "preemption burst: no preemption pass ran")
+    op = build_preempt_op(C4_PROFILE.build())
+    got = op(*(tree_to(x, "cuda") for x in first_pass[0]))
+    want = op(*first_pass[0])
+    for name, a, b in zip(("chosen", "ok", "victim_count", "spread_evict"),
+                          got, want):
+        check(torch.equal(bits(a), bits(b)),
+              f"preemption burst, first pass: {name} cuda != cpu")
+    print(f"preemption burst {PREEMPT_NODES} full nodes, {PREEMPTORS} "
+          f"preemptors needing 2 evictions each: all bound on their "
+          f"nominated node in {burst_s:.3f} s, {len(evicted)} distinct "
+          f"evictions, no node over its allocatable, {m['batches']} "
+          f"batches, {m['residency_nomination_carries']} with a nomination "
+          f"carried ({len(trickle)} small pods on the spare node meanwhile);"
+          f" the first pass's op outputs equal cuda vs cpu ({smi})")
+    return burst_s
 
 
 def zone_counts(nodes, placed):
@@ -1203,7 +1630,15 @@ def main() -> int:
     eight_plugin_phase(smi)
     print(f"phase 9 in {time.perf_counter() - t_phase:.1f} s")
 
-    # 10. the main path: SchedulerConfig(), the default cycle
+    # 10. the volume and preemption slice at full width: the full
+    # profile's step, cuda = cpu, and bench.py's preemption candidate
+    # search, cuda = cpu
+    t_phase = time.perf_counter()
+    full_step_phase(smi, key)
+    preempt_t = preempt_op_phase(smi)
+    print(f"phase 10 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 11. the bench main path: SchedulerConfig(), the default cycle
     nodes, pods = bench_workload(N_NODES, N_PODS)
     picked = []
     m, main_launches, c2b, per_pod, _ = drive(
@@ -1227,8 +1662,38 @@ def main() -> int:
             f"(unsampled): bursts {UNSAMPLED_BURSTS_S} s, full-width step "
             f"{UNSAMPLED_STEP_MS} ms")
 
-    # 11. config 4 soft, the main path of the topology slice: the default
-    # config, BASELINE config 4's profile, make_c4_workload's burst
+    # 12. this slice's main path: full_scheduler_profile() through
+    # Cluster(...).start() with SchedulerConfig(), a fifth of the pods
+    # holding a Bound claim on a zone-labelled PV
+    t_phase = time.perf_counter()
+    # Every claim is Bound before the burst, so the PV controller has
+    # nothing to bind; it is off, as in bench.py's engine cells (it relists
+    # every claim and PV on each claim-carrying pod event).
+    first, pods = full_workload(N_NODES, N_PODS)
+    m, full_launches, c2b, per_pod, _ = drive(
+        SchedulerConfig(platform=""), first, pods, "full profile",
+        FULL_PROFILE, with_pv_controller=False)
+    b = m["batches"]
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(full_launches[name] >= b > 0,
+              f"full profile: {name} launched {full_launches[name]} times in "
+              f"{b} batches")
+    check(m["zone_bound_claims"] == N_PODS // 5,
+          f"full profile: {m['zone_bound_claims']} zone-bound claims placed")
+    print(path_line(f"full profile (default config, 15 filters, 7 scorers, "
+                    f"DefaultPreemption; {N_PODS // 5} pods with a Bound "
+                    f"claim on a zone-labelled PV) {N_NODES} nodes x "
+                    f"{N_PODS} pods", m, full_launches, c2b, per_pod, N_PODS,
+                    smi)
+          + f"; {m['sampled_batches']} of {b} batches sampled; every pod "
+            "in its PV's zone, no claim on two nodes, no node over its "
+            "attach limit; device free/used_ports = host mirror bitwise")
+    del first, pods
+    print(f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 13. config 4 soft, the main path of the topology slice: the default
+    # config, BASELINE config 4's profile (DefaultPreemption on),
+    # make_c4_workload's burst
     t_phase = time.perf_counter()
     nodes, pods = c4_workload(N_NODES, N_PODS)
     picked = []
@@ -1244,6 +1709,10 @@ def main() -> int:
               f"{b} batches")
     check(m["sampled_batches"] == b and m["hard_spread_batches"] == 0,
           f"config 4 soft: {m['sampled_batches']} of {b} batches sampled")
+    # No pod fails here, so the PostFilter never runs: the batches are
+    # the 1,024-pod tranches, as without it.
+    check(b == -(-N_PODS // SchedulerConfig().max_batch_size),
+          f"config 4 soft: {b} batches with the PostFilter on")
     c4eb, c4nf, c4af = (to_torch(x, "cuda")
                         for x in full_width_batch(nodes, pods))
     c4_step = build_step(C4_PROFILE.build(), shortlist=K,
@@ -1258,7 +1727,7 @@ def main() -> int:
                     f"{N_PODS} pods", m, c4_launches, c2b, per_pod, N_PODS,
                     smi) + "; no host sync in its step")
 
-    # 12. config 4 hard: DoNotSchedule max_skew 1, the skew worst case
+    # 14. config 4 hard: DoNotSchedule max_skew 1, the skew worst case
     nodes, pods = c4_workload(N_NODES, N_PODS, max_skew=1, hard=True)
     m, hard_launches, c2b, per_pod, placed = drive(
         SchedulerConfig(platform=""), nodes, pods, "config 4 hard",
@@ -1269,6 +1738,8 @@ def main() -> int:
     check(hard_launches["caps_scan"] >= b > 0,
           f"config 4 hard: caps scan launched {hard_launches['caps_scan']} "
           f"times in {b} batches")
+    check(b == -(-N_PODS // SchedulerConfig().max_batch_size),
+          f"config 4 hard: {b} batches with the PostFilter on")
     check(m["spread_revoked_enforced"] == 0,
           f"config 4 hard: {m['spread_revoked_enforced']} pods revoked on "
           "a scan-enforced group")
@@ -1285,7 +1756,7 @@ def main() -> int:
             f"app=bench per zone {min(zc.values())}..{max(zc.values())} "
             f"over {len(zc)} zones")
 
-    # 13. cross-device placements: a smaller hard burst, cuda = cpu
+    # 15. cross-device placements: a smaller hard burst, cuda = cpu
     placements = {}
     for platform in ("", "cpu"):
         nodes, pods = c4_workload(1200, 512, max_skew=1, hard=True)
@@ -1297,9 +1768,14 @@ def main() -> int:
           "config 4 hard 1,200 x 512: placements cuda != cpu")
     print(f"config 4 hard 1,200 nodes x 512 pods: placements equal on the "
           f"card and on the CPU ({len(placements[''])} pods)")
-    print(f"phases 11-13 in {time.perf_counter() - t_phase:.1f} s")
+    print(f"phases 13-15 in {time.perf_counter() - t_phase:.1f} s")
 
-    # 14. the port path: the default cycle books host ports on the device
+    # 16. a preemption burst on the card
+    t_phase = time.perf_counter()
+    preempt_burst_s = preempt_burst_phase(smi)
+    print(f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 17. the port path: the default cycle books host ports on the device
     nodes, pods = port_heavy_workload()
     m, port_launches, c2b, per_pod, placed = drive(
         SchedulerConfig(platform=""), nodes, pods, "port path",
@@ -1325,7 +1801,7 @@ def main() -> int:
           + "; device used_ports = host mirror bitwise, placements = the "
             "synchronous upload-every-batch run")
 
-    # 15. the earlier path: synchronous, upload every batch, full kernel
+    # 18. the earlier path: synchronous, upload every batch, full kernel
     nodes, pods = bench_workload(N_NODES, EARLIER_PODS)
     m, early_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform="", pipeline=False, device_resident=False,
@@ -1342,7 +1818,7 @@ def main() -> int:
                     early_launches, c2b, per_pod, EARLIER_PODS, smi))
     del nodes, pods
 
-    # 16. faults on the card, on a cluster that samples
+    # 19. faults on the card, on a cluster that samples
     for pipeline in (True, False):
         cfg = dict(platform="", pipeline=pipeline, max_batch_size=64,
                    batch_window_s=0.3, backoff_initial_s=0.05,
@@ -1382,7 +1858,7 @@ def main() -> int:
           f"times), {cm['resident_checks']} carry checks, no desync, "
           f"placements = the fault-free run's")
 
-    # 17. the README scenario on the card, default config
+    # 20. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -1404,7 +1880,10 @@ def main() -> int:
         "route": "cuda",
         "source": "minisched_tpu_torch/csrc/shortlist_select.cu",
         "replaces": "minisched_tpu/ops/select.py:144",
-        "launches": main_launches["shortlist_select"],
+        "launches": full_launches["shortlist_select"],
+        "launches_by_path": {"full profile": full_launches[
+            "shortlist_select"], "bench": main_launches["shortlist_select"],
+            "config 4 soft": c4_launches["shortlist_select"]},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -1416,7 +1895,10 @@ def main() -> int:
         "route": "cuda",
         "source": "minisched_tpu_torch/csrc/shortlist_scan.cu",
         "replaces": "minisched_tpu/ops/select.py:238",
-        "launches": main_launches["shortlist_scan"],
+        "launches": full_launches["shortlist_scan"],
+        "launches_by_path": {"full profile": full_launches[
+            "shortlist_scan"], "bench": main_launches["shortlist_scan"],
+            "config 4 soft": c4_launches["shortlist_scan"]},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
@@ -1448,6 +1930,19 @@ def main() -> int:
         "bound_ms": caps_t["bound_s"] * 1e3,
         "bound_by": caps_t["bound_by"],
         "library_ms": None,
+    }], "stages": [{
+        # Not a kernel: the preemption op is PyTorch ops (the JAX package
+        # computes it outside any Pallas kernel), timed here at bench.py's
+        # shape.
+        "name": "preempt_op",
+        "source": "minisched_tpu_torch/ops/preempt.py",
+        "replaces": "minisched_tpu/ops/preempt.py:72",
+        "ms": preempt_t["ms"],
+        "device_ms": preempt_t["device_ms"],
+        "bound_ms": preempt_t["bound_s"] * 1e3,
+        "bound_by": preempt_t["bound_by"],
+        "candidates": preempt_t["found"],
+        "preemption_burst_s": preempt_burst_s,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

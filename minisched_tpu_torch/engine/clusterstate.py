@@ -189,6 +189,7 @@ def _add_all_event_handlers(state: SharedClusterState,
         else:
             for e in state.engines():
                 e.queue.delete(pod)
+                e.drop_nomination(pod.key)
 
     def pod_add_many(pods):
         """Bulk pod_add: one queue transaction per engine for the burst,

@@ -4,9 +4,11 @@ Rebuild of reference minisched/minisched.go + initialize.go. One cycle
 (reference scheduleOne, minisched.go:32-112) becomes one *batch* cycle,
 three phases:
 
-  prepare  pop batch → priority sort → encode pods → snapshot node
-           features (cache) → tensors on the device (with device
-           residency: sparse corrections to the carried free/used_ports)
+  prepare  pop batch → priority sort → encode pods (each pod's volume
+           state resolved once) → snapshot node features (cache) →
+           tensors on the device (with device residency: sparse
+           corrections to the carried free/used_ports; capacity
+           nominated to preemptors outside the batch reserved)
            → step (on K sampled nodes at >= 2 × min_sample_nodes): filters
            ∧ → scores → normalize → weigh → sum → greedy capacity-aware
            assignment (the shortlist scan or the full greedy kernel on a
@@ -14,11 +16,13 @@ three phases:
   resolve  read the packed decision back (one fetch) → replay the
            device's debits and port insertions into the residency mirror
            → the full-axis residual pass for pods the sample found no
-           node for → the topology arbitration (hard skew and required
-           anti-affinity within the batch, arbitrate_spread) → per pod:
-           assume + permit plugins (host) or a failure verdict → the
-           in-cycle repair of revoked pods (_repair_spread) → async bulk
-           bind
+           node for → the RWO arbitration (arbitrate_rwo) and the
+           topology arbitration (hard skew and required anti-affinity
+           within the batch, arbitrate_spread) → per pod: assume + permit
+           plugins (host) or a failure verdict → the in-cycle repair of
+           revoked pods (_repair_spread) → the preemption pass for
+           terminally unschedulable pods (DefaultPreemption,
+           _try_preempt) → async bulk bind
   commit   flush the batch's failure verdicts in bulk, fold the metrics
 
 With ``config.pipeline`` (the default) the loop is the bounded two-deep
@@ -69,7 +73,8 @@ from ..ops.residency import (apply_rows, apply_rows_bytes, insert_ports,
                              unpack_decision_i32, unpack_decision_slim)
 from ..plugins.base import PluginSet
 from ..state.events import ActionType, ClusterEvent, EventBroadcaster, GVK
-from ..state.objects import gang_key
+from ..state.objects import (CLAIM_UNUSED, CLOUD_VOLUME_AXES, Pod,
+                             claim_keys, gang_key)
 from .clusterstate import SharedClusterState
 from .queue import (BATCH_CAPACITY, COSCHEDULING, QueuedPodInfo,
                     SchedulingQueue)
@@ -168,7 +173,7 @@ class _Batch:
 
     __slots__ = ("batch", "eb", "eb_dev", "nf", "af", "key", "sample_k",
                  "names", "row_incs", "decision", "packed_dev",
-                 "spread_dev", "fail_closed",
+                 "spread_dev", "fail_closed", "vol_memo", "nom_reserved",
                  "res_carried", "failures", "n_assigned", "launches",
                  "sl_repairs", "assumed", "detached", "seq", "t0",
                  "t_encode", "t_dispatch", "t_fetch_start", "t_fetched",
@@ -186,6 +191,13 @@ class _Batch:
         # Pods whose hard constraint the encoding could not represent:
         # key → (plugin, reason); they fail closed at resolve.
         self.fail_closed: Dict[str, tuple] = {}
+        # Pod key → _volume_state tuple, resolved once at encode; the RWO
+        # arbitration and the spread repair read the encode-time claim
+        # rows from it.
+        self.vol_memo: Dict[str, tuple] = {}
+        # The nomination reserve subtracted from a carried ``free`` input
+        # (device (N,R)), added back before free_after is adopted.
+        self.nom_reserved = None
         # This batch's free/used_ports input is the device-resident chain:
         # its free_after is carried and its debits replayed into the host
         # mirror at resolve time.
@@ -343,10 +355,16 @@ class _DeviceResidency:
         mirror[up_r] = up_v
         return state, mirror, apply_rows_bytes(up_r.shape[0], up_v)
 
-    def note_debits(self, chosen, assigned, requests, free_after_dev):
+    def note_debits(self, chosen, assigned, requests, free_after_dev,
+                    add_back=None):
         """Record the step's device-side debits: fold them into the host
         mirror as the per-node commutative aggregate (exact — I1) and
-        adopt ``free_after`` as the carried device array."""
+        adopt ``free_after`` as the carried device array. ``add_back``
+        (device (N,R)) reverses a nomination reserve that was subtracted
+        from the step's ``free`` input only, so the adopted array returns
+        to the un-nominated truth the mirror tracks: exact under the
+        integer grammar, (carried - reserved) - debits + reserved =
+        carried - debits."""
         rows = chosen[assigned].astype(np.int64)
         if rows.size:
             reqs = requests[assigned]
@@ -365,6 +383,8 @@ class _DeviceResidency:
                     "non-finite free capacity after device-debit replay")
         else:
             self.pending_rows = self.pending_pre = None
+        if add_back is not None:
+            free_after_dev = free_after_dev + add_back
         self.free_dev = free_after_dev
 
     def note_ports(self, rows: np.ndarray, ports: np.ndarray) -> int:
@@ -392,6 +412,109 @@ class _DeviceResidency:
         self.pending_rows = self.pending_pre = None
         self.pending_prows = self.pending_ppre = None
         self.listener.invalidate()
+
+
+def arbitrate_rwo(batch: List[QueuedPodInfo], assigned, chosen,
+                  vol_memo: Dict[str, tuple]):
+    """In-batch RWO arbitration → (revoked pod indices, parked gang keys).
+
+    The VolumeRestrictions filter pins pods to a claim's existing mount
+    node, but an UNUSED claim shared by several pods in one batch could be
+    jointly assigned to different nodes. Walk assignments in priority
+    order; the first surviving pod pins each unused claim, later pods
+    choosing a different node are revoked and retried (next cycle sees the
+    pinned claim — sequential RWO semantics without splitting gangs out of
+    the batch).
+
+    "Unused" is judged from the ENCODE-time claim rows the filter itself
+    evaluated (``vol_memo``: pod key → ``_volume_state`` tuple), not a
+    second live cache read: an informer event mounting a claim between
+    encode and commit would make a live read skip arbitration and let two
+    batch pods bind the same RWO claim to different nodes.
+
+    A pin is only binding while its owner survives arbitration: a pinner
+    revoked later (gang atomicity over another claim) must not keep
+    revoking claim-mates against a placement that never commits. Two
+    stages:
+
+    1. an optimistic fixed-point loop where only surviving pods pin
+       (revoked pods are re-checked against live pins each pass, so a pod
+       stays revoked only while a live pin justifies it) — this rescues
+       spuriously-revoked pods;
+    2. a monotone safety closure (pins from survivors, conflicts only ADD
+       revocations, repeated until stable) — at a converged stage-1
+       fixpoint it is a no-op, and in the pathological non-converged case
+       it restores the invariant that no two committed pods bind one
+       claim to two nodes.
+    """
+    parked_gangs: Set[str] = set()  # intra-gang conflicts: unsatisfiable
+
+    def unused_claims(pod: Pod):
+        st = vol_memo.get(pod.key)
+        if st is None:
+            # No encode-time record (a pod without volumes has no claims
+            # either) — nothing to arbitrate.
+            return []
+        return [ck for ck, r in zip(claim_keys(pod), st[1])
+                if r == CLAIM_UNUSED]
+
+    def scan(dead: Set[int], monotone: bool) -> Set[int]:
+        """One arbitration pass. Pods in ``dead`` never pin; they are
+        still checked against live pins unless ``monotone`` (where dead is
+        sticky and needs no re-justification). Returns the revocation set
+        implied by live pins."""
+        claim_pin: Dict[str, tuple] = {}  # ck → (row, pinner's gang)
+        conflicted: Set[int] = set()
+        for i, qpi in enumerate(batch):
+            if not assigned[i] or (monotone and i in dead):
+                continue
+            row = int(chosen[i])
+            gk = gang_key(qpi.pod)
+            alive = i not in dead and not (gk and gk in parked_gangs)
+            for ck in unused_claims(qpi.pod):
+                pin = claim_pin.get(ck)
+                if pin is None:
+                    if alive:
+                        claim_pin[ck] = (row, gk)
+                elif pin[0] != row:
+                    conflicted.add(i)
+                    if gk and gk == pin[1]:
+                        # The conflict is INSIDE one gang: its members
+                        # demand the claim on different nodes; retrying
+                        # reproduces it forever — park the gang
+                        # (terminal, sticky).
+                        parked_gangs.add(gk)
+                    break
+        # Gang atomicity: revoking one member revokes its whole gang.
+        gangs = {gang_key(batch[i].pod) for i in conflicted
+                 if batch[i].pod.spec.pod_group} | parked_gangs
+        out = set(conflicted)
+        if gangs:
+            for i, qpi in enumerate(batch):
+                if assigned[i] and gang_key(qpi.pod) in gangs:
+                    out.add(i)
+        return out
+
+    revoked: Set[int] = set()
+    for _ in range(8):  # stage 1: rescue loop
+        new_revoked = scan(revoked, monotone=False)
+        if new_revoked == revoked:
+            break
+        revoked = new_revoked
+    while True:  # stage 2: safety closure (monotone, terminates)
+        grown = revoked | scan(revoked, monotone=True)
+        if grown == revoked:
+            break
+        revoked = grown
+    return revoked, parked_gangs
+
+
+def _holds_unused_claim(vol_memo: Dict[str, tuple], pod) -> bool:
+    """Does the pod hold a claim nobody mounted at encode time? The spread
+    repair leaves such pods out: a repair could move them off the node
+    their claim was arbitrated against."""
+    st = vol_memo.get(pod.key)
+    return st is not None and CLAIM_UNUSED in st[1]
 
 
 def batch_group_match(batch: List[QueuedPodInfo], gf) -> np.ndarray:
@@ -783,6 +906,24 @@ class Scheduler:
         self._fail_closed_plugins = {
             "InterPodAffinity": self._anti_enabled,
             "PodTopologySpread": "PodTopologySpread" in names}
+        # In-batch RWO arbitration applies when the plugin enforcing claim
+        # exclusivity is in the profile.
+        self._rwo_enabled = "VolumeRestrictions" in names
+        # PostFilter preemption (upstream DefaultPreemption): enabled by
+        # the marker plugin; terminally unschedulable pods get a batched
+        # victim-candidate search before parking.
+        self._preempt_enabled = bool(plugin_set.postfilter_plugins)
+        # Outstanding nominations: pod key → (node name, request vector,
+        # expiry). Freed capacity stays reserved for its preemptor until
+        # it binds, vanishes, or the TTL lapses. Own lock: the binder
+        # thread clears entries while the scheduling thread debits them.
+        self._nominations: Dict[str, tuple] = {}
+        # Preemption wins per pending pod without a bind (cleared on bind
+        # or delete; see _PREEMPT_MAX_ROUNDS).
+        self._preempt_rounds: Dict[str, int] = {}
+        self._nom_lock = threading.Lock()
+        # WFFC candidate-zone memo: pvc key → (zones, computed_at).
+        self._wffc_memo: Dict[str, tuple] = {}
         # Device copies of the static node-feature leaves, keyed on
         # (cache static version, pad). Scheduling thread only.
         self._nf_static_device = None
@@ -837,6 +978,9 @@ class Scheduler:
             "hard_spread_batches": 0, "sampled_batches": 0,
             "spread_revoked": 0,
             "spread_revoked_enforced": 0, "spread_repaired": 0,
+            # Batches whose carried free input had a nomination reserve
+            # subtracted (and added back before free_after was adopted).
+            "residency_nomination_carries": 0,
             "last_batch_size": 0,
         }
 
@@ -1280,9 +1424,26 @@ class Scheduler:
         pods = [q.pod for q in batch]
         # Encode pods FIRST: constraints may register new topology keys,
         # which the node snapshot's domain tables must reflect.
-        b.fail_closed, eb = self._encode_batch(
+        b.vol_memo, b.fail_closed, eb = self._encode_batch(
             batch, pods, step_bucket(len(pods), cfg.pod_bucket_min))
         nf, names, row_incs, b.res_carried = self._snapshot()
+        if self._nominations:
+            # Nominated-capacity protection (upstream nominatedNodeName):
+            # reservations of pods NOT in this batch are debited from the
+            # step's free input, so the batch cannot steal them; a nominee
+            # in the batch sees its own reservation as available. On a
+            # carried input the reserve is subtracted from a fresh array
+            # only, and resolve adds it back before adopting free_after
+            # (note_debits add_back): the carried chain never holds it.
+            reserved = self._nomination_debits({q.pod.key for q in batch},
+                                               names, nf)
+            if reserved is not None:
+                reserved_dev = _device_copy(reserved, self.device)
+                self._count_h2d(reserved.nbytes)
+                if b.res_carried:
+                    b.nom_reserved = reserved_dev
+                    self._sup_count("residency_nomination_carries")
+                nf = nf._replace(free=nf.free - reserved_dev)
         af = to_torch(self.cache.snapshot_assigned(pad=self._af_pad),
                       self.device)
         eb_dev = to_torch(eb, self.device)
@@ -1333,13 +1494,25 @@ class Scheduler:
         return b
 
     def _encode_batch(self, batch: List[QueuedPodInfo], pods, p_pad: int):
-        """Encode the (priority-sorted) batch → (fail_closed, eb).
+        """Encode the (priority-sorted) batch → (vol_memo, fail_closed, eb).
+        One store pass per pod resolves every volume-derived input
+        (readiness, claim mount rows, cloud typing, the zone requirement)
+        for every profile, as the JAX engine does; both encode callbacks
+        share it through ``vol_memo`` (pod key → _volume_state tuple).
         ``fail_closed`` maps pod key → (plugin, reason) for pods whose
         required (anti-)affinity term or DoNotSchedule spread constraint
         cannot fit the encoding slots, or whose forbidden domains exceed
         the anti_forbid slots: they are rejected after the step rather
         than scheduled against a silently weakened constraint. Only
         constraints this profile enforces fail closed."""
+        vol_memo: Dict[str, tuple] = {}
+
+        def vol_state(pod) -> tuple:
+            st = vol_memo.get(pod.key)
+            if st is None:
+                st = vol_memo[pod.key] = self._volume_state(pod)
+            return st
+
         fail_closed: Dict[str, tuple] = {}
         anti_fn = None
         if self._anti_enabled:
@@ -1367,7 +1540,9 @@ class Scheduler:
         eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
                          registry=self.cache.registry,
                          overflow=self.cache.overflow,
+                         volumes_ready_fn=lambda p: vol_state(p)[0],
                          gang_bound_fn=self.cache.gang_bound_count,
+                         volume_info_fn=lambda p: vol_state(p)[1:],
                          anti_forbidden_fn=anti_fn,
                          hard_failed=encode_hard,
                          selector_spread=self._selspread_enabled)
@@ -1376,7 +1551,104 @@ class Scheduler:
                 if self._fail_closed_plugins.get(info[0], True):
                     fail_closed.setdefault(batch[idx].pod.key, info)
                     break
-        return fail_closed, eb
+        return vol_memo, fail_closed, eb
+
+    ZONE_KEY = "topology.kubernetes.io/zone"
+    IMPOSSIBLE_DOMAIN = -2  # matches no node (multi-zone PVs, registry full)
+
+    def _volume_state(self, pod: Pod):
+        """One store pass resolving every volume-derived encode input:
+        (ready, claim_rows, claim_typed, zone_key_idx, zone_dom).
+
+        ready      — every referenced PVC Bound (VolumeBinding). A pending
+                     WaitForFirstConsumer claim does not block: the PV
+                     controller binds it after the pod schedules.
+        claim_rows — each claim's current mount row (VolumeRestrictions).
+        zone       — the required zone domain from the bound PVs' zone
+                     labels (VolumeZone); a pending WFFC claim whose
+                     candidate PVs all lie in ONE zone makes that zone the
+                     requirement, candidates in several zones add none
+                     (fail open). PVs in several distinct zones, or a zone
+                     key the registry cannot take, give IMPOSSIBLE_DOMAIN
+                     under the hostname slot: no node matches, and the
+                     pod parks under VolumeZone (fail closed)."""
+        ready = True
+        claim_rows = []
+        claim_typed = []
+        typed_by_key: Dict[str, bool] = {}
+        for v in pod.spec.volumes:
+            k = f"{pod.metadata.namespace}/{v.claim_name}"
+            typed_by_key[k] = (typed_by_key.get(k, False)
+                               or v.volume_type in CLOUD_VOLUME_AXES)
+        zones_seen: Set[str] = set()
+        impossible = False
+        for ck in claim_keys(pod):
+            claim_rows.append(self.cache.claim_node_row(ck))
+            claim_typed.append(typed_by_key.get(ck, False))
+            try:
+                pvc = self.store.get("PersistentVolumeClaim", ck)
+            except NotFoundError:
+                ready = False
+                continue
+            if pvc.phase != "Bound":
+                if pvc.binding_mode == "WaitForFirstConsumer":
+                    # No candidate PV: dynamic provisioning is assumed to
+                    # create one in the pod's zone after placement.
+                    zones = self._wffc_candidate_zones(pvc)
+                    if len(zones) == 1:
+                        zones_seen |= zones
+                        if len(zones_seen) > 1:
+                            impossible = True
+                else:
+                    ready = False
+            if not pvc.volume_name:
+                continue
+            try:
+                pv = self.store.get("PersistentVolume", pvc.volume_name)
+            except NotFoundError:
+                continue
+            zone = pv.metadata.labels.get(self.ZONE_KEY)
+            if zone:
+                zones_seen.add(zone)
+                if len(zones_seen) > 1:
+                    impossible = True
+        return (ready, claim_rows, claim_typed,
+                *self._zone_requirement(zones_seen, impossible))
+
+    def _zone_requirement(self, zones_seen, impossible):
+        """(zone_key_idx, zone_dom) for the encoder from the set of zones
+        the pod's volumes demand."""
+        from ..encode.features import pair_hash
+
+        if not zones_seen:
+            return -1, -1
+        idx = self.cache.registry.index_of(self.ZONE_KEY, self.cache.overflow)
+        if impossible or idx < 0:
+            return 0, self.IMPOSSIBLE_DOMAIN
+        (zone,) = zones_seen
+        return idx, (pair_hash(self.ZONE_KEY, zone)
+                     % self.cache.cfg.domain_buckets)
+
+    def _wffc_candidate_zones(self, pvc) -> Set[str]:
+        """Distinct zones of Available PVs that could satisfy a pending
+        WaitForFirstConsumer claim (class and capacity match), memoized
+        per claim for 0.5 s so a batch of pods sharing pending claims does
+        not rescan the PV list once per pod."""
+        now = time.monotonic()
+        hit = self._wffc_memo.get(pvc.key)
+        if hit is not None and now - hit[1] < 0.5:
+            return hit[0]
+        want = pvc.request.get("ephemeral-storage", 0)
+        zones: Set[str] = set()
+        for pv in self.store.list("PersistentVolume"):
+            if (pv.phase == "Available"
+                    and pv.storage_class == pvc.storage_class
+                    and pv.capacity.get("ephemeral-storage", 0) >= want):
+                zone = pv.metadata.labels.get(self.ZONE_KEY)
+                if zone:
+                    zones.add(zone)
+        self._wffc_memo[pvc.key] = (zones, now)
+        return zones
 
     def _hard_spread(self, eb, n: int) -> bool:
         """Does a live row of the host-encoded batch carry a DoNotSchedule
@@ -1642,7 +1914,7 @@ class Scheduler:
         skipped)."""
         res = self._residency
         res.note_debits(chosen, assigned, b.eb.pf.requests,
-                        b.decision.free_after)
+                        b.decision.free_after, add_back=b.nom_reserved)
         ports = np.asarray(b.eb.pf.ports)
         live = assigned & (ports != 0).any(axis=1)
         if live.any():
@@ -1702,7 +1974,21 @@ class Scheduler:
                                    feasible_static, sp)
         b.t_fetched = time.perf_counter()
 
-        revoked: Set[int] = set()
+        revoked, parked_gangs = (
+            arbitrate_rwo(batch, assigned, chosen, b.vol_memo)
+            if self._rwo_enabled else (set(), set()))
+        for i in revoked:
+            if gang_key(batch[i].pod) in parked_gangs:
+                self._handle_failure(
+                    batch[i], {COSCHEDULING},
+                    "gang members demand the same RWO claim on different "
+                    "nodes", retryable=False)
+            else:
+                self._handle_failure(
+                    batch[i], {BATCH_CAPACITY},
+                    "RWO claim pinned by an earlier pod in this batch",
+                    retryable=True)
+
         if b.fail_closed:
             # Before the spread arbitration: fail-closed pods (and their
             # gangs) must be in its dead set, or a later placement could
@@ -1711,6 +1997,8 @@ class Scheduler:
                           if q.pod.key in b.fail_closed
                           and q.pod.spec.pod_group}
             for i, qpi in enumerate(batch):
+                if i in revoked:
+                    continue
                 info = b.fail_closed.get(qpi.pod.key)
                 gk = gang_key(qpi.pod)
                 if info is None and gk not in dead_gangs:
@@ -1737,10 +2025,13 @@ class Scheduler:
                 # In-cycle repair candidates: re-placed against refreshed
                 # counts after the survivors are assumed (_repair_spread),
                 # instead of a queue round trip and backoff per tranche.
-                # Gang members are excluded (repairing one member alone
-                # breaks gang atomicity).
+                # Excluded: gang members (repairing one member alone
+                # breaks gang atomicity) and pods holding unused RWO
+                # claims (a repair could move them off the node their
+                # claim was arbitrated against).
                 if (self.config.spread_repair_iters
-                        and not qpi.pod.spec.pod_group):
+                        and not qpi.pod.spec.pod_group
+                        and not _holds_unused_claim(b.vol_memo, qpi.pod)):
                     repair_rows.append(i)
                 else:
                     self._handle_failure(qpi, {BATCH_CAPACITY},
@@ -1760,6 +2051,8 @@ class Scheduler:
         # not bind at sub-quorum, and the spread arbitration runs again
         # without them.
         lost_rows: List[int] = []
+        preempt_rows: List[int] = []          # deferred terminal verdicts
+        preempt_plugins: Dict[int, Set[str]] = {}
         n_ghost = 0
         chosen_l = chosen[:L].tolist()
         assigned_l = assigned[:L].tolist()
@@ -1768,6 +2061,14 @@ class Scheduler:
         static_l = feasible_static[:L].tolist()
         for i, qpi in enumerate(batch):
             if i in revoked:
+                continue
+            if parked_gangs and gang_key(qpi.pod) in parked_gangs:
+                # Unassigned members of a parked gang park with it in this
+                # cycle (its assigned members are already revoked).
+                self._handle_failure(
+                    qpi, {COSCHEDULING},
+                    "gang members demand the same RWO claim on different "
+                    "nodes", retryable=False)
                 continue
             if assigned_l[i]:
                 node_name = names[chosen_l[i]]
@@ -1814,8 +2115,16 @@ class Scheduler:
                     # the filter passed nodes the scan then refused under
                     # the same pre-batch counts (feasible_static == 0):
                     # the pod is statically over-skew everywhere, a
-                    # terminal PodTopologySpread verdict.
+                    # terminal PodTopologySpread verdict (which preemption
+                    # may cure by evicting matching pods).
                     plugins = {"PodTopologySpread"}
+                if self._preempt_enabled and not qpi.pod.spec.pod_group:
+                    # PostFilter (DefaultPreemption): the terminal verdict
+                    # waits for the victim-candidate search below. Gang
+                    # members never preempt.
+                    preempt_rows.append(i)
+                    preempt_plugins[i] = plugins
+                    continue
                 self._handle_failure(
                     qpi, plugins,
                     f"0/{self.cache.node_count()} nodes are available: "
@@ -1878,7 +2187,9 @@ class Scheduler:
                     qpi = batch[i]
                     if (self.config.spread_repair_iters
                             and not qpi.pod.spec.pod_group
-                            and qpi.pod.key in bind_keys):
+                            and qpi.pod.key in bind_keys
+                            and not _holds_unused_claim(b.vol_memo,
+                                                        qpi.pod)):
                         # the same in-cycle repair the first-pass
                         # revocations get
                         self._unassume(qpi)
@@ -1906,6 +2217,22 @@ class Scheduler:
             for i in leftover:
                 self._handle_failure(batch[i], {BATCH_CAPACITY},
                                      _SPREAD_REVOKE_MSG, retryable=True)
+
+        if preempt_rows:
+            # After the assume and the repair, against a FRESH snapshot:
+            # victim sets must cover the preemptor's need against capacity
+            # as it stands once this batch's survivors and repair
+            # placements are debited (free_after would still debit pods
+            # the arbitration revoked and miss the repair's placements).
+            won = self._try_preempt(batch, preempt_rows, eb)
+            for i in preempt_rows:
+                if i not in won:
+                    self._handle_failure(
+                        batch[i], preempt_plugins[i],
+                        f"0/{self.cache.node_count()} nodes are available: "
+                        f"rejected by {sorted(preempt_plugins[i])}; "
+                        "preemption found no candidates",
+                        retryable=False)
 
         if to_bind:
             # One bulk commit for all permit-free pods: a single store
@@ -1946,6 +2273,11 @@ class Scheduler:
                 known_static=cached[0] if cached else None)
             af = self.cache.snapshot_assigned(pad=self._af_pad)
             nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+            if self._nominations:
+                reserved = self._nomination_debits(
+                    {batch[i].pod.key for i in rows}, names, nf)
+                if reserved is not None:
+                    nf = nf._replace(free=nf.free - reserved)
             self._count_h2d(nf.free.nbytes + nf.used_ports.nbytes)
             nf = nf._replace(free=to_torch(nf.free, self.device),
                              used_ports=to_torch(nf.used_ports, self.device))
@@ -2052,6 +2384,379 @@ class Scheduler:
                 break
         return out_bind, rows, n_admitted
 
+    # ---- preemption (upstream DefaultPreemption PostFilter) -------------
+
+    _NOMINATION_TTL_S = 60.0
+    _PREEMPT_MAX_ROUNDS = 3
+
+    def _preempt_inputs(self, eb, rows):
+        """The failed pods' sub-batch and a fresh full-axis snapshot of
+        nodes and assigned pods, as tensors on the engine's device: (eb2,
+        nf, af, names)."""
+        cached = self._nf_static_device
+        nf, names, static_v, row_incs = self.cache.snapshot_versioned(
+            pad=self._node_pad, known_static=cached[0] if cached else None)
+        nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+        self._count_h2d(nf.free.nbytes + nf.used_ports.nbytes)
+        nf = nf._replace(free=to_torch(nf.free, self.device),
+                         used_ports=to_torch(nf.used_ports, self.device))
+        af = to_torch(self.cache.snapshot_assigned(pad=self._af_pad),
+                      self.device)
+        eb2, _p2 = self._slice_eb(eb, rows)
+        return to_torch(eb2, self.device), nf, af, names
+
+    def _try_preempt(self, batch, rows, eb) -> Set[int]:
+        """Batched candidate search (ops/preempt.py) on a fresh snapshot,
+        then the host-side minimal victim commit, for terminally
+        unschedulable pods. Returns the rows queued behind a preemption
+        (victims evicted, nominated_node_name recorded, the preemptor
+        requeued retryably) or otherwise settled."""
+        from ..encode import features as F
+        from ..ops.preempt import build_preempt_op, fetch_preempt
+        from ..state.objects import pod_requests
+
+        op = build_preempt_op(self.plugin_set, cfg=self.cache.cfg)
+        eb2, nf, af, names = self._preempt_inputs(eb, rows)
+        with span("preempt.op", pods=len(rows)):
+            # The op queues its work; the pass reads the card once.
+            chosen, ok, _cnt, spread_evict = fetch_preempt(op(eb2, nf, af))
+
+        won: Set[int] = set()
+        taken: Set[str] = set()  # victims already evicted this cycle
+        # One live PDB accounting pass shared by every preemptor of the
+        # cycle (earlier evictions debit the budgets later ones see).
+        pdb_state = self._pdb_state()
+        for j, i in enumerate(rows):
+            if not ok[j]:
+                continue
+            qpi = batch[i]
+            node_name = names[int(chosen[j])]
+            if node_name is None:
+                continue
+            # Re-check the preemptor BEFORE any eviction: a pod deleted
+            # (or bound elsewhere) since the snapshot must not cost real
+            # workloads their capacity.
+            try:
+                fresh = self.store.get("Pod", qpi.pod.key)
+            except NotFoundError:
+                self.queue.forget(qpi.pod.key)
+                self.drop_nomination(qpi.pod.key)
+                won.add(i)  # nothing further to do for this row
+                continue
+            if fresh.spec.node_name:
+                self.drop_nomination(qpi.pod.key)
+                won.add(i)  # already bound elsewhere — no verdict needed
+                continue
+            # Rounds cap: a cure the host could not honor would otherwise
+            # evict and retry forever; after _PREEMPT_MAX_ROUNDS wins
+            # without a bind, the terminal verdict stands.
+            if (self._preempt_rounds.get(qpi.pod.key, 0)
+                    >= self._PREEMPT_MAX_ROUNDS):
+                log.warning("preemption: %s exceeded %d rounds without "
+                            "binding; giving up", qpi.pod.key,
+                            self._PREEMPT_MAX_ROUNDS)
+                self.drop_nomination(qpi.pod.key)
+                continue
+            victims = self._select_victims(qpi.pod, node_name, taken,
+                                           pdb_state,
+                                           spread_evict=spread_evict[j])
+            if victims is None:
+                continue  # candidates raced away — terminal verdict stands
+            if not victims:
+                # The node fits outright now (state moved since the
+                # step): no eviction, just retry promptly.
+                self._handle_failure(
+                    qpi, {BATCH_CAPACITY},
+                    f"capacity freed on {node_name} since the scheduling "
+                    "attempt; retrying", retryable=True)
+                won.add(i)
+                continue
+            for vk in victims:
+                try:
+                    self.store.delete("Pod", vk)
+                except NotFoundError:
+                    pass
+                else:
+                    # Account the eviction NOW (idempotent with the
+                    # informer's later delete-event unbind): a second
+                    # preemptor of this cycle must see the freed capacity.
+                    self.cache.account_unbind(vk)
+                taken.add(vk)
+                self.broadcaster.record(
+                    involved=f"Pod:{vk}", reason="Preempted",
+                    message=f"Preempted by {qpi.pod.key} on {node_name}",
+                    type_="Warning",
+                    namespace=vk.split("/", 1)[0])
+            try:
+                fresh.status.nominated_node_name = node_name
+                self.store.update(fresh)
+                qpi.pod = fresh
+            except (NotFoundError, ConflictError):
+                pass
+            # Reserve the freed capacity for the preemptor until it binds
+            # or the TTL lapses (upstream nominated-pod handling).
+            with self._nom_lock:
+                self._nominations[qpi.pod.key] = (
+                    node_name, F.resources_vector(pod_requests(qpi.pod)),
+                    time.monotonic() + self._NOMINATION_TTL_S)
+            self._handle_failure(
+                qpi, {"DefaultPreemption"},
+                f"preempted {len(victims)} lower-priority pod(s) on "
+                f"{node_name}; waiting for the freed capacity",
+                retryable=True)
+            log.info("preemption: %s evicted %d pod(s) on %s",
+                     qpi.pod.key, len(victims), node_name)
+            self._preempt_rounds[qpi.pod.key] = (
+                self._preempt_rounds.get(qpi.pod.key, 0) + 1)
+            won.add(i)
+        return won
+
+    def drop_nomination(self, pod_key: str) -> None:
+        """Release a preemptor's capacity reservation (pod bound, deleted
+        or otherwise gone): the informer's pod-delete path and the failure
+        funnel call this so a vanished preemptor cannot pin the freed
+        capacity for the rest of the TTL."""
+        if self._nominations:
+            with self._nom_lock:
+                self._nominations.pop(pod_key, None)
+        self._preempt_rounds.pop(pod_key, None)
+
+    def _nomination_debits(self, batch_keys: Set[str], names, nf):
+        """(N,R) float32 capacity reserved by OUT-OF-BATCH nominees
+        (expired and orphaned nominations pruned), or None when there is
+        nothing to debit."""
+        now = time.monotonic()
+        debits = None
+        with self._nom_lock:
+            drop = []
+            row_of = None
+            for key, (node, req, exp) in self._nominations.items():
+                if exp < now:
+                    drop.append(key)
+                    continue
+                if key in batch_keys:
+                    continue  # the nominee itself sees its reservation
+                if row_of is None:
+                    row_of = {n: j for j, n in enumerate(names)
+                              if n is not None}
+                j = row_of.get(node)
+                if j is None:  # nominated node is gone
+                    drop.append(key)
+                    continue
+                if debits is None:
+                    # A host allocation: nf.free may be a device tensor.
+                    debits = np.zeros(
+                        (int(nf.free.shape[0]), int(nf.free.shape[1])),
+                        dtype=np.float32)
+                debits[j] += req
+            for k in drop:
+                del self._nominations[k]
+        return debits
+
+    def _pdb_state(self) -> Optional[List[list]]:
+        """Live PodDisruptionBudget accounting for one preemption pass:
+        ``[namespace, selector, allowed_disruptions]`` rows, where
+        allowed = currently bound matching pods − min_available (upstream
+        disruptionsAllowed from live state). None when no PDB exists."""
+        pdbs = self.store.list("PodDisruptionBudget")
+        if not pdbs:
+            return None
+        counts = [0] * len(pdbs)
+
+        def visit(p):
+            if not p.spec.node_name:
+                return
+            for i, bud in enumerate(pdbs):
+                if (p.metadata.namespace == bud.metadata.namespace
+                        and (bud.spec.selector is None
+                             or bud.spec.selector.matches(
+                                 p.metadata.labels))):
+                    counts[i] += 1
+
+        # A read-only visitor: list() would deep-copy every pod.
+        self.store.for_each("Pod", visit)
+        return [[bud.metadata.namespace, bud.spec.selector,
+                 c - int(bud.spec.min_available)]
+                for bud, c in zip(pdbs, counts)]
+
+    def _select_victims(self, pod, node_name: str, taken: Set[str],
+                        pdb_state: Optional[List[list]] = None,
+                        spread_evict=None) -> Optional[List[str]]:
+        """Victim set on ``node_name``: the MANDATORY topology victims
+        (the pods matching the preemptor's own required anti-affinity,
+        the symmetric repelling-term owners, and ``spread_evict[c]``
+        matching pods per over-skew spread slot), then the lowest-priority
+        first capacity top-up until the node's free vector covers the
+        preemptor's request on every axis. None when the candidates no
+        longer suffice (state raced since the device search) or a
+        mandatory victim is unavailable.
+
+        PodDisruptionBudgets: a victim whose eviction would drop a
+        matching budget below min_available is skipped in the first pass
+        and taken only when no non-violating set suffices, violating
+        victims last (upstream's minimize-violations order; a protected
+        MANDATORY victim fails the first pass outright). On success the
+        shared ``pdb_state`` rows are debited, so later preemptors of the
+        same cycle see the budget the earlier evictions consumed."""
+        from ..encode import features as F
+        from ..state.objects import pod_requests
+
+        free0 = self.cache.free_of(node_name)
+        if free0 is None:
+            return None
+        # Capacity reserved by OTHER pods' nominations on this node is not
+        # available to this preemptor.
+        with self._nom_lock:
+            now = time.monotonic()
+            for k, (n2, req2, exp) in self._nominations.items():
+                if n2 == node_name and k != pod.key and exp >= now:
+                    free0 = free0 - req2
+        need = F.resources_vector(pod_requests(pod))
+        cands = [(k, r) for k, r, _p in self.cache.victims_below(
+            node_name, pod.spec.priority) if k not in taken]
+
+        anti = (pod.spec.affinity.pod_anti_affinity.required
+                if (pod.spec.affinity
+                    and pod.spec.affinity.pod_anti_affinity) else [])
+        spread_slots = []  # (constraint, count) with count > 0
+        if spread_evict is not None:
+            cons = pod.spec.topology_spread_constraints
+            for c, e in enumerate(np.asarray(spread_evict).tolist()):
+                if e > 0 and c < len(cons):
+                    spread_slots.append((cons[c], int(np.ceil(e))))
+
+        req_of = dict(cands)
+
+        # Candidate identity (namespace, labels), fetched once. The anti
+        # cure needs it for EVERY bound pod on the node, not only the
+        # evictable pool: an unevictable repeller must fail the cure
+        # closed, never be skipped.
+        meta: Dict[str, tuple] = {}
+        meta_keys: List[str] = [k for k, _ in cands]
+        if anti:
+            seen = set(meta_keys)
+            meta_keys += [k for k in self.cache.bound_keys_on(node_name)
+                          if k not in seen and k not in taken]
+        if pdb_state or anti or spread_slots:
+            for key in meta_keys:
+                try:
+                    vp = self.store.get("Pod", key)
+                except NotFoundError:
+                    continue
+                meta[key] = (vp.metadata.namespace, vp.metadata.labels)
+
+        # Mandatory topology victims: unavailable ones mean the state
+        # raced, a repeller is unevictable, or the device's hashed match
+        # was broader than the host's exact one → None, no speculative
+        # eviction.
+        mandatory: List[str] = []
+        mset: Set[str] = set()
+
+        def _mand(key: str) -> bool:
+            if key in mset:
+                return True
+            if key in req_of:
+                mset.add(key)
+                mandatory.append(key)
+                return True
+            return False  # not an eligible victim (anymore)
+
+        pod_ns = pod.metadata.namespace
+        for term in anti:
+            term_ns = set(term.namespaces) if term.namespaces else {pod_ns}
+            for key in meta_keys:
+                m = meta.get(key)
+                if m is None or m[0] not in term_ns:
+                    continue
+                if (term.label_selector is None
+                        or term.label_selector.matches(m[1])):
+                    if not _mand(key):
+                        return None
+        for owner in self.cache.repelling_owners_on(node_name, pod):
+            if owner not in taken and not _mand(owner):
+                return None
+        for tsc, count in spread_slots:
+            got = sum(1 for key in mset
+                      if (m := meta.get(key)) is not None
+                      and m[0] == pod_ns
+                      and (tsc.label_selector is None
+                           or tsc.label_selector.matches(m[1])))
+            for key, _req in cands:  # lowest priority first
+                if got >= count:
+                    break
+                if key in mset:
+                    continue
+                m = meta.get(key)
+                if (m is not None and m[0] == pod_ns
+                        and (tsc.label_selector is None
+                             or tsc.label_selector.matches(m[1]))):
+                    if _mand(key):
+                        got += 1
+            if got < count:
+                return None  # not enough matching victims anymore
+
+        def attempt(allow_violations: bool):
+            acc = free0
+            victims: List[str] = []
+            budgets = [list(bud) for bud in (pdb_state or [])]
+            deferred: List[tuple] = []
+            # Mandatory victims first: they are the cure, not a capacity
+            # choice, so the fits-already exit below never skips them.
+            for key in mandatory:
+                if budgets:
+                    m = meta.get(key)
+                    hit = ([bud for bud in budgets
+                            if bud[0] == m[0]
+                            and (bud[1] is None or bud[1].matches(m[1]))]
+                           if m is not None else [])
+                    if (any(bud[2] <= 0 for bud in hit)
+                            and not allow_violations):
+                        return None
+                    for bud in hit:
+                        bud[2] -= 1
+                acc = acc + req_of[key]
+                victims.append(key)
+            for key, req in cands:
+                if key in mset:
+                    continue
+                if np.all(acc >= need):
+                    break
+                if budgets:
+                    m = meta.get(key)
+                    if m is None:
+                        continue
+                    hit = [bud for bud in budgets
+                           if bud[0] == m[0]
+                           and (bud[1] is None or bud[1].matches(m[1]))]
+                    if any(bud[2] <= 0 for bud in hit):
+                        if allow_violations:
+                            # violating victims rank LAST
+                            deferred.append((key, req, hit))
+                        continue
+                    for bud in hit:
+                        bud[2] -= 1
+                acc = acc + req
+                victims.append(key)
+            for key, req, hit in deferred:
+                if np.all(acc >= need):
+                    break
+                for bud in hit:
+                    bud[2] -= 1
+                acc = acc + req
+                victims.append(key)
+            return (victims, budgets) if np.all(acc >= need) else None
+
+        got = attempt(False)
+        if got is None and pdb_state:
+            got = attempt(True)
+        if got is None:
+            return None
+        victims, budgets = got
+        if pdb_state is not None:
+            for row, new in zip(pdb_state, budgets):
+                row[2] = new[2]
+        return victims
+
     def _commit_batch(self, b: _Batch) -> None:
         with span("commit", seq=b.seq, failures=len(b.failures)):
             self._commit_batch_impl(b)
@@ -2112,6 +2817,7 @@ class Scheduler:
         for qpi, plugins, _msg, retry in items:
             if qpi.pod.key in missing:
                 self.queue.forget(qpi.pod.key)
+                self.drop_nomination(qpi.pod.key)
             elif retry:
                 retryable.append(qpi)
             else:
@@ -2257,6 +2963,11 @@ class Scheduler:
         bound_keys = set(self.store.bind_pods(
             [(k, n) for k, _, n in keyed]))
         self.queue.forget_many(bound_keys)
+        if self._nominations:  # a bound nominee releases its reservation
+            with self._nom_lock:
+                for k in bound_keys:
+                    self._nominations.pop(k, None)
+                    self._preempt_rounds.pop(k, None)
         with self._metrics_lock:
             self._metrics["pods_bound"] += len(bound_keys)
             self._metrics["bind_s_total"] += time.perf_counter() - t0
@@ -2347,6 +3058,7 @@ class Scheduler:
                 qpi.pod = fresh
         except NotFoundError:
             self.queue.forget(pod.key)
+            self.drop_nomination(pod.key)
             return
         if retryable:
             self.queue.requeue_backoff(qpi)

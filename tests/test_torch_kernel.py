@@ -1,6 +1,7 @@
 """The CUDA kernels (greedy assignment, shortlist selection, shortlist
 scan, port insertion, caps scan) against their plain PyTorch versions,
-and the step's host syncs on the card.
+the step's host syncs, and the preemption op (PyTorch ops) cuda = cpu
+on the card.
 
 This file imports neither jax nor minisched_tpu, so it also runs on a
 machine that has only the port's dependencies. The card tests skip
@@ -518,3 +519,48 @@ def test_step_makes_no_host_sync_on_card(profile, sample):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(d.assigned.sum()) == 1024
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_preempt_op_on_card_equals_cpu(seed):
+    """The preemption candidate op (full_scheduler_profile()'s filters,
+    every topology cure on) on a topology-heavy corpus: its four outputs
+    on the card equal the CPU's bitwise (the card's segment sums add by
+    atomics), and it never waits on the host."""
+    _need_card()
+    from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
+                                            to_torch)
+    from minisched_tpu_torch.ops.preempt import build_preempt_op
+    from minisched_tpu_torch.service.defaultconfig import (
+        full_scheduler_profile)
+    from minisched_tpu_torch.state import objects as TO
+    from torch_parity import full_cluster
+
+    nodes, pending, bound = full_cluster(TO, 400, 64, seed)
+    rng = np.random.default_rng(seed + 100)
+    for p in pending:
+        p.spec.priority = int(rng.integers(1, 6))
+        p.spec.requests["cpu"] = float(rng.integers(4, 16) * 100)
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes)
+    for p, node_name in bound:
+        p.spec.node_name = node_name
+        cache.account_bind(p)
+    eb = encode_pods(pending, 64, cfg=cache.cfg, registry=cache.registry,
+                     anti_forbidden_fn=cache.anti_forbidden_for)
+    nf, _names, _sv, _incs = cache.snapshot_versioned()
+    af = cache.snapshot_assigned()
+    op = build_preempt_op(full_scheduler_profile().build(), cfg=cache.cfg)
+    want = op(*(to_torch(x, "cpu") for x in (eb, nf, af)))
+    args = [to_torch(x, "cuda") for x in (eb, nf, af)]
+    op(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = op(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, want):
+        assert bits_equal(a.cpu().numpy(), b.numpy())
+    assert bool(want[1].any())

@@ -31,7 +31,7 @@ from minisched_tpu_torch.state import objects as TO
 from test_torch_engine import MODES, SHARED_METRICS, _run_cluster
 from torch_parity import bits_equal, leaves, sampled_cluster
 
-C4 = [p for p in C4_PLUGINS if p != "DefaultPreemption"]
+C4 = list(C4_PLUGINS)  # with DefaultPreemption, as bench.py runs it
 ZONE = "topology.kubernetes.io/zone"
 
 

@@ -583,3 +583,79 @@ def caps_problem(kind: str, seed: int = 0):
     scores[~eb.pf.valid.numpy()] = NEG
     return (torch.from_numpy(scores), eb.pf.requests.clone(),
             nf.free.clone(), int(rng.integers(0, 1 << 32)), caps)
+
+
+def volume_cluster(O, n_nodes: int = 120, n_pods: int = 240, seed: int = 0):
+    """A cluster for the full default profile: bench-like nodes in four
+    zones with attach limits, a few tainted PreferNoSchedule; a
+    zone-labelled PV per pod that wants one; bound holder pods pinning
+    claims to nodes; and pending pods with pinned, unused, zone-bound and
+    cloud-typed claims (no claim shared within a batch: an RWO revocation
+    retries on the backoff's clock, which would make later batches
+    timing-dependent), and (among the pods without claims) host ports,
+    with tolerations beside plain pods. Everything fits.
+    Returns (nodes, PVs, claims and holders; pending pods)."""
+    rng = np.random.default_rng(seed)
+    first = []
+    for i in range(n_nodes):
+        taints = ([O.Taint(key="maint", value="", effect="PreferNoSchedule")]
+                  if rng.random() < 0.1 else [])
+        first.append(O.Node(
+            metadata=O.ObjectMeta(name=f"vn{i}",
+                                  labels={ZONE: f"z{i % 4}"}),
+            spec=O.NodeSpec(taints=taints),
+            status=O.NodeStatus(allocatable={
+                "cpu": float(rng.choice([8000, 16000])),
+                "memory": float(32 << 30), "pods": 110.0,
+                "attachable-volumes": float(rng.choice([4, 8]))})))
+    n_pin = max(4, n_nodes // 10)
+    for k in range(n_pods):  # one zone-labelled PV per pod that wants one
+        first.append(O.PersistentVolume(
+            metadata=O.ObjectMeta(name=f"pv-z{k}",
+                                  labels={ZONE: f"z{k % 4}"}),
+            capacity={"ephemeral-storage": float(1 << 30)}, phase="Bound",
+            claim_ref=f"default/zc{k}"))
+        first.append(O.PersistentVolumeClaim(
+            metadata=O.ObjectMeta(name=f"zc{k}", namespace="default"),
+            request={"ephemeral-storage": float(1 << 30)},
+            volume_name=f"pv-z{k}", phase="Bound"))
+    for k in range(n_pin):
+        first.append(O.PersistentVolumeClaim(
+            metadata=O.ObjectMeta(name=f"pin{k}", namespace="default"),
+            phase="Bound"))
+        first.append(O.Pod(
+            metadata=O.ObjectMeta(name=f"holder{k}", namespace="default"),
+            spec=O.PodSpec(requests={"cpu": 100.0},
+                           volumes=[O.VolumeClaim(claim_name=f"pin{k}")],
+                           node_name=f"vn{(7 * k) % n_nodes}")))
+    for k in range(n_pods):
+        first.append(O.PersistentVolumeClaim(
+            metadata=O.ObjectMeta(name=f"u{k}", namespace="default"),
+            phase="Bound"))
+    pods = []
+    for i in range(n_pods):
+        r = rng.random()
+        vols, spec = [], {}
+        if r < 0.2:
+            k = int(rng.integers(0, n_pin))
+            vols = [O.VolumeClaim(claim_name=f"pin{k}")]
+        elif r < 0.35:
+            vols = [O.VolumeClaim(claim_name=f"zc{i}")]
+        elif r < 0.55:
+            vols = [O.VolumeClaim(claim_name=f"u{i}")]
+        elif r < 0.7:
+            vols = [O.VolumeClaim(claim_name=f"u{i}", volume_type="aws-ebs")]
+        if not vols and rng.random() < 0.4:
+            spec["ports"] = [O.ContainerPort(
+                host_port=int(rng.choice([8080, 8443, 9090])))]
+        if rng.random() < 0.2:
+            spec["tolerations"] = [O.Toleration(key="maint",
+                                                operator="Exists")]
+        pods.append(O.Pod(
+            metadata=O.ObjectMeta(name=f"vp{i}", namespace="default",
+                                  labels={"app": "bench"}),
+            spec=O.PodSpec(requests={"cpu": float(rng.integers(1, 5) * 100),
+                                     "memory": float(1 << 30)},
+                           priority=int(rng.integers(0, 3)),
+                           volumes=vols, **spec)))
+    return first, pods

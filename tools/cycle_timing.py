@@ -26,9 +26,15 @@ shortlist K=128, node sampling at its auto percentage: K=4,096 of the
 percentage_of_nodes_to_score=100: every node evaluated); full-kernel
 (the default with shortlist=False: the greedy kernel); sync (pipeline,
 residency and shortlist off: the earlier path); c4-soft and c4-hard
-(the default config on BASELINE config 4: chip_smoke.py's C4_PROFILE and
-c4_workload, ScheduleAnyway max_skew 8, or DoNotSchedule max_skew 1, the
-caps scan). The default list is default,unsampled.
+(the default config on BASELINE config 4: chip_smoke.py's C4_PROFILE,
+bench_workload.C4_PLUGINS with DefaultPreemption, and c4_workload,
+ScheduleAnyway max_skew 8, or DoNotSchedule max_skew 1, the caps scan);
+full (the default config under full_scheduler_profile() on
+chip_smoke.full_workload: the bench cluster, every fifth pod with a
+Bound claim on a zone-labelled PV, without the PV controller, as
+bench.py runs its engine cells); full-pv (the same with the PV
+controller on, which relists every claim and PV on each claim-carrying
+pod event). The default list is default,unsampled.
 """
 from __future__ import annotations
 
@@ -54,6 +60,8 @@ MODES = {
              "shortlist": False},
     "c4-soft": {},
     "c4-hard": {},
+    "full": {},
+    "full-pv": {},
 }
 # Modes with another workload and profile than the bench's.
 WORKLOADS = {
@@ -61,6 +69,8 @@ WORKLOADS = {
     "c4-hard": (lambda n, p, seed=0: cs.c4_workload(n, p, seed, max_skew=1,
                                                     hard=True),
                 cs.C4_PROFILE),
+    "full": (cs.full_workload, cs.FULL_PROFILE),
+    "full-pv": (cs.full_workload, cs.FULL_PROFILE),
 }
 
 
@@ -82,19 +92,23 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
     cfg = SchedulerConfig(platform="", **MODES[mode])
     workload, prof_ = WORKLOADS.get(mode, (cs.bench_workload,
                                            cs.BENCH_PROFILE))
+    # The full profile's claims are Bound up front: no PV controller, as
+    # in chip_smoke.py's full-profile burst; full-pv runs it beside.
+    pv = mode != "full"
     nodes, pods = workload(2_000, 1_024, seed=1)
-    cs.drive(cfg, nodes, pods, f"{mode} warm-up", prof_)
+    cs.drive(cfg, nodes, pods, f"{mode} warm-up", prof_,
+             with_pv_controller=pv)
     nodes, pods = workload(cs.N_NODES, n_pods)
     if profile:
         from torch.profiler import ProfilerActivity
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
-            m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode,
-                                                    prof_)
+            m, launches, c2b, per_pod, _ = cs.drive(
+                cfg, nodes, pods, mode, prof_, with_pv_controller=pv)
         print(f"{mode} under the profiler: " + device_busy(prof, c2b, smi))
     else:
         m, launches, c2b, per_pod, _ = cs.drive(cfg, nodes, pods, mode,
-                                                prof_)
+                                                prof_, with_pv_controller=pv)
     print(cs.path_line(f"{mode} {cs.N_NODES} nodes x {n_pods} pods", m,
                        launches, c2b, per_pod, n_pods, smi))
     b = m["batches"]

@@ -10,11 +10,18 @@ synchronizing operation it reports, by the port's source lines on the
 stack: the node sample (K=4,096), the filters and scores at full width,
 the sampled step and the unsampled step (shortlist K=128), each step
 called as the engine calls it (the host's flags: no gang, no
-DoNotSchedule slot); then config 4's batch (chip_smoke.c4_workload):
-the soft step sampled, and the hard step (DoNotSchedule, max_skew 1)
-unsampled, whose one read of the caps' any_enforced is expected. Each
-line ends with the card's name and power limit. The debug mode is a
-prototype in torch: it may miss a sync, never invents one.
+DoNotSchedule slot); then config 4's batch (chip_smoke.c4_workload) on
+its profile with DefaultPreemption (bench_workload.C4_PLUGINS): the soft
+step sampled, and the hard step (DoNotSchedule, max_skew 1) unsampled,
+whose one read of the caps' any_enforced is expected; then
+full_scheduler_profile()'s sampled step on chip_smoke's claim-carrying
+batch (pinned, unused, zone-bound and cloud-typed claims, host ports,
+taints); and last the preemption pass's device work at bench.py's shape
+(chip_smoke.preempt_bench_inputs): the candidate op alone, then the op
+with the engine's one read of its outputs (ops/preempt.fetch_preempt),
+which is the one sync expected. Each line ends with the card's name and
+power limit. The debug mode is a prototype in torch: it may miss a sync,
+never invents one.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from minisched_tpu_torch.encode import to_torch  # noqa: E402
 from minisched_tpu_torch.ops import _cuda_build, prng  # noqa: E402
 from minisched_tpu_torch.ops.pipeline import (_select_node_sample,  # noqa: E402
                                               build_step, evaluate)
+from minisched_tpu_torch.ops.preempt import (build_preempt_op,  # noqa: E402
+                                             fetch_preempt)
 
 
 def sync_sites(fn) -> collections.Counter:
@@ -93,6 +102,13 @@ def main() -> int:
                     for x in cs.full_width_batch(nodes, pods)]
     c4_soft = build_step(c4_set, shortlist=cs.K, sample_nodes=cs.SAMPLE_K)
     c4_hard = build_step(c4_set, shortlist=cs.K)
+    full_batch = [to_torch(x, "cuda")
+                  for x in cs.full_profile_batch(cs.BATCH)]
+    full_sampled = build_step(cs.FULL_PROFILE.build(), shortlist=cs.K,
+                              sample_nodes=cs.SAMPLE_K)
+    p_eb, p_nf, p_af, p_cfg = cs.preempt_bench_inputs()
+    p_in = [to_torch(x, "cuda") for x in (p_eb, p_nf, p_af)]
+    p_op = build_preempt_op(cs.PREEMPT_PROFILE.build(), cfg=p_cfg)
     # The engine's host flags for a batch with no gang and no
     # DoNotSchedule slot.
     no_host = {"has_gang": False, "hard_spread": False}
@@ -106,7 +122,12 @@ def main() -> int:
              lambda: c4_soft(*c4[False], key, **no_host)),
             ("config 4 hard step, unsampled",
              lambda: c4_hard(*c4[True], key, has_gang=False,
-                             hard_spread=True))):
+                             hard_spread=True)),
+            ("full-profile step, sampled",
+             lambda: full_sampled(*full_batch, key, **no_host)),
+            ("preemption op", lambda: p_op(*p_in)),
+            ("preemption op and the pass's read",
+             lambda: fetch_preempt(p_op(*p_in)))):
         sites = sync_sites(fn)
         print(f"{name}: {sum(sites.values())} host syncs ({smi})")
         for (message, where), n in sites.items():
