@@ -6,7 +6,7 @@ Needs a CUDA card and the CUDA toolkit (nvcc); exits non-zero without
 them, and on any mismatch. Phases, each printing its own lines:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA build;
-  2. build the five kernels with nvcc, one process each, all at once,
+  2. build the seven kernels with nvcc, one process each, all at once,
      and print each ptxas report;
   3. the greedy-assignment kernel vs its plain PyTorch version on the
      card, bitwise, at the shapes of tests/test_pallas_select.py, at a
@@ -118,7 +118,32 @@ them, and on any mismatch. Phases, each printing its own lines:
      the fault-free run's; then a fault-free run with
      shortlist_check_every=1 and resident_check_every=1 (the cross-check
      launches the greedy kernel, the carry check runs, no desync);
- 20. the reference's README scenario on the card (default config).
+ 20. the auction kernels (csrc/auction.cu, csrc/bid_auction.cu) vs their
+     plain versions, bitwise on every output and in the rounds run:
+     tests/torch_parity.py's auction instances at
+     each width, the fold and strength cases that one rounding and two
+     decide differently, equal strengths, round budgets that run out;
+     then the bench batch at full width (1,024 x 53,248 x 10, one band
+     and three bands, dense and K=128) and at the sampled shape the bench
+     burst runs (1,024 x 4,096), each with its time back to back, device
+     time, plain time and bound (the bid shortlist's selection alone as
+     well), and a full-width contention batch where the bid shortlist at
+     K in {1, 128, N} equals the dense rounds;
+ 21. build_step(assignment="auction") cuda = cpu on every Decision
+     field, sampled and unsampled, with and without the bid shortlist; no
+     host sync in the gang-free sampled step;
+ 22. the bench burst with SchedulerConfig(assignment="auction") (50,000
+     nodes x 10,000 pods, sampled): all bound, none over-committed, the
+     bid-shortlist kernel in every batch, the carried device state equal
+     to its host mirror; create-to-bound;
+ 23. BASELINE config 5 under the auction: the same pods in gangs of 8 at
+     quorum 8 (every batch unsampled, 1,024 x 53,248): all bound, every
+     gang whole, no pod failed, the kernel in every batch;
+ 24. the auction on a 1,201-node cluster with both cross-checks (the
+     dense kernel as the shortlist's reference), then under
+     auction_mirror:corrupt@2: the phantom debit caught as a carry
+     desync, the placements equal the fault-free run's;
+ 25. the reference's README scenario on the card (default config).
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -126,8 +151,9 @@ DoNotSchedule slot): the step never waits on the card.
 
 The line before the last is the kernel table as JSON (the shortlist
 kernels' launches are the full-profile burst's, with each path's beside
-them; the preemption op, PyTorch ops and no kernel, under "stages"); the
-last line is {"ok": true, "device": {...}}.
+them; the bid-shortlist kernel's the auction bench burst's, the dense
+auction's the cross-check run's; the preemption op, PyTorch ops and no
+kernel, under "stages"); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -148,6 +174,10 @@ from minisched_tpu_torch.encode.cache import step_bucket
 from minisched_tpu_torch.ops import _cuda_build, prng
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
+from minisched_tpu_torch.ops.auction import auction_assign_plain
+from minisched_tpu_torch.ops.auction_kernel import (auction_cuda,
+                                                    bid_auction_cuda)
+from minisched_tpu_torch.ops.bid_select import auction_assign_shortlist_plain
 from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.pipeline import (_evaluate, _gather_nodes,
@@ -172,9 +202,11 @@ from minisched_tpu_torch.state import objects as O
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_parity import (CAPS_KINDS, SELECT_CARD_LIST_KINDS,  # noqa: E402
-                          caps_problem, full_cluster, sampled_cluster,
-                          select_list_case)
+from torch_parity import (AUCTION_CASES, CAPS_KINDS,  # noqa: E402
+                          SELECT_CARD_LIST_KINDS, auction_adversarial,
+                          auction_fold_case, auction_strength_case,
+                          auction_tie_case, caps_problem, full_cluster,
+                          sampled_cluster, select_list_case)
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
 # The node sample of the default config at bench-50k: pct = max(5, 50 -
@@ -1224,6 +1256,340 @@ def preempt_burst_phase(smi):
     return burst_s
 
 
+def auction_pair(scores, req, free, seed, label, prio=None, k=None,
+                 max_rounds=None):
+    """One auction kernel (the dense one for ``k`` None, else the bid
+    shortlist at width k) against its plain version on the card, bitwise
+    on every output and in the rounds run. Returns (kernel result, the
+    plain version's stats: rounds, bids, full-row bids; plain ms, max abs
+    error)."""
+    r_k = torch.zeros((1,), dtype=torch.int32, device=scores.device)
+    st_p = torch.zeros((3,), dtype=torch.int32, device=scores.device)
+    if k is None:
+        got = auction_cuda(scores, req, free, seed, max_rounds=max_rounds,
+                           priority=prio, rounds=r_k)
+        fn, kw = auction_assign_plain, {}
+        fields = ("chosen", "assigned", "free_after")
+    else:
+        got = bid_auction_cuda(scores, req, free, seed,
+                               max_rounds=max_rounds, priority=prio, k=k,
+                               rounds=r_k)
+        fn, kw = auction_assign_shortlist_plain, {"k": k}
+        fields = ("chosen", "assigned", "free_after", "repaired")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain = fn(scores, req, free, seed, max_rounds=max_rounds,
+               priority=prio, stats=st_p, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    what = f"{'auction' if k is None else 'bid_auction'} {label}"
+    err = compare(got, plain, fields)
+    check(int(r_k[0]) == int(st_p[0]),
+          f"{what}: {int(r_k[0])} rounds vs plain {int(st_p[0])}")
+    return got, st_p.tolist(), plain_ms, err
+
+
+def auction_bound_s(P, N, R, K_, stats):
+    """Least time for one auction call on this input: its inputs read
+    once (scores, requests, priorities, free) and its outputs written
+    once (free, chosen, assigned, and repaired for the bid shortlist)
+    over the memory rate, against the operations this data needs over
+    the float32 rate: one per score folded, and per bid one per value
+    reduced (the full row for the dense rounds; the K candidates, and
+    the full row of a repaired bid, for the bid shortlist). ``K_`` is 0
+    for the dense rounds; ``stats`` the plain version's (rounds, bids,
+    full-row bids)."""
+    _rounds, bids, full = stats
+    moved = (4 * P * N + 4 * P * R + 4 * P + 8 * N * R + 5 * P
+             + (P if K_ else 0))
+    ops = P * N + (N * bids if not K_ else K_ * bids + N * full)
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), (
+        "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations")
+
+
+def auction_timed(args, seed, label, smi, prio=None, k=None):
+    """auction_pair plus the kernel's time back to back (CUDA events), its
+    device time (the profiler's, and CUDA events around calls queued
+    behind a spin kernel), its bound and, for the bid shortlist, the
+    selection alone (a launch with a round budget of 0). Returns the
+    kernel table's numbers and prints one line."""
+    scores, req, free = args
+    P, N = scores.shape
+    R = req.shape[1]
+    got, stats, plain_ms, err = auction_pair(scores, req, free, seed, label,
+                                             prio=prio, k=k)
+    name = "auction" if k is None else "bid_auction"
+    if k is None:
+        def call(max_rounds=None):
+            auction_cuda(scores, req, free, seed, priority=prio,
+                         max_rounds=max_rounds)
+    else:
+        def call(max_rounds=None):
+            bid_auction_cuda(scores, req, free, seed, priority=prio, k=k,
+                             max_rounds=max_rounds)
+    ms = cuda_ms(call, reps=10)
+    dev_ms = device_ms(call, reps=5)
+    spin_ms = queued_ms(call, reps=5)
+    select_ms = cuda_ms(lambda: call(max_rounds=0), reps=10) if k else None
+    bound_s, bound_by = auction_bound_s(P, N, R, k or 0, stats)
+    rounds, bids, full = stats
+    print(f"{name} kernel vs plain {label} {P}x{N}x{R}"
+          f"{'' if k is None else f' K={k}'}: bitwise equal, "
+          f"{int(got.assigned.sum())} assigned, {rounds} rounds, {bids} "
+          f"bids, {full} over full rows; kernel {ms:.4f} ms back to back, "
+          f"{fmt_ms(dev_ms, 4)} of device time, {fmt_ms(spin_ms, 4)} on "
+          f"the spin clock"
+          + ("" if k is None else
+             f" (the selection alone {select_ms:.4f} ms)")
+          + f", plain {plain_ms:.1f} ms, bound {bound_s * 1e3:.4f} ms "
+          f"({bound_by}) ({smi})")
+    return {"ms": ms, "device_ms": dev_ms, "spin_ms": spin_ms,
+            "plain_ms": plain_ms,
+            "bound_s": bound_s, "bound_by": bound_by, "err": err,
+            "rounds": rounds, "bids": bids, "full_rows": full,
+            "select_ms": select_ms}
+
+
+def auction_kernels_phase(smi, eb, nf, af, key):
+    """Both auction kernels against their plain versions on the card,
+    bitwise on every output and in the rounds run: the CPU tests' instances
+    (tests/torch_parity.py AUCTION_CASES at each case's widths, the fold
+    and strength cases that one rounding and two decide differently, two
+    bidders of equal strength, round budgets that run out), then the
+    bench batch at full width (1,024 x 53,248 x 10, one band and three
+    bands, dense and K=128), the sampled shape the bench burst runs
+    (1,024 x 4,096), and a full-width contention batch where the bid
+    shortlist at K in {1, 128, N} equals the dense rounds and repairs.
+    Returns the kernel table's numbers for both kernels."""
+    err = {"auction": 0.0, "bid_auction": 0.0}
+
+    def note(k, e):
+        name = "auction" if k is None else "bid_auction"
+        err[name] = max(err[name], e)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    seed = prng.bits(prng.fold_in(key, 21))
+    for name, (make, prio, widths) in AUCTION_CASES.items():
+        args = [cuda(a) for a in make()]
+        pr = None if prio is None else cuda(np.asarray(prio, np.int32))
+        for k in (None,) + widths:
+            got, stats, _ms, e = auction_pair(*args, seed, name, prio=pr, k=k)
+            note(k, e)
+        print(f"auction kernels vs plain {name} "
+              f"{tuple(args[0].shape)}x{args[1].shape[1]} K in "
+              f"(dense,) + {widths}: bitwise equal, {stats[0]} rounds, "
+              f"{int(got.assigned.sum())} assigned")
+    nseed = prng.bits(prng.PRNGKey(5))
+
+    def noise(i, cols):
+        from minisched_tpu_torch.ops.select import tie_noise_from_cols
+
+        return tie_noise_from_cols(
+            nseed, torch.as_tensor(np.asarray(i, np.int64)),
+            torch.as_tensor(np.asarray(cols, np.int64))).numpy()
+
+    fold = auction_fold_case(noise)[0]
+    strength = auction_strength_case(noise)[0]
+    P_s = strength.shape[0]
+    special = {
+        "fold rounded once": (fold, np.ones((1, 1), np.float32),
+                              np.ones((2, 1), np.float32)),
+        "strength rounded once": (strength, np.ones((P_s, 1), np.float32),
+                                  np.array([[1.0], [0.0]], np.float32)),
+        "equal strengths": auction_tie_case(noise),
+    }
+    for name, arrays in special.items():
+        args = [cuda(a) for a in arrays]
+        for k in (None, 1, 2):
+            note(k, auction_pair(*args, nseed, name, k=k)[3])
+    budget = [cuda(a) for a in auction_adversarial(1)]
+    for k in (None, 2):
+        for rounds in (1, 2, 4):
+            got, _st, _ms, e = auction_pair(*budget, nseed, "budget",
+                                            k=k, max_rounds=rounds)
+            note(k, e)
+            check(not bool(got.assigned.all()),
+                  f"a round budget of {rounds} placed every pod")
+    print("auction kernels vs plain: the fold and the strength rounded "
+          "once, equal strengths to the higher row, round budgets of 1, 2 "
+          "and 4 that leave feasible pods unassigned: bitwise equal")
+
+    plugin_set = BENCH_PROFILE.build()
+    eb_d, nf_d, af_d = (to_torch(x, "cuda") for x in (eb, nf, af))
+    scores = evaluate(plugin_set, eb_d, nf_d, af_d)[0]
+    full = (scores, eb_d.pf.requests, nf_d.free)
+    P = scores.shape[0]
+    three = (torch.arange(P, device=scores.device) % 3).to(torch.int32)
+    out = {}
+    for label, prio in (("full width", None), ("full width, 3 bands", three)):
+        for k in (None, K):
+            out[(label, k)] = auction_timed(full, seed, label, smi,
+                                            prio=prio, k=k)
+    _skey_step, skey = prng.split(key)
+    idx = _select_node_sample(nf_d, skey, SAMPLE_K)
+    nf_s = _gather_nodes(nf_d, idx)
+    s_scores = evaluate(plugin_set, eb_d, nf_s, af_d)[0]
+    sampled = (s_scores, eb_d.pf.requests, nf_s.free)
+    for k in (None, K):
+        out[("sampled", k)] = auction_timed(sampled, seed, "sampled", smi,
+                                            k=k)
+    del s_scores, sampled, nf_s, idx
+    cont = shortlist_case(BATCH, scores.shape[1], full[1].shape[1], 3,
+                          contend=True)
+    dense, dstats, _ms, e = auction_pair(*cont, seed, "contention")
+    note(None, e)
+    for k in (1, K, scores.shape[1]):
+        got, stats, _ms, e = auction_pair(*cont, seed, "contention", k=k)
+        note(k, e)
+        compare(got, dense)
+        check(k != 1 or stats[2] > 0,
+              "the contention batch made no repairs at K=1")
+        print(f"bid_auction kernel = dense auction kernel, contention "
+              f"{tuple(cont[0].shape)}x{cont[1].shape[1]} K={k}: chosen, "
+              f"assigned, free_after bitwise equal, {stats[0]} rounds "
+              f"(dense {dstats[0]}), {stats[2]} full-row bids, "
+              f"{int(got.assigned.sum())} assigned ({smi})")
+    del cont, dense, got, full, scores, eb_d, nf_d, af_d
+    for name in err:
+        out[name + "_err"] = err[name]
+    return out
+
+
+def auction_step_phase(smi, eb, nf, af, key):
+    """build_step(assignment="auction") on the card against the CPU, every
+    Decision field bitwise, on the bench batch sampled (1,024 x 4,096)
+    and unsampled (1,024 x 53,248), with the bid shortlist and without;
+    no host sync in the gang-free sampled step."""
+    plugin_set = BENCH_PROFILE.build()
+    eb_d, nf_d, af_d = (to_torch(x, "cuda") for x in (eb, nf, af))
+    eb_c, nf_c, af_c = (to_torch(x, "cpu") for x in (eb, nf, af))
+    for sample in (SAMPLE_K, None):
+        for kk in (K, None):
+            step = build_step(plugin_set, shortlist=kk, sample_nodes=sample,
+                              assignment="auction")
+            d_gpu = step(eb_d, nf_d, af_d, key)
+            t = time.perf_counter()
+            d_cpu = step(eb_c, nf_c, af_c, key)
+            cpu_s = time.perf_counter() - t
+            for field in d_cpu._fields:
+                check(torch.equal(bits(getattr(d_gpu, field)),
+                                  bits(getattr(d_cpu, field))),
+                      f"auction step sample={sample} shortlist={kk} field "
+                      f"{field}: cuda != cpu")
+            ms = cuda_ms(lambda: step(eb_d, nf_d, af_d, key), reps=3)
+            shape = f"sampled K={sample}" if sample else "unsampled"
+            print(f"auction step {shape} shortlist={kk}: every Decision field bitwise equal cuda "
+                  f"vs cpu, {int(d_cpu.assigned.sum())} assigned; cuda "
+                  f"{ms:.3f} ms per step back to back, cpu {cpu_s:.2f} s "
+                  f"({smi})")
+    step = build_step(plugin_set, shortlist=K, sample_nodes=SAMPLE_K,
+                      assignment="auction")
+    check_no_sync(lambda: step(eb_d, nf_d, af_d, key, has_gang=False,
+                               hard_spread=False),
+                  "the auction step, sampled")
+    print("auction step, sampled: no host sync (gang-free, no DoNotSchedule "
+          "slot)")
+
+
+def c5_pods(pods, gang: int = 8):
+    """BASELINE config 5's pods (bench.py:378-395): gangs of 8 at quorum
+    8."""
+    for i, p in enumerate(pods):
+        p.spec.pod_group = f"gang-{i // gang}"
+        p.spec.pod_group_min = gang
+    return pods
+
+
+def auction_burst_phase(smi):
+    """The bench burst and BASELINE config 5's gang burst through Cluster
+    with SchedulerConfig(assignment="auction"). Returns (launches by
+    path, create-to-bound by path)."""
+    launches, c2bs = {}, {}
+    nodes, pods = bench_workload(N_NODES, N_PODS)
+    m, launches["bench"], c2bs["bench"], per_pod, _ = drive(
+        SchedulerConfig(platform="", assignment="auction"), nodes, pods,
+        "auction bench")
+    b = m["batches"]
+    check(launches["bench"]["bid_auction"] >= b > 0
+          and m["sampled_batches"] == b,
+          f"auction bench: bid_auction launched "
+          f"{launches['bench']['bid_auction']} times in {b} batches, "
+          f"{m['sampled_batches']} sampled")
+    print(path_line(f"auction bench (assignment=auction, bid shortlist "
+                    f"K={K}, node sample) {N_NODES} nodes x {N_PODS} pods",
+                    m, launches["bench"], c2bs["bench"], per_pod, N_PODS,
+                    smi)
+          + f"; {m['sampled_batches']} of {b} batches sampled; device "
+            "free/used_ports = host mirror bitwise")
+    nodes, pods = bench_workload(N_NODES, N_PODS)
+    m, launches["config 5"], c2bs["config 5"], per_pod, placed = drive(
+        SchedulerConfig(platform="", assignment="auction"), nodes,
+        c5_pods(pods), "config 5")
+    b = m["batches"]
+    check(launches["config 5"]["bid_auction"] >= b > 0
+          and m["sampled_batches"] == 0 and m["pods_failed"] == 0,
+          f"config 5: bid_auction launched "
+          f"{launches['config 5']['bid_auction']} times in {b} batches, "
+          f"{m['sampled_batches']} sampled, {m['pods_failed']} failed")
+    members: dict = {}
+    for name in placed:
+        members[int(name.split("-")[1]) // 8] = (
+            members.get(int(name.split("-")[1]) // 8, 0) + 1)
+    check(len(members) == N_PODS // 8 and set(members.values()) == {8},
+          "config 5: a gang was not placed whole")
+    print(path_line(f"config 5 (assignment=auction, gangs of 8 at quorum 8,"
+                    f" every batch unsampled: the bid shortlist at "
+                    f"{BATCH}x{step_bucket(N_NODES)}) {N_NODES} nodes x "
+                    f"{N_PODS} pods", m, launches["config 5"],
+                    c2bs["config 5"], per_pod, N_PODS, smi)
+          + f"; {len(members)} gangs whole, gang_rejected 0 (no pod "
+            "failed)")
+    return launches, c2bs
+
+
+def auction_fault_phase():
+    """The auction on the card under auction_mirror:corrupt@2 with the
+    carry cross-check armed (resident_check_every=1) and the shortlist
+    cross-check against the dense rounds (shortlist_check_every=1): the
+    phantom debit is caught as a desync, re-uploaded, and the placements
+    equal the fault-free run's. Returns the launches of the fault-free
+    run (the dense kernel in each cross-check)."""
+    cfg = dict(platform="", assignment="auction", pipeline=False,
+               max_batch_size=64, batch_window_s=0.3,
+               backoff_initial_s=0.05, backoff_max_s=0.3,
+               probation_batches=1, resident_check_every=1,
+               shortlist_check_every=1)
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    ref, ref_m = fault_burst("", SchedulerConfig(**cfg), "auction checks")
+    launches = dict(LAUNCHES)
+    check(ref_m["batch_faults"] == 0 and ref_m["shortlist_desyncs"] == 0
+          and ref_m["residency_desyncs"] == 0
+          and ref_m["shortlist_checks"] >= ref_m["batches"] - 1
+          and launches["auction"] > 0 and launches["bid_auction"] > 0,
+          f"auction checks: {ref_m['shortlist_checks']} shortlist checks, "
+          f"launches {launches}")
+    placed, m = fault_burst("auction_mirror:corrupt@2",
+                            SchedulerConfig(**cfg), "auction_mirror")
+    check(m["fault_fires_auction_mirror"] == 1
+          and m["residency_desyncs"] >= 1
+          and m["degradation_state"] == "resident" and placed == ref,
+          f"auction_mirror: fires {m['fault_fires_auction_mirror']}, "
+          f"desyncs {m['residency_desyncs']}, ends at "
+          f"{m['degradation_state']}, placements equal {placed == ref}")
+    print(f"auction faults on the card: fault-free with both cross-checks "
+          f"({ref_m['shortlist_checks']} against the dense kernel, "
+          f"launched {launches['auction']} times; bid_auction "
+          f"{launches['bid_auction']}), then auction_mirror:corrupt@2 fired "
+          f"once, {m['residency_desyncs']} carry desync caught and "
+          f"re-uploaded, ends at resident; {len(placed)} placements = the "
+          f"fault-free run's")
+    return launches
+
+
 def zone_counts(nodes, placed):
     """Bound pods per zone label value, from drive()'s placements."""
     zone_of = {n.metadata.name: n.metadata.labels["zone"] for n in nodes}
@@ -1858,7 +2224,27 @@ def main() -> int:
           f"times), {cm['resident_checks']} carry checks, no desync, "
           f"placements = the fault-free run's")
 
-    # 20. the README scenario on the card, default config
+    # 20. the auction kernels vs their plain versions on the card
+    t_phase = time.perf_counter()
+    au = auction_kernels_phase(smi, eb, nf, af, key)
+    print(f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 21. the auction step, cuda = cpu, and no host sync when sampled
+    t_phase = time.perf_counter()
+    auction_step_phase(smi, eb, nf, af, key)
+    print(f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 22-23. the auction's bursts: the bench burst and config 5's gangs
+    t_phase = time.perf_counter()
+    au_launches, au_c2b = auction_burst_phase(smi)
+    print(f"phases 22-23 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 24. the auction under auction_mirror:corrupt and both cross-checks
+    t_phase = time.perf_counter()
+    au_check_launches = auction_fault_phase()
+    print(f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 25. the README scenario on the card, default config
     run_scenario(default_scenario, config=SchedulerConfig(platform=""))
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
@@ -1929,6 +2315,48 @@ def main() -> int:
         "plain_ms": caps_t["plain_ms"],
         "bound_ms": caps_t["bound_s"] * 1e3,
         "bound_by": caps_t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "auction",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/auction.cu",
+        "replaces": "minisched_tpu/ops/auction.py:104",
+        # The dense rounds run in the shortlist cross-check (and with
+        # shortlist=False): launches of phase 24's fault-free run.
+        "launches": au_check_launches["auction"],
+        "max_abs_err": au["auction_err"],
+        "ms": au[("sampled", None)]["ms"],
+        "device_ms": au[("sampled", None)]["device_ms"],
+        "spin_ms": au[("sampled", None)]["spin_ms"],
+        "plain_ms": au[("sampled", None)]["plain_ms"],
+        "bound_ms": au[("sampled", None)]["bound_s"] * 1e3,
+        "bound_by": au[("sampled", None)]["bound_by"],
+        "rounds": au[("sampled", None)]["rounds"],
+        "ms_full_width": au[("full width", None)]["ms"],
+        "bound_ms_full_width": au[("full width", None)]["bound_s"] * 1e3,
+        "library_ms": None,
+    }, {
+        "name": "bid_auction",
+        "route": "cuda",
+        "source": "minisched_tpu_torch/csrc/bid_auction.cu",
+        "replaces": "minisched_tpu/ops/bid_select.py:76",
+        "launches": au_launches["bench"]["bid_auction"],
+        "launches_by_path": {
+            "auction bench": au_launches["bench"]["bid_auction"],
+            "config 5": au_launches["config 5"]["bid_auction"],
+            "cross-checks": au_check_launches["bid_auction"]},
+        "max_abs_err": au["bid_auction_err"],
+        "ms": au[("sampled", K)]["ms"],
+        "device_ms": au[("sampled", K)]["device_ms"],
+        "spin_ms": au[("sampled", K)]["spin_ms"],
+        "select_ms": au[("sampled", K)]["select_ms"],
+        "plain_ms": au[("sampled", K)]["plain_ms"],
+        "bound_ms": au[("sampled", K)]["bound_s"] * 1e3,
+        "bound_by": au[("sampled", K)]["bound_by"],
+        "rounds": au[("sampled", K)]["rounds"],
+        "ms_full_width": au[("full width", K)]["ms"],
+        "bound_ms_full_width": au[("full width", K)]["bound_s"] * 1e3,
+        "bursts_s": au_c2b,
         "library_ms": None,
     }], "stages": [{
         # Not a kernel: the preemption op is PyTorch ops (the JAX package

@@ -26,8 +26,13 @@ class SchedulerConfig:
     node_bucket_min: int = 16        # bucket ladder minimum (pad N)
     backoff_initial_s: float = 1.0   # reference queue.go:218-221
     backoff_max_s: float = 10.0
-    # Host-selection strategy. Only "greedy" (priority-faithful
-    # sequential semantics) exists in this package.
+    # Host-selection strategy: "greedy" (priority-faithful sequential
+    # semantics; the shortlist scan or the full greedy kernel) or
+    # "auction" (parallel bidding rounds in descending priority bands,
+    # aggregate-score-seeking: ops/auction.py lists how it departs from
+    # the greedy contract; BASELINE config 5's opt-in). Both ride the
+    # same residency carry (the host mirror's debit replay is an
+    # order-free per-node aggregate) and shortlist knobs.
     assignment: str = "greedy"
     seed: int = 0                    # PRNG seed for tie-breaking parity
     bind_workers: int = 16           # async binding-cycle pool size

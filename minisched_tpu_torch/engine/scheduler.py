@@ -10,9 +10,10 @@ three phases:
            corrections to the carried free/used_ports; capacity
            nominated to preemptors outside the batch reserved)
            → step (on K sampled nodes at >= 2 × min_sample_nodes): filters
-           ∧ → scores → normalize → weigh → sum → greedy capacity-aware
-           assignment (the shortlist scan or the full greedy kernel on a
-           card) → pack the decision on the device
+           ∧ → scores → normalize → weigh → sum → capacity-aware
+           assignment (greedy: the shortlist scan or the full greedy
+           kernel on a card; ``assignment="auction"``: the bid-shortlist
+           or the dense auction kernel) → pack the decision on the device
   resolve  read the packed decision back (one fetch) → replay the
            device's debits and port insertions into the residency mirror
            → the full-axis residual pass for pods the sample found no
@@ -375,6 +376,11 @@ class _DeviceResidency:
                            dtype=self.mirror_free.dtype)
             np.add.at(agg, np.searchsorted(uniq, rows), reqs)
             self.mirror_free[uniq] -= agg
+            if FAULTS.hit("auction_mirror") == "corrupt":
+                # A mis-targeted aggregate: a phantom debit on a row the
+                # batch never debited, which no later delta corrects; only
+                # the resident_check_every carry check can see it.
+                self.mirror_free[-1, 0] -= 1.0
             if not np.isfinite(self.mirror_free[uniq]).all():
                 # A non-finite request or feature reached the carried
                 # chain: abort before the poisoned mirror is trusted (the
@@ -811,10 +817,10 @@ class Scheduler:
         self.store = store
         self.plugin_set = plugin_set
         self.config = config or SchedulerConfig()
-        if self.config.assignment != "greedy":
+        if self.config.assignment not in ("greedy", "auction"):
             raise ValueError(f"unknown assignment strategy "
-                             f"{self.config.assignment!r}; this package "
-                             "implements 'greedy'")
+                             f"{self.config.assignment!r}; expected "
+                             "'greedy' or 'auction'")
         # Resolved (and checked) at construction: a missing card fails
         # start_scheduler, not every later cycle.
         self.device = self.config.device()
@@ -840,10 +846,12 @@ class Scheduler:
             backoff_initial=self.config.backoff_initial_s,
             backoff_max=self.config.backoff_max_s)
 
-        # Shortlist-compressed arbitration: None = the full greedy kernel.
+        # Shortlist-compressed arbitration: None = the full greedy kernel
+        # (or, under the auction, the dense bidding rounds).
         self._shortlist_k = (self.config.shortlist_k
                              if self.config.shortlist else None)
-        self._step = build_step(plugin_set, shortlist=self._shortlist_k)
+        self._step = build_step(plugin_set, shortlist=self._shortlist_k,
+                                assignment=self.config.assignment)
         self._key = prng.PRNGKey(self.config.seed)
         self._step_counter = 0
         # Supervisor replay anchor: the step counter the batch in prepare
@@ -1398,7 +1406,8 @@ class Scheduler:
         if k >= n_pad // 2:
             return None, None
         return build_step(self.plugin_set, shortlist=self._shortlist_k,
-                          sample_nodes=k), k
+                          sample_nodes=k,
+                          assignment=cfg.assignment), k
 
     def _prepare_batch(self, batch: List[QueuedPodInfo]) -> _Batch:
         with span("prepare", pods=len(batch)):
@@ -1759,10 +1768,11 @@ class Scheduler:
 
     def _check_shortlist(self, b: _Batch, chosen, assigned) -> None:
         """Every ``shortlist_check_every`` batches, re-run this batch's
-        exact inputs through the full-width greedy assignment and compare
-        decisions: the certificate made executable. A divergence counts a
+        exact inputs through the full-width assignment (the greedy kernel,
+        or under the auction the dense rounds) and compare decisions: the
+        certificate made executable. A divergence counts a
         shortlist_desync, permanently reverts the engine to the full
-        kernel, and aborts the batch into the supervised retry, which
+        width, and aborts the batch into the supervised retry, which
         replays it bit-identically on the reverted path."""
         if not self.config.shortlist_check_every:
             return
@@ -1771,7 +1781,8 @@ class Scheduler:
             return
         self._sup_count("shortlist_checks")
         check_step = build_step(self.plugin_set, shortlist=None,
-                                sample_nodes=b.sample_k)
+                                sample_nodes=b.sample_k,
+                                assignment=self.config.assignment)
         d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key)
         ref_chosen = d.chosen.cpu().numpy()
         ref_assigned = d.assigned.cpu().numpy()
@@ -1792,13 +1803,14 @@ class Scheduler:
             f"diverged from the full-width scan on {bad} pod(s)")
 
     def _disable_shortlist(self, reason: str) -> None:
-        """Permanently revert to the full-width greedy assignment; sampled
-        steps read ``_shortlist_k`` per batch."""
+        """Permanently revert to the full-width assignment; sampled steps
+        read ``_shortlist_k`` per batch."""
         log.error("disabling shortlist-compressed arbitration (%s); "
                   "reverting to the full-width scan", reason)
         jnote("shortlist.disable", reason=reason, batch=self._batch_seq)
         self._shortlist_k = None
-        self._step = build_step(self.plugin_set, shortlist=None)
+        self._step = build_step(self.plugin_set, shortlist=None,
+                                assignment=self.config.assignment)
 
     def _slice_eb(self, eb, rows, bucket: Optional[int] = None):
         """(eb_sub, P2): the pod rows ``rows`` of a host EncodedBatch,

@@ -3,8 +3,9 @@
 Each kernel source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``_build/`` beside the package sources, and loaded with ``ctypes``. The
-library's file name carries a hash of the source, so an edited source is
-rebuilt. Nothing is compiled when this module is imported.
+library's file name carries a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt. Nothing is
+compiled when this module is imported.
 
 ``LAUNCHES`` counts the launches of every kernel by name since the last
 reset: the main path's evidence that it ran through the kernels. Only a
@@ -29,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("greedy_assign", "shortlist_select", "shortlist_scan",
-           "insert_ports", "caps_scan")
+           "insert_ports", "caps_scan", "auction", "bid_auction")
 NO_LAUNCH = -1  # a launcher's return when it had no work to launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -54,9 +55,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source(name), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source(name)] + [os.path.join(CSRC_DIR, f)
+                                  for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:

@@ -14,8 +14,11 @@ assignment stage goes through ``select.greedy_assign`` or, with a
 shortlist, ``select.greedy_assign_shortlist``, which launch their CUDA
 kernels for CUDA tensors; a batch whose hard topology spread the in-scan
 domain caps enforce takes ``select.greedy_assign(caps=...)``, the caps
-scan. With ``sample_nodes=K`` the step first picks K candidate nodes and
-runs on them alone (node-axis sampling).
+scan. ``assignment="auction"`` takes the banded bidding rounds instead
+(``auction.auction_assign``, or with a shortlist
+``bid_select.auction_assign_shortlist``). With ``sample_nodes=K`` the
+step first picks K candidate nodes and runs on them alone (node-axis
+sampling).
 """
 from __future__ import annotations
 
@@ -27,8 +30,11 @@ import torch
 from ..encode.features import DEFAULT_ENCODING
 from ..plugins.base import PluginSet
 from . import prng
+from .auction import auction_assign
+from .bid_select import auction_assign_shortlist
 from .gang import gang_assign
-from .select import NEG, greedy_assign, greedy_assign_shortlist, order_key
+from .select import (NEG, fma_f32, greedy_assign, greedy_assign_shortlist,
+                     order_key)
 from .topology import group_topology_state
 
 
@@ -140,24 +146,6 @@ def evaluate(plugin_set: PluginSet, eb, nf, af):
     return total, counts, rejects
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of float32 tensors rounded once, as a fused
-    multiply-add does, on any device. The product is exact in float64;
-    the sum is rounded to float64 with round-to-odd (TwoSum gives its
-    error, and an inexact even result steps one ulp toward the error),
-    which makes the final rounding to float32 correct (53 >= 24 + 2)."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((err != 0) & even,
-                    torch.nextafter(s, s + err), s)
-    return s.float()
-
-
 def _sample_proxy(nf, key) -> torch.Tensor:
     """The node sample's ranking value per node row: a cheap
     LeastAllocated-flavoured proxy (mean free fraction over the resource
@@ -208,7 +196,8 @@ def _gather_nodes(nf, idx: torch.Tensor):
 
 
 def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
-               sample_nodes: Optional[int] = None):
+               sample_nodes: Optional[int] = None,
+               assignment: str = "greedy"):
     """The scheduling step for a plugin profile:
     ``step(eb, nf, af, key, has_gang=None, hard_spread=None) -> Decision``
     where ``eb`` is an EncodedBatch, ``nf`` the NodeFeatures and ``af``
@@ -219,6 +208,12 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
     (select.greedy_assign_shortlist, K clamped to the node pad); None or
     K < 1 keeps the full greedy assignment. Decisions are bit-identical
     either way; only ``shortlist_repaired`` tells them apart.
+
+    ``assignment="auction"`` assigns with the priority-banded bidding
+    rounds (auction.auction_assign with the batch's priorities), through
+    the bid shortlist (bid_select.auction_assign_shortlist at K clamped
+    to the step's node axis) when ``shortlist`` is given; "greedy" is the
+    default, and anything else raises.
 
     ``sample_nodes=K`` (K < the node pad) evaluates the batch against K
     candidate nodes (_select_node_sample, drawn with the second half of
@@ -232,20 +227,28 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
     must be re-evaluated against the full axis before it is declared
     unschedulable (the engine's residual pass).
 
-    Hard topology spread: an unsampled step of a profile with a topology
-    plugin builds the in-scan domain caps (ops/spreadcap.py). Where they
-    enforce a slot (``caps.any_enforced``) the assignment is the caps
-    scan (select.greedy_assign with ``caps``, the caps kernel on a card)
-    instead of the shortlist scan or the greedy kernel: the JAX package's
+    Hard topology spread: an unsampled greedy step of a profile with a
+    topology plugin builds the in-scan domain caps (ops/spreadcap.py).
+    Where they enforce a slot (``caps.any_enforced``) the assignment is
+    the caps scan (select.greedy_assign with ``caps``, the caps kernel on
+    a card) instead of the shortlist scan or the greedy kernel: the JAX
+    package's
     ``lax.cond``. PyTorch has no branch on the device, so the host
     decides. ``hard_spread`` is what the caller knows of the batch on
     the host: False (no DoNotSchedule slot on a live pod, so no slot can
     be enforced) skips the caps without reading the card; True or None
     builds them and reads ``any_enforced`` once, the step's one wait on
-    the card in such a batch. ``has_gang=False`` likewise lets the gang
-    admission skip its read (ops/gang.py)."""
+    the card in such a batch. Under the auction the caps never run (only
+    the greedy scan carries running counts): a hard-spread batch keeps
+    the static filter and the engine's arbitration. ``has_gang=False``
+    likewise lets the gang admission skip its read (ops/gang.py)."""
+    if assignment not in ("greedy", "auction"):
+        raise ValueError(f"unknown assignment strategy {assignment!r}; "
+                         "expected 'greedy' or 'auction'")
+    if shortlist is not None and shortlist < 1:
+        shortlist = None
     base_fn = greedy_assign
-    if shortlist is not None and shortlist >= 1:
+    if shortlist is not None:
         base_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
     active = plugin_set.filter_plugins + plugin_set.score_plugins
     needs_topology = any(p.needs_topology for p in active)
@@ -281,7 +284,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
         # sampled running min would cover the sampled nodes' domains
         # alone, while the filter's global-min check stands down).
         caps, enforced = None, False
-        if (needs_topology and sample_idx is None
+        if (needs_topology and sample_idx is None and assignment == "greedy"
                 and hard_spread is not False):
             from .spreadcap import build_domain_caps
 
@@ -303,8 +306,17 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             feasible_static = (feasible & m_static).sum(dim=1).to(
                 torch.int32)
         del feasible
-        greedy_fn = (functools.partial(greedy_assign, caps=caps) if enforced
-                     else base_fn)
+        if assignment == "auction":
+            greedy_fn = (functools.partial(auction_assign,
+                                           priority=pf.priority)
+                         if shortlist is None else
+                         functools.partial(auction_assign_shortlist,
+                                           priority=pf.priority,
+                                           k=min(shortlist, N)))
+        elif enforced:
+            greedy_fn = functools.partial(greedy_assign, caps=caps)
+        else:
+            greedy_fn = base_fn
         assign = gang_assign(masked_total, pf.requests, nf.free,
                              eb.gang.group, eb.gang.min_count,
                              prng.bits(key), greedy_fn=greedy_fn,

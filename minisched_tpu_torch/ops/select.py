@@ -52,6 +52,24 @@ def tie_noise_from_cols(seed: int, i, cols: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as a fused
+    multiply-add does, on any device. The product is exact in float64;
+    the sum is rounded to float64 with round-to-odd (TwoSum gives its
+    error, and an inexact even result steps one ulp toward the error),
+    which makes the final rounding to float32 correct (53 >= 24 + 2)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, s + err), s)
+    return s.float()
+
+
 def tie_noise(seed: int, i, n: int, device=None) -> torch.Tensor:
     return tie_noise_from_cols(
         seed, i, torch.arange(n, dtype=torch.int64, device=device))

@@ -54,7 +54,10 @@ def test_whole_port_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"minisched_tpu_torch.engine.scheduler",
             "minisched_tpu_torch.faults", "minisched_tpu_torch.obs",
-            "minisched_tpu_torch.obs.journal"} <= set(mods)
+            "minisched_tpu_torch.obs.journal",
+            "minisched_tpu_torch.ops.auction",
+            "minisched_tpu_torch.ops.bid_select",
+            "minisched_tpu_torch.ops.auction_kernel"} <= set(mods)
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -1,5 +1,6 @@
 """The CUDA kernels (greedy assignment, shortlist selection, shortlist
-scan, port insertion, caps scan) against their plain PyTorch versions,
+scan, port insertion, caps scan, the dense auction and the bid-shortlist
+auction) against their plain PyTorch versions,
 the step's host syncs, and the preemption op (PyTorch ops) cuda = cpu
 on the card.
 
@@ -17,14 +18,21 @@ from minisched_tpu_torch.ops import prng
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops import select as S
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
+from minisched_tpu_torch.ops.auction import auction_assign_plain
+from minisched_tpu_torch.ops.auction_kernel import (auction_cuda,
+                                                    bid_auction_cuda)
+from minisched_tpu_torch.ops.bid_select import (
+    auction_assign_shortlist, auction_assign_shortlist_plain)
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
-from torch_parity import (CAPS_KINDS, GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
-                          SELECT_CARD_LIST_KINDS, SHORTLIST_CASES,
-                          bits_equal, caps_problem,
+from torch_parity import (AUCTION_CASES, CAPS_KINDS, GREEDY_SHAPES, NEG,
+                          PORTS_DESIGN_KINDS, SELECT_CARD_LIST_KINDS,
+                          SHORTLIST_CASES, auction_adversarial,
+                          auction_fold_case, auction_strength_case,
+                          auction_tie_case, bits_equal, caps_problem,
                           greedy_case, ports_case, ports_design_case,
                           scarce_case, select_list_case, shortlist_case)
 
@@ -564,3 +572,161 @@ def test_preempt_op_on_card_equals_cpu(seed):
     for a, b in zip(got, want):
         assert bits_equal(a.cpu().numpy(), b.numpy())
     assert bool(want[1].any())
+
+
+# ---- the auction kernels --------------------------------------------------
+
+
+def _port_noise(seed):
+    """The port's tie noise lattice of ``seed`` as f(i, cols) -> numpy."""
+    def noise(i, cols):
+        return S.tie_noise_from_cols(
+            seed, torch.as_tensor(np.asarray(i, np.int64)),
+            torch.as_tensor(np.asarray(cols, np.int64))).numpy()
+    return noise
+
+
+def test_auction_wrappers_refuse_cpu_tensors():
+    args = (torch.zeros((2, 3)), torch.zeros((2, 4)), torch.zeros((3, 4)), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        auction_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        bid_auction_cuda(*args, k=2)
+
+
+def test_auction_dispatch_on_cpu_is_the_plain_version():
+    scores, req, free = (torch.from_numpy(a)
+                         for a in auction_adversarial(2))
+    n0 = dict(LAUNCHES)
+    got = auction_assign_shortlist(scores, req, free, 99, k=2)
+    want = auction_assign_shortlist_plain(scores, req, free, 99, k=2)
+    assert LAUNCHES == n0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _auction_on_card(scores, req, free, seed, prio=None, k=None,
+                     max_rounds=None):
+    """One kernel against its plain version: every output, the rounds run
+    and one counted launch (none for an empty batch). Returns the plain
+    result."""
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (scores, req, free)]
+    tp = None if prio is None else torch.from_numpy(np.asarray(prio,
+                                                               np.int32))
+    r_plain = torch.zeros((3,), dtype=torch.int32)
+    r_card = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    dev = [a.cuda() for a in args]
+    dp = None if tp is None else tp.cuda()
+    name = "auction" if k is None else "bid_auction"
+    n0 = LAUNCHES[name]
+    if k is None:
+        plain = auction_assign_plain(*args, seed, max_rounds=max_rounds,
+                                     priority=tp, stats=r_plain)
+        got = auction_cuda(*dev, seed, max_rounds=max_rounds, priority=dp,
+                           rounds=r_card)
+        fields = ("chosen", "assigned", "free_after")
+    else:
+        plain = auction_assign_shortlist_plain(
+            *args, seed, max_rounds=max_rounds, priority=tp, k=k,
+            stats=r_plain)
+        got = bid_auction_cuda(*dev, seed, max_rounds=max_rounds,
+                               priority=dp, k=k, rounds=r_card)
+        fields = ("chosen", "assigned", "free_after", "repaired")
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == n0 + (scores.shape[0] > 0)
+    for field in fields:
+        assert bits_equal(getattr(plain, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    assert int(r_card[0]) == int(r_plain[0])
+    return plain
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case,k", [(c, k) for c in sorted(AUCTION_CASES)
+                                    for k in (None,) + AUCTION_CASES[c][2]])
+def test_auction_kernels_match_plain_on_card(case, k):
+    _need_card()
+    make, prio, _widths = AUCTION_CASES[case]
+    seed = prng.bits(prng.fold_in(prng.PRNGKey(7), len(case)))
+    plain = _auction_on_card(*make(), seed, prio=prio, k=k)
+    assert int(plain.assigned.sum()) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [None, 1, 2])
+@pytest.mark.parametrize("kind", ["fold", "strength", "tie"])
+def test_auction_kernels_round_once_on_card(kind, k):
+    """The fold and the strength are one fused multiply-add on the card
+    too, and equal strengths go to the higher row."""
+    _need_card()
+    seed = prng.bits(prng.PRNGKey(5))
+    noise = _port_noise(seed)
+    if kind == "fold":
+        scores, _win = auction_fold_case(noise)
+        req, free = np.ones((1, 1), np.float32), np.ones((2, 1), np.float32)
+    elif kind == "strength":
+        scores, _win, _split = auction_strength_case(noise)
+        req = np.ones((scores.shape[0], 1), np.float32)
+        free = np.array([[1.0], [0.0]], np.float32)
+    else:
+        scores, req, free = auction_tie_case(noise)
+        k = None if k is None else min(k + 1, 3)
+    _auction_on_card(scores, req, free, seed, k=k)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [None, 2])
+@pytest.mark.parametrize("budget", [1, 2, 4])
+def test_auction_round_budget_on_card(k, budget):
+    _need_card()
+    plain = _auction_on_card(*auction_adversarial(1), 1234, k=k,
+                             max_rounds=budget)
+    assert int((~plain.assigned).sum()) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [None, 4])
+def test_auction_empty_batch_on_card(k):
+    _need_card()
+    scores, req, free = auction_adversarial(0)
+    _auction_on_card(scores[:0], req[:0], free, 1, k=k)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [None, 2, 128])
+def test_auction_kernels_uncached_rows_on_card(k):
+    """Rows of 65,536 columns, whose 4N key bytes do not fit in a block's
+    shared memory: the bid shortlist's selection folds every score again
+    in each pass. Every pod wants nodes 0-3, which fit one pod each, so
+    at K=2 the rest find their candidates closed and are repaired; row 5
+    has 50 feasible columns, fewer than K=128, so its selection takes the
+    column-ordered ties at NEG."""
+    _need_card()
+    rng = np.random.default_rng(16)
+    P, N = 16, 65536
+    scores = rng.integers(0, 4, (P, N)).astype(np.float32)
+    scores[:, :4] = 10.0
+    scores[5, 50:] = NEG
+    req = np.ones((P, 2), np.float32)
+    free = np.full((N, 2), 4.0, np.float32)
+    free[:4] = 1.0
+    plain = _auction_on_card(scores, req, free, 4321, k=k)
+    assert int(plain.assigned.sum()) == P
+    if k == 2:
+        assert int(plain.repaired.sum()) >= P - 4
+
+
+@pytest.mark.card
+def test_auction_wrappers_refuse_batches_over_their_limit_on_card():
+    """open_nodes keeps each thread's bidders in a 32-bit mask: a batch
+    holds at most 32 x 512 pods."""
+    _need_card()
+    P = 32 * 512 + 1
+    args = (torch.zeros((P, 2), device="cuda"),
+            torch.ones((P, 1), device="cuda"),
+            torch.ones((2, 1), device="cuda"), 0)
+    with pytest.raises(ValueError, match="P <= 16384"):
+        auction_cuda(*args)
+    with pytest.raises(ValueError, match="P <= 16384"):
+        bid_auction_cuda(*args, k=1)

@@ -64,7 +64,10 @@ def _mounted_claim_run(pkg):
         out = []
         for name in ("p1", "p2"):
             c.create_pod(name, spec=spec())
-            wait_until(lambda: bool(c.get_pod(name).spec.node_name), 3.0)
+            # The first bind waits for the JAX engine to compile its step
+            # (4.5 s measured on a loaded 8-core host); a pod charged a
+            # slot the node does not have never binds.
+            wait_until(lambda: bool(c.get_pod(name).spec.node_name), 30.0)
             out.append(c.get_pod(name).spec.node_name or "not bound")
         return tuple(out)
     finally:

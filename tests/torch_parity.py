@@ -659,3 +659,176 @@ def volume_cluster(O, n_nodes: int = 120, n_pods: int = 240, seed: int = 0):
                            priority=int(rng.integers(0, 3)),
                            volumes=vols, **spec)))
     return first, pods
+
+
+# ---- the auction's instances (tests/test_auction.py's shapes) ------------
+
+
+def auction_instance(P, N, R=4, seed=0, infeasible_frac=0.2, cap_lo=2,
+                     cap_hi=6):
+    """tests/test_auction.py's random instance: scores in [0, 100), NEG on
+    a fifth of the pairs, requests of 100-300 and free of cap_lo-cap_hi
+    times 300 per axis."""
+    rng = np.random.default_rng(seed)
+    scores = rng.random((P, N)).astype(np.float32) * 100.0
+    scores[rng.random((P, N)) < infeasible_frac] = np.float32(NEG)
+    requests = (rng.integers(1, 4, (P, R)) * 100).astype(np.float32)
+    free = (rng.integers(cap_lo, cap_hi, (N, R)) * 300).astype(np.float32)
+    return scores, requests, free
+
+
+def auction_contention(seed=2):
+    """32 pods on 4 nodes that each fit about three of them."""
+    rng = np.random.default_rng(seed)
+    scores = (rng.random((32, 4)) * 10).astype(np.float32)
+    return (scores, np.full((32, 2), 100.0, np.float32),
+            np.full((4, 2), 300.0, np.float32))
+
+
+def auction_adversarial(seed):
+    """Deep contention on two-level plateaus: 24 pods, 8 nodes of exactly
+    three slots each."""
+    rng = np.random.default_rng(seed)
+    scores = (np.round(rng.random((24, 8)) * 2) * 50).astype(np.float32)
+    return (scores, np.full((24, 1), 100.0, np.float32),
+            np.full((8, 1), 300.0, np.float32))
+
+
+def auction_plateau():
+    """Two score levels over 96 nodes with room for every pod: the fold's
+    noise certifies a K=8 shortlist every round."""
+    rng = np.random.default_rng(31)
+    scores = np.where(rng.random((16, 96)) < 0.5, 50.0, 25.0).astype(
+        np.float32)
+    return (scores, np.full((16, 2), 100.0, np.float32),
+            np.full((96, 2), 400.0, np.float32))
+
+
+def auction_signed_zero():
+    """Rows of -0.0 and +0.0 with three 5.0 entries on every other row."""
+    rng = np.random.default_rng(4)
+    scores = np.where(rng.random((12, 300)) < 0.5, 0.0, -0.0).astype(
+        np.float32)
+    for row in scores[::2]:
+        row[rng.choice(300, 3, replace=False)] = 5.0
+    return (scores, np.ones((12, 2), np.float32),
+            np.full((300, 2), 1.0, np.float32))
+
+
+def auction_padded():
+    """Two everywhere-infeasible pods and four padded rows (NEG, zero
+    requests) in two bands."""
+    scores, req, free = auction_instance(20, 30, seed=8)
+    scores[[2, 9]] = NEG
+    scores[16:] = NEG
+    req[16:] = 0.0
+    return scores, req, free
+
+
+# name -> (builder, priorities or None, bid-shortlist widths)
+AUCTION_CASES = {
+    "abundant 64x256": (lambda: auction_instance(64, 256, seed=1), None,
+                        (1, 16, 256)),
+    "scarce 48x40": (lambda: auction_instance(48, 40, seed=3, cap_lo=1,
+                                              cap_hi=3), None, (2, 40)),
+    "contention 32x4": (auction_contention, None, (1, 2, 4)),
+    "three bands": (lambda: auction_instance(40, 64, seed=20, cap_lo=1,
+                                             cap_hi=3),
+                    (np.arange(40) % 3) * 7, (1, 16, 64)),
+    "bands, scarce": (lambda: auction_instance(30, 12, seed=5, cap_lo=1,
+                                               cap_hi=2),
+                      np.array([5, 1, 3] * 10), (2, 12)),
+    "adversarial": (lambda: auction_adversarial(0), None, (2,)),
+    "plateau": (auction_plateau, None, (8,)),
+    "signed zeros": (auction_signed_zero, None, (1, 7, 300)),
+    "padded": (auction_padded, np.array([3] * 8 + [1] * 12), (4,)),
+}
+
+FOLD_EPS, HALF_EPS = np.float32(0.01), np.float32(0.005)
+
+
+def fma32(a, b, c) -> np.float32:
+    """float32(a * b + c) rounded once (exact rational arithmetic)."""
+    from fractions import Fraction
+
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(exact))
+    near = (f, np.nextafter(f, np.float32(-np.inf)),
+            np.nextafter(f, np.float32(np.inf)))
+    return np.float32(min(near, key=lambda x: (
+        abs(Fraction(float(x)) - exact), int(x.view(np.int32)) & 1)))
+
+
+def sep32(a, b, c) -> np.float32:
+    """float32(a * b + c) rounded twice: the product, then the sum."""
+    return np.float32(np.float32(np.float32(a) * np.float32(b))
+                      + np.float32(c))
+
+
+def auction_fold_case(noise):
+    """One pod, two nodes whose noise fold ranks the nodes one way rounded
+    once and the other way rounded twice. ``noise(i, cols)`` is the tie
+    noise lattice of the batch's seed. Returns (scores, the node one
+    rounding picks)."""
+    n = noise(0, np.arange(2))
+    s0 = np.float32(0.011)
+    f0 = fma32(n[0], FOLD_EPS, s0)
+    assert f0 == sep32(n[0], FOLD_EPS, s0)
+    base = np.float32(s0 + n[0] * FOLD_EPS - n[1] * FOLD_EPS)
+    for d in range(-400, 400):
+        s1 = np.float32(base + np.float32(d) * np.spacing(base))
+        fused = 1 if fma32(n[1], FOLD_EPS, s1) > f0 else 0
+        split = 1 if sep32(n[1], FOLD_EPS, s1) > f0 else 0
+        if fused != split:
+            return np.array([[s0, s1]], np.float32), fused
+    raise AssertionError("no fold case for this seed")
+
+
+def auction_strength_case(noise, P=16):
+    """Two pods bidding on node 0 in round 0 whose strengths order one way
+    rounded once and the other way rounded twice (their folds agree).
+    Returns (scores (P,2), the winning pod rounded once, rounded
+    twice)."""
+    rows = np.arange(P)
+    rn, fn = noise(0, rows), noise(rows, 0)
+    s1 = np.float32(0.011)
+    for r1 in range(P):
+        v1 = fma32(fn[r1], FOLD_EPS, s1)
+        a, b = fma32(rn[r1], HALF_EPS, v1), sep32(rn[r1], HALF_EPS, v1)
+        if a == b:
+            continue
+        hi = max(a, b)
+        for r0 in range(P):
+            if r0 == r1:
+                continue
+            guess = np.float32(hi - rn[r0] * HALF_EPS - fn[r0] * FOLD_EPS)
+            for d in range(-8, 9):
+                s0 = np.float32(guess + np.float32(d) * np.spacing(guess))
+                v0 = fma32(fn[r0], FOLD_EPS, s0)
+                c = fma32(rn[r0], HALF_EPS, v0)
+                if c == hi == sep32(rn[r0], HALF_EPS, v0):
+                    def winner(st1):
+                        return r1 if (st1, r1) > (c, r0) else r0
+                    scores = np.full((P, 2), NEG, np.float32)
+                    scores[r0, 0], scores[r1, 0] = s0, s1
+                    return scores, winner(a), winner(b)
+    raise AssertionError("no strength case for this seed")
+
+
+def auction_tie_case(noise):
+    """Pods 1 and 3 bid on node 0 with exactly equal strengths in round 0
+    (node 0 fits one pod; node 2 takes the other). Returns (scores, req,
+    free)."""
+    rows = np.arange(4)
+    rn, fn = noise(0, rows), noise(rows, 0)
+    target = fma32(rn[3], HALF_EPS, fma32(fn[3], FOLD_EPS, np.float32(40.0)))
+    guess = np.float32(target - rn[1] * HALF_EPS - fn[1] * FOLD_EPS)
+    for d in range(-64, 65):
+        s1 = np.float32(guess + np.float32(d) * np.spacing(guess))
+        if fma32(rn[1], HALF_EPS, fma32(fn[1], FOLD_EPS, s1)) == target:
+            scores = np.full((4, 3), NEG, np.float32)
+            scores[1, 0], scores[3, 0] = s1, 40.0
+            scores[:, 2] = 1.0
+            return (scores, np.ones((4, 1), np.float32),
+                    np.array([[1.0], [0.0], [8.0]], np.float32))
+    raise AssertionError("no tie case for this seed")

@@ -34,7 +34,11 @@ chip_smoke.full_workload: the bench cluster, every fifth pod with a
 Bound claim on a zone-labelled PV, without the PV controller, as
 bench.py runs its engine cells); full-pv (the same with the PV
 controller on, which relists every claim and PV on each claim-carrying
-pod event). The default list is default,unsampled.
+pod event); auction (the bench burst with assignment="auction": the bid
+shortlist, sampled as the default); c5-auction (BASELINE config 5 under
+the auction: the bench pods in gangs of 8 at quorum 8,
+chip_smoke.c5_pods, every batch unsampled). The default list is
+default,unsampled.
 """
 from __future__ import annotations
 
@@ -62,6 +66,8 @@ MODES = {
     "c4-hard": {},
     "full": {},
     "full-pv": {},
+    "auction": {"assignment": "auction"},
+    "c5-auction": {"assignment": "auction"},
 }
 # Modes with another workload and profile than the bench's.
 WORKLOADS = {
@@ -71,6 +77,9 @@ WORKLOADS = {
                 cs.C4_PROFILE),
     "full": (cs.full_workload, cs.FULL_PROFILE),
     "full-pv": (cs.full_workload, cs.FULL_PROFILE),
+    "c5-auction": (lambda n, p, seed=0: (lambda nodes, pods: (
+        nodes, cs.c5_pods(pods)))(*cs.bench_workload(n, p, seed)),
+        cs.BENCH_PROFILE),
 }
 
 

@@ -16,10 +16,14 @@ step sampled, and the hard step (DoNotSchedule, max_skew 1) unsampled,
 whose one read of the caps' any_enforced is expected; then
 full_scheduler_profile()'s sampled step on chip_smoke's claim-carrying
 batch (pinned, unused, zone-bound and cloud-typed claims, host ports,
-taints); and last the preemption pass's device work at bench.py's shape
+taints); the preemption pass's device work at bench.py's shape
 (chip_smoke.preempt_bench_inputs): the candidate op alone, then the op
 with the engine's one read of its outputs (ops/preempt.fetch_preempt),
-which is the one sync expected. Each line ends with the card's name and
+which is the one sync expected; and last the auction step
+(assignment="auction", the bid shortlist) sampled on the bench batch,
+and unsampled on BASELINE config 5's batch (gangs of 8 at quorum 8,
+chip_smoke.c5_pods) with the host's has_gang=True, whose gang admission
+reads the card once per attempt. Each line ends with the card's name and
 power limit. The debug mode is a prototype in torch: it may miss a sync,
 never invents one.
 """
@@ -109,6 +113,12 @@ def main() -> int:
     p_eb, p_nf, p_af, p_cfg = cs.preempt_bench_inputs()
     p_in = [to_torch(x, "cuda") for x in (p_eb, p_nf, p_af)]
     p_op = build_preempt_op(cs.PREEMPT_PROFILE.build(), cfg=p_cfg)
+    au_sampled = build_step(plugin_set, shortlist=cs.K,
+                            sample_nodes=cs.SAMPLE_K, assignment="auction")
+    au_full = build_step(plugin_set, shortlist=cs.K, assignment="auction")
+    nodes, pods = cs.bench_workload(cs.N_NODES, cs.N_PODS)
+    c5 = [to_torch(x, "cuda")
+          for x in cs.full_width_batch(nodes, cs.c5_pods(pods))]
     # The engine's host flags for a batch with no gang and no
     # DoNotSchedule slot.
     no_host = {"has_gang": False, "hard_spread": False}
@@ -127,7 +137,11 @@ def main() -> int:
              lambda: full_sampled(*full_batch, key, **no_host)),
             ("preemption op", lambda: p_op(*p_in)),
             ("preemption op and the pass's read",
-             lambda: fetch_preempt(p_op(*p_in)))):
+             lambda: fetch_preempt(p_op(*p_in))),
+            ("auction step, sampled",
+             lambda: au_sampled(eb, nf, af, key, **no_host)),
+            ("auction step on config 5's gangs, unsampled",
+             lambda: au_full(*c5, key, has_gang=True, hard_spread=False))):
         sites = sync_sites(fn)
         print(f"{name}: {sum(sites.values())} host syncs ({smi})")
         for (message, where), n in sites.items():
