@@ -202,9 +202,10 @@ from minisched_tpu_torch.state import objects as O
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_parity import (AUCTION_CASES, CAPS_KINDS,  # noqa: E402
-                          SELECT_CARD_LIST_KINDS, auction_adversarial,
-                          auction_fold_case, auction_strength_case,
+from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES,  # noqa: E402
+                          CAPS_KINDS, SELECT_CARD_LIST_KINDS,
+                          auction_adversarial, auction_fold_case,
+                          auction_select_case, auction_strength_case,
                           auction_tie_case, caps_problem, full_cluster,
                           sampled_cluster, select_list_case)
 
@@ -859,8 +860,8 @@ def caps_phase(smi):
           f"pod), plain {plain_ms:.1f} ms, bound {bound_s * 1e3:.4f} ms "
           f"({bound_by}; the real limit is the chain of {P} dependent "
           f"steps) ({smi})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_s": bound_s,
-            "bound_by": bound_by, "err": err}
+    return {"ms": ms, "us_per_pod": ms * 1e3 / P, "plain_ms": plain_ms,
+            "bound_s": bound_s, "bound_by": bound_by, "err": err}
 
 
 def eight_plugin_phase(smi):
@@ -1381,6 +1382,17 @@ def auction_kernels_phase(smi, eb, nf, af, key):
         print(f"auction kernels vs plain {name} "
               f"{tuple(args[0].shape)}x{args[1].shape[1]} K in "
               f"(dense,) + {widths}: bitwise equal, {stats[0]} rounds, "
+              f"{int(got.assigned.sum())} assigned")
+    # The bid shortlist's selection on each of its paths (ties past the
+    # list walked, plateaus, zeros at kth, K = N, uncached rows).
+    for name in AUCTION_SELECT_CASES:
+        *arrays, k = auction_select_case(name)
+        args = [cuda(a) for a in arrays]
+        got, stats, _ms, e = auction_pair(*args, seed, name, k=k)
+        note(k, e)
+        print(f"bid_auction kernel vs plain, selection case {name} "
+              f"{tuple(args[0].shape)}x{args[1].shape[1]} K={k}: bitwise "
+              f"equal, {stats[0]} rounds, {stats[2]} full-row bids, "
               f"{int(got.assigned.sum())} assigned")
     nseed = prng.bits(prng.PRNGKey(5))
 
@@ -2310,8 +2322,10 @@ def main() -> int:
         "source": "minisched_tpu_torch/csrc/caps_scan.cu",
         "replaces": "minisched_tpu/ops/select.py:80",
         "launches": hard_launches["caps_scan"],
+        "redesigned": True,
         "max_abs_err": caps_t["err"],
         "ms": caps_t["ms"],
+        "us_per_pod": caps_t["us_per_pod"],
         "plain_ms": caps_t["plain_ms"],
         "bound_ms": caps_t["bound_s"] * 1e3,
         "bound_by": caps_t["bound_by"],
@@ -2345,6 +2359,7 @@ def main() -> int:
             "auction bench": au_launches["bench"]["bid_auction"],
             "config 5": au_launches["config 5"]["bid_auction"],
             "cross-checks": au_check_launches["bid_auction"]},
+        "redesigned": True,
         "max_abs_err": au["bid_auction_err"],
         "ms": au[("sampled", K)]["ms"],
         "device_ms": au[("sampled", K)]["device_ms"],
@@ -2355,6 +2370,7 @@ def main() -> int:
         "bound_by": au[("sampled", K)]["bound_by"],
         "rounds": au[("sampled", K)]["rounds"],
         "ms_full_width": au[("full width", K)]["ms"],
+        "select_ms_full_width": au[("full width", K)]["select_ms"],
         "bound_ms_full_width": au[("full width", K)]["bound_s"] * 1e3,
         "bursts_s": au_c2b,
         "library_ms": None,

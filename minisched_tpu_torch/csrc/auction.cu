@@ -14,8 +14,9 @@
 // Bound. A round must read the active pods' score rows: at bench-50k the
 // first round reads all of them, 1024 x 53248 floats, 218 MB, about 65 us
 // at 3.35 TB/s, and later rounds only the losers' rows. The kernel keeps
-// the whole loop on the card (no host read per round): three grid
-// barriers per round, each a few microseconds with one block per SM.
+// the whole loop on the card (no host read per round): two grid barriers
+// per round (three when the nodes are walked), each a few microseconds
+// with one block per SM.
 //
 // Design. The tie noise is folded into a score where it is read (the
 // noise lattice is a few integer operations), so no (P,N) folded copy is
@@ -33,6 +34,8 @@
 using namespace auction;
 
 __global__ void __launch_bounds__(kThreads, 1) auction_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Local L = carve_local(p, smem);
   unsigned target = 0;
   init_state(p);
   for (int i = blockIdx.x; i < p.P; i += gridDim.x) {
@@ -43,8 +46,20 @@ __global__ void __launch_bounds__(kThreads, 1) auction_kernel(Params p) {
     any = __syncthreads_or(any);
     if (threadIdx.x == 0) p.feasible[i] = any;
   }
-  grid_sync(p.bar, target);
-  run_rounds(p, target, [&](int i) { return dense_top2(p, i); });
+  __syncthreads();
+  init_local(p, L);
+  // The block's active pods one after another, each over its full row.
+  run_rounds(p, L, target, [&](const Loop& s) {
+    for (int j = 0; j < L.n; ++j) {
+      if (L.chosen[j] >= 0 || L.prio[j] != s.band) {
+        if (threadIdx.x == 0) L.key[j] = 0ull;
+        continue;
+      }
+      const int i = pod_of(j);
+      const Top2 t = dense_top2(p, i);
+      if (threadIdx.x == 0) post_bid(p, L, j, i, t, s.rnd);
+    }
+  });
 }
 
 extern "C" long long auction_scratch_bytes(int P, int N) {
@@ -79,7 +94,15 @@ extern "C" int auction_launch(const float* scores, const float* requests,
   const int pre = prelude(p, st);
   if (pre != 0) return pre;
   carve(p, scratch);
-  return launch(reinterpret_cast<const void*>(auction_kernel), p, st);
+  const void* kernel = reinterpret_cast<const void*>(auction_kernel);
+  int sms = 0;
+  size_t budget = 0;
+  const int err = device_limits(kernel, &sms, &budget);
+  if (err != 0) return err;
+  const int nblocks = grid_for(p, sms);
+  p.local = (P + nblocks - 1) / nblocks;
+  if (local_bytes(p.local) > budget) return cudaErrorInvalidConfiguration;
+  return launch(kernel, p, st, nblocks, local_bytes(p.local));
 }
 
 extern "C" const char* auction_error_string(int err) {

@@ -5,34 +5,49 @@
 // minisched_tpu/ops/bid_select.py:76-210.
 //
 // Launch: one block of kThreads per SM (fewer for a small batch), every
-// block resident. Pod p belongs to block p % G for the whole launch. A
-// round is three phases between grid barriers:
+// block resident. Pod p belongs to block p % G for the whole launch, and
+// the block keeps its pods' state in shared memory (Local): whether each
+// is feasible, its node once assigned, its priority, and the round's bid
+// (key, node, margin). Only the owner reads or writes that state, so the
+// bids and the winners need no device-memory round trip for it. A round:
 //
-//   control + nodes (no barrier between them): every block recomputes the
-//       loop state from device memory, the same on every block (the last
-//       round's progress flag, the stale count, whether the band has an
-//       unassigned feasible pod left, the next band, the round budget),
-//       then the smallest request of the band's bidders on each axis; then
-//       the grid walks the nodes: prices reset when the band advanced, the
-//       node's winner key cleared, and the round's open price written (the
-//       price of a node whose free capacity covers that smallest request,
-//       NaN for a closed node).
-//   bids: each block takes its active pods one at a time; the whole block
-//       reduces the pod's values (score - open price) to the best, its
-//       first column and the best over the other columns (the bid
-//       functor: the full row, or the shortlist with its certificate and
-//       repair); thread 0 forms the bid: gamma = (v_best - v2 or 0) + eps,
-//       strength = fma(noise(seed, round, pod), eps / 2, v_best), and the
-//       64-bit key (strength's total-order key << 32 | pod), and raises the
-//       node's winner key with one atomicMax.
+//   node walk (only when the band advanced or its least request moved):
+//       the grid walks the nodes: prices reset when the band advanced,
+//       and the round's open price written (the price of a node whose
+//       free capacity covers the band's least request on every axis, NaN
+//       for a closed node); a grid barrier;
+//   bids: each block bids its active pods (the bid phase of the kernel:
+//       the dense kernel reduces each pod's full row with the whole block;
+//       the shortlist kernel gives each pod a warp); a bid is
+//       gamma = (v_best - v2 or 0) + eps, strength = fma(noise(seed,
+//       round, pod), eps / 2, v_best), the 64-bit key (strength's
+//       total-order key << 32 | pod), raised into the node's winner key
+//       with one atomicMax; a grid barrier;
 //   winners: one thread per pod of the block: the pod whose key is its
 //       node's winner key is the node's one winner (argsort(argsort(.)) of
-//       the JAX package, which is stable, ranks ties by row); if its
-//       request fits the node's free row (read before any debit of the
-//       round: only the winner touches it) it takes the node and debits it
-//       with one IEEE subtraction per axis; the price rises by its gamma
-//       either way (one IEEE addition). Both equal the JAX package's
-//       one-hot matmuls, which add one winner per node.
+//       the JAX package, which is stable, ranks ties by row). It clears
+//       the node's winner key for the next round; if its request fits the
+//       node's free row (read before any debit of the round: only the
+//       winner touches it) it takes the node and debits it with one IEEE
+//       subtraction per axis; the price rises by its gamma either way (one
+//       IEEE addition), and the node's open price follows under the
+//       round's least request (a later walk overwrites it if the band or
+//       its least request moves). Both equal the JAX package's one-hot
+//       matmuls, which add one winner per node.
+//   control: each block reduces its own pods to a partial (any winner that
+//       fit, any unassigned pod left in the band, the highest priority
+//       below the band, the least request per axis in the band and at that
+//       priority) and folds it into a few control words by atomics
+//       (double-buffered by round parity); after the round's last grid
+//       barrier every block reads them into the same loop state: the stale
+//       count, the band (advanced when it is assigned or 8 rounds pass
+//       without a winner that fits), the round count, the least request
+//       and whether the next round walks the nodes. The exit needs no host
+//       read.
+//
+// So a round is two grid barriers, three when the nodes are walked; the
+// walk's open prices stay right between walks because a node's price and
+// free row change only through its winner, which updates its open price.
 //
 // Exactness: the fold of the tie noise into the scores and the strength
 // are one fused multiply-add each, as XLA compiles them (__fmaf_rn); every
@@ -50,7 +65,8 @@ namespace auction {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxR = 32;
-constexpr int kMaxP = 32 * kThreads;  // open_nodes: 32 pods per thread
+constexpr int kMaxP = 32 * kThreads;  // the wrappers' batch limit
+constexpr int kCtlWords = 1 + 2 * kMaxR;  // a control buffer, 64-bit words
 constexpr int kStale = 8;
 constexpr int kNegBand = -2147483647;  // -(2^31) + 1: no band left
 constexpr int kNoLaunch = -1;           // no cudaError_t is negative
@@ -58,6 +74,7 @@ constexpr float kNeg = -3.0e38f;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kColMult = 0x85EBCA77u;
 constexpr uint32_t kFull = 0xffffffffu;
+constexpr uint32_t kInfKey = 0xff800000u;  // float_key(+inf)
 
 struct Params {
   const float* scores;    // (P,N) NEG on infeasible pairs
@@ -78,16 +95,16 @@ struct Params {
   float* open_price;              // (N,) price if open, NaN if closed
   unsigned long long* node_key;   // (N,) the round's winning bid key
   uint8_t* feasible;              // (P,) any score above NEG
-  int32_t* best;                  // (P,)
-  float* gamma;                   // (P,)
-  unsigned long long* bid;        // (P,) 0: no bid this round
   float* s_vals;                  // (P,K) shortlist only
   int32_t* cand;                  // (P,K) shortlist only
   float* kth;                     // (P,) shortlist only
+  unsigned long long* ctl;        // (2, kCtlWords) the blocks' partials,
+                                  // reduced by atomics, by round parity
+  unsigned int* bar;              // grid barrier arrivals
+  // launch shape
+  int local;                      // pods per block, ceil(P / G)
   int cache_keys;                 // shortlist: the row's keys fit in the
                                   // block's dynamic shared memory
-  unsigned int* bar;              // grid barrier arrivals
-  int* progress;                  // (2,) some winner fit, by round parity
 };
 
 // Bytes of scratch a launch needs, and their layout (16-byte aligned).
@@ -95,10 +112,10 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~15; }
 
 inline size_t scratch_bytes(int P, int N, int K) {
   size_t b = 0;
-  b += align16(4ull * N) * 2 + align16(8ull * N);              // nodes
-  b += align16(P) + align16(4ull * P) * 2 + align16(8ull * P);  // pods
-  b += align16(4ull * P * K) * 2 + align16(4ull * P);           // shortlist
-  b += 16 + 16;                                                 // barrier
+  b += align16(4ull * N) * 2 + align16(8ull * N);                // nodes
+  b += align16(P);                                               // pods
+  b += align16(4ull * P * K) * 2 + align16(4ull * P);            // shortlist
+  b += align16(16ull * kCtlWords) + 16;                          // control
   return b;
 }
 
@@ -114,14 +131,47 @@ inline void carve(Params& p, void* scratch) {
   p.open_price = reinterpret_cast<float*>(take(4 * N));
   p.node_key = reinterpret_cast<unsigned long long*>(take(8 * N));
   p.feasible = reinterpret_cast<uint8_t*>(take(P));
-  p.best = reinterpret_cast<int32_t*>(take(4 * P));
-  p.gamma = reinterpret_cast<float*>(take(4 * P));
-  p.bid = reinterpret_cast<unsigned long long*>(take(8 * P));
   p.s_vals = reinterpret_cast<float*>(take(4 * P * K));
   p.cand = reinterpret_cast<int32_t*>(take(4 * P * K));
   p.kth = reinterpret_cast<float*>(take(4 * P));
+  // The control buffers, then the barrier: one zeroing covers both.
+  p.ctl = reinterpret_cast<unsigned long long*>(take(16ull * kCtlWords));
   p.bar = reinterpret_cast<unsigned int*>(take(16));
-  p.progress = reinterpret_cast<int*>(take(16));
+}
+
+// The block's pods in its dynamic shared memory: pod blockIdx.x + j * G is
+// entry j. Bytes for `local` pods.
+__host__ __device__ inline size_t local_bytes(int local) {
+  return align16(8ull * local) + 4 * align16(4ull * local);
+}
+
+struct Local {
+  unsigned long long* key;  // the round's bid key, 0 for none
+  int32_t* best;            // the bid's node
+  float* gamma;             // the bid's price rise
+  int32_t* chosen;          // the node once assigned, else -1
+  int32_t* prio;            // priority; kNegBand if infeasible
+  int n;                    // this block's pods
+};
+
+__device__ inline Local carve_local(const Params& p, unsigned char* smem) {
+  Local L;
+  L.key = reinterpret_cast<unsigned long long*>(smem);
+  smem += align16(8ull * p.local);
+  L.best = reinterpret_cast<int32_t*>(smem);
+  smem += align16(4ull * p.local);
+  L.gamma = reinterpret_cast<float*>(smem);
+  smem += align16(4ull * p.local);
+  L.chosen = reinterpret_cast<int32_t*>(smem);
+  smem += align16(4ull * p.local);
+  L.prio = reinterpret_cast<int32_t*>(smem);
+  const int b = blockIdx.x, g = gridDim.x;
+  L.n = p.P > b ? (p.P - b + g - 1) / g : 0;
+  return L;
+}
+
+__device__ __forceinline__ int pod_of(int j) {
+  return blockIdx.x + j * gridDim.x;
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -213,19 +263,22 @@ __device__ __forceinline__ Top2 top2_shfl(const Top2& t, int o) {
               __shfl_xor_sync(kFull, t.v2, o)};
 }
 
+__device__ __forceinline__ Top2 warp_top2(Top2 t) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t = top2_merge(t, top2_shfl(t, o));
+  return t;
+}
+
 // The block's Top2, returned to every thread.
 __device__ Top2 block_top2(Top2 t) {
   __shared__ Top2 warp_t[kWarps];
   __shared__ Top2 result;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t = top2_merge(t, top2_shfl(t, o));
+  t = warp_top2(t);
   if (lane == 0) warp_t[warp] = t;
   __syncthreads();
   if (warp == 0) {
-    t = lane < kWarps ? warp_t[lane] : top2_empty();
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t = top2_merge(t, top2_shfl(t, o));
+    t = warp_top2(lane < kWarps ? warp_t[lane] : top2_empty());
     if (lane == 0) result = t;
   }
   __syncthreads();
@@ -275,83 +328,36 @@ __device__ Top2 dense_top2(const Params& p, int row) {
   return block_top2(t);
 }
 
-// Every block's copy of the loop state (the same values on every block).
+// The loop state, the same on every block, in shared memory.
 struct Loop {
   int band;
   int stale;
   int rnd;
-  bool reset;  // the band advanced: prices restart at 0
+  int reset;  // the band advanced: prices restart at 0
+  int walk;   // the next round walks the nodes
+  float min_req[kMaxR];  // the band's least request per axis
 };
 
-// max over pods of f(pod), every thread of the block gets it.
-template <typename F>
-__device__ int block_max_pods(const Params& p, F f) {
-  __shared__ int m;
-  if (threadIdx.x == 0) m = kNegBand;
-  __syncthreads();
-  int v = kNegBand;
-  for (int i = threadIdx.x; i < p.P; i += kThreads) v = max(v, f(i));
-  v = __reduce_max_sync(kFull, v);
-  if ((threadIdx.x & 31) == 0) atomicMax(&m, v);
-  __syncthreads();
-  v = m;
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ bool live(const Params& p, int i) {
-  return __ldcg(p.chosen + i) < 0 && __ldcg(p.feasible + i);
-}
-
-// After a round: the stale count, the band control and the round count,
-// as the JAX body's tail computes them.
-__device__ void advance(const Params& p, Loop& s) {
-  const int prog = __ldcg(p.progress + (s.rnd & 1));
-  s.stale = prog ? 0 : s.stale + 1;
-  const int band = s.band;
-  bool left = false;
-  for (int i = threadIdx.x; i < p.P; i += kThreads)
-    left |= live(p, i) && __ldg(p.prio + i) == band;
-  left = __syncthreads_or(left);
-  s.reset = !left || s.stale >= kStale;
-  if (s.reset) {
-    s.band = block_max_pods(p, [&](int i) {
-      const int pr = __ldg(p.prio + i);
-      return live(p, i) && pr < band ? pr : kNegBand;
-    });
-    s.stale = 0;
+// Form pod i's bid from its Top2 (one thread): entry j of the block.
+__device__ __forceinline__ void post_bid(const Params& p, const Local& L,
+                                         int j, int i, const Top2& t,
+                                         int rnd) {
+  unsigned long long key = 0ull;
+  if (t.v > kNeg) {
+    const float margin = t.v2 > kNeg ? __fsub_rn(t.v, t.v2) : 0.0f;
+    const float strength = __fmaf_rn(noise(p.seed, rnd, i), p.half_eps, t.v);
+    key = static_cast<unsigned long long>(float_key(strength)) << 32 |
+          static_cast<uint32_t>(i);
+    L.best[j] = t.col;
+    L.gamma[j] = __fadd_rn(margin, p.eps);
+    atomicMax(p.node_key + t.col, key);
   }
-  s.rnd += 1;
+  L.key[j] = key;
 }
 
-// The control and node phase of a round: the smallest request of the
-// band's bidders per axis, then each node's prices, winner key and open
-// price.
-__device__ void open_nodes(const Params& p, const Loop& s) {
-  __shared__ uint32_t min_key[kMaxR];
-  __shared__ float min_req[kMaxR];
-  const uint32_t inf_key = 0xff800000u;  // float_key(+inf)
-  if (threadIdx.x < p.R) min_key[threadIdx.x] = inf_key;
-  // The band's bidders among this thread's pods, read once: bit j for
-  // pod threadIdx.x + j * kThreads (a batch has at most kMaxP pods).
-  uint32_t mine = 0;
-  for (int j = 0, i = threadIdx.x; i < p.P; ++j, i += kThreads)
-    if (live(p, i) && __ldg(p.prio + i) == s.band) mine |= 1u << j;
-  __syncthreads();
-  for (int r = 0; r < p.R; ++r) {
-    uint32_t k = inf_key;
-    for (uint32_t m = mine; m; m &= m - 1) {
-      const int i = threadIdx.x + (__ffs(m) - 1) * kThreads;
-      k = min(k, float_key(__ldg(p.req + static_cast<size_t>(i) * p.R + r)));
-    }
-    k = __reduce_min_sync(kFull, k);
-    if ((threadIdx.x & 31) == 0) atomicMin(&min_key[r], k);
-  }
-  __syncthreads();
-  if (threadIdx.x < p.R)
-    min_req[threadIdx.x] = key_float(min_key[threadIdx.x]);
-  __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x == 0) p.progress[s.rnd & 1] = 0;
+// The node walk: prices (reset when the band advanced), cleared winner
+// keys and the round's open prices, grid-strided.
+__device__ void walk_nodes(const Params& p, const Loop& s) {
   const float nan = __uint_as_float(0x7fffffffu);
   for (int n = blockIdx.x * kThreads + threadIdx.x; n < p.N;
        n += gridDim.x * kThreads) {
@@ -359,142 +365,266 @@ __device__ void open_nodes(const Params& p, const Loop& s) {
     if (s.reset) {
       price = 0.0f;
       p.prices[n] = 0.0f;
+      p.node_key[n] = 0ull;
     }
-    p.node_key[n] = 0ull;
     bool open = true;
     for (int r = 0; r < p.R; ++r)
-      open &= __ldcg(p.free + static_cast<size_t>(n) * p.R + r) >= min_req[r];
+      open &= __ldcg(p.free + static_cast<size_t>(n) * p.R + r) >=
+              s.min_req[r];
     p.open_price[n] = open ? price : nan;
   }
 }
 
-// The winners phase for the block's pods, one thread each.
-__device__ void settle(const Params& p, const Loop& s) {
-  for (int i = blockIdx.x + threadIdx.x * gridDim.x; i < p.P;
-       i += kThreads * gridDim.x) {
-    const unsigned long long key = __ldcg(p.bid + i);
+// The winners among the block's pods, one thread each. Returns whether a
+// winner of the block fit (every thread gets it).
+__device__ bool settle(const Params& p, const Local& L, const Loop& s) {
+  const float nan = __uint_as_float(0x7fffffffu);
+  bool fit_any = false;
+  for (int j = threadIdx.x; j < L.n; j += kThreads) {
+    const unsigned long long key = L.key[j];
     if (!key) continue;
-    const int b = __ldcg(p.best + i);
+    const int b = L.best[j];
     if (__ldcg(p.node_key + b) != key) continue;  // another pod won b
+    p.node_key[b] = 0ull;  // read by every bidder of b before it is cleared
+                           // or after: either way not their key
+    const int i = pod_of(j);
     float* fr = p.free + static_cast<size_t>(b) * p.R;
     const float* rq = p.req + static_cast<size_t>(i) * p.R;
+    float f[kMaxR];
     bool fits = true;
-    for (int r = 0; r < p.R; ++r) fits &= __ldcg(fr + r) >= __ldg(rq + r);
-    if (fits) {
-      for (int r = 0; r < p.R; ++r)
-        fr[r] = __fsub_rn(__ldcg(fr + r), __ldg(rq + r));
-      p.chosen[i] = b;
-      p.progress[s.rnd & 1] = 1;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r < p.R) {
+        f[r] = __ldcg(fr + r);
+        fits &= f[r] >= __ldg(rq + r);
+      }
     }
-    p.prices[b] = __fadd_rn(__ldcg(p.prices + b), __ldcg(p.gamma + i));
+    bool open = true;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r < p.R) {
+        if (fits) {
+          f[r] = __fsub_rn(f[r], __ldg(rq + r));
+          fr[r] = f[r];
+        }
+        open &= f[r] >= s.min_req[r];
+      }
+    }
+    if (fits) {
+      L.chosen[j] = b;
+      fit_any = true;
+    }
+    const float price = __fadd_rn(__ldcg(p.prices + b), L.gamma[j]);
+    p.prices[b] = price;
+    p.open_price[b] = open ? price : nan;
+  }
+  return __syncthreads_or(fit_any);
+}
+
+// This block's control partial after a round (or, `first`, before the
+// first), folded into control buffer `gen & 1` by atomics whose identity
+// is 0 (the launcher zeroes both buffers; block 0 zeroes each again when
+// it is next needed): word 0 ORs 1 if a winner fit | 2 if an unassigned
+// feasible pod is left in the band; word 1 + r takes the maximum of the
+// complemented float key of the least request on axis r over the band's
+// unassigned pods (so the minimum request); word 1 + R + r the maximum of
+// (priority + 2^31) << 32 | complemented key of the least request at the
+// block's highest priority below the band (any priority when `first`),
+// whose maximum is the highest such priority's least request.
+__device__ void publish_partial(const Params& p, const Local& L, int band,
+                                bool first, bool fit, unsigned gen) {
+  __shared__ int next_s;
+  __shared__ uint32_t min_s[2 * kMaxR];
+  if (threadIdx.x == 0) next_s = kNegBand;
+  if (threadIdx.x < 2 * kMaxR) min_s[threadIdx.x] = kInfKey;
+  __syncthreads();
+  bool left = false;
+  int next = kNegBand;
+  for (int j = threadIdx.x; j < L.n; j += kThreads) {
+    const int pr = L.prio[j];
+    if (pr == kNegBand || L.chosen[j] >= 0) continue;
+    left |= !first && pr == band;
+    if (first || pr < band) next = max(next, pr);
+  }
+  next = __reduce_max_sync(kFull, next);
+  if ((threadIdx.x & 31) == 0 && next > kNegBand) atomicMax(&next_s, next);
+  left = __syncthreads_or(left);
+  next = next_s;
+  for (int j = threadIdx.x; j < L.n; j += kThreads) {
+    const int pr = L.prio[j];
+    if (pr == kNegBand || L.chosen[j] >= 0) continue;
+    const bool cur = !first && pr == band, nxt = pr == next;
+    if (!cur && !nxt) continue;
+    const float* rq = p.req + static_cast<size_t>(pod_of(j)) * p.R;
+    for (int r = 0; r < p.R; ++r) {
+      const uint32_t k = float_key(__ldg(rq + r));
+      if (cur) atomicMin(&min_s[r], k);
+      if (nxt) atomicMin(&min_s[kMaxR + r], k);
+    }
+  }
+  __syncthreads();
+  unsigned long long* c = p.ctl + (gen & 1) * kCtlWords;
+  if (threadIdx.x == 0 && (fit || left))
+    atomicOr(c, (fit ? 1ull : 0ull) | (left ? 2ull : 0ull));
+  if (threadIdx.x < p.R) {
+    const uint32_t cur = min_s[threadIdx.x];
+    if (cur != kInfKey) atomicMax(c + 1 + threadIdx.x, ~cur);
+    atomicMax(c + 1 + p.R + threadIdx.x,
+              static_cast<unsigned long long>(
+                  static_cast<uint32_t>(next) + 0x80000000u) << 32 |
+                  ~min_s[kMaxR + threadIdx.x]);
   }
 }
 
-// The whole banded loop, after the kernel's own set-up (chosen = -1, free
-// = free0, feasible known, behind a grid barrier). `bid(pod)` is called by
-// every thread of the block for each active pod and returns its Top2.
-template <typename Bid>
-__device__ void run_rounds(const Params& p, unsigned& target, Bid bid) {
-  Loop s{0, 0, 0, true};
-  s.band = block_max_pods(p, [&](int i) {
-    return __ldcg(p.feasible + i) ? __ldg(p.prio + i) : kNegBand;
-  });
-  while (s.rnd < p.max_rounds && s.band > kNegBand) {
-    open_nodes(p, s);
-    grid_sync(p.bar, target);
-    // The block's pods, kThreads at a time: each thread checks one, and
-    // the active ones are bid one after another by the whole block. An
-    // infeasible pod's values are all NEG: it cannot bid (and its
-    // shortlist is its row, so it is certified), so it is skipped.
-    for (int base = 0; blockIdx.x + base * gridDim.x < p.P; base += kThreads) {
-      __shared__ int list[kThreads];
-      __shared__ int n_list;
-      if (threadIdx.x == 0) n_list = 0;
-      __syncthreads();
-      const int mine = blockIdx.x + (base + threadIdx.x) * gridDim.x;
-      if (mine < p.P) {
-        if (live(p, mine) && __ldg(p.prio + mine) == s.band)
-          list[atomicAdd(&n_list, 1)] = mine;
-        else
-          p.bid[mine] = 0ull;
-      }
-      __syncthreads();
-      const int n = n_list;
-      for (int j = 0; j < n; ++j) {
-        const int i = list[j];
-        const Top2 t = bid(i);
-        if (threadIdx.x == 0) {
-          unsigned long long key = 0ull;
-          if (t.v > kNeg) {
-            const float margin =
-                t.v2 > kNeg ? __fsub_rn(t.v, t.v2) : 0.0f;
-            const float g = __fadd_rn(margin, p.eps);
-            const float strength =
-                __fmaf_rn(noise(p.seed, s.rnd, i), p.half_eps, t.v);
-            key = static_cast<unsigned long long>(float_key(strength)) << 32 |
-                  static_cast<uint32_t>(i);
-            p.best[i] = t.col;
-            p.gamma[i] = g;
-            atomicMax(p.node_key + t.col, key);
-          }
-          p.bid[i] = key;
-        }
-      }
-      __syncthreads();  // the list is rewritten for the next kThreads
+// The round's last barrier, with the loop state of the next round: after
+// it every block reads control buffer `gen & 1` (every partial folded in)
+// and updates its copy of the loop state, the same on every block; block
+// 0 then zeroes the other buffer, which every block read at the previous
+// control barrier and which no block writes before the next round's
+// bids are done (so before block 0 has passed another barrier).
+__device__ void control_sync(const Params& p, Loop& s, unsigned& target,
+                             unsigned& gen, bool first) {
+  __shared__ unsigned long long ctl_s[kCtlWords];
+  grid_sync(p.bar, target);
+  const unsigned long long* c = p.ctl + (gen & 1) * kCtlWords;
+  if (threadIdx.x < 1 + 2 * p.R) ctl_s[threadIdx.x] = __ldcg(c + threadIdx.x);
+  __syncthreads();
+  const int flags = static_cast<int>(ctl_s[0]);
+  const bool fit = flags & 1, left = flags & 2;
+  // Thread 0 updates the shared state; the others read it after a barrier.
+  if (threadIdx.x == 0) {
+    bool reset = true;
+    if (first) {
+      s.stale = 0;
+      s.rnd = 0;
+    } else {
+      s.stale = fit ? 0 : s.stale + 1;
+      reset = !left || s.stale >= kStale;
+      if (reset) s.stale = 0;
+      s.rnd += 1;
     }
-    grid_sync(p.bar, target);
-    settle(p, s);
-    grid_sync(p.bar, target);
-    advance(p, s);
+    if (reset)
+      s.band = static_cast<int>(static_cast<uint32_t>(ctl_s[1 + p.R] >> 32) -
+                                0x80000000u);
+    bool moved = reset;
+    for (int r = 0; r < p.R; ++r) {
+      const float m = key_float(~static_cast<uint32_t>(
+          ctl_s[(reset ? 1 + p.R : 1) + r]));
+      moved |= __float_as_uint(m) != __float_as_uint(s.min_req[r]);
+      s.min_req[r] = m;
+    }
+    s.reset = reset;
+    s.walk = moved;
   }
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.P;
-       i += gridDim.x * kThreads)
-    p.assigned[i] = __ldcg(p.chosen + i) >= 0;
+  gen += 1;
+  if (blockIdx.x == 0 && threadIdx.x < kCtlWords)
+    p.ctl[(gen & 1) * kCtlWords + threadIdx.x] = 0ull;
+  __syncthreads();
+}
+
+// The whole banded loop, after the kernel's set-up: free = free0 (grid-
+// wide), each row's feasibility known to its owner, the block's Local
+// state loaded and its first partial published (init_local).
+// `bid_phase(s)` is called by every thread of the block once per round
+// and posts the bids of the block's active pods (post_bid) and writes a
+// key (0 for none) for every pod of the block.
+template <typename BidPhase>
+__device__ void run_rounds(const Params& p, const Local& L, unsigned& target,
+                           BidPhase bid_phase) {
+  __shared__ Loop s;
+  unsigned gen = 0;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kMaxR; ++r) s.min_req[r] = 0.0f;
+  }
+  control_sync(p, s, target, gen, true);
+  while (s.rnd < p.max_rounds && s.band > kNegBand) {
+    if (s.walk) {
+      walk_nodes(p, s);
+      grid_sync(p.bar, target);
+    }
+    bid_phase(s);
+    grid_sync(p.bar, target);
+    const bool fit = settle(p, L, s);
+    publish_partial(p, L, s.band, false, fit, gen);
+    control_sync(p, s, target, gen, false);
+  }
+  for (int j = threadIdx.x; j < L.n; j += kThreads) {
+    const int i = pod_of(j);
+    p.chosen[i] = L.chosen[j];
+    p.assigned[i] = L.chosen[j] >= 0;
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) p.rounds[0] = s.rnd;
 }
 
-// The set-up every launch shares: chosen = -1, free = free0 (grid-wide).
+// The set-up every launch shares: free = free0 (grid-wide).
 __device__ void init_state(const Params& p) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   const int step = gridDim.x * kThreads;
-  for (int i = t; i < p.P; i += step) p.chosen[i] = -1;
   const size_t nr = static_cast<size_t>(p.N) * p.R;
   for (size_t i = t; i < nr; i += step) p.free[i] = p.free0[i];
 }
 
-// Launch `kernel` cooperatively on `p` (scratch already carved) with
-// `smem` bytes of dynamic shared memory; returns the launch's cudaError_t.
-inline int launch(const void* kernel, Params& p, cudaStream_t st,
-                  size_t smem = 0) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if (smem > 0) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// After the rows' feasibility is in p.feasible (each row by its owner,
+// before a __syncthreads): the block's Local state, and its first partial.
+__device__ void init_local(const Params& p, const Local& L) {
+  for (int j = threadIdx.x; j < L.n; j += kThreads) {
+    const int i = pod_of(j);
+    L.chosen[j] = -1;
+    L.key[j] = 0ull;
+    L.prio[j] = p.feasible[i] ? __ldg(p.prio + i) : kNegBand;
   }
+  __syncthreads();
+  publish_partial(p, L, 0, true, false, 0);
+}
+
+// The grid of a launch: a block per pod row up to one per SM, and enough
+// for the node walk.
+inline int grid_for(const Params& p, int sms) {
+  const int want = p.P > (p.N + kThreads - 1) / kThreads
+                       ? p.P
+                       : (p.N + kThreads - 1) / kThreads;
+  return want < sms ? (want > 0 ? want : 1) : sms;
+}
+
+// Launch `kernel` cooperatively on `p` (scratch carved, p.local set for
+// `nblocks`) with `smem` bytes of dynamic shared memory; returns the
+// launch's cudaError_t.
+inline int launch(const void* kernel, Params& p, cudaStream_t st,
+                  int nblocks, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // A block per pod row up to one per SM, and enough for the node walk.
-  int want = p.P > (p.N + kThreads - 1) / kThreads
-                 ? p.P
-                 : (p.N + kThreads - 1) / kThreads;
-  const int nblocks = want < sms ? (want > 0 ? want : 1) : sms;
-  err = cudaMemsetAsync(p.bar, 0, 32, st);  // the barrier and progress
+  // The control buffers and the barrier.
+  err = cudaMemsetAsync(p.ctl, 0, align16(16ull * kCtlWords) + 16, st);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(kThreads),
                                     args, smem, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The device's SM count and the dynamic shared memory a block of
+// `kernel` may use.
+inline int device_limits(const void* kernel, int* sms, size_t* budget) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *budget = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  return 0;
 }
 
 // Checks and the empty batch shared by both entry points: returns

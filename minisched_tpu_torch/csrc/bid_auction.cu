@@ -18,23 +18,48 @@
 // Bound. The selection reads every score row once, 218 MB at bench-50k
 // (1024 x 53248), about 65 us at 3.35 TB/s; a round then reads the active
 // pods' candidates, 8 bytes per candidate (1 MB at K = 128), and a repaired
-// pod's full row. The rounds are bound by their three grid barriers and
-// the control phase each block recomputes, not by bytes.
+// pod's full row. The rounds are bound by their grid barriers and the
+// round trips between them, not by bytes.
 //
-// Design. The selection is an MSB-first radix select per row (one block a
-// row): four passes of 8 bits find the K-th largest total-order key T and
-// how many keys equal to T the set takes (the lowest columns); a fifth
-// pass collects the keys above T in any order and the ties at T in column
-// order (a block-wide prefix count per chunk of columns). The order inside
-// a shortlist is not needed: every round's reduction (max, lowest tied
-// column, best of the rest) is order-free, and when the set takes every
-// key equal to T (distinct scores: the usual row) the fifth pass keeps no
-// order at all. The histograms use
-// warp-aggregated shared atomics (scores that share an exponent fall in a
-// few bins). The row is read once, with float4 loads, and its folded keys
-// are kept in dynamic shared memory for the passes (4N bytes: up to about
-// 57,000 columns beside the kernel's static shared memory; a wider row
-// folds its scores again in every pass, from L2 after the first).
+// Selection: the threshold design of csrc/shortlist_select.cu, for a set
+// without order. One block a row, the row's folded keys kept in dynamic
+// shared memory (4N bytes beside the list: rows up to about 54,000
+// columns; a wider row folds its scores again, from L2, in each pass):
+//
+//   pass 1  fold each score once (float4 loads, four in flight per
+//           thread), store its total-order key, keep each thread's largest;
+//   L       the K-th largest of the thread maxima, by a bisection of
+//           __syncthreads_count below the bits all maxima share. At least
+//           K keys are >= L, so L <= the K-th key, and the keys above L are
+//           few (about K on a diverse row);
+//   pass 2  compact every key >= L into a list in shared memory, counting
+//           those above L and those equal to it;
+//   rank    when the list holds them all (at most kCap), each entry's rank
+//           in (key descending, column ascending) is the number of entries
+//           above it, one pass over the list per entry; ranks below K are
+//           the set, written in lax.top_k's order, and rank K-1 is kth.
+//
+// The order in (key, column) is lax.top_k's, ties included, and keys are
+// integers: no float equality joins +0.0 and -0.0. When the ties at L
+// overflow the list, the list is rebuilt from the keys above L alone: if
+// at least K are there they are ranked; else all of them are taken, kth
+// is L, and the lowest columns equal to L fill the set in one ordered
+// walk of the row (ballots and a per-warp prefix, stopping once enough are
+// taken). K = N takes every column, kth the row's least key. When even
+// the keys above L overflow the list, the row takes the exact path: an
+// MSB-first radix select (four 8-bit histogram passes for kth, then a
+// collection of the keys above it and the lowest columns at it).
+//
+// Rounds: a certified pod bids with one warp (its candidates spread over
+// the lanes, no block barrier), for K <= kWarpK; the uncertified ones go
+// to the block, one after another, for their full rows. Wider shortlists
+// bid with the whole block, one pod after another.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/auction_kernel_timing.py,
+// PERF.md), in turns with the radix-selection kernel it replaces: about
+// 0.263 against 1.08 ms at 1024 x 53248 (the selection 0.226 against
+// 1.00 ms), 0.114 against 0.195 ms at 1024 x 4096 (the selection 0.063
+// against 0.106 ms, a round 12.7 us against 22).
 //
 // Interface: as csrc/auction.cu, plus K (1 <= K <= N) and the (P,)
 // repaired output; bid_auction_scratch_bytes(P, N, K) bytes of scratch.
@@ -45,6 +70,15 @@ using namespace auction;
 
 namespace {
 
+constexpr int kCap = 1024;                  // list entries
+constexpr size_t kListBytes = 8ull * kCap;  // (key << 32 | ~column) each
+constexpr int kWarpK = 256;                 // widest shortlist a warp bids
+constexpr unsigned long long kRepair = ~0ull;  // no bid key is all ones
+
+__device__ __forceinline__ uint32_t lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
 // The key of column c of `row`: from the block's shared cache, or the
 // score folded again.
 __device__ __forceinline__ uint32_t row_key(const Params& p, int row,
@@ -54,66 +88,224 @@ __device__ __forceinline__ uint32_t row_key(const Params& p, int row,
   return float_key(fold(__ldg(srow + c), p.seed, row, c, p.eps));
 }
 
-// Fill the block's key cache with the folded keys of `row`: float4 loads,
-// two in flight per thread.
-__device__ void cache_row(const Params& p, int row, const float* srow,
-                          uint32_t* keys_s) {
-  if ((p.N & 3) == 0) {
+// f(column, in range, key) over every column of `row`, four keys in
+// flight per thread; every thread runs the same number of iterations (f
+// may use the warp).
+template <typename F>
+__device__ __forceinline__ void for_keys(const Params& p, int row,
+                                         const float* srow,
+                                         const uint32_t* keys_s, F f) {
+  constexpr int kU = 4;
+  for (int base = 0; base < p.N; base += kU * kThreads) {
+    uint32_t u[kU];
+#pragma unroll
+    for (int q = 0; q < kU; ++q) {
+      const int c = base + q * kThreads + static_cast<int>(threadIdx.x);
+      u[q] = c < p.N ? row_key(p, row, srow, keys_s, c) : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < kU; ++q) {
+      const int c = base + q * kThreads + static_cast<int>(threadIdx.x);
+      f(c, c < p.N, u[q]);
+    }
+  }
+}
+
+// Pass 1: every score folded once, its key stored in the cache (when the
+// row is cached); the thread's largest and smallest key (0 and ~0 for a
+// thread with no column).
+__device__ void fold_row(const Params& p, int row, const float* srow,
+                         uint32_t* keys_s, uint32_t& mx, uint32_t& mn) {
+  mx = 0u;
+  mn = 0xffffffffu;
+  auto take = [&](int c, float s) {
+    const uint32_t u = float_key(fold(s, p.seed, row, c, p.eps));
+    if (p.cache_keys) keys_s[c] = u;
+    mx = max(mx, u);
+    mn = min(mn, u);
+  };
+  constexpr int kU = 4;
+  if ((p.N & 3) == 0 && (reinterpret_cast<uintptr_t>(srow) & 15) == 0) {
     const float4* s4 = reinterpret_cast<const float4*>(srow);
     const int n4 = p.N >> 2;
-    for (int i = threadIdx.x; i < n4; i += 2 * kThreads) {
-      const int j = i + kThreads;
-      const float4 a = __ldg(s4 + i);
-      float4 b = a;
-      if (j < n4) b = __ldg(s4 + j);
-      const float va[4] = {a.x, a.y, a.z, a.w};
-      for (int q = 0; q < 4; ++q)
-        keys_s[4 * i + q] =
-            float_key(fold(va[q], p.seed, row, 4 * i + q, p.eps));
-      if (j < n4) {
-        const float vb[4] = {b.x, b.y, b.z, b.w};
-        for (int q = 0; q < 4; ++q)
-          keys_s[4 * j + q] =
-              float_key(fold(vb[q], p.seed, row, 4 * j + q, p.eps));
+    for (int base = threadIdx.x; base < n4; base += kU * kThreads) {
+      float4 v[kU];
+#pragma unroll
+      for (int q = 0; q < kU; ++q)
+        if (base + q * kThreads < n4) v[q] = __ldg(s4 + base + q * kThreads);
+#pragma unroll
+      for (int q = 0; q < kU; ++q) {
+        const int j = base + q * kThreads;
+        if (j < n4) {
+          take(4 * j, v[q].x);
+          take(4 * j + 1, v[q].y);
+          take(4 * j + 2, v[q].z);
+          take(4 * j + 3, v[q].w);
+        }
       }
     }
   } else {
-    for (int c = threadIdx.x; c < p.N; c += kThreads)
-      keys_s[c] = float_key(fold(__ldg(srow + c), p.seed, row, c, p.eps));
+    for (int base = threadIdx.x; base < p.N; base += kU * kThreads) {
+      float v[kU];
+#pragma unroll
+      for (int q = 0; q < kU; ++q)
+        if (base + q * kThreads < p.N) v[q] = __ldg(srow + base + q * kThreads);
+#pragma unroll
+      for (int q = 0; q < kU; ++q)
+        if (base + q * kThreads < p.N) take(base + q * kThreads, v[q]);
+    }
   }
+}
+
+// The block's max of a, min of b, min of c and sum of d; every thread
+// gets them (two barriers).
+__device__ void block_reduce4(uint32_t& a, uint32_t& b, uint32_t& c,
+                              uint32_t& d) {
+  __shared__ uint32_t part[4][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = __reduce_max_sync(kFull, a);
+  b = __reduce_min_sync(kFull, b);
+  c = __reduce_min_sync(kFull, c);
+  d = __reduce_add_sync(kFull, d);
+  if (lane == 0) {
+    part[0][warp] = a;
+    part[1][warp] = b;
+    part[2][warp] = c;
+    part[3][warp] = d;
+  }
+  __syncthreads();
+  const bool w = lane < kWarps;
+  a = __reduce_max_sync(kFull, w ? part[0][lane] : 0u);
+  b = __reduce_min_sync(kFull, w ? part[1][lane] : 0xffffffffu);
+  c = __reduce_min_sync(kFull, w ? part[2][lane] : 0xffffffffu);
+  d = __reduce_add_sync(kFull, w ? part[3][lane] : 0u);
   __syncthreads();
 }
 
-// The shortlist of `row`: s_vals and cand (K entries, unordered), kth,
-// feasible, and repaired cleared. Every thread of the block calls it.
-__device__ void select_row(const Params& p, int row, uint32_t* keys_s) {
+// The block's sums of x and y; every thread gets them (two barriers).
+__device__ void block_sum2(uint32_t& x, uint32_t& y) {
+  __shared__ uint32_t part[2][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = __reduce_add_sync(kFull, x);
+  y = __reduce_add_sync(kFull, y);
+  if (lane == 0) {
+    part[0][warp] = x;
+    part[1][warp] = y;
+  }
+  __syncthreads();
+  const bool w = lane < kWarps;
+  x = __reduce_add_sync(kFull, w ? part[0][lane] : 0u);
+  y = __reduce_add_sync(kFull, w ? part[1][lane] : 0u);
+  __syncthreads();
+}
+
+// Pass 2: every key >= L (> L when `strict`) into the list, as far as it
+// holds; returns the counts of keys above L and equal to it (every thread
+// gets them).
+__device__ void compact(const Params& p, int row, const float* srow,
+                        const uint32_t* keys_s, uint32_t L, bool strict,
+                        unsigned long long* list, uint32_t& above,
+                        uint32_t& equal) {
+  __shared__ uint32_t count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  uint32_t a = 0, e = 0;
+  const int lane = threadIdx.x & 31;
+  for_keys(p, row, srow, keys_s, [&](int c, bool in, uint32_t u) {
+    const bool gt = in && u > L, eq = in && u == L;
+    a += gt;
+    e += eq;
+    const bool take = gt || (eq && !strict);
+    const uint32_t m = __ballot_sync(kFull, take);
+    if (m == 0u) return;
+    uint32_t base = 0;
+    if (lane == __ffs(m) - 1) base = atomicAdd(&count, __popc(m));
+    base = __shfl_sync(kFull, base, __ffs(m) - 1);
+    const uint32_t pos = base + __popc(m & lanes_below());
+    if (take && pos < kCap)
+      list[pos] = static_cast<unsigned long long>(u) << 32 |
+                  ~static_cast<uint32_t>(c);
+  });
+  block_sum2(a, e);
+  above = a;
+  equal = e;
+}
+
+// The list's n entries ranked in (key descending, column ascending): the
+// first K written to the row's shortlist in that order, and rank K-1's
+// key as kth (n >= K).
+__device__ void emit_ranked(const Params& p, int row,
+                            const unsigned long long* list, int n) {
+  float* sv = p.s_vals + static_cast<size_t>(row) * p.K;
+  int32_t* cd = p.cand + static_cast<size_t>(row) * p.K;
+  for (int x = threadIdx.x; x < n; x += kThreads) {
+    const unsigned long long me = list[x];
+    int r = 0;
+#pragma unroll 8
+    for (int y = 0; y < n; ++y) r += list[y] > me;
+    if (r < p.K) {
+      const uint32_t key = static_cast<uint32_t>(me >> 32);
+      sv[r] = key_float(key);
+      cd[r] = static_cast<int32_t>(~static_cast<uint32_t>(me));
+      if (r == p.K - 1) p.kth[row] = key_float(key);
+    }
+  }
+}
+
+// The lowest `need` columns whose key is L, in column order, into the
+// shortlist's entries from `from` on: an ordered walk of the row that
+// stops once they are taken.
+__device__ void emit_ties(const Params& p, int row, const float* srow,
+                          const uint32_t* keys_s, uint32_t L, int from,
+                          int need) {
+  __shared__ uint32_t warp_cnt[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* sv = p.s_vals + static_cast<size_t>(row) * p.K;
+  int32_t* cd = p.cand + static_cast<size_t>(row) * p.K;
+  int taken = 0;
+  for (int base = 0; base < p.N && taken < need; base += kThreads) {
+    const int c = base + static_cast<int>(threadIdx.x);
+    const bool tie = c < p.N && row_key(p, row, srow, keys_s, c) == L;
+    const uint32_t ball = __ballot_sync(kFull, tie);
+    if (lane == 0) warp_cnt[warp] = __popc(ball);
+    __syncthreads();
+    int before = taken, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = static_cast<int>(warp_cnt[w]);
+      if (w < warp) before += n;
+      total += n;
+    }
+    before += __popc(ball & lanes_below());
+    if (tie && before < need) {
+      sv[from + before] = key_float(L);
+      cd[from + before] = c;
+    }
+    taken += total;
+    __syncthreads();
+  }
+}
+
+// The exact path: an MSB-first radix select over the row's keys (four
+// 8-bit histogram passes find the K-th largest key T and how many keys
+// equal to T the set takes, the lowest columns), then a collection of the
+// keys above T in any order and the ties at T in column order. Returns T.
+__device__ uint32_t select_exact(const Params& p, int row, const float* srow,
+                                 const uint32_t* keys_s) {
   __shared__ unsigned hist[256];
-  __shared__ unsigned s_prefix, s_kk, s_eq, s_gt, s_eq_taken;
+  __shared__ unsigned s_prefix, s_kk, s_gt;
   __shared__ unsigned warp_cnt[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* srow = p.scores + static_cast<size_t>(row) * p.N;
-  if (p.cache_keys) cache_row(p, row, srow, keys_s);
-  const uint32_t neg_key = float_key(kNeg);
   unsigned prefix = 0, mask = 0, kk = static_cast<unsigned>(p.K);
-  bool feas = false;
   for (int pass = 0; pass < 4; ++pass) {
     const int shift = 24 - 8 * pass;
     for (int b = threadIdx.x; b < 256; b += kThreads) hist[b] = 0;
     __syncthreads();
-    // Every lane runs the same trip count, so the match is warp-wide.
-    for (int base = 0; base < p.N; base += kThreads) {
-      const int c = base + threadIdx.x;
-      bool in = false;
-      unsigned bin = 0;
-      if (c < p.N) {
-        const uint32_t u = row_key(p, row, srow, keys_s, c);
-        feas |= u > neg_key;
-        in = (u & mask) == prefix;
-        bin = (u >> shift) & 255u;
-      }
-      const unsigned peers = __match_any_sync(kFull, in ? bin : 0xffffffffu);
-      if (in && __ffs(peers) - 1 == lane) atomicAdd(&hist[bin], __popc(peers));
-    }
+    for_keys(p, row, srow, keys_s, [&](int, bool in, uint32_t u) {
+      const bool take = in && (u & mask) == prefix;
+      const unsigned bin = (u >> shift) & 255u;
+      const unsigned peers = __match_any_sync(kFull, take ? bin : 0xffffffffu);
+      if (take && __ffs(peers) - 1 == lane) atomicAdd(&hist[bin], __popc(peers));
+    });
     __syncthreads();
     if (warp == 0) {
       // Lane l holds bins 255 - 8l down to 248 - 8l; the lane whose
@@ -133,7 +325,6 @@ __device__ void select_row(const Params& p, int row, uint32_t* keys_s) {
           const unsigned h = hist[b];
           if (cum + h >= kk) {
             s_kk = kk - cum;
-            s_eq = h;
             s_prefix = prefix | static_cast<unsigned>(b) << shift;
             break;
           }
@@ -147,30 +338,15 @@ __device__ void select_row(const Params& p, int row, uint32_t* keys_s) {
     mask |= 255u << shift;
     __syncthreads();
   }
-  feas = __syncthreads_or(feas);
-  // prefix is T, the K-th largest key; the set takes every key above T
-  // (K - kk of them) and the kk lowest columns whose key is T.
-  // s_eq (the last pass's bin) counts the keys equal to T.
-  const bool all_eq = s_eq == kk;
-  if (threadIdx.x == 0) s_gt = s_eq_taken = 0;
+  // The set takes every key above T (K - kk of them) and the kk lowest
+  // columns whose key is T.
+  if (threadIdx.x == 0) s_gt = 0;
   __syncthreads();
   const unsigned n_gt = static_cast<unsigned>(p.K) - kk;
   float* sv = p.s_vals + static_cast<size_t>(row) * p.K;
   int32_t* cd = p.cand + static_cast<size_t>(row) * p.K;
-  if (all_eq) {
-    // Every key equal to T is taken: no column order to keep.
-    for (int c = threadIdx.x; c < p.N; c += kThreads) {
-      const uint32_t u = row_key(p, row, srow, keys_s, c);
-      if (u >= prefix) {
-        const unsigned slot = u > prefix ? atomicAdd(&s_gt, 1u)
-                                         : n_gt + atomicAdd(&s_eq_taken, 1u);
-        sv[slot] = key_float(u);
-        cd[slot] = c;
-      }
-    }
-  }
   unsigned eq_base = 0;
-  for (int base = 0; base < p.N && !all_eq; base += kThreads) {
+  for (int base = 0; base < p.N; base += kThreads) {
     const int c = base + threadIdx.x;
     const uint32_t u = c < p.N ? row_key(p, row, srow, keys_s, c) : 0u;
     const bool gt = c < p.N && u > prefix;
@@ -189,7 +365,7 @@ __device__ void select_row(const Params& p, int row, uint32_t* keys_s) {
       if (w < warp) before += n;
       total += n;
     }
-    before += __popc(ball & ((1u << lane) - 1u));
+    before += __popc(ball & lanes_below());
     if (eq && before < kk) {
       sv[n_gt + before] = key_float(u);
       cd[n_gt + before] = c;
@@ -199,43 +375,156 @@ __device__ void select_row(const Params& p, int row, uint32_t* keys_s) {
     __syncthreads();
     if (done) break;
   }
-  if (threadIdx.x == 0) {
-    p.kth[row] = key_float(prefix);
-    p.feasible[row] = feas;
-    p.repaired[row] = 0;
-  }
-  // The cache is rewritten for the block's next row.
-  __syncthreads();
+  return prefix;
 }
 
-// The round's bid of `row` through its shortlist, repaired over the full
-// row when the certificate fails.
-__device__ Top2 shortlist_top2(const Params& p, int row) {
-  const float* sv = p.s_vals + static_cast<size_t>(row) * p.K;
-  const int32_t* cd = p.cand + static_cast<size_t>(row) * p.K;
-  Top2 t = top2_empty();
-  for (int j = threadIdx.x; j < p.K; j += kThreads) {
-    const float v = __ldcg(sv + j);
-    const int c = __ldcg(cd + j);
-    const float op = __ldcg(p.open_price + c);
-    top2_add(t, (v > kNeg && op == op) ? __fsub_rn(v, op) : kNeg, c);
+// The shortlist of `row`: s_vals and cand (K entries), kth, feasible, and
+// repaired cleared. Every thread of the block calls it.
+__device__ void select_row(const Params& p, int row, uint32_t* keys_s,
+                           unsigned long long* list) {
+  const float* srow = p.scores + static_cast<size_t>(row) * p.N;
+  uint32_t mx, mn;
+  fold_row(p, row, srow, keys_s, mx, mn);
+  uint32_t hi = mx, lo = mx != 0u ? mx : 0xffffffffu, least = mn;
+  uint32_t owners = mx != 0u;
+  block_reduce4(hi, lo, least, owners);  // keys cached: the barrier inside
+  const uint32_t K = static_cast<uint32_t>(p.K);
+  float* sv = p.s_vals + static_cast<size_t>(row) * p.K;
+  int32_t* cd = p.cand + static_cast<size_t>(row) * p.K;
+  uint32_t kth = 0;
+  bool ranked = false;
+  if (K == static_cast<uint32_t>(p.N)) {  // every column; kth the least
+    for (int c = threadIdx.x; c < p.N; c += kThreads) {
+      sv[c] = key_float(row_key(p, row, srow, keys_s, c));
+      cd[c] = c;
+    }
+    kth = least;
+  } else {
+    // L: the K-th largest thread maximum (every key when fewer than K
+    // threads hold a column).
+    uint32_t L = 0u;
+    if (owners >= K) {
+      const int top = hi == lo ? -1 : 31 - __clz(hi ^ lo);
+      L = top < 0 ? hi : hi & ~(0xffffffffu >> (31 - top));
+      for (int bit = top; bit >= 0; --bit) {
+        const uint32_t c = L | (1u << bit);
+        if (static_cast<uint32_t>(__syncthreads_count(mx >= c)) >= K) L = c;
+      }
+    }
+    uint32_t above, equal;
+    compact(p, row, srow, keys_s, L, false, list, above, equal);
+    if (above + equal <= static_cast<uint32_t>(kCap)) {
+      emit_ranked(p, row, list, static_cast<int>(above + equal));
+      ranked = true;
+    } else if (above <= static_cast<uint32_t>(kCap)) {
+      compact(p, row, srow, keys_s, L, true, list, above, equal);
+      if (above >= K) {
+        emit_ranked(p, row, list, static_cast<int>(above));
+        ranked = true;
+      } else {  // every key above L, and the lowest columns at L
+        for (int x = threadIdx.x; x < static_cast<int>(above); x += kThreads) {
+          const unsigned long long e = list[x];
+          sv[x] = key_float(static_cast<uint32_t>(e >> 32));
+          cd[x] = static_cast<int32_t>(~static_cast<uint32_t>(e));
+        }
+        emit_ties(p, row, srow, keys_s, L, static_cast<int>(above),
+                  static_cast<int>(K - above));
+        kth = L;
+      }
+    } else {
+      kth = select_exact(p, row, srow, keys_s);
+    }
   }
-  t = block_top2(t);
-  const float kth = __ldcg(p.kth + row);
-  if ((t.v > kth && t.v2 >= kth) || kth <= kNeg) return t;
-  if (threadIdx.x == 0) p.repaired[row] = 1;
-  return dense_top2(p, row);
+  if (threadIdx.x == 0) {
+    if (!ranked) p.kth[row] = key_float(kth);
+    p.feasible[row] = hi > float_key(kNeg);
+    p.repaired[row] = 0;
+  }
+  // The cache and the list are rewritten for the block's next row.
+  __syncthreads();
 }
 
 }  // namespace
 
 __global__ void __launch_bounds__(kThreads, 1) bid_auction_kernel(Params p) {
-  extern __shared__ uint32_t keys_s[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Local L = carve_local(p, smem);
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(
+      smem + local_bytes(p.local));
+  uint32_t* keys_s = reinterpret_cast<uint32_t*>(
+      smem + local_bytes(p.local) + kListBytes);
   unsigned target = 0;
   init_state(p);
-  for (int i = blockIdx.x; i < p.P; i += gridDim.x) select_row(p, i, keys_s);
-  grid_sync(p.bar, target);
-  run_rounds(p, target, [&](int i) { return shortlist_top2(p, i); });
+  for (int i = blockIdx.x; i < p.P; i += gridDim.x)
+    select_row(p, i, keys_s, list);
+  init_local(p, L);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  run_rounds(p, L, target, [&](const Loop& s) {
+    auto active = [&](int j) {
+      return L.chosen[j] < 0 && L.prio[j] == s.band;
+    };
+    if (p.K <= kWarpK) {
+      // A warp per pod; the uncertified ones are marked for the block.
+      for (int j = warp; j < L.n; j += kWarps) {
+        if (!active(j)) {
+          if (lane == 0) L.key[j] = 0ull;
+          continue;
+        }
+        const int i = pod_of(j);
+        const float* sv = p.s_vals + static_cast<size_t>(i) * p.K;
+        const int32_t* cd = p.cand + static_cast<size_t>(i) * p.K;
+        const float kth = __ldcg(p.kth + i);
+        Top2 t = top2_empty();
+        for (int c = lane; c < p.K; c += 32) {
+          const float v = __ldcg(sv + c);
+          const int col = __ldcg(cd + c);
+          const float op = __ldcg(p.open_price + col);
+          top2_add(t, (v > kNeg && op == op) ? __fsub_rn(v, op) : kNeg, col);
+        }
+        t = warp_top2(t);
+        if (lane == 0) {
+          if ((t.v > kth && t.v2 >= kth) || kth <= kNeg) {
+            post_bid(p, L, j, i, t, s.rnd);
+          } else {
+            L.key[j] = kRepair;
+            p.repaired[i] = 1;
+          }
+        }
+      }
+      __syncthreads();
+      for (int j = 0; j < L.n; ++j) {
+        if (L.key[j] != kRepair) continue;
+        const int i = pod_of(j);
+        const Top2 t = dense_top2(p, i);
+        if (threadIdx.x == 0) post_bid(p, L, j, i, t, s.rnd);
+      }
+    } else {
+      // Wide shortlists: the whole block per pod.
+      for (int j = 0; j < L.n; ++j) {
+        if (!active(j)) {
+          if (threadIdx.x == 0) L.key[j] = 0ull;
+          continue;
+        }
+        const int i = pod_of(j);
+        const float* sv = p.s_vals + static_cast<size_t>(i) * p.K;
+        const int32_t* cd = p.cand + static_cast<size_t>(i) * p.K;
+        Top2 t = top2_empty();
+        for (int c = threadIdx.x; c < p.K; c += kThreads) {
+          const float v = __ldcg(sv + c);
+          const int col = __ldcg(cd + c);
+          const float op = __ldcg(p.open_price + col);
+          top2_add(t, (v > kNeg && op == op) ? __fsub_rn(v, op) : kNeg, col);
+        }
+        t = block_top2(t);
+        const float kth = __ldcg(p.kth + i);
+        if (!((t.v > kth && t.v2 >= kth) || kth <= kNeg)) {
+          if (threadIdx.x == 0) p.repaired[i] = 1;
+          t = dense_top2(p, i);
+        }
+        if (threadIdx.x == 0) post_bid(p, L, j, i, t, s.rnd);
+      }
+    }
+  });
 }
 
 extern "C" long long bid_auction_scratch_bytes(int P, int N, int K) {
@@ -273,21 +562,20 @@ extern "C" int bid_auction_launch(const float* scores, const float* requests,
   const int pre = prelude(p, st);
   if (pre != 0) return pre;
   carve(p, scratch);
-  // Cache each row's keys in shared memory when the row fits beside the
-  // kernel's static shared memory.
   const void* kernel = reinterpret_cast<const void*>(bid_auction_kernel);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
+  int sms = 0;
+  size_t budget = 0;
+  const int err = device_limits(kernel, &sms, &budget);
+  if (err != 0) return err;
+  const int nblocks = grid_for(p, sms);
+  p.local = (P + nblocks - 1) / nblocks;
+  // The block's pods and the list, then each row's keys where they fit.
+  const size_t base = local_bytes(p.local) + kListBytes;
   const size_t row_bytes = sizeof(uint32_t) * static_cast<size_t>(N);
-  p.cache_keys =
-      row_bytes + attr.sharedSizeBytes <= static_cast<size_t>(optin);
-  return launch(kernel, p, st, p.cache_keys ? row_bytes : 0);
+  if (base > budget) return cudaErrorInvalidConfiguration;
+  p.cache_keys = base + row_bytes <= budget;
+  return launch(kernel, p, st, nblocks,
+                base + (p.cache_keys ? row_bytes : 0));
 }
 
 extern "C" const char* bid_auction_error_string(int err) {

@@ -50,8 +50,9 @@ from minisched_tpu_torch.state.objects import pod_requests
 from test_torch_engine import MODES, SHARED_METRICS, _run_cluster
 from test_torch_faults import PORT, _fault_free, _run_burst
 from test_torch_plugins_full import encode_both
-from torch_parity import (AUCTION_CASES, BENCH_PROFILE, auction_adversarial,
-                          auction_fold_case, auction_instance,
+from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES, BENCH_PROFILE,
+                          auction_adversarial, auction_fold_case,
+                          auction_instance, auction_select_case,
                           auction_strength_case, auction_tie_case,
                           bench_cluster, bits_equal, build_cache,
                           full_cluster, mixed_cluster, sampled_cluster)
@@ -201,6 +202,23 @@ def test_bid_shortlist_adversarial_repairs_match_jax(seed):
     _check(want, got, FIELDS + ("repaired",))
     if seed == 0:
         assert int(got.repaired.sum()) >= 1
+
+
+@pytest.mark.parametrize("case", AUCTION_SELECT_CASES)
+def test_bid_shortlist_selection_paths_match_jax(case):
+    """The card's selection cases (tests/torch_parity.auction_select_case:
+    ties at kth past the list's capacity, whole-row plateaus, zeros at
+    kth, K = N, rows of 65,536 columns on every path) at their own
+    shapes, unpadded: every output, repaired included, against the
+    compiled JAX function."""
+    scores, req, free, k = auction_select_case(case)
+    jkey, seed = _seed(5)
+    want = _jit_bid(jnp.asarray(scores), jnp.asarray(req), jnp.asarray(free),
+                    jkey, k=k)
+    got = auction_assign_shortlist_plain(
+        *(torch.from_numpy(a) for a in (scores, req, free)), seed, k=k)
+    _check(want, got, FIELDS + ("repaired",))
+    assert int(got.assigned.sum()) > 0
 
 
 def test_bid_shortlist_counts_closed_candidates_as_repairs():

@@ -13,6 +13,7 @@ import torch
 from minisched_tpu.ops.pipeline import build_step as jbuild_step
 from minisched_tpu.ops.select import greedy_assign as jgreedy
 from minisched_tpu.ops.select import seed_from_key
+from minisched_tpu.ops.spreadcap import DomainCaps as JDomainCaps
 from minisched_tpu.ops.spreadcap import build_domain_caps as jcaps
 from minisched_tpu.ops.topology import group_topology_state as jtopo
 from minisched_tpu.plugins import PluginSet as JPluginSet
@@ -26,7 +27,7 @@ from minisched_tpu_torch.ops.topology import group_topology_state
 from minisched_tpu_torch.plugins import PluginSet
 from minisched_tpu_torch.service.defaultconfig import make_plugin
 from test_torch_plugins_full import assert_decisions_equal, encode_both
-from torch_parity import ZONE, bits_equal, full_cluster
+from torch_parity import CAPS_KINDS, ZONE, bits_equal, caps_problem, full_cluster
 
 SPREAD_PLUGINS = ["NodeUnschedulable", "NodeResourcesFit",
                   "PodTopologySpread"]
@@ -171,6 +172,24 @@ def test_caps_scan_matches_jax(seed):
     plain = jgreedy(scores, req, free, key)
     assert not np.array_equal(np.asarray(plain.chosen),
                               np.asarray(want.chosen))
+
+
+@pytest.mark.parametrize("kind", CAPS_KINDS)
+def test_caps_problem_matches_jax(kind):
+    """Every caps problem the card tests hold the kernel to
+    (tests/torch_parity.caps_problem): the plain caps scan against JAX's
+    greedy_assign(caps=...) on the same DomainCaps, scores, requests,
+    free and key."""
+    scores, req, free, _seed, tc = caps_problem(kind)
+    jc = JDomainCaps(*[jnp.asarray(t.numpy()) for t in tc])
+    key = jax.random.fold_in(jax.random.PRNGKey(17), len(kind))
+    want = jgreedy(jnp.asarray(scores.numpy()), jnp.asarray(req.numpy()),
+                   jnp.asarray(free.numpy()), key, caps=jc)
+    seed32 = int(np.asarray(seed_from_key(key)))
+    got = greedy_assign_plain(scores, req, free, seed32, tc)
+    for w, g in zip(want, got):
+        assert bits_equal(np.asarray(w), g.numpy())
+    assert int(np.asarray(want.assigned).sum()) > 0
 
 
 @pytest.mark.parametrize("shortlist", [None, 8])

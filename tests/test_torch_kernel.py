@@ -28,9 +28,10 @@ from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
-from torch_parity import (AUCTION_CASES, CAPS_KINDS, GREEDY_SHAPES, NEG,
-                          PORTS_DESIGN_KINDS, SELECT_CARD_LIST_KINDS,
-                          SHORTLIST_CASES, auction_adversarial,
+from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES, CAPS_KINDS,
+                          GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
+                          SELECT_CARD_LIST_KINDS, SHORTLIST_CASES,
+                          auction_adversarial, auction_select_case,
                           auction_fold_case, auction_strength_case,
                           auction_tie_case, bits_equal, caps_problem,
                           greedy_case, ports_case, ports_design_case,
@@ -715,6 +716,21 @@ def test_auction_kernels_uncached_rows_on_card(k):
     assert int(plain.assigned.sum()) == P
     if k == 2:
         assert int(plain.repaired.sum()) >= P - 4
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", AUCTION_SELECT_CASES)
+def test_bid_auction_selection_paths_on_card(case):
+    """The bid-shortlist kernel's threshold selection on each of its
+    paths (tests/torch_parity.auction_select_case: ties at kth past the
+    list's capacity walked across 512-column strides, whole-row
+    plateaus, zeros at kth, K = N, and rows of 65,536 columns taking the
+    ranked, exact, walked and infeasible paths in one launch) against
+    the plain version: every output and the rounds run."""
+    _need_card()
+    scores, req, free, k = auction_select_case(case)
+    plain = _auction_on_card(scores, req, free, 4321, k=k)
+    assert int(plain.assigned.sum()) > 0
 
 
 @pytest.mark.card

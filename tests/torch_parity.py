@@ -499,7 +499,8 @@ def full_cluster(O, n_nodes: int, n_pods: int, seed: int = 0,
 
 CAPS_KINDS = ["spreadcap-burst", "prebatch-imbalance", "random-hard-0",
               "random-hard-1", "hostname-overflow", "all-unenforced",
-              "multi-block"]
+              "multi-block", "zone-chase", "two-groups", "one-fit-nodes",
+              "mixed-enforced"]
 
 
 def caps_problem(kind: str, seed: int = 0):
@@ -511,8 +512,15 @@ def caps_problem(kind: str, seed: int = 0):
     pre-batch imbalance; random full_cluster batches (zone and hostname
     groups, both compact); hostname spread over 200 nodes (more domains
     than the caps compact: those slots are not enforced); a soft-only
-    batch (no slot enforced); and a 512-pod DoNotSchedule burst over
-    3,000 nodes in 16 zones (many blocks on a card)."""
+    batch (no slot enforced); a 512-pod DoNotSchedule burst over
+    3,000 nodes in 16 zones (many blocks on a card); and the cases of
+    the caps kernel's look-ahead: a skew-1 burst over 16 zones whose
+    pods all prefer the same zones in the same order (the winner's zone
+    closes on the next pod's best candidate nearly every pod, the
+    minimum rises every 16th), pods with two enforced slots in two
+    groups of which each pod matches one, nodes that fit exactly one pod
+    and score highest (the next pod's candidate is debited away), and a
+    batch mixing enforced, unconstrained and ScheduleAnyway pods."""
     import torch
 
     from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
@@ -532,11 +540,17 @@ def caps_problem(kind: str, seed: int = 0):
                                             label_selector=O.LabelSelector(
                                                 match_labels={"app": app}))]))
 
-    def zone_nodes(n, zones, cpu=64000.0):
+    def zone_nodes(n, zones, cpu=64000.0, racks=0):
         return [O.Node(metadata=O.ObjectMeta(name=f"n{i:04d}", labels={
-            ZONE: f"z{i % zones}", HOST: f"n{i:04d}"}),
+            ZONE: f"z{i % zones}", HOST: f"n{i:04d}",
+            **({"rack": f"r{i % racks}"} if racks else {})}),
             status=O.NodeStatus(allocatable={"cpu": cpu, "pods": 110.0}))
             for i in range(n)]
+
+    def plain(name, app="s"):
+        return O.Pod(metadata=O.ObjectMeta(name=name, namespace="default",
+                                           labels={"app": app}),
+                     spec=O.PodSpec(requests={"cpu": 100.0}))
 
     bound = []
     if kind == "spreadcap-burst":
@@ -560,6 +574,32 @@ def caps_problem(kind: str, seed: int = 0):
     elif kind == "multi-block":
         nodes = zone_nodes(3000, 16, cpu=4000.0)
         pods = [spread(f"m{i}") for i in range(512)]
+    elif kind == "zone-chase":
+        nodes, pods = zone_nodes(320, 16), [spread(f"c{i}")
+                                            for i in range(100)]
+    elif kind == "two-groups":
+        nodes = zone_nodes(60, 4, racks=5)
+        pods = []
+        for i in range(40):
+            app = "s" if i % 3 else "t"
+            pod = spread(f"g{i}", app=app)
+            pod.spec.topology_spread_constraints = [
+                O.TopologySpreadConstraint(
+                    max_skew=1, topology_key=key,
+                    when_unsatisfiable="DoNotSchedule",
+                    label_selector=O.LabelSelector(match_labels={"app": a}))
+                for key, a in ((ZONE, "s"), ("rack", "t"))]
+            pods.append(pod)
+    elif kind == "one-fit-nodes":
+        nodes = zone_nodes(64, 4, cpu=4000.0)
+        for n in nodes[:8]:
+            n.status.allocatable["cpu"] = 150.0
+        pods = [spread(f"o{i}", skew=50) for i in range(48)]
+    elif kind == "mixed-enforced":
+        nodes = zone_nodes(48, 4)
+        pods = [spread(f"x{i}") if i % 3 == 0 else plain(f"x{i}")
+                if i % 3 == 1 else spread(f"x{i}", mode="ScheduleAnyway")
+                for i in range(60)]
     else:
         raise ValueError(kind)
     cache = NodeFeatureCache()
@@ -569,7 +609,7 @@ def caps_problem(kind: str, seed: int = 0):
         cache.account_bind(pod)
     eb = encode_pods(pods, max(16, 1 << (len(pods) - 1).bit_length()),
                      cfg=cache.cfg, registry=cache.registry)
-    nf, _names, _sv, _incs = cache.snapshot_versioned()
+    nf, names, _sv, _incs = cache.snapshot_versioned()
     af = cache.snapshot_assigned()
     eb, nf, af = (to_torch(x, "cpu") for x in (eb, nf, af))
     num = max(nf.valid.shape[0], cache.cfg.domain_buckets)
@@ -579,6 +619,19 @@ def caps_problem(kind: str, seed: int = 0):
     rng = np.random.default_rng(seed + 11)
     P, N = eb.pf.valid.shape[0], nf.valid.shape[0]
     scores = (rng.integers(0, 4, (P, N)) * 25.0).astype(np.float32)
+    # Node row -> the index in its name (zone_nodes' n0000...), -1 for
+    # padding and other names.
+    node_ix = np.full((N,), -1, np.int64)
+    for row, name in enumerate(names[:N]):
+        if name and name[0] == "n" and name[1:].isdigit():
+            node_ix[row] = int(name[1:])
+    if kind == "zone-chase":  # every pod ranks the zones alike
+        zone = np.where(node_ix >= 0, node_ix % 16, 99)
+        scores = (100.0 - 4.0 * zone[None, :]
+                  + rng.integers(0, 2, (P, N))).astype(np.float32)
+    elif kind == "one-fit-nodes":  # the one-pod nodes score highest
+        scores = np.where((node_ix >= 0) & (node_ix < 8), 100.0,
+                          scores).astype(np.float32)
     scores[rng.random((P, N)) < 0.1] = NEG
     scores[~eb.pf.valid.numpy()] = NEG
     return (torch.from_numpy(scores), eb.pf.requests.clone(),
@@ -725,6 +778,90 @@ def auction_padded():
     return scores, req, free
 
 
+def auction_kth_ties():
+    """Rows whose K-th folded key falls in a run of equal keys: scores of
+    1e6 and 2e6 fold to themselves (the noise times eps is below half
+    their ulp), so the set takes the lowest tied columns."""
+    rng = np.random.default_rng(12)
+    scores = (rng.random((24, 300)) * 100).astype(np.float32)
+    scores[rng.random((24, 300)) < 0.2] = np.float32(NEG)
+    for row in scores:
+        row[rng.choice(300, 100, replace=False)] = 1e6
+        row[rng.choice(300, 3, replace=False)] = 2e6
+    return (scores, np.full((24, 2), 100.0, np.float32),
+            np.full((300, 2), 300.0, np.float32))
+
+
+def auction_row_plateau():
+    """Every column of a row holds the same folded key (1e6): the set is
+    the row's first K columns."""
+    scores = np.full((16, 256), 1e6, np.float32)
+    scores[8:, :40] = np.float32(NEG)
+    return (scores, np.full((16, 2), 100.0, np.float32),
+            np.full((256, 2), 200.0, np.float32))
+
+
+def auction_select_case(name: str):
+    """Rows that take each path of the bid-shortlist kernel's threshold
+    selection at card sizes: (scores, requests, free, k).
+
+    ties walked      K=128 cuts a run of ~1,200 equal keys spread from
+                     column 450 on (more ties than the list holds: the
+                     ordered walk crosses 512-column strides), and rows
+                     whose ties fit the list;
+    plateau walked   whole rows of one key, and rows whose first 1,000
+                     columns are infeasible;
+    zeros at kth     rows of +0.0 and -0.0 around the K-th key;
+    K = N            every column is in the set;
+    uncached paths   rows of 65,536 columns (their keys do not fit in
+                     shared memory) in one launch: a random row (ranked),
+                     a row whose 128 largest thread maxima hold all their
+                     columns' largest keys (the list overflows: the exact
+                     path), a plateau, a row with fewer feasible columns
+                     than K, and tied keys at the K-th."""
+    rng = np.random.default_rng(len(name))
+    if name == "ties walked":
+        P, N, k = 8, 4096, 128
+        scores = (rng.random((P, N)) * 100).astype(np.float32)
+        scores[:, :20] = 3e6
+        for r in range(P):
+            step = 3 if r % 2 == 0 else 17
+            scores[r, 450::step] = 1e6
+    elif name == "plateau walked":
+        P, N, k = 8, 4096, 128
+        scores = np.full((P, N), 1e6, np.float32)
+        scores[4:, :1000] = np.float32(NEG)
+    elif name == "zeros at kth":
+        P, N, k = 8, 2048, 64
+        scores = np.where(rng.random((P, N)) < 0.5, 0.0, -0.0).astype(
+            np.float32)
+        for row in scores:
+            row[rng.choice(N, 10, replace=False)] = 5.0
+    elif name == "K = N":
+        P, N = 8, 2048
+        k = N
+        scores = (rng.random((P, N)) * 100).astype(np.float32)
+        scores[rng.random((P, N)) < 0.3] = np.float32(NEG)
+    elif name == "uncached paths":
+        P, N, k = 6, 65536, 128
+        scores = (rng.random((P, N)) * 100).astype(np.float32)
+        # Thread t of the kernel folds float4 t, t + 512, ...: give the
+        # first 128 threads' columns the row's largest scores.
+        cols = np.arange(N)
+        scores[1, (cols // 4) % 512 < 128] += 1000.0
+        scores[2] = 1e6
+        scores[3, 50:] = np.float32(NEG)
+        scores[4, 3000::7] = 1e6
+        scores[4, :64] = 2e6
+    else:
+        raise ValueError(name)
+    return (scores, np.full((P, 2), 100.0, np.float32),
+            np.full((N, 2), 300.0, np.float32), k)
+
+
+AUCTION_SELECT_CASES = ["ties walked", "plateau walked", "zeros at kth",
+                        "K = N", "uncached paths"]
+
 # name -> (builder, priorities or None, bid-shortlist widths)
 AUCTION_CASES = {
     "abundant 64x256": (lambda: auction_instance(64, 256, seed=1), None,
@@ -742,6 +879,8 @@ AUCTION_CASES = {
     "plateau": (auction_plateau, None, (8,)),
     "signed zeros": (auction_signed_zero, None, (1, 7, 300)),
     "padded": (auction_padded, np.array([3] * 8 + [1] * 12), (4,)),
+    "kth ties": (auction_kth_ties, None, (8, 64, 300)),
+    "row plateau": (auction_row_plateau, None, (4, 64, 256)),
 }
 
 FOLD_EPS, HALF_EPS = np.float32(0.01), np.float32(0.005)

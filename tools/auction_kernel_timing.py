@@ -3,7 +3,7 @@ csrc/bid_auction.cu, the rounds over bid shortlists) on the bench batch,
 against other builds of them, in turns. Needs a CUDA card and nvcc.
 
     python tools/auction_kernel_timing.py [--other OLD.cu]
-                                          [--other-dense OLD.cu]
+                                          [--other-dense OLD.cu] [--split]
 
 Inputs: chip_smoke.py's bench batch (the first 1,024 pods of the bench
 workload against 50,000 nodes, scored by the bench profile) at full width
@@ -24,11 +24,17 @@ kernel (chip_smoke.device_ms, chip_smoke.queued_ms).
 --other        another bid_auction source with the same C interface (for
                instance an earlier commit's csrc/bid_auction.cu,
                extracted with `git show <commit>:minisched_tpu_torch/
-               csrc/bid_auction.cu` first: the chip machine has no git),
-               built against the package's csrc/ headers and timed beside
+               csrc/bid_auction.cu` into a directory with that commit's
+               csrc/*.cuh first: the chip machine has no git), built
+               against the headers of its own directory and timed beside
                the package's kernel in turns: other, package, package,
                other.
 --other-dense  the same for csrc/auction.cu.
+--split        a copy of each build with clock64 stamps on its phases
+               (tools/split_timing.py), run once per input after a
+               warm-up: mean, min and max over blocks of each selection
+               phase in us per block and of each round phase in us per
+               round.
 
 Every build, the package's too, is launched here through its own C
 entry point, outside the package's wrappers, so no launch is counted in
@@ -38,8 +44,6 @@ _cuda_build.LAUNCHES. Builds go to minisched_tpu_torch/_build/timing/
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import os
 import subprocess
 import sys
@@ -47,8 +51,10 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests"),
+                os.path.dirname(os.path.abspath(__file__))]
 import chip_smoke as cs  # noqa: E402
+import split_timing as sp  # noqa: E402
 from minisched_tpu_torch.encode import to_torch  # noqa: E402
 from minisched_tpu_torch.ops import _cuda_build, prng  # noqa: E402
 from minisched_tpu_torch.ops.auction import (EPS, HALF_EPS,  # noqa: E402
@@ -61,31 +67,156 @@ from minisched_tpu_torch.ops.bid_select import (  # noqa: E402
 from minisched_tpu_torch.ops.pipeline import (_gather_nodes,  # noqa: E402
                                               _select_node_sample, evaluate)
 
-BUILD = os.path.join(ROOT, "minisched_tpu_torch", "_build", "timing")
+# Stamps for 0e0228d's kernels (thread 0 of every block): the radix
+# selection per row, then the three grid barriers of each round.
+PR9_SELECT = {0: "selection: fill the key cache", 1: "selection: 4 radix passes",
+              2: "selection: collection", 3: "init + every row's selection",
+              4: "grid barrier after the selection"}
+PR9_ROUND = {5: "round: control + node walk", 6: "round: grid barrier A",
+             7: "round: bids", 8: "round: grid barrier B",
+             9: "round: settle", 10: "round: grid barrier C",
+             11: "round: advance (loop state)"}
+PR9_HEADER = [
+    ("  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    open_nodes(p, s);\n    grid_sync(p.bar, target);\n",
+     "  long long _st = clock64();\n"
+     "  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    open_nodes(p, s);\n    st_mark(_st, 5);\n"
+     "    grid_sync(p.bar, target);\n    st_mark(_st, 6);\n"),
+    ("    grid_sync(p.bar, target);\n    settle(p, s);\n"
+     "    grid_sync(p.bar, target);\n    advance(p, s);\n  }\n",
+     "    st_mark(_st, 7);\n    grid_sync(p.bar, target);\n"
+     "    st_mark(_st, 8);\n    settle(p, s);\n    st_mark(_st, 9);\n"
+     "    grid_sync(p.bar, target);\n    st_mark(_st, 10);\n"
+     "    advance(p, s);\n    st_mark(_st, 11);\n  }\n"),
+]
+PR9_BID = [
+    ("  if (p.cache_keys) cache_row(p, row, srow, keys_s);\n",
+     "  long long _st = clock64();\n"
+     "  if (p.cache_keys) cache_row(p, row, srow, keys_s);\n"
+     "  st_mark(_st, 0);\n"),
+    ("  feas = __syncthreads_or(feas);\n",
+     "  feas = __syncthreads_or(feas);\n  st_mark(_st, 1);\n"),
+    ("  // The cache is rewritten for the block's next row.\n"
+     "  __syncthreads();\n}\n",
+     "  // The cache is rewritten for the block's next row.\n"
+     "  __syncthreads();\n  st_mark(_st, 2);\n}\n"),
+    ("  unsigned target = 0;\n  init_state(p);\n",
+     "  long long _st;\n  st_open(_st);\n"
+     "  unsigned target = 0;\n  init_state(p);\n"),
+    ("  grid_sync(p.bar, target);\n  run_rounds(",
+     "  st_mark(_st, 3);\n  grid_sync(p.bar, target);\n"
+     "  st_mark(_st, 4);\n  run_rounds("),
+    ("return shortlist_top2(p, i); });\n}\n",
+     "return shortlist_top2(p, i); });\n  st_close();\n}\n"),
+]
+PR9_DENSE = [
+    ("  unsigned target = 0;\n  init_state(p);\n",
+     "  long long _st;\n  st_open(_st);\n"
+     "  unsigned target = 0;\n  init_state(p);\n"),
+    ("  grid_sync(p.bar, target);\n  run_rounds(",
+     "  st_mark(_st, 3);\n  grid_sync(p.bar, target);\n"
+     "  st_mark(_st, 4);\n  run_rounds("),
+    ("return dense_top2(p, i); });\n}\n",
+     "return dense_top2(p, i); });\n  st_close();\n}\n"),
+]
+# Stamps for the threshold selection and the two-barrier round.
+NEW_SELECT = {0: "selection: pass 1 (fold, keys, maxima)",
+              1: "selection: reductions + L", 2: "selection: pass 2 (list)",
+              15: "selection: rank / ties / exact path",
+              3: "init + every row's selection",
+              4: "local state + first control barrier"}
+NEW_ROUND = {5: "round: node walk (per round, when walked)",
+             6: "round: grid barrier A (per round, when walked)",
+             7: "round: bids", 8: "round: grid barrier B",
+             9: "round: settle", 12: "round: control partial",
+             10: "round: control barrier + read"}
+NEW_COUNTS = {14: "rounds that walked the nodes", 16: "rows ranked",
+              17: "rows whose ties at L were walked",
+              18: "rows on the exact path"}
+NEW_HEADER = [
+    ("  control_sync(p, s, target, gen, true);\n"
+     "  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    if (s.walk) {\n      walk_nodes(p, s);\n"
+     "      grid_sync(p.bar, target);\n    }\n    bid_phase(s);\n"
+     "    grid_sync(p.bar, target);\n"
+     "    const bool fit = settle(p, L, s);\n"
+     "    publish_partial(p, L, s.band, false, fit, gen);\n"
+     "    control_sync(p, s, target, gen, false);\n  }\n",
+     "  long long _st = clock64();\n"
+     "  control_sync(p, s, target, gen, true);\n  st_mark(_st, 4);\n"
+     "  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    if (s.walk) {\n      st_count(14);\n      walk_nodes(p, s);\n"
+     "      st_mark(_st, 5);\n      grid_sync(p.bar, target);\n"
+     "      st_mark(_st, 6);\n    }\n    bid_phase(s);\n"
+     "    st_mark(_st, 7);\n    grid_sync(p.bar, target);\n"
+     "    st_mark(_st, 8);\n    const bool fit = settle(p, L, s);\n"
+     "    st_mark(_st, 9);\n"
+     "    publish_partial(p, L, s.band, false, fit, gen);\n"
+     "    st_mark(_st, 12);\n    control_sync(p, s, target, gen, false);\n"
+     "    st_mark(_st, 10);\n  }\n"),
+]
+_NEW_KERNEL = [
+    ("  init_state(p);\n",
+     "  long long _st;\n  st_open(_st);\n  init_state(p);\n"),
+    ("  init_local(p, L);\n",
+     "  st_mark(_st, 3);\n  init_local(p, L);\n"),
+]
+NEW_BID = _NEW_KERNEL + [
+    ("  uint32_t mx, mn;\n  fold_row(p, row, srow, keys_s, mx, mn);\n",
+     "  long long _st = clock64();\n"
+     "  uint32_t mx, mn;\n  fold_row(p, row, srow, keys_s, mx, mn);\n"
+     "  st_mark(_st, 0);\n"),
+    ("    uint32_t above, equal;\n"
+     "    compact(p, row, srow, keys_s, L, false, list, above, equal);\n",
+     "    st_mark(_st, 1);\n    uint32_t above, equal;\n"
+     "    compact(p, row, srow, keys_s, L, false, list, above, equal);\n"
+     "    st_mark(_st, 2);\n"),
+    ("      emit_ranked(p, row, list, static_cast<int>(above + equal));\n",
+     "      st_count(16);\n"
+     "      emit_ranked(p, row, list, static_cast<int>(above + equal));\n"),
+    ("        emit_ties(p, row, srow, keys_s, L,",
+     "        st_count(17);\n        emit_ties(p, row, srow, keys_s, L,"),
+    ("      kth = select_exact(p, row, srow, keys_s);\n",
+     "      st_count(18);\n      kth = select_exact(p, row, srow, keys_s);\n"),
+    ("  if (threadIdx.x == 0) {\n    if (!ranked)",
+     "  st_mark(_st, 15);\n  if (threadIdx.x == 0) {\n    if (!ranked)"),
+    ("  });\n}\n\nextern \"C\" long long bid_auction_scratch_bytes",
+     "  });\n  st_close();\n}\n\n"
+     "extern \"C\" long long bid_auction_scratch_bytes"),
+]
+NEW_DENSE = _NEW_KERNEL + [
+    ("  });\n}\n\nextern \"C\" long long auction_scratch_bytes",
+     "  });\n  st_close();\n}\n\nextern \"C\" long long auction_scratch_bytes"),
+]
+# anchor in the header -> (header edits, {main: edits}, phases, counts)
+SPLITS = {
+    "    advance(p, s);\n  }\n": (PR9_HEADER, {"bid_auction.cu": PR9_BID,
+                                            "auction.cu": PR9_DENSE},
+                                 {**PR9_SELECT, **PR9_ROUND}, {}),
+    "control_sync(p, s, target, gen, false);": (
+        NEW_HEADER, {"bid_auction.cu": NEW_BID, "auction.cu": NEW_DENSE},
+        {**NEW_SELECT, **NEW_ROUND}, NEW_COUNTS),
+}
 
 
-def build(name: str, src: str, dense: bool) -> ctypes.CDLL:
-    headers = "".join(open(os.path.join(_cuda_build.CSRC_DIR, f)).read()
-                      for f in sorted(os.listdir(_cuda_build.CSRC_DIR))
-                      if f.endswith(".cuh"))
-    digest = hashlib.sha256((src + headers).encode()).hexdigest()[:12]
-    os.makedirs(BUILD, exist_ok=True)
-    cu = os.path.join(BUILD, f"auction-{name}-{digest}.cu")
-    so = cu[:-3] + ".so"
-    if not os.path.exists(so):
-        with open(cu, "w") as f:
-            f.write(src)
-        p = subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS,
-                            "-I", _cuda_build.CSRC_DIR, "-Xptxas", "-v",
-                            "-o", so, cu], capture_output=True, text=True)
-        if p.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{p.stderr}")
-        print(f"ptxas {name}: " + " | ".join(
-            ln.strip() for ln in p.stderr.splitlines()
-            if "registers" in ln or "spill" in ln))
-    lib = ctypes.CDLL(so)
-    (_bind_auction if dense else _bind_bid)(lib)
-    return lib
+def build(name: str, files, main: str, stamp: bool = False):
+    """The library of ``files[main]`` built with the other files (its
+    directory's headers), or of its stamped copy: (library, phases,
+    counts); None for a stamped copy that no stamp edits fit."""
+    phases = counts = None
+    if stamp:
+        for anchor, (hdr, mains, phases, counts) in SPLITS.items():
+            if anchor in files["auction_rounds.cuh"]:
+                files = sp.stamped(files, {"auction_rounds.cuh": hdr,
+                                           main: mains[main]})
+                break
+        else:
+            print(f"no stamp edits fit the {name} source: not split")
+            return None
+    lib = sp.build(f"{name}{'-stamped' if stamp else ''}", files, main,
+                   _bind_auction if main == "auction.cu" else _bind_bid)
+    return lib, phases, counts
 
 
 def launch(lib, scores, req, free, seed, prio, k=None, max_rounds=None):
@@ -152,6 +283,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another bid_auction.cu")
     ap.add_argument("--other-dense", help="another auction.cu")
+    ap.add_argument("--split", action="store_true",
+                    help="split each build per phase (stamped copies)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
@@ -161,15 +294,21 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 21))
-    kernels = {}
-    for dense, pkg, other in ((True, "auction", opts.other_dense),
-                              (False, "bid_auction", opts.other)):
-        with open(_cuda_build.source(pkg)) as f:
-            builds = {"package": build(pkg, f.read(), dense)}
+    kernels, stamped = {}, {}
+    for main, pkg, other in (("auction.cu", "auction", opts.other_dense),
+                             ("bid_auction.cu", "bid_auction", opts.other)):
+        sources = {"package": sp.read_dir(_cuda_build.CSRC_DIR)}
         if other:
+            sources["other"] = sp.read_dir(os.path.dirname(
+                os.path.abspath(other)))
             with open(other) as f:
-                builds["other"] = build(f"{pkg}-other", f.read(), dense)
-        kernels[pkg] = builds
+                sources["other"][main] = f.read()
+        kernels[pkg] = {b: build(f"{pkg}-{b}", files, main)[0]
+                        for b, files in sources.items()}
+        if opts.split:
+            stamped[pkg] = {b: lib for b, lib in (
+                (b, build(f"{pkg}-{b}", files, main, True))
+                for b, files in sources.items()) if lib is not None}
     for name, (scores, req, free, prio) in inputs().items():
         P, N = scores.shape
         for pkg, builds in kernels.items():
@@ -208,6 +347,19 @@ def main() -> int:
                              f"{(ms - sel) * 1e3 / max(rounds, 1):.1f} us "
                              "per round)")
                 parts.append(part)
+            lines = []
+            for b, (slib, phases, counts) in stamped.get(pkg, {}).items():
+                stamps = sp.Stamps(slib)
+                launch(slib, scores, req, free, seed, prio, k)
+                stamps.zero()
+                launch(slib, scores, req, free, seed, prio, k)
+                stamp, ghz = stamps.read()
+                lines += sp.report(
+                    f"{pkg} {b} on {name} ({rounds} rounds; selection in us "
+                    f"per block, rounds in us per round) ({smi})", stamp, ghz,
+                    {j: (v, max(rounds, 1) if j >= 5 and j != 15 else 1)
+                     for j, v in phases.items()
+                     if k is not None or j not in (0, 1, 2, 15)}, counts)
             lib = builds["package"]
             prof = cs.profiler_ms(lambda: launch(lib, scores, req, free, seed,
                                                  prio, k), reps=5)
@@ -221,6 +373,8 @@ def main() -> int:
                   f"over full rows), "
                   f"{int(plain.assigned.sum())} assigned; "
                   + ", ".join(parts) + f" ({smi})", flush=True)
+            if lines:
+                print("\n".join(lines), flush=True)
     return 0
 
 
