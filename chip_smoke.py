@@ -121,17 +121,22 @@ them, and on any mismatch. Phases, each printing its own lines:
  20. the auction kernels (csrc/auction.cu, csrc/bid_auction.cu) vs their
      plain versions, bitwise on every output and in the rounds run:
      tests/torch_parity.py's auction instances at
-     each width, the fold and strength cases that one rounding and two
-     decide differently, equal strengths, round budgets that run out;
-     then the bench batch at full width (1,024 x 53,248 x 10, one band
-     and three bands, dense and K=128) and at the sampled shape the bench
-     burst runs (1,024 x 4,096), each with its time back to back, device
-     time, plain time and bound (the bid shortlist's selection alone as
-     well), and a full-width contention batch where the bid shortlist at
-     K in {1, 128, N} equals the dense rounds;
+     each width (one of 16,385 pods, past the kernels' old cap), the fold
+     and strength cases that one rounding and two decide differently,
+     equal strengths, round budgets that run out, and 1,300,000 pods
+     against 2 nodes (past the shared-memory wall of the earlier layout;
+     the feasible rows the last 48); then the bench batch at full width
+     (1,024 x 53,248 x 10, one band and three bands, dense and K=128) and
+     at the sampled shape the bench burst runs (1,024 x 4,096), each
+     with its time back to back, device time, plain time and bound (the
+     bid shortlist's selection alone as well), and a full-width
+     contention batch (the dense kernel timed) where the bid shortlist
+     at K in {1, 128, N} equals the dense rounds;
  21. build_step(assignment="auction") cuda = cpu on every Decision
-     field, sampled and unsampled, with and without the bid shortlist; no
-     host sync in the gang-free sampled step;
+     field, sampled and unsampled, with and without the bid shortlist,
+     and on 16,385 pods (an 18,432-row step past the old cap, the
+     feasible pods the last 65); no host sync in the gang-free sampled
+     step;
  22. the bench burst with SchedulerConfig(assignment="auction") (50,000
      nodes x 10,000 pods, sampled): all bound, none over-committed, the
      bid-shortlist kernel in every batch, the carried device state equal
@@ -176,7 +181,8 @@ from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
 from minisched_tpu_torch.ops.auction import auction_assign_plain
 from minisched_tpu_torch.ops.auction_kernel import (auction_cuda,
-                                                    bid_auction_cuda)
+                                                    bid_auction_cuda,
+                                                    bid_auction_layout)
 from minisched_tpu_torch.ops.bid_select import auction_assign_shortlist_plain
 from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
@@ -203,11 +209,13 @@ from minisched_tpu_torch.state import objects as O
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES,  # noqa: E402
-                          CAPS_KINDS, SELECT_CARD_LIST_KINDS,
-                          auction_adversarial, auction_fold_case,
-                          auction_select_case, auction_strength_case,
-                          auction_tie_case, caps_problem, full_cluster,
-                          sampled_cluster, select_list_case)
+                          CAPS_KINDS, OLD_AUCTION_CAP,
+                          SELECT_CARD_LIST_KINDS, auction_adversarial,
+                          auction_fold_case, auction_past_cap,
+                          auction_past_cap_cluster, auction_select_case,
+                          auction_strength_case, auction_tie_case,
+                          caps_problem, full_cluster, sampled_cluster,
+                          select_list_case)
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
 # The node sample of the default config at bench-50k: pct = max(5, 50 -
@@ -1349,7 +1357,7 @@ def auction_timed(args, seed, label, smi, prio=None, k=None):
             "plain_ms": plain_ms,
             "bound_s": bound_s, "bound_by": bound_by, "err": err,
             "rounds": rounds, "bids": bids, "full_rows": full,
-            "select_ms": select_ms}
+            "select_ms": select_ms, "got": got}
 
 
 def auction_kernels_phase(smi, eb, nf, af, key):
@@ -1428,6 +1436,26 @@ def auction_kernels_phase(smi, eb, nf, af, key):
     print("auction kernels vs plain: the fold and the strength rounded "
           "once, equal strengths to the higher row, round budgets of 1, 2 "
           "and 4 that leave feasible pods unassigned: bitwise equal")
+    # Past the shared-memory wall of the kernels' earlier layout (every
+    # block's pods in its shared memory: about 9,550 a block): 1,300,000
+    # pods against 2 nodes, the feasible ones the last 48.
+    P_w = 1_300_000
+    *arrays, prio_w = auction_past_cap(P=P_w, N=2, n_feasible=48, seed=44)
+    args = [cuda(a) for a in arrays]
+    pr = cuda(prio_w)
+    for k in (None, 1, 2):
+        got, stats, _ms, e = auction_pair(*args, seed, "past the wall",
+                                          prio=pr, k=k)
+        note(k, e)
+        placed = got.assigned.nonzero().flatten()
+        check(placed.numel() > 0 and int(placed.min()) >= P_w - 48,
+              f"past the wall: placed rows {placed.tolist()}")
+    print(f"auction kernels vs plain past the shared-memory wall "
+          f"{P_w}x2x2 (dense, K=1, K=2; feasible rows the last 48): "
+          f"bitwise equal, {stats[0]} rounds, {placed.numel()} assigned, "
+          f"the bid shortlist's pods in device memory: "
+          f"{not bid_auction_layout(P_w, 2)['shared_pods']}")
+    del args, pr, got
 
     plugin_set = BENCH_PROFILE.build()
     eb_d, nf_d, af_d = (to_torch(x, "cuda") for x in (eb, nf, af))
@@ -1451,8 +1479,11 @@ def auction_kernels_phase(smi, eb, nf, af, key):
     del s_scores, sampled, nf_s, idx
     cont = shortlist_case(BATCH, scores.shape[1], full[1].shape[1], 3,
                           contend=True)
-    dense, dstats, _ms, e = auction_pair(*cont, seed, "contention")
-    note(None, e)
+    out[("contention", None)] = auction_timed(cont, seed, "contention", smi)
+    dense = out[("contention", None)].pop("got")
+    dstats = [out[("contention", None)][f]
+              for f in ("rounds", "bids", "full_rows")]
+    note(None, out[("contention", None)]["err"])
     for k in (1, K, scores.shape[1]):
         got, stats, _ms, e = auction_pair(*cont, seed, "contention", k=k)
         note(k, e)
@@ -1465,6 +1496,8 @@ def auction_kernels_phase(smi, eb, nf, af, key):
               f"(dense {dstats[0]}), {stats[2]} full-row bids, "
               f"{int(got.assigned.sum())} assigned ({smi})")
     del cont, dense, got, full, scores, eb_d, nf_d, af_d
+    for v in out.values():
+        v.pop("got", None)
     for name in err:
         out[name + "_err"] = err[name]
     return out
@@ -1497,6 +1530,36 @@ def auction_step_phase(smi, eb, nf, af, key):
                   f"vs cpu, {int(d_cpu.assigned.sum())} assigned; cuda "
                   f"{ms:.3f} ms per step back to back, cpu {cpu_s:.2f} s "
                   f"({smi})")
+    # 16,385 pods (an 18,432-row step) past the kernels' old cap of
+    # 16,384, only the last 65 feasible, against 64 nodes.
+    nodes_c, pods_c = auction_past_cap_cluster(O)
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes_c)
+    nf_c, _names, _sv, _incs = cache.snapshot_versioned(pad=64)
+    eb_cap = encode_pods(pods_c, step_bucket(len(pods_c)), cfg=cache.cfg,
+                         registry=cache.registry)
+    af_cap = cache.snapshot_assigned(pad=16)
+    rows = eb_cap.pf.requests.shape[0]
+    for kk in (16, None):
+        step = build_step(plugin_set, shortlist=kk, assignment="auction")
+        d_gpu = step(*(to_torch(x, "cuda") for x in (eb_cap, nf_c, af_cap)),
+                     key)
+        d_cpu = step(*(to_torch(x, "cpu") for x in (eb_cap, nf_c, af_cap)),
+                     key)
+        for field in d_cpu._fields:
+            check(torch.equal(bits(getattr(d_gpu, field)),
+                              bits(getattr(d_cpu, field))),
+                  f"auction step past the old cap shortlist={kk} field "
+                  f"{field}: cuda != cpu")
+        placed = d_cpu.assigned.nonzero().flatten()
+        check(placed.numel() > 0 and int(placed.min()) >= len(pods_c) - 65
+              and bool(d_cpu.assigned[len(pods_c) - 1]),
+              f"auction step past the old cap: placed {placed.tolist()}")
+        print(f"auction step past the old cap ({len(pods_c)} pods > "
+              f"{OLD_AUCTION_CAP}, a {rows}-row step x 64 nodes) "
+              f"shortlist={kk}: every Decision field bitwise equal cuda vs "
+              f"cpu, {placed.numel()} assigned, pod {len(pods_c) - 1} "
+              f"among them")
     step = build_step(plugin_set, shortlist=K, sample_nodes=SAMPLE_K,
                       assignment="auction")
     check_no_sync(lambda: step(eb_d, nf_d, af_d, key, has_gang=False,
@@ -2338,6 +2401,7 @@ def main() -> int:
         # The dense rounds run in the shortlist cross-check (and with
         # shortlist=False): launches of phase 24's fault-free run.
         "launches": au_check_launches["auction"],
+        "redesigned": True,
         "max_abs_err": au["auction_err"],
         "ms": au[("sampled", None)]["ms"],
         "device_ms": au[("sampled", None)]["device_ms"],
@@ -2348,6 +2412,9 @@ def main() -> int:
         "rounds": au[("sampled", None)]["rounds"],
         "ms_full_width": au[("full width", None)]["ms"],
         "bound_ms_full_width": au[("full width", None)]["bound_s"] * 1e3,
+        "ms_full_width_3_bands": au[("full width, 3 bands", None)]["ms"],
+        "ms_contention": au[("contention", None)]["ms"],
+        "rounds_contention": au[("contention", None)]["rounds"],
         "library_ms": None,
     }, {
         "name": "bid_auction",

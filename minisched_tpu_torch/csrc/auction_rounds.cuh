@@ -5,24 +5,27 @@
 // minisched_tpu/ops/bid_select.py:76-210.
 //
 // Launch: one block of kThreads per SM (fewer for a small batch), every
-// block resident. Pod p belongs to block p % G for the whole launch, and
-// the block keeps its pods' state in shared memory (Local): whether each
-// is feasible, its node once assigned, its priority, and the round's bid
-// (key, node, margin). Only the owner reads or writes that state, so the
-// bids and the winners need no device-memory round trip for it. A round:
+// block resident. Pod p belongs to block p % G for the whole launch: the
+// block settles its pods' bids and reduces their part of the loop control.
+// A pod's round state (Pods: its node once assigned, its priority, and the
+// round's bid: key, node, margin) lies in the block's dynamic shared
+// memory while a block's share of the batch fits there beside what the
+// kernel keeps, else in device memory, indexed by pod (any batch size that
+// device memory holds). The dense kernel keeps it in device memory always:
+// any block may post any pod's bid. A round:
 //
 //   node walk (only when the band advanced or its least request moved):
 //       the grid walks the nodes: prices reset when the band advanced,
 //       and the round's open price written (the price of a node whose
 //       free capacity covers the band's least request on every axis, NaN
 //       for a closed node); a grid barrier;
-//   bids: each block bids its active pods (the bid phase of the kernel:
-//       the dense kernel reduces each pod's full row with the whole block;
-//       the shortlist kernel gives each pod a warp); a bid is
-//       gamma = (v_best - v2 or 0) + eps, strength = fma(noise(seed,
-//       round, pod), eps / 2, v_best), the 64-bit key (strength's
-//       total-order key << 32 | pod), raised into the node's winner key
-//       with one atomicMax; a grid barrier;
+//   bids: the kernel's bid phase posts a bid for every active pod (the
+//       dense kernel spreads (pod, column tile) units over every warp of
+//       the grid; the shortlist kernel gives each pod a warp of its
+//       owner); a bid is gamma = (v_best - v2 or 0) + eps, strength =
+//       fma(noise(seed, round, pod), eps / 2, v_best), the 64-bit key
+//       (strength's total-order key << 32 | pod), raised into the node's
+//       winner key with one atomicMax; a grid barrier;
 //   winners: one thread per pod of the block: the pod whose key is its
 //       node's winner key is the node's one winner (argsort(argsort(.)) of
 //       the JAX package, which is stable, ranks ties by row). It clears
@@ -49,6 +52,14 @@
 // walk's open prices stay right between walks because a node's price and
 // free row change only through its winner, which updates its open price.
 //
+// Active lists (the dense kernel): the bid phase needs the round's active
+// pods in one list that every block reads. Each block appends its own
+// before a grid barrier: the pods left in the band after its settle (the
+// next round's list if the band stands), and, when the band advances, the
+// new band's pods during the walk. Each list has its own count, in four
+// words by round parity; block 0 zeroes a parity's two after the round
+// that read them.
+//
 // Exactness: the fold of the tie noise into the scores and the strength
 // are one fused multiply-add each, as XLA compiles them (__fmaf_rn); every
 // other operation is a single IEEE operation (__fsub_rn, __fadd_rn).
@@ -65,7 +76,6 @@ namespace auction {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxR = 32;
-constexpr int kMaxP = 32 * kThreads;  // the wrappers' batch limit
 constexpr int kCtlWords = 1 + 2 * kMaxR;  // a control buffer, 64-bit words
 constexpr int kStale = 8;
 constexpr int kNegBand = -2147483647;  // -(2^31) + 1: no band left
@@ -98,28 +108,49 @@ struct Params {
   float* s_vals;                  // (P,K) shortlist only
   int32_t* cand;                  // (P,K) shortlist only
   float* kth;                     // (P,) shortlist only
+  // The pods' round state in device memory, by pod (Pods<true>).
+  unsigned long long* pod_key;    // (P,)
+  int32_t* pod_best;              // (P,)
+  float* pod_gamma;               // (P,)
+  int32_t* pod_chosen;            // (P,)
+  int32_t* pod_prio;              // (P,)
+  int32_t* act;                   // (P,) the round's active pods (dense)
   unsigned long long* ctl;        // (2, kCtlWords) the blocks' partials,
                                   // reduced by atomics, by round parity
   unsigned int* bar;              // grid barrier arrivals
+  unsigned int* act_n;            // (4,) active-list counts (dense)
   // launch shape
   int local;                      // pods per block, ceil(P / G)
   int cache_keys;                 // shortlist: the row's keys fit in the
                                   // block's dynamic shared memory
+  // the dense kernel's bid units
+  int4* part;                     // (P, tiles) each tile's Top2 as bits
+  unsigned int* count;            // (P,) the pod's tiles counted this round
+  int tiles;                      // column tiles a row
+  int vec;                        // rows start 16-byte aligned, N % 4 == 0
+  int staged;                     // the open prices fit in shared memory
 };
 
 // Bytes of scratch a launch needs, and their layout (16-byte aligned).
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~15; }
+
+// The control buffers, the barrier and the list counts: zeroed together
+// by the launcher.
+constexpr size_t kZeroed = 16ull * kCtlWords + 16 + 16;
 
 inline size_t scratch_bytes(int P, int N, int K) {
   size_t b = 0;
   b += align16(4ull * N) * 2 + align16(8ull * N);                // nodes
   b += align16(P);                                               // pods
   b += align16(4ull * P * K) * 2 + align16(4ull * P);            // shortlist
-  b += align16(16ull * kCtlWords) + 16;                          // control
+  b += align16(8ull * P) + 5 * align16(4ull * P);                // Pods, act
+  b += kZeroed;                                                  // control
   return b;
 }
 
-inline void carve(Params& p, void* scratch) {
+// Carves the shared scratch; returns its end (a kernel's own scratch
+// follows).
+inline char* carve(Params& p, void* scratch) {
   char* c = static_cast<char*>(scratch);
   auto take = [&c](size_t n) {
     char* r = c;
@@ -134,44 +165,84 @@ inline void carve(Params& p, void* scratch) {
   p.s_vals = reinterpret_cast<float*>(take(4 * P * K));
   p.cand = reinterpret_cast<int32_t*>(take(4 * P * K));
   p.kth = reinterpret_cast<float*>(take(4 * P));
-  // The control buffers, then the barrier: one zeroing covers both.
+  p.pod_key = reinterpret_cast<unsigned long long*>(take(8 * P));
+  p.pod_best = reinterpret_cast<int32_t*>(take(4 * P));
+  p.pod_gamma = reinterpret_cast<float*>(take(4 * P));
+  p.pod_chosen = reinterpret_cast<int32_t*>(take(4 * P));
+  p.pod_prio = reinterpret_cast<int32_t*>(take(4 * P));
+  p.act = reinterpret_cast<int32_t*>(take(4 * P));
   p.ctl = reinterpret_cast<unsigned long long*>(take(16ull * kCtlWords));
   p.bar = reinterpret_cast<unsigned int*>(take(16));
+  p.act_n = reinterpret_cast<unsigned int*>(take(16));
+  return c;
 }
 
-// The block's pods in its dynamic shared memory: pod blockIdx.x + j * G is
-// entry j. Bytes for `local` pods.
+__device__ __forceinline__ int pod_of(int j) {
+  return blockIdx.x + j * gridDim.x;
+}
+
+// Bytes of a block's Pods in shared memory, for `local` pods.
 __host__ __device__ inline size_t local_bytes(int local) {
   return align16(8ull * local) + 4 * align16(4ull * local);
 }
 
-struct Local {
+// The block's pods: entry j is pod pod_of(j). In shared memory (kDevice
+// false: entry j at index j, plain loads) or in device memory (index
+// pod_of(j), loads and stores at L2: another block may have written it).
+template <bool kDevice>
+struct Pods {
   unsigned long long* key;  // the round's bid key, 0 for none
   int32_t* best;            // the bid's node
   float* gamma;             // the bid's price rise
   int32_t* chosen;          // the node once assigned, else -1
   int32_t* prio;            // priority; kNegBand if infeasible
   int n;                    // this block's pods
+
+  __device__ __forceinline__ int at(int j) const {
+    return kDevice ? pod_of(j) : j;
+  }
+  template <typename T>
+  __device__ __forceinline__ static T ld(const T* a) {
+    if constexpr (kDevice) {
+      return __ldcg(a);
+    } else {
+      return *a;
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ static void st(T* a, T v) {
+    if constexpr (kDevice) {
+      __stcg(a, v);
+    } else {
+      *a = v;
+    }
+  }
 };
 
-__device__ inline Local carve_local(const Params& p, unsigned char* smem) {
-  Local L;
-  L.key = reinterpret_cast<unsigned long long*>(smem);
-  smem += align16(8ull * p.local);
-  L.best = reinterpret_cast<int32_t*>(smem);
-  smem += align16(4ull * p.local);
-  L.gamma = reinterpret_cast<float*>(smem);
-  smem += align16(4ull * p.local);
-  L.chosen = reinterpret_cast<int32_t*>(smem);
-  smem += align16(4ull * p.local);
-  L.prio = reinterpret_cast<int32_t*>(smem);
+template <bool kDevice>
+__device__ inline Pods<kDevice> carve_pods(const Params& p,
+                                           unsigned char* smem) {
+  Pods<kDevice> L;
+  if constexpr (kDevice) {
+    L.key = p.pod_key;
+    L.best = p.pod_best;
+    L.gamma = p.pod_gamma;
+    L.chosen = p.pod_chosen;
+    L.prio = p.pod_prio;
+  } else {
+    L.key = reinterpret_cast<unsigned long long*>(smem);
+    smem += align16(8ull * p.local);
+    L.best = reinterpret_cast<int32_t*>(smem);
+    smem += align16(4ull * p.local);
+    L.gamma = reinterpret_cast<float*>(smem);
+    smem += align16(4ull * p.local);
+    L.chosen = reinterpret_cast<int32_t*>(smem);
+    smem += align16(4ull * p.local);
+    L.prio = reinterpret_cast<int32_t*>(smem);
+  }
   const int b = blockIdx.x, g = gridDim.x;
   L.n = p.P > b ? (p.P - b + g - 1) / g : 0;
   return L;
-}
-
-__device__ __forceinline__ int pod_of(int j) {
-  return blockIdx.x + j * gridDim.x;
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -252,6 +323,24 @@ __device__ __forceinline__ void top2_add(Top2& t, float v, int col) {
   }
 }
 
+// One score of a row's running top two in a dense round, its columns
+// arriving in increasing order (a tie keeps the earlier column): the
+// value is the folded score less the node's open price op, hb = seed +
+// row * kGolden. No test is needed: an infeasible pair's value (at most
+// NEG) or a closed node's (NaN) never beats the running best and leaves
+// v2 at least NEG, exactly as the value NEG would.
+__device__ __forceinline__ void top2_add_dense(Top2& t, float s, float op,
+                                               int c, uint32_t hb,
+                                               float eps) {
+  const uint32_t x = fmix32(static_cast<uint32_t>(c) * kColMult + hb) >> 8;
+  const float n = __fmul_rn(__uint2float_rn(x), 1.0f / 16777216.0f);
+  const float v = __fsub_rn(__fmaf_rn(n, eps, s), op);
+  const bool up = v > t.v;
+  t.v2 = fmaxf(t.v2, up ? t.v : v);
+  t.col = up ? c : t.col;
+  t.v = up ? v : t.v;
+}
+
 __device__ __forceinline__ Top2 top2_merge(const Top2& a, const Top2& b) {
   if (b.v > a.v || (b.v == a.v && b.col < a.col))
     return Top2{b.v, b.col, fmaxf(b.v2, a.v)};
@@ -269,65 +358,6 @@ __device__ __forceinline__ Top2 warp_top2(Top2 t) {
   return t;
 }
 
-// The block's Top2, returned to every thread.
-__device__ Top2 block_top2(Top2 t) {
-  __shared__ Top2 warp_t[kWarps];
-  __shared__ Top2 result;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  t = warp_top2(t);
-  if (lane == 0) warp_t[warp] = t;
-  __syncthreads();
-  if (warp == 0) {
-    t = warp_top2(lane < kWarps ? warp_t[lane] : top2_empty());
-    if (lane == 0) result = t;
-  }
-  __syncthreads();
-  t = result;
-  __syncthreads();
-  return t;
-}
-
-// The dense round's value of (row, col): the folded score less the open
-// price, NEG where the pair is infeasible or the node closed.
-__device__ __forceinline__ float value(const Params& p, float s, int row,
-                                       int col) {
-  const float f = fold(s, p.seed, row, col, p.eps);
-  const float op = __ldcg(p.open_price + col);
-  return (f > kNeg && op == op) ? __fsub_rn(f, op) : kNeg;
-}
-
-// The dense round's Top2 of pod `row` over its whole row (every thread of
-// the block calls it; every thread gets the result).
-__device__ Top2 dense_top2(const Params& p, int row) {
-  Top2 t = top2_empty();
-  const float* srow = p.scores + static_cast<size_t>(row) * p.N;
-  if ((p.N & 3) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(srow);
-    const int n4 = p.N >> 2;
-    for (int i = threadIdx.x; i < n4; i += 2 * kThreads) {
-      const int j = i + kThreads;
-      const float4 a = __ldg(s4 + i);
-      const float4 b = j < n4 ? __ldg(s4 + j) : make_float4(kNeg, kNeg, kNeg,
-                                                           kNeg);
-      const int c = 4 * i, d = 4 * j;
-      top2_add(t, value(p, a.x, row, c), c);
-      top2_add(t, value(p, a.y, row, c + 1), c + 1);
-      top2_add(t, value(p, a.z, row, c + 2), c + 2);
-      top2_add(t, value(p, a.w, row, c + 3), c + 3);
-      if (j < n4) {
-        top2_add(t, value(p, b.x, row, d), d);
-        top2_add(t, value(p, b.y, row, d + 1), d + 1);
-        top2_add(t, value(p, b.z, row, d + 2), d + 2);
-        top2_add(t, value(p, b.w, row, d + 3), d + 3);
-      }
-    }
-  } else {
-    for (int c = threadIdx.x; c < p.N; c += kThreads)
-      top2_add(t, value(p, __ldg(srow + c), row, c), c);
-  }
-  return block_top2(t);
-}
-
 // The loop state, the same on every block, in shared memory.
 struct Loop {
   int band;
@@ -338,21 +368,60 @@ struct Loop {
   float min_req[kMaxR];  // the band's least request per axis
 };
 
-// Form pod i's bid from its Top2 (one thread): entry j of the block.
-__device__ __forceinline__ void post_bid(const Params& p, const Local& L,
-                                         int j, int i, const Top2& t,
-                                         int rnd) {
+// The count of round `rnd`'s active list: built after the previous
+// round's settle (`walked` false) or, when the band advanced, during the
+// round's walk.
+__device__ __forceinline__ unsigned* list_count(const Params& p, int rnd,
+                                                bool walked) {
+  return p.act_n + ((rnd & 1) << 1) + (walked ? 1 : 0);
+}
+
+// Append the pods of the block's entries whose `act` is set (a warp-
+// uniform call) to the active list counted by `n`.
+__device__ __forceinline__ void list_append(const Params& p, unsigned* n,
+                                            bool act, int i) {
+  const unsigned m = __ballot_sync(kFull, act);
+  if (!m) return;
+  const int lane = threadIdx.x & 31, lead = __ffs(m) - 1;
+  unsigned base = 0;
+  if (lane == lead) base = atomicAdd(n, __popc(m));
+  base = __shfl_sync(kFull, base, lead);
+  if (act) __stcg(p.act + base + __popc(m & ((1u << lane) - 1u)), i);
+}
+
+// The block's unassigned pods of `band` appended to the list counted by
+// `n` (every thread calls it).
+template <bool kDevice>
+__device__ void list_band(const Params& p, const Pods<kDevice>& L, int band,
+                          unsigned* n) {
+  for (int base = 0; base < L.n; base += kThreads) {
+    const int j = base + threadIdx.x;
+    bool act = false;
+    if (j < L.n) {
+      const int x = L.at(j);
+      act = L.ld(L.prio + x) == band && L.ld(L.chosen + x) < 0;
+    }
+    list_append(p, n, act, pod_of(j));
+  }
+}
+
+// Post pod i's bid from its Top2 (one thread); x is its index in the
+// Pods' arrays.
+template <bool kDevice>
+__device__ __forceinline__ void post_bid(const Params& p,
+                                         const Pods<kDevice>& L, int x,
+                                         int i, const Top2& t, int rnd) {
   unsigned long long key = 0ull;
   if (t.v > kNeg) {
     const float margin = t.v2 > kNeg ? __fsub_rn(t.v, t.v2) : 0.0f;
     const float strength = __fmaf_rn(noise(p.seed, rnd, i), p.half_eps, t.v);
     key = static_cast<unsigned long long>(float_key(strength)) << 32 |
           static_cast<uint32_t>(i);
-    L.best[j] = t.col;
-    L.gamma[j] = __fadd_rn(margin, p.eps);
+    L.st(L.best + x, static_cast<int32_t>(t.col));
+    L.st(L.gamma + x, __fadd_rn(margin, p.eps));
     atomicMax(p.node_key + t.col, key);
   }
-  L.key[j] = key;
+  L.st(L.key + x, key);
 }
 
 // The node walk: prices (reset when the band advanced), cleared winner
@@ -375,15 +444,20 @@ __device__ void walk_nodes(const Params& p, const Loop& s) {
   }
 }
 
-// The winners among the block's pods, one thread each. Returns whether a
-// winner of the block fit (every thread gets it).
-__device__ bool settle(const Params& p, const Local& L, const Loop& s) {
+// The winners among the block's pods, one thread each; every bid key is
+// cleared for the next round. Returns whether a winner of the block fit
+// (every thread gets it).
+template <bool kDevice>
+__device__ bool settle(const Params& p, const Pods<kDevice>& L,
+                       const Loop& s) {
   const float nan = __uint_as_float(0x7fffffffu);
   bool fit_any = false;
   for (int j = threadIdx.x; j < L.n; j += kThreads) {
-    const unsigned long long key = L.key[j];
+    const int x = L.at(j);
+    const unsigned long long key = L.ld(L.key + x);
     if (!key) continue;
-    const int b = L.best[j];
+    L.st(L.key + x, 0ull);
+    const int b = L.ld(L.best + x);
     if (__ldcg(p.node_key + b) != key) continue;  // another pod won b
     p.node_key[b] = 0ull;  // read by every bidder of b before it is cleared
                            // or after: either way not their key
@@ -411,10 +485,10 @@ __device__ bool settle(const Params& p, const Local& L, const Loop& s) {
       }
     }
     if (fits) {
-      L.chosen[j] = b;
+      L.st(L.chosen + x, static_cast<int32_t>(b));
       fit_any = true;
     }
-    const float price = __fadd_rn(__ldcg(p.prices + b), L.gamma[j]);
+    const float price = __fadd_rn(__ldcg(p.prices + b), L.ld(L.gamma + x));
     p.prices[b] = price;
     p.open_price[b] = open ? price : nan;
   }
@@ -430,9 +504,12 @@ __device__ bool settle(const Params& p, const Local& L, const Loop& s) {
 // unassigned pods (so the minimum request); word 1 + R + r the maximum of
 // (priority + 2^31) << 32 | complemented key of the least request at the
 // block's highest priority below the band (any priority when `first`),
-// whose maximum is the highest such priority's least request.
-__device__ void publish_partial(const Params& p, const Local& L, int band,
-                                bool first, bool fit, unsigned gen) {
+// whose maximum is the highest such priority's least request. With
+// `list`, the pods left in the band are appended to that active list.
+template <bool kDevice>
+__device__ void publish_partial(const Params& p, const Pods<kDevice>& L,
+                                int band, bool first, bool fit, unsigned gen,
+                                unsigned* list) {
   __shared__ int next_s;
   __shared__ uint32_t min_s[2 * kMaxR];
   if (threadIdx.x == 0) next_s = kNegBand;
@@ -440,19 +517,28 @@ __device__ void publish_partial(const Params& p, const Local& L, int band,
   __syncthreads();
   bool left = false;
   int next = kNegBand;
-  for (int j = threadIdx.x; j < L.n; j += kThreads) {
-    const int pr = L.prio[j];
-    if (pr == kNegBand || L.chosen[j] >= 0) continue;
-    left |= !first && pr == band;
-    if (first || pr < band) next = max(next, pr);
+  for (int base = 0; base < L.n; base += kThreads) {
+    const int j = base + threadIdx.x;
+    bool cur = false;
+    if (j < L.n) {
+      const int x = L.at(j);
+      const int pr = L.ld(L.prio + x);
+      if (pr != kNegBand && L.ld(L.chosen + x) < 0) {
+        cur = !first && pr == band;
+        if (first || pr < band) next = max(next, pr);
+      }
+    }
+    left |= cur;
+    if (list) list_append(p, list, cur, pod_of(j));
   }
   next = __reduce_max_sync(kFull, next);
   if ((threadIdx.x & 31) == 0 && next > kNegBand) atomicMax(&next_s, next);
   left = __syncthreads_or(left);
   next = next_s;
   for (int j = threadIdx.x; j < L.n; j += kThreads) {
-    const int pr = L.prio[j];
-    if (pr == kNegBand || L.chosen[j] >= 0) continue;
+    const int x = L.at(j);
+    const int pr = L.ld(L.prio + x);
+    if (pr == kNegBand || L.ld(L.chosen + x) >= 0) continue;
     const bool cur = !first && pr == band, nxt = pr == next;
     if (!cur && !nxt) continue;
     const float* rq = p.req + static_cast<size_t>(pod_of(j)) * p.R;
@@ -523,13 +609,15 @@ __device__ void control_sync(const Params& p, Loop& s, unsigned& target,
 }
 
 // The whole banded loop, after the kernel's set-up: free = free0 (grid-
-// wide), each row's feasibility known to its owner, the block's Local
-// state loaded and its first partial published (init_local).
-// `bid_phase(s)` is called by every thread of the block once per round
-// and posts the bids of the block's active pods (post_bid) and writes a
-// key (0 for none) for every pod of the block.
-template <typename BidPhase>
-__device__ void run_rounds(const Params& p, const Local& L, unsigned& target,
+// wide), each row's feasibility known to its owner, the block's Pods
+// loaded and its first partial published (init_local). `bid_phase(s)` is
+// called by every thread of every block once per round and posts the
+// bids of the round's active pods (post_bid); every other key stays 0.
+// With `listed`, the blocks build each round's active list (the lists'
+// counts: list_count).
+template <bool kDevice, typename BidPhase>
+__device__ void run_rounds(const Params& p, const Pods<kDevice>& L,
+                           unsigned& target, bool listed,
                            BidPhase bid_phase) {
   __shared__ Loop s;
   unsigned gen = 0;
@@ -540,18 +628,25 @@ __device__ void run_rounds(const Params& p, const Local& L, unsigned& target,
   while (s.rnd < p.max_rounds && s.band > kNegBand) {
     if (s.walk) {
       walk_nodes(p, s);
+      if (listed && s.reset)
+        list_band(p, L, s.band, list_count(p, s.rnd, true));
       grid_sync(p.bar, target);
     }
     bid_phase(s);
     grid_sync(p.bar, target);
     const bool fit = settle(p, L, s);
-    publish_partial(p, L, s.band, false, fit, gen);
+    publish_partial(p, L, s.band, false, fit, gen,
+                    listed ? list_count(p, s.rnd + 1, false) : nullptr);
     control_sync(p, s, target, gen, false);
+    // The finished round's list counts, zeroed for the round after next.
+    if (listed && blockIdx.x == 0 && threadIdx.x < 2)
+      p.act_n[((s.rnd + 1) & 1) * 2 + threadIdx.x] = 0u;
   }
   for (int j = threadIdx.x; j < L.n; j += kThreads) {
     const int i = pod_of(j);
-    p.chosen[i] = L.chosen[j];
-    p.assigned[i] = L.chosen[j] >= 0;
+    const int32_t c = L.ld(L.chosen + L.at(j));
+    p.chosen[i] = c;
+    p.assigned[i] = c >= 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) p.rounds[0] = s.rnd;
 }
@@ -565,16 +660,17 @@ __device__ void init_state(const Params& p) {
 }
 
 // After the rows' feasibility is in p.feasible (each row by its owner,
-// before a __syncthreads): the block's Local state, and its first partial.
-__device__ void init_local(const Params& p, const Local& L) {
+// before a __syncthreads): the block's Pods, and its first partial.
+template <bool kDevice>
+__device__ void init_local(const Params& p, const Pods<kDevice>& L) {
   for (int j = threadIdx.x; j < L.n; j += kThreads) {
-    const int i = pod_of(j);
-    L.chosen[j] = -1;
-    L.key[j] = 0ull;
-    L.prio[j] = p.feasible[i] ? __ldg(p.prio + i) : kNegBand;
+    const int i = pod_of(j), x = L.at(j);
+    L.st(L.chosen + x, static_cast<int32_t>(-1));
+    L.st(L.key + x, 0ull);
+    L.st(L.prio + x, p.feasible[i] ? __ldg(p.prio + i) : kNegBand);
   }
   __syncthreads();
-  publish_partial(p, L, 0, true, false, 0);
+  publish_partial(p, L, 0, true, false, 0, nullptr);
 }
 
 // The grid of a launch: a block per pod row up to one per SM, and enough
@@ -600,8 +696,7 @@ inline int launch(const void* kernel, Params& p, cudaStream_t st,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // The control buffers and the barrier.
-  err = cudaMemsetAsync(p.ctl, 0, align16(16ull * kCtlWords) + 16, st);
+  err = cudaMemsetAsync(p.ctl, 0, kZeroed, st);
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(kThreads),
@@ -631,8 +726,7 @@ inline int device_limits(const void* kernel, int* sms, size_t* budget) {
 // kNoLaunch after copying free0 when there is no pod, an error for bad
 // sizes, or 0 to go on.
 inline int prelude(const Params& p, cudaStream_t st) {
-  if (p.N < 1 || p.P < 0 || p.P > kMaxP || p.R < 1 || p.R > kMaxR ||
-      p.K < 0 || p.K > p.N)
+  if (p.N < 1 || p.P < 0 || p.R < 1 || p.R > kMaxR || p.K < 0 || p.K > p.N)
     return cudaErrorInvalidValue;
   if (p.P == 0) {
     cudaError_t err = cudaMemcpyAsync(p.free, p.free0,

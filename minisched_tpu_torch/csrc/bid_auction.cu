@@ -52,8 +52,16 @@
 //
 // Rounds: a certified pod bids with one warp (its candidates spread over
 // the lanes, no block barrier), for K <= kWarpK; the uncertified ones go
-// to the block, one after another, for their full rows. Wider shortlists
-// bid with the whole block, one pod after another.
+// to the block, one after another, for their full rows (each thread
+// keeps four 16-byte loads of scores and of open prices in flight).
+// Wider shortlists bid with the whole block, one pod after another. The
+// block finds its marked pods kThreads entries a step, not one (a batch
+// past the shared-memory wall has ~10,000 pods a block).
+//
+// Shared memory: each row's keys (the selection's cache) come first, then
+// the block's Pods where they fit beside them; a batch too large for that
+// keeps its Pods in device memory (the kernel's kDevice instance).
+// bid_auction_layout(P, N) reports the choice.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; tools/auction_kernel_timing.py,
 // PERF.md), in turns with the radix-selection kernel it replaces: about
@@ -77,6 +85,67 @@ constexpr unsigned long long kRepair = ~0ull;  // no bid key is all ones
 
 __device__ __forceinline__ uint32_t lanes_below() {
   return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+// The block's Top2, returned to every thread.
+__device__ Top2 block_top2(Top2 t) {
+  __shared__ Top2 warp_t[kWarps];
+  __shared__ Top2 result;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  t = warp_top2(t);
+  if (lane == 0) warp_t[warp] = t;
+  __syncthreads();
+  if (warp == 0) {
+    t = warp_top2(lane < kWarps ? warp_t[lane] : top2_empty());
+    if (lane == 0) result = t;
+  }
+  __syncthreads();
+  t = result;
+  __syncthreads();
+  return t;
+}
+
+// The dense round's Top2 of pod `row` over its whole row, for a repair
+// (every thread of the block calls it; every thread gets the result):
+// each thread keeps kRepairDepth 16-byte loads of scores and as many of
+// open prices in flight.
+__device__ Top2 dense_top2(const Params& p, int row) {
+  constexpr int kRepairDepth = 4;
+  Top2 t = top2_empty();
+  const float* srow = p.scores + static_cast<size_t>(row) * p.N;
+  const uint32_t hb = p.seed + static_cast<uint32_t>(row) * kGolden;
+  if ((p.N & 3) == 0 && (reinterpret_cast<uintptr_t>(srow) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(srow);
+    const float4* o4 = reinterpret_cast<const float4*>(p.open_price);
+    const int n4 = p.N >> 2;
+    for (int base = threadIdx.x; base < n4;
+         base += kRepairDepth * kThreads) {
+      float4 v[kRepairDepth], o[kRepairDepth];
+#pragma unroll
+      for (int k = 0; k < kRepairDepth; ++k) {
+        const int q = base + k * kThreads;
+        if (q < n4) {
+          v[k] = __ldg(s4 + q);
+          o[k] = __ldcg(o4 + q);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRepairDepth; ++k) {
+        const int q = base + k * kThreads, c = 4 * q;
+        if (q < n4) {
+          top2_add_dense(t, v[k].x, o[k].x, c, hb, p.eps);
+          top2_add_dense(t, v[k].y, o[k].y, c + 1, hb, p.eps);
+          top2_add_dense(t, v[k].z, o[k].z, c + 2, hb, p.eps);
+          top2_add_dense(t, v[k].w, o[k].w, c + 3, hb, p.eps);
+        }
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < p.N; c += kThreads)
+      top2_add_dense(t, __ldg(srow + c), __ldcg(p.open_price + c), c, hb,
+                     p.eps);
+  }
+  return block_top2(t);
 }
 
 // The key of column c of `row`: from the block's shared cache, or the
@@ -444,67 +513,93 @@ __device__ void select_row(const Params& p, int row, uint32_t* keys_s,
   __syncthreads();
 }
 
+// f(j) for each entry j of the block whose pred(j) holds, by the whole
+// block (every thread calls it; f may use the block); `idx` holds
+// kThreads entries of shared memory.
+template <typename Pred, typename F>
+__device__ void for_marked(int n, int32_t* idx, Pred pred, F f) {
+  __shared__ int taken;
+  for (int base = 0; base < n; base += kThreads) {
+    const int j = base + threadIdx.x;
+    const bool m = j < n && pred(j);
+    if (threadIdx.x == 0) taken = 0;
+    const int c = __syncthreads_count(m);
+    if (c == 0) continue;
+    if (m) idx[atomicAdd(&taken, 1)] = j;
+    __syncthreads();
+    for (int r = 0; r < c; ++r) f(idx[r]);
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
+// kDevice: the block's Pods in device memory (its share of the batch does
+// not fit in shared memory beside the list and the row cache).
+template <bool kDevice>
 __global__ void __launch_bounds__(kThreads, 1) bid_auction_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Local L = carve_local(p, smem);
-  unsigned long long* list = reinterpret_cast<unsigned long long*>(
-      smem + local_bytes(p.local));
-  uint32_t* keys_s = reinterpret_cast<uint32_t*>(
-      smem + local_bytes(p.local) + kListBytes);
+  const Pods<kDevice> L = carve_pods<kDevice>(p, smem);
+  const size_t pods_bytes = kDevice ? 0 : local_bytes(p.local);
+  unsigned long long* list =
+      reinterpret_cast<unsigned long long*>(smem + pods_bytes);
+  uint32_t* keys_s =
+      reinterpret_cast<uint32_t*>(smem + pods_bytes + kListBytes);
   unsigned target = 0;
   init_state(p);
   for (int i = blockIdx.x; i < p.P; i += gridDim.x)
     select_row(p, i, keys_s, list);
   init_local(p, L);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  run_rounds(p, L, target, [&](const Loop& s) {
+  int32_t* idx = reinterpret_cast<int32_t*>(list);  // free during rounds
+  run_rounds(p, L, target, false, [&](const Loop& s) {
     auto active = [&](int j) {
-      return L.chosen[j] < 0 && L.prio[j] == s.band;
+      const int x = L.at(j);
+      return L.ld(L.chosen + x) < 0 && L.ld(L.prio + x) == s.band;
     };
     if (p.K <= kWarpK) {
-      // A warp per pod; the uncertified ones are marked for the block.
-      for (int j = warp; j < L.n; j += kWarps) {
-        if (!active(j)) {
-          if (lane == 0) L.key[j] = 0ull;
-          continue;
-        }
-        const int i = pod_of(j);
-        const float* sv = p.s_vals + static_cast<size_t>(i) * p.K;
-        const int32_t* cd = p.cand + static_cast<size_t>(i) * p.K;
-        const float kth = __ldcg(p.kth + i);
-        Top2 t = top2_empty();
-        for (int c = lane; c < p.K; c += 32) {
-          const float v = __ldcg(sv + c);
-          const int col = __ldcg(cd + c);
-          const float op = __ldcg(p.open_price + col);
-          top2_add(t, (v > kNeg && op == op) ? __fsub_rn(v, op) : kNeg, col);
-        }
-        t = warp_top2(t);
-        if (lane == 0) {
-          if ((t.v > kth && t.v2 >= kth) || kth <= kNeg) {
-            post_bid(p, L, j, i, t, s.rnd);
-          } else {
-            L.key[j] = kRepair;
-            p.repaired[i] = 1;
+      // A warp per pod (entries warp, warp + kWarps, ...: the warp's lanes
+      // find its active ones); the uncertified ones are marked for the
+      // block.
+      for (int b = warp; b < L.n; b += 32 * kWarps) {
+        const int jj = b + lane * kWarps;
+        uint32_t m = __ballot_sync(kFull, jj < L.n && active(jj));
+        while (m) {
+          const int j = b + (__ffs(m) - 1) * kWarps;
+          m &= m - 1;
+          const int i = pod_of(j);
+          const float* sv = p.s_vals + static_cast<size_t>(i) * p.K;
+          const int32_t* cd = p.cand + static_cast<size_t>(i) * p.K;
+          const float kth = __ldcg(p.kth + i);
+          Top2 t = top2_empty();
+          for (int c = lane; c < p.K; c += 32) {
+            const float v = __ldcg(sv + c);
+            const int col = __ldcg(cd + c);
+            const float op = __ldcg(p.open_price + col);
+            top2_add(t, (v > kNeg && op == op) ? __fsub_rn(v, op) : kNeg, col);
+          }
+          t = warp_top2(t);
+          if (lane == 0) {
+            if ((t.v > kth && t.v2 >= kth) || kth <= kNeg) {
+              post_bid(p, L, L.at(j), i, t, s.rnd);
+            } else {
+              L.st(L.key + L.at(j), kRepair);
+              p.repaired[i] = 1;
+            }
           }
         }
       }
       __syncthreads();
-      for (int j = 0; j < L.n; ++j) {
-        if (L.key[j] != kRepair) continue;
-        const int i = pod_of(j);
-        const Top2 t = dense_top2(p, i);
-        if (threadIdx.x == 0) post_bid(p, L, j, i, t, s.rnd);
-      }
+      for_marked(
+          L.n, idx, [&](int j) { return L.ld(L.key + L.at(j)) == kRepair; },
+          [&](int j) {
+            const int i = pod_of(j);
+            const Top2 t = dense_top2(p, i);
+            if (threadIdx.x == 0) post_bid(p, L, L.at(j), i, t, s.rnd);
+          });
     } else {
       // Wide shortlists: the whole block per pod.
-      for (int j = 0; j < L.n; ++j) {
-        if (!active(j)) {
-          if (threadIdx.x == 0) L.key[j] = 0ull;
-          continue;
-        }
+      for_marked(L.n, idx, active, [&](int j) {
         const int i = pod_of(j);
         const float* sv = p.s_vals + static_cast<size_t>(i) * p.K;
         const int32_t* cd = p.cand + static_cast<size_t>(i) * p.K;
@@ -521,14 +616,72 @@ __global__ void __launch_bounds__(kThreads, 1) bid_auction_kernel(Params p) {
           if (threadIdx.x == 0) p.repaired[i] = 1;
           t = dense_top2(p, i);
         }
-        if (threadIdx.x == 0) post_bid(p, L, j, i, t, s.rnd);
-      }
+        if (threadIdx.x == 0) post_bid(p, L, L.at(j), i, t, s.rnd);
+      });
     }
   });
 }
 
+namespace {
+
+// A launch's shape: the grid, whether each row's keys are cached in
+// shared memory and whether the block's Pods lie there too. The row cache
+// comes first (it serves every pass of the selection); the Pods join it
+// where they fit beside the list, else they go to device memory.
+struct Layout {
+  const void* kernel;
+  int nblocks, local, cache_keys, shared_pods;
+  size_t smem;
+};
+
+int plan(int P, int N, Layout* out) {
+  const void* kernels[2] = {
+      reinterpret_cast<const void*>(bid_auction_kernel<false>),
+      reinterpret_cast<const void*>(bid_auction_kernel<true>)};
+  int sms = 0;
+  size_t budget[2];
+  for (int d = 0; d < 2; ++d) {
+    const int err = device_limits(kernels[d], &sms, &budget[d]);
+    if (err != 0) return err;
+  }
+  Params shape{};
+  shape.P = P;
+  shape.N = N;
+  const int nblocks = grid_for(shape, sms);
+  const int local = (P + nblocks - 1) / nblocks;
+  const size_t row_bytes = sizeof(uint32_t) * static_cast<size_t>(N);
+  for (int cache = 1; cache >= 0; --cache) {
+    for (int shared = 1; shared >= 0; --shared) {
+      const size_t need = (shared ? local_bytes(local) : 0) + kListBytes +
+                          (cache ? row_bytes : 0);
+      if (need <= budget[shared ? 0 : 1]) {
+        *out = Layout{kernels[shared ? 0 : 1], nblocks, local, cache, shared,
+                      need};
+        return 0;
+      }
+    }
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+}  // namespace
+
 extern "C" long long bid_auction_scratch_bytes(int P, int N, int K) {
   return static_cast<long long>(scratch_bytes(P, N, K));
+}
+
+// The layout a launch of P x N would take: out = {row keys cached, Pods
+// in shared memory, dynamic shared memory bytes, blocks}. Returns 0 or a
+// cudaError_t.
+extern "C" int bid_auction_layout(int P, int N, int* out) {
+  Layout l;
+  const int err = plan(P, N, &l);
+  if (err != 0) return err;
+  out[0] = l.cache_keys;
+  out[1] = l.shared_pods;
+  out[2] = static_cast<int>(l.smem);
+  out[3] = l.nblocks;
+  return 0;
 }
 
 extern "C" int bid_auction_launch(const float* scores, const float* requests,
@@ -562,20 +715,12 @@ extern "C" int bid_auction_launch(const float* scores, const float* requests,
   const int pre = prelude(p, st);
   if (pre != 0) return pre;
   carve(p, scratch);
-  const void* kernel = reinterpret_cast<const void*>(bid_auction_kernel);
-  int sms = 0;
-  size_t budget = 0;
-  const int err = device_limits(kernel, &sms, &budget);
+  Layout l;
+  const int err = plan(P, N, &l);
   if (err != 0) return err;
-  const int nblocks = grid_for(p, sms);
-  p.local = (P + nblocks - 1) / nblocks;
-  // The block's pods and the list, then each row's keys where they fit.
-  const size_t base = local_bytes(p.local) + kListBytes;
-  const size_t row_bytes = sizeof(uint32_t) * static_cast<size_t>(N);
-  if (base > budget) return cudaErrorInvalidConfiguration;
-  p.cache_keys = base + row_bytes <= budget;
-  return launch(kernel, p, st, nblocks,
-                base + (p.cache_keys ? row_bytes : 0));
+  p.local = l.local;
+  p.cache_keys = l.cache_keys;
+  return launch(l.kernel, p, st, l.nblocks, l.smem);
 }
 
 extern "C" const char* bid_auction_error_string(int err) {

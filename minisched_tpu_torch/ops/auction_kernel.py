@@ -22,7 +22,6 @@ from .auction import EPS, HALF_EPS, max_rounds_for, priorities
 from .select import AssignResult, ShortlistAssignResult
 
 _MAX_R = 32
-_MAX_P = 32 * 512  # csrc/auction_rounds.cuh kMaxP: 32 pods per thread
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -55,9 +54,9 @@ def _inputs(name, scores, requests, free0, priority):
     dev = scores.device
     P, N = scores.shape
     R = requests.shape[1]
-    if N < 1 or not 1 <= R <= _MAX_R or P > _MAX_P:
-        raise ValueError(f"need N >= 1, 1 <= R <= {_MAX_R} and P <= "
-                         f"{_MAX_P}, got N={N} R={R} P={P}")
+    if N < 1 or not 1 <= R <= _MAX_R:
+        raise ValueError(f"need N >= 1 and 1 <= R <= {_MAX_R}, got N={N} "
+                         f"R={R}")
     prio = priorities(priority, P, dev)
     out = []
     for what, t, dtype, shape in (("scores", scores, torch.float32, (P, N)),
@@ -94,8 +93,8 @@ def auction_cuda(scores: torch.Tensor, requests: torch.Tensor,
                  max_rounds: Optional[int] = None, priority=None,
                  rounds: Optional[torch.Tensor] = None) -> AssignResult:
     """The dense kernel's wrapper: auction.auction_assign_plain's
-    contract on CUDA tensors (at most 16,384 pods). ``rounds`` (int32
-    (1,), on the card) receives the rounds run."""
+    contract on CUDA tensors, for any batch that device memory holds.
+    ``rounds`` (int32 (1,), on the card) receives the rounds run."""
     scores, requests, free0, prio = _inputs("auction_cuda", scores,
                                             requests, free0, priority)
     dev = scores.device
@@ -148,3 +147,21 @@ def bid_auction_cuda(scores: torch.Tensor, requests: torch.Tensor,
             scratch.data_ptr(), stream)
     check_launch(lib, "bid_auction", err, f"P={P} N={N} R={R} K={K}")
     return ShortlistAssignResult(chosen, assigned, free_after, repaired)
+
+
+def bid_auction_layout(P: int, N: int) -> dict:
+    """How the bid-shortlist kernel would lay out a P x N launch on the
+    current card: whether each row's keys are cached in shared memory,
+    whether each block's pods are kept there too (else in device
+    memory), the dynamic shared memory a block takes and the blocks."""
+    lib = load("bid_auction", _bind_bid)
+    fn = lib.bid_auction_layout
+    fn.restype = _I
+    fn.argtypes = [_I, _I, _P]
+    out = (ctypes.c_int * 4)()
+    err = fn(int(P), int(N), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"bid_auction layout failed: cudaError {err} "
+                           f"at P={P} N={N}")
+    return {"cache_keys": bool(out[0]), "shared_pods": bool(out[1]),
+            "smem_bytes": int(out[2]), "blocks": int(out[3])}

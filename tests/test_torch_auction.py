@@ -77,7 +77,8 @@ def _same(a, b) -> bool:
 
 # Every instance runs through the JAX functions inside one padded shape,
 # so that each static argument (k, max_rounds) costs one compile for all
-# of them.
+# of them; an instance larger than the pad (the batch past the kernels'
+# old cap) runs at its own shape.
 PAD_P, PAD_N, PAD_R = 64, 320, 4
 
 
@@ -90,14 +91,16 @@ def _padded(scores, req, free, prio):
     None is all zeros, as in both packages."""
     P, N = scores.shape
     R = req.shape[1]
-    assert P <= PAD_P and N <= PAD_N and R <= PAD_R
-    s = np.full((PAD_P, PAD_N), NEG, np.float32)
+    pad_p, pad_n, pad_r = ((PAD_P, PAD_N, PAD_R)
+                           if P <= PAD_P and N <= PAD_N and R <= PAD_R
+                           else (P, N, R))
+    s = np.full((pad_p, pad_n), NEG, np.float32)
     s[:P, :N] = scores
-    r = np.zeros((PAD_P, PAD_R), np.float32)
+    r = np.zeros((pad_p, pad_r), np.float32)
     r[:P, :R] = req
-    f = np.zeros((PAD_N, PAD_R), np.float32)
+    f = np.zeros((pad_n, pad_r), np.float32)
     f[:N, :R] = free
-    pr = np.zeros((PAD_P,), np.int32)
+    pr = np.zeros((pad_p,), np.int32)
     if prio is not None:
         pr[:P] = prio
     return (jnp.asarray(s), jnp.asarray(r), jnp.asarray(f),

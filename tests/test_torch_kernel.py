@@ -734,15 +734,83 @@ def test_bid_auction_selection_paths_on_card(case):
 
 
 @pytest.mark.card
-def test_auction_wrappers_refuse_batches_over_their_limit_on_card():
-    """open_nodes keeps each thread's bidders in a 32-bit mask: a batch
-    holds at most 32 x 512 pods."""
+@pytest.mark.parametrize("shortlist", [16, None])
+def test_auction_step_past_the_old_cap_on_card(shortlist):
+    """16,385 pods through build_step(assignment="auction") (the step pads
+    them to 18,432 rows, so the kernel sees P = 18,432) on the card, with
+    and without the bid shortlist: every Decision field equal to the
+    CPU's. Only the last 65 pods fit a node: the rows past the kernels'
+    old cap of 16,384 do the work."""
     _need_card()
-    P = 32 * 512 + 1
-    args = (torch.zeros((P, 2), device="cuda"),
-            torch.ones((P, 1), device="cuda"),
-            torch.ones((2, 1), device="cuda"), 0)
-    with pytest.raises(ValueError, match="P <= 16384"):
-        auction_cuda(*args)
-    with pytest.raises(ValueError, match="P <= 16384"):
-        bid_auction_cuda(*args, k=1)
+    from minisched_tpu_torch.encode import (NodeFeatureCache, encode_pods,
+                                            to_torch)
+    from minisched_tpu_torch.encode.cache import step_bucket
+    from minisched_tpu_torch.ops.pipeline import build_step
+    from minisched_tpu_torch.service.defaultconfig import Profile
+    from minisched_tpu_torch.state import objects as TO
+    from torch_parity import (BENCH_PROFILE, OLD_AUCTION_CAP,
+                              auction_past_cap_cluster)
+
+    nodes, pods = auction_past_cap_cluster(TO)
+    cache = NodeFeatureCache()
+    cache.upsert_nodes_bulk(nodes)
+    nf, _names, _sv, _incs = cache.snapshot_versioned(pad=64)
+    eb = encode_pods(pods, step_bucket(len(pods)), cfg=cache.cfg,
+                     registry=cache.registry)
+    af = cache.snapshot_assigned(pad=16)
+    assert eb.pf.requests.shape[0] == 18432 > OLD_AUCTION_CAP + 1
+    step = build_step(Profile(**BENCH_PROFILE).build(), shortlist=shortlist,
+                      assignment="auction")
+    key = prng.fold_in(prng.PRNGKey(11), 1)
+    name = "auction" if shortlist is None else "bid_auction"
+    n0 = LAUNCHES[name]
+    got = step(*(to_torch(x, "cuda") for x in (eb, nf, af)), key)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == n0 + 1
+    want = step(*(to_torch(x, "cpu") for x in (eb, nf, af)), key)
+    for field in want._fields:
+        assert bits_equal(getattr(want, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    placed = want.assigned.numpy().nonzero()[0]
+    assert len(placed) > 0 and placed.min() >= len(pods) - 65
+    assert bool(want.assigned[len(pods) - 1])
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [None, 1, 2])
+def test_auction_kernels_past_the_shared_memory_wall_on_card(k):
+    """1,300,000 pods against 2 nodes: a block's share of the batch (about
+    9,850 pods of 24 bytes) no longer fits in its shared memory, where the
+    kernels kept every pod before. The feasible rows are the last 48, in
+    three bands contending for 2 nodes; every other row is NEG. Both
+    kernels against their plain versions: every output, the rounds run."""
+    _need_card()
+    from torch_parity import auction_past_cap
+
+    P = 1_300_000
+    scores, req, free, prio = auction_past_cap(P=P, N=2, n_feasible=48,
+                                               seed=44)
+    plain = _auction_on_card(scores, req, free, 2468, prio=prio, k=k)
+    placed = plain.assigned.numpy().nonzero()[0]
+    assert len(placed) > 0 and placed.min() >= P - 48
+    from minisched_tpu_torch.ops.auction_kernel import bid_auction_layout
+
+    assert not bid_auction_layout(P, 2)["shared_pods"]
+
+
+@pytest.mark.card
+def test_bid_auction_layout_on_card():
+    """The bid-shortlist kernel keeps each row's keys in shared memory at
+    the bench shapes (1,024 x 4,096 sampled, 1,024 x 53,248 unsampled) and
+    at 18,432 x 53,248 (the step past the old cap), with every block's
+    pods beside them; a row too wide for the cache turns it off, and a
+    batch too large for the pods sends them to device memory."""
+    _need_card()
+    from minisched_tpu_torch.ops.auction_kernel import bid_auction_layout
+
+    for P, N in ((1024, 4096), (1024, 53248), (18432, 53248)):
+        lay = bid_auction_layout(P, N)
+        assert lay["cache_keys"] and lay["shared_pods"], (P, N, lay)
+    assert not bid_auction_layout(1024, 65536)["cache_keys"]
+    lay = bid_auction_layout(1_300_000, 53248)
+    assert lay["cache_keys"] and not lay["shared_pods"], lay

@@ -862,6 +862,48 @@ def auction_select_case(name: str):
 AUCTION_SELECT_CASES = ["ties walked", "plateau walked", "zeros at kth",
                         "K = N", "uncached paths"]
 
+# The auction kernels once refused batches over 32 x 512 pods.
+OLD_AUCTION_CAP = 16384
+
+
+def auction_past_cap(P=OLD_AUCTION_CAP + 1, N=24, n_feasible=64, seed=41):
+    """A batch past the old cap whose feasible rows are its last
+    ``n_feasible`` (row P - 1 among them): every earlier row is NEG. The
+    feasible pods contend in three priority bands for N nodes of two
+    slots each (fewer slots than pods). Returns (scores, requests, free,
+    priority)."""
+    rng = np.random.default_rng(seed)
+    scores = np.full((P, N), NEG, np.float32)
+    tail = (rng.random((n_feasible, N)) * 100).astype(np.float32)
+    tail[rng.random((n_feasible, N)) < 0.2] = np.float32(NEG)
+    scores[P - n_feasible:] = tail
+    requests = (rng.integers(1, 4, (P, 2)) * 100).astype(np.float32)
+    free = np.full((N, 2), 600.0, np.float32)
+    prio = np.zeros((P,), np.int32)
+    prio[P - n_feasible:] = (np.arange(n_feasible) % 3) * 5
+    return scores, requests, free, prio
+
+
+def auction_past_cap_cluster(O, n_pods=OLD_AUCTION_CAP + 1, n_nodes=64,
+                             n_feasible=65, seed=43):
+    """A cluster and a batch past the old cap for build_step: bench_cluster
+    nodes (no unschedulable one) and n_pods pods of which only the last
+    ``n_feasible`` fit any node (the others ask for more CPU than any
+    node has), in three priorities."""
+    nodes, _ = bench_cluster(O, n_nodes, 0, seed)
+    for n in nodes:
+        n.spec.unschedulable = False
+    rng = np.random.default_rng(seed)
+    pods = []
+    for i in range(n_pods):
+        fits = i >= n_pods - n_feasible
+        cpu = float(rng.integers(1, 8) * 250) if fits else 1e9
+        pods.append(O.Pod(
+            metadata=O.ObjectMeta(name=f"cap-{i}", namespace="bench"),
+            spec=O.PodSpec(requests={"cpu": cpu, "memory": float(2 << 30)},
+                           priority=int(i % 3) if fits else 0)))
+    return nodes, pods
+
 # name -> (builder, priorities or None, bid-shortlist widths)
 AUCTION_CASES = {
     "abundant 64x256": (lambda: auction_instance(64, 256, seed=1), None,
@@ -881,6 +923,8 @@ AUCTION_CASES = {
     "padded": (auction_padded, np.array([3] * 8 + [1] * 12), (4,)),
     "kth ties": (auction_kth_ties, None, (8, 64, 300)),
     "row plateau": (auction_row_plateau, None, (4, 64, 256)),
+    "past the old cap": (lambda: auction_past_cap()[:3],
+                         auction_past_cap()[3], (1, 16)),
 }
 
 FOLD_EPS, HALF_EPS = np.float32(0.01), np.float32(0.005)

@@ -4,6 +4,7 @@ against other builds of them, in turns. Needs a CUDA card and nvcc.
 
     python tools/auction_kernel_timing.py [--other OLD.cu]
                                           [--other-dense OLD.cu] [--split]
+                                          [--only "sampled/contention"]
 
 Inputs: chip_smoke.py's bench batch (the first 1,024 pods of the bench
 workload against 50,000 nodes, scored by the bench profile) at full width
@@ -34,7 +35,14 @@ kernel (chip_smoke.device_ms, chip_smoke.queued_ms).
                (tools/split_timing.py), run once per input after a
                warm-up: mean, min and max over blocks of each selection
                phase in us per block and of each round phase in us per
-               round.
+               round; for the dense kernel also warp 0's part of each
+               bid phase (the open prices staged, its tiles reduced, its
+               pods counted in, merged and posted) and its counts.
+--only         the inputs to run, separated by '/'.
+
+First it prints the bid-shortlist kernel's shared-memory layout
+(ops.auction_kernel.bid_auction_layout) at the bench shapes and past the
+old batch cap, and where its row cache and its pods leave shared memory.
 
 Every build, the package's too, is launched here through its own C
 entry point, outside the package's wrappers, so no launch is counted in
@@ -189,8 +197,71 @@ NEW_DENSE = _NEW_KERNEL + [
     ("  });\n}\n\nextern \"C\" long long auction_scratch_bytes",
      "  });\n  st_close();\n}\n\nextern \"C\" long long auction_scratch_bytes"),
 ]
+# Stamps for the round with active lists and the dense kernel's bid
+# units (warp 0 of each block stamps its own units).
+LIST_HEADER = [
+    ("  control_sync(p, s, target, gen, true);\n"
+     "  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    if (s.walk) {\n      walk_nodes(p, s);\n",
+     "  long long _st = clock64();\n"
+     "  control_sync(p, s, target, gen, true);\n  st_mark(_st, 4);\n"
+     "  while (s.rnd < p.max_rounds && s.band > kNegBand) {\n"
+     "    if (s.walk) {\n      st_count(14);\n      walk_nodes(p, s);\n"),
+    ("      grid_sync(p.bar, target);\n    }\n    bid_phase(s);\n"
+     "    grid_sync(p.bar, target);\n"
+     "    const bool fit = settle(p, L, s);\n",
+     "      st_mark(_st, 5);\n      grid_sync(p.bar, target);\n"
+     "      st_mark(_st, 6);\n    }\n    bid_phase(s);\n"
+     "    st_mark(_st, 7);\n    grid_sync(p.bar, target);\n"
+     "    st_mark(_st, 8);\n    const bool fit = settle(p, L, s);\n"
+     "    st_mark(_st, 9);\n"),
+    ("    control_sync(p, s, target, gen, false);\n",
+     "    st_mark(_st, 12);\n    control_sync(p, s, target, gen, false);\n"
+     "    st_mark(_st, 10);\n"),
+]
+UNIT_PHASES = {19: "bids: list count + open prices staged",
+               20: "bids: warp 0's tiles, reduce + next loads",
+               21: "bids: warp 0's pods, count in, merge, post"}
+UNIT_COUNTS = {22: "tiles of warp 0", 26: "segments warp 0 counted in",
+               23: "merges by warp 0 (last segment)",
+               24: "full-row repairs of certified-path pods",
+               25: "bid phases that staged the open prices"}
+UNIT_DENSE = _NEW_KERNEL + [
+    ("  const unsigned A = __ldcg(list_count(p, s.rnd, s.reset));\n",
+     "  long long _sb = clock64();\n"
+     "  const unsigned A = __ldcg(list_count(p, s.rnd, s.reset));\n"),
+    ("  if (staged) {\n", "  if (staged) {\n    st_count(25);\n"),
+    ("  // Pipelined: the next tile's pod is looked up while this tile is\n",
+     "  st_mark(_sb, 19);\n"
+     "  // Pipelined: the next tile's pod is looked up while this tile is\n"),
+    ("    const bool more = u + 1 < end;\n",
+     "    st_count(22);\n    const bool more = u + 1 < end;\n"),
+    ("    if (!more || na != a) {\n      finish_segment(",
+     "    st_mark(_sb, 20);\n    if (!more || na != a) {\n"
+     "      finish_segment("),
+    ("      t = top2_empty();\n      seg = 0;\n    }\n",
+     "      t = top2_empty();\n      seg = 0;\n    }\n"
+     "    st_mark(_sb, 21);\n"),
+    ("  if (n < p.tiles) {\n", "  if (n < p.tiles) {\n    st_count(26);\n"),
+    ("    if (!__shfl_sync(kFull, last, 0)) return;\n",
+     "    if (!__shfl_sync(kFull, last, 0)) return;\n    st_count(23);\n"),
+    ("             [&](const Loop& s) { dense_bids(p, L, s, ops_s); });\n}\n",
+     "             [&](const Loop& s) { dense_bids(p, L, s, ops_s); });\n"
+     "  st_close();\n}\n"),
+]
+LIST_BID = NEW_BID[:-1] + [
+    ("            const Top2 t = dense_top2(p, i);\n",
+     "            st_count(24);\n"
+     "            const Top2 t = dense_top2(p, i);\n"),
+    ("  });\n}\n\nnamespace {\n\n// A launch's shape",
+     "  });\n  st_close();\n}\n\nnamespace {\n\n// A launch's shape"),
+]
 # anchor in the header -> (header edits, {main: edits}, phases, counts)
 SPLITS = {
+    "list_count(p, s.rnd, true)": (
+        LIST_HEADER, {"bid_auction.cu": LIST_BID, "auction.cu": UNIT_DENSE},
+        {**NEW_SELECT, **NEW_ROUND, **UNIT_PHASES},
+        {**NEW_COUNTS, **UNIT_COUNTS}),
     "    advance(p, s);\n  }\n": (PR9_HEADER, {"bid_auction.cu": PR9_BID,
                                             "auction.cu": PR9_DENSE},
                                  {**PR9_SELECT, **PR9_ROUND}, {}),
@@ -279,12 +350,40 @@ def inputs():
     }
 
 
+def layout_lines(smi: str):
+    """The bid-shortlist kernel's shared-memory layout at the bench shapes
+    and past the old cap, and where it changes: the widest row whose keys
+    it caches (1,024 pods), and the largest batch whose pods it keeps in
+    shared memory beside a cached row of 53,248 keys."""
+    from minisched_tpu_torch.ops.auction_kernel import bid_auction_layout
+
+    def last(lo, hi, ok):  # the largest x in [lo, hi) with ok(x)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if ok(mid) else (lo, mid)
+        return lo
+
+    lines = []
+    for P, N in ((1024, 4096), (1024, 53248), (18432, 53248),
+                 (1_300_000, 2)):
+        lines.append(f"bid_auction layout {P}x{N}: {bid_auction_layout(P, N)}")
+    n = last(4, 1 << 20, lambda x: bid_auction_layout(1024, x)["cache_keys"])
+    p = last(1, 1 << 24, lambda x: bid_auction_layout(x, 53248)["shared_pods"])
+    lines.append(f"bid_auction layout: row keys cached up to N = {n} (1,024 "
+                 f"pods); pods in shared memory beside a cached 53,248-key "
+                 f"row up to P = {p} ({smi})")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another bid_auction.cu")
     ap.add_argument("--other-dense", help="another auction.cu")
     ap.add_argument("--split", action="store_true",
                     help="split each build per phase (stamped copies)")
+    ap.add_argument("--only", help="the inputs to run, separated by '/' "
+                    "(of: full width; full width, 3 bands; sampled; "
+                    "contention)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
@@ -293,6 +392,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
+    print("\n".join(layout_lines(smi)), flush=True)
     seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 21))
     kernels, stamped = {}, {}
     for main, pkg, other in (("auction.cu", "auction", opts.other_dense),
@@ -309,7 +409,10 @@ def main() -> int:
             stamped[pkg] = {b: lib for b, lib in (
                 (b, build(f"{pkg}-{b}", files, main, True))
                 for b, files in sources.items()) if lib is not None}
+    only = opts.only.split("/") if opts.only else None
     for name, (scores, req, free, prio) in inputs().items():
+        if only is not None and name not in only:
+            continue
         P, N = scores.shape
         for pkg, builds in kernels.items():
             k = None if pkg == "auction" else cs.K
