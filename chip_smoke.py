@@ -40,6 +40,11 @@ them, and on any mismatch. Phases, each printing its own lines:
      events and in device time (the profiler's; where it records none,
      CUDA events around calls queued behind a spin kernel, or "not
      measured" for a call that waits on the host);
+  A. at that shape, the selection, scan and bid-auction kernels vs
+     their plain versions at the widths the overload tuner sets (K in
+     {16, 256, 512}: past the selection's fast path, the scan's
+     candidate ring and the bid kernel's warp path), bitwise on every
+     output, each time beside its bound;
   7. BalancedAllocation's score at full width on the card equal to the
      CPU's bitwise, and torch.sqrt of float32 on the card equal to
      numpy's correctly rounded sqrt;
@@ -76,6 +81,17 @@ them, and on any mismatch. Phases, each printing its own lines:
      the selection and scan kernels launched in every batch, one
      residency resync and hits after it, and the carried device state
      equal to its host mirror bitwise at the end;
+  B. phase 11's workload again with the timeline, the SLO sentinel, the
+     overload controller (default knobs), the journal and the trace
+     recorder armed: placements equal to phase 11's bitwise, overload
+     level 0, nothing shed, the four gap components summing to
+     gap_s_total, every lifecycle histogram counting each bound pod
+     once, a timeline snapshot, the flight recorder holding queue.pop,
+     encode.pods, step.dispatch, fetch.decision and bind.bulk; the gap
+     decomposition and the histograms' p50/p99 printed;
+  C. trace_next_batch during that burst: one sampled batch under
+     torch.profiler, its device operations by time (the kernels by
+     name) and the device's busy share of the batch window;
  12. this slice's main path: the same with full_scheduler_profile()
      and a fifth of the pods holding a Bound claim on a zone-labelled
      PV (every claim Bound up front, no PV controller): all bound, no node over its allocatable (attach slots
@@ -118,6 +134,14 @@ them, and on any mismatch. Phases, each printing its own lines:
      the fault-free run's; then a fault-free run with
      shortlist_check_every=1 and resident_check_every=1 (the cross-check
      launches the greedy kernel, the carry check runs, no desync);
+  D. the overload ladder on phase 19's cluster, every object in the
+     store before the engine starts and the controller pinned (hold
+     1,000,000): rung 1 (batches of 16, K=512) and rung 3 (brownout,
+     node sampling at 20%) place as on the CPU bitwise; rung 2 with the
+     pods' priorities split at 500 binds every pod and sheds as many as
+     the CPU run; then the ladder walked into brownout through real
+     snapshot windows with incident bundles armed, and
+     tools/postmortem.py accepting the brownout bundle;
  20. the auction kernels (csrc/auction.cu, csrc/bid_auction.cu) vs their
      plain versions, bitwise on every output and in the rounds run:
      tests/torch_parity.py's auction instances at
@@ -166,16 +190,21 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from minisched_tpu_torch import faults
+from minisched_tpu_torch import faults, obs
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
+from minisched_tpu_torch.engine import overload
+from minisched_tpu_torch.engine import scheduler as engine_scheduler
+from minisched_tpu_torch.obs import bundle, journal, slo, timeseries
 from minisched_tpu_torch.ops import _cuda_build, prng
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
@@ -1674,6 +1703,365 @@ def zone_counts(nodes, placed):
     return counts
 
 
+# The shortlist widths the overload tuner retunes K to around the default
+# 128 (engine/overload.py shortlist_target: within [min(16, K), 4 K]).
+TUNER_WIDTHS = (16, 256, 512)
+GAPS = ("gather", "encode", "fetch", "commit")
+LIFECYCLE = ("pod_queue_wait_s", "pod_decide_s", "pod_bind_s",
+             "pod_create_to_bound_s")
+ENGINE_SPANS = ("queue.pop", "encode.pods", "step.dispatch",
+                "fetch.decision", "bind.bulk")
+# Pinned rungs: no window moves the level; a sentinel that never burns
+# (a burning window would reset the tune depth to the level's); brownout
+# sampling at 20% (at the default 50% the 1,201-node cluster's sample
+# would reach half the node pad and the engine would score every node);
+# a shed backoff past the time the admitted pods take to leave the queue,
+# so that each shed pod is re-offered once, to an idle queue.
+PIN_SLO = "create_bound_p99=1000,queue_wait_p95=1000"
+PIN_OVERLOAD = ("hold=1000000,probation=1000000,min_batch=16,"
+                "brownout_pct=20,shed_backoff=5,shed_backoff_max=5")
+
+
+def disarm_obs() -> None:
+    """Every telemetry, actuation and fault singleton of the port off
+    (the controller first: its disarm releases the sentinel it armed)."""
+    overload.configure("")
+    slo.configure("")
+    timeseries.configure(False)
+    obs.configure(False)
+    journal.configure("")
+    bundle.configure("")
+    faults.configure("")
+
+
+def tuner_widths_phase(smi, scores, args, seed):
+    """A. The selection, scan and bid-auction kernels against their plain
+    versions at the widths the overload tuner sets (K in TUNER_WIDTHS)
+    on the main path's sampled shape, bitwise: cand, kth, kth_noise (and
+    the candidates' scores); chosen, assigned, free_after, repaired.
+    Each kernel's time beside its bound. Returns ({kernel: {"K": numbers}},
+    {kernel: max abs error})."""
+    P, N = scores.shape
+    req, free = args[1], args[2]
+    R = req.shape[1]
+    out = {"shortlist_select": {}, "shortlist_scan": {}, "bid_auction": {}}
+    err = dict.fromkeys(out, 0.0)
+    for kk in TUNER_WIDTHS:
+        err["shortlist_select"] = max(err["shortlist_select"],
+                                      select_pair(scores, seed, kk))
+        sel = shortlist_select_cuda(scores, seed, kk)
+        sel_ms = cuda_ms(lambda: shortlist_select_cuda(scores, seed, kk),
+                         reps=20)
+        sel_b, sel_by = select_bound_s(P, N, kk)
+        got, plain, _sel, _ms = scan_pair(scores, req, free, seed, kk)
+        err["shortlist_scan"] = max(err["shortlist_scan"], compare(
+            got, plain, ("chosen", "assigned", "free_after", "repaired")))
+        repairs = int(plain.repaired.sum())
+        scan_ms = cuda_ms(lambda: shortlist_scan_cuda(
+            scores, sel[0], sel[1], sel[2], req, free, seed,
+            cand_scores=sel[3]), reps=20)
+        scan_b, scan_by = scan_bound_s(P, N, kk, R, repairs)
+        au = auction_timed((scores, req, free), seed, "tuner width", smi,
+                           k=kk)
+        err["bid_auction"] = max(err["bid_auction"], au["err"])
+        w = str(kk)
+        out["shortlist_select"][w] = {"ms": sel_ms, "bound_ms": sel_b * 1e3,
+                                      "bound_by": sel_by}
+        out["shortlist_scan"][w] = {"ms": scan_ms, "bound_ms": scan_b * 1e3,
+                                    "bound_by": scan_by, "repaired": repairs}
+        out["bid_auction"][w] = {"ms": au["ms"],
+                                 "bound_ms": au["bound_s"] * 1e3,
+                                 "bound_by": au["bound_by"],
+                                 "rounds": au["rounds"]}
+        print(f"tuner width K={kk} at {P}x{N}x{R}: selection, scan and bid "
+              f"auction kernels bitwise equal to their plain versions; "
+              f"selection {sel_ms:.4f} ms (bound {sel_b * 1e3:.4f} ms "
+              f"{sel_by}), scan {scan_ms:.4f} ms, {repairs} repaired "
+              f"(bound {scan_b * 1e3:.4f} ms {scan_by}), bid auction "
+              f"{au['ms']:.4f} ms, {au['rounds']} rounds (bound "
+              f"{au['bound_s'] * 1e3:.4f} ms {au['bound_by']}) ({smi})")
+        del sel, got, plain, _sel, au
+    return out, err
+
+
+def device_breakdown(path: str):
+    """C. One batch's torch.profiler trace (Chrome JSON) → (the device
+    operations by total time, the device's busy share of the batch
+    window, the window in ms). The window runs from the batch's
+    ``prepare`` span to the end of its ``commit``; busy is the union of
+    kernel, copy and set intervals inside it."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    cpu = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name") in ("prepare", "commit"):
+            cpu.setdefault(e["name"], []).append(e)
+    check(dev, "the one-batch trace holds no device operation")
+    check("prepare" in cpu and "commit" in cpu,
+          "the one-batch trace lacks the prepare or commit span")
+    t0 = min(e["ts"] for e in cpu["prepare"])
+    t1 = max(e["ts"] + e["dur"] for e in cpu["commit"])
+    by_name: dict = {}
+    spans = []
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+        if b > a:
+            spans.append((a, b))
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return top, busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def armed_main_path_phase(smi, main_placed, trace_dir):
+    """B and C. Phase 11's workload once more with the timeline, SLO
+    sentinel, overload controller (default knobs), journal and trace
+    recorder armed, and ``trace_next_batch`` armed once two batches are
+    in. Returns the gap decomposition and the lifecycle quantiles."""
+    from minisched_tpu_torch.obs import hist_quantile
+
+    timeseries.configure(True)
+    slo.configure("1")
+    overload.configure("1")
+    journal.configure("1")
+    obs.configure(True)
+
+    def probe(sched):
+        def arm_trace():
+            wait_until(lambda: sched.metrics()["batches"] >= 2,
+                       timeout=120, interval=0.005)
+            sched.trace_next_batch(trace_dir)
+
+        threading.Thread(target=arm_trace, daemon=True).start()
+
+    try:
+        nodes, pods = bench_workload(N_NODES, N_PODS)
+        m, _launches, c2b, _per_pod, placed = drive(
+            SchedulerConfig(platform=""), nodes, pods, "armed main path",
+            probe=probe)
+        spans = os.path.join(trace_dir, "spans.json")
+        spans_doc = json.load(open(obs.TRACE.export_chrome(spans)))
+    finally:
+        disarm_obs()
+    check(placed == main_placed,
+          "armed main path: placements differ from the unarmed run's")
+    check(m["overload_level"] == 0 and m["shed_total"] == 0,
+          f"armed main path: overload level {m['overload_level']}, "
+          f"{m['shed_total']} shed")
+    gaps = {g: m[f"gap_{g}_s_total"] for g in GAPS}
+    check(abs(sum(gaps.values()) - m["gap_s_total"])
+          <= 1e-9 * m["batches"],
+          f"armed main path: gap components {gaps} do not sum to "
+          f"gap_s_total {m['gap_s_total']}")
+    hists = m["histograms"]
+    for h in LIFECYCLE:
+        check(hists[h]["count"] == m["pods_bound"],
+              f"armed main path: {h} counts {hists[h]['count']} of "
+              f"{m['pods_bound']} bound pods")
+    check(m["timeline_snapshots"] >= 1,
+          "armed main path: the timeline took no snapshot")
+    names = {e["name"] for e in spans_doc["traceEvents"]}
+    missing = [s for s in ENGINE_SPANS if s not in names]
+    check(not missing, f"armed main path: the flight recorder lacks "
+          f"{missing}")
+    q = {h: (hist_quantile(hists[h], 0.5), hist_quantile(hists[h], 0.99))
+         for h in LIFECYCLE}
+    b = m["batches"]
+    print(f"armed main path (timeline, SLO sentinel, overload controller, "
+          f"journal and trace recorder on) {N_NODES} nodes x {N_PODS} pods: "
+          f"placements = the unarmed run's bitwise, overload level 0, none "
+          f"shed, {m['timeline_snapshots']} timeline snapshots, "
+          f"{m['journal_events']} journal events; {b} batches, "
+          f"create-to-bound {c2b:.3f} s; gap {m['gap_s_total']:.4f} s = "
+          + " + ".join(f"{g} {v:.4f}" for g, v in gaps.items())
+          + f"; encode {m['encode_s_total']:.3f} s, dispatch "
+          f"{m['step_dispatch_s_total']:.3f} s, step {m['step_s_total']:.3f}"
+          f" s, commit {m['commit_s_total']:.3f} s, bind "
+          f"{m['bind_s_total']:.3f} s, overlap encode "
+          f"{m['encode_overlap_s']:.4f} commit {m['commit_overlap_s']:.4f} "
+          f"s; lifecycle p50/p99: "
+          + ", ".join(f"{h} {a:.4f}/{z:.4f} s" for h, (a, z) in q.items())
+          + f"; the flight recorder holds {', '.join(ENGINE_SPANS)} ({smi})")
+    path = os.path.join(trace_dir, "trace.json")
+    error = os.path.join(trace_dir, "error.txt")
+    check(wait_until(lambda: os.path.exists(path) or os.path.exists(error),
+                     timeout=60), "trace_next_batch wrote nothing")
+    if not os.path.exists(path):
+        check(False, f"trace_next_batch: {open(error).read().strip()}")
+    top, busy, window_ms = device_breakdown(path)
+    kernels = [n for n, _ in top]
+    check(any("shortlist_select_kernel" in n for n in kernels)
+          and any("shortlist_scan_kernel" in n for n in kernels),
+          f"the one-batch trace lacks the shortlist kernels: {kernels[:12]}")
+    print(f"one sampled batch's device trace (torch.profiler): window "
+          f"{window_ms:.3f} ms, device busy {busy * 100:.2f}% of it; device "
+          f"operations by time: "
+          + "; ".join(f"{n[:60]} {us / 1e3:.4f} ms" for n, us in top[:10])
+          + f" ({smi})")
+    return {"gaps": gaps, "quantiles": q, "busy": busy,
+            "window_ms": window_ms, "top": top[:10]}
+
+
+def pinned_burst(platform: str, level: int, label: str, *, tune_steps=2,
+                 sl_exp=0, split_priority=False):
+    """D. Phase 19's 1,201-node sampled cluster, every object in the store
+    before the engine starts, with the overload controller pinned at
+    ``level`` (tune depth ``tune_steps``, shortlist exponent ``sl_exp``
+    applied to the step as the tuner does) before its informers list
+    the pods; ``split_priority`` puts every other pod at priority 1,000
+    and the rest at 0 (below shed_priority 500). Returns (placements,
+    metrics, the node sample K the engine picks for a 16-pod batch)."""
+    first, pods = sampled_cluster(O)
+    if split_priority:
+        for i, p in enumerate(pods):
+            p.spec.priority = 1000 if i % 2 else 0
+    slo.configure(PIN_SLO)
+    # Rungs 2 and 3 shed below shed_priority: 500 only where the pods'
+    # priorities are split (0 would shed none of them).
+    overload.configure(PIN_OVERLOAD + (",shed_priority=500"
+                                       if split_priority else ""))
+    picked = []
+    orig = engine_scheduler.Scheduler.start
+
+    def pinned_start(sched):
+        ov = sched._overload
+        ov.level, ov.tune_steps, ov.sl_exp = level, tune_steps, sl_exp
+        ov._since_change = ov._sl_since = 0
+        want = ov.shortlist_target(sched._sl_base)
+        if want != sched._shortlist_k:
+            sched._set_shortlist_k(want)
+        orig(sched)
+
+    cluster = Cluster()
+    try:
+        cluster.create_objects(first)
+        cluster.create_objects(pods)
+        engine_scheduler.Scheduler.start = pinned_start
+        try:
+            cluster.start(BENCH_PROFILE, SchedulerConfig(
+                platform=platform, max_batch_size=64, batch_window_s=0.3),
+                with_pv_controller=False)
+        finally:
+            engine_scheduler.Scheduler.start = orig
+        sched = cluster.service.scheduler
+        check(wait_until(lambda: sched.metrics()["pods_bound"] >= len(pods)
+                         and sched.metrics()["pods_assigned"] >= len(pods),
+                         timeout=120, interval=0.02),
+              f"{label}: {sched.metrics()['pods_bound']} of {len(pods)} "
+              f"pods bound")
+        picked.append(sched._sampled_step(
+            sched._node_pad(sched.cache.node_count()), 16, False)[1])
+        placed = {p.key: p.spec.node_name for p in cluster.list_pods()}
+        check(all(placed.values()), f"{label}: a pod left unbound")
+        return placed, sched.metrics(), picked[0]
+    finally:
+        cluster.shutdown()
+        disarm_obs()
+
+
+def brownout_bundle(bundle_dir: str):
+    """D. The ladder walked into brownout on the card through real
+    snapshot windows (an objective every window with a bind breaches,
+    hold 1) on the 1,201-node cluster, with incident bundles armed: the
+    brownout bundle, which tools/postmortem.py must accept."""
+    first, _pods = sampled_cluster(O)
+    journal.configure("1")
+    obs.configure(True)
+    timeseries.configure(True, every="1")
+    slo.configure("create_bound_p99=0.000001,short=30,long=60")
+    overload.configure("hold=1,probation=3")
+    bundle.configure(bundle_dir)
+    cluster = Cluster()
+    try:
+        cluster.create_objects(first)
+        cluster.start(BENCH_PROFILE, SchedulerConfig(
+            platform="", max_batch_size=16), with_pv_controller=False)
+        sched = cluster.service.scheduler
+        check(wait_until(lambda: sched.cache.node_count() == 1201,
+                         timeout=60), "brownout: nodes not synced")
+        made = 0
+        deadline = time.monotonic() + 90
+        while sched._overload.level < 3 and time.monotonic() < deadline:
+            cluster.create_objects([O.Pod(
+                metadata=O.ObjectMeta(name=f"wave{made + j}",
+                                      namespace="bench"),
+                spec=O.PodSpec(requests={"cpu": 10.0}))
+                for j in range(8)])
+            made += 8
+            time.sleep(0.05)
+        check(sched._overload.level == 3,
+              f"brownout: the ladder reached level {sched._overload.level}")
+        path = os.path.join(bundle_dir, "incident-brownout")
+        check(wait_until(lambda: os.path.exists(
+            os.path.join(path, "manifest.json")), timeout=30),
+            "brownout: no incident bundle")
+        m = sched.metrics()
+    finally:
+        cluster.shutdown()
+        disarm_obs()
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "postmortem.py")
+    r = subprocess.run([sys.executable, tool, path, "--quiet"],
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, f"postmortem rejects the brownout bundle "
+          f"(rc {r.returncode}): {r.stdout[-400:]} {r.stderr[-400:]}")
+    return path, m, made, r.stdout.strip().splitlines()[0]
+
+
+def ladder_phase(smi, scratch):
+    """D. The overload ladder on the card: rungs 1 and 3 pinned place as
+    on the CPU; rung 2 loses no pod and sheds as many as the CPU run;
+    the brownout bundle passes tools/postmortem.py."""
+    for rung, level, sl_exp, want_k, want_sample in (
+            ("rung 1 (tuned: batches of 16, K=512)", 1, 2, 512, 512),
+            ("rung 3 (brownout: node sample at 20%)", 3, 0, K, 256)):
+        got, m, k_gpu = pinned_burst("", level, rung, sl_exp=sl_exp)
+        want, _cm, k_cpu = pinned_burst("cpu", level, rung, sl_exp=sl_exp)
+        check(got == want, f"{rung}: placements on the card differ from "
+              "the CPU's")
+        check(m["overload_level"] == level and m["overload_max_batch"] == 16
+              and m["overload_shortlist_k"] == want_k,
+              f"{rung}: level {m['overload_level']}, batch "
+              f"{m['overload_max_batch']}, K {m['overload_shortlist_k']}")
+        check(k_gpu == k_cpu == want_sample
+              and m["sampled_batches"] == m["batches"],
+              f"{rung}: node sample {k_gpu}, {m['sampled_batches']} of "
+              f"{m['batches']} batches sampled")
+        check(m["kernel_launches_shortlist_select"] >= m["batches"]
+              and m["kernel_launches_shortlist_scan"] >= m["batches"],
+              f"{rung}: the shortlist kernels did not run in every batch")
+        print(f"ladder {rung} pinned on 1,201 nodes: {len(got)} placements "
+              f"on the card = the CPU's bitwise, {m['batches']} batches, "
+              f"each on a node sample of {k_gpu}, shortlist K "
+              f"{m['overload_shortlist_k']}, {m['shortlist_repairs']} "
+              f"repairs ({smi})")
+    label = "rung 2 (shedding below priority 500)"
+    got, m, _k = pinned_burst("", 2, label, split_priority=True)
+    _want, cm, _k = pinned_burst("cpu", 2, label, split_priority=True)
+    n_low = (len(sampled_cluster(O)[1]) + 1) // 2  # the even indices
+    check(m["pods_bound"] == len(got) - 1 and m["queue_shed"] == 0,
+          f"{label}: {m['pods_bound']} bound, {m['queue_shed']} still shed")
+    check(m["shed_total"] == cm["shed_total"] == n_low,
+          f"{label}: shed {m['shed_total']} on the card, "
+          f"{cm['shed_total']} on the CPU, {n_low} below the threshold")
+    print(f"ladder {label} pinned on 1,201 nodes: every pod bound, "
+          f"{m['shed_total']} shed and re-admitted (the CPU run: "
+          f"{cm['shed_total']}) ({smi})")
+    path, bm, made, verdict = brownout_bundle(os.path.join(scratch,
+                                                           "bundles"))
+    print(f"ladder walked to brownout on the card through real windows "
+          f"({made} pods, {bm['overload_escalations']} escalations, "
+          f"{bm['slo_alerts_total']} SLO alerts): bundle "
+          f"{os.path.basename(path)} with "
+          f"{sorted(os.listdir(path))}; tools/postmortem.py: {verdict}")
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -1957,7 +2345,14 @@ def main() -> int:
           f"{s_select_bound_s * 1e3:.4f} ms {s_select_bound_by}); scan "
           f"{s_scan_ms:.4f} ms (plain {s_scan_plain_ms:.1f} ms, bound "
           f"{s_scan_bound_s * 1e3:.4f} ms {s_scan_bound_by}) ({smi})")
-    del got, plain, _sel, s_sel, s_greedy, s_scores, s_args, nf_s
+    del got, plain, _sel, s_sel, s_greedy
+    # A. the widths the overload tuner sets, at this shape
+    t_phase = time.perf_counter()
+    tuner, tuner_err = tuner_widths_phase(smi, s_scores, s_args, sseed)
+    for name, e in tuner_err.items():
+        err[name] = max(err[name], e)
+    print(f"phase A in {time.perf_counter() - t_phase:.1f} s")
+    del s_scores, s_args, nf_s
     step_ms = {}
     for kk in (K, None):
         step = build_step(plugin_set, shortlist=kk, sample_nodes=SAMPLE_K)
@@ -2082,7 +2477,7 @@ def main() -> int:
     # 11. the bench main path: SchedulerConfig(), the default cycle
     nodes, pods = bench_workload(N_NODES, N_PODS)
     picked = []
-    m, main_launches, c2b, per_pod, _ = drive(
+    m, main_launches, c2b, per_pod, main_placed = drive(
         SchedulerConfig(platform=""), nodes, pods, "main path",
         probe=lambda sched: picked.append(sched._sampled_step(
             step_bucket(N_NODES), BATCH, False)[1]))
@@ -2102,6 +2497,14 @@ def main() -> int:
             f"device free/used_ports = host mirror bitwise; 9577057 "
             f"(unsampled): bursts {UNSAMPLED_BURSTS_S} s, full-width step "
             f"{UNSAMPLED_STEP_MS} ms")
+
+    # B-C. the main path armed: timeline, SLO sentinel, overload
+    # controller, journal and trace recorder; one batch's device trace
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        armed_main_path_phase(smi, main_placed, trace_dir)
+    del main_placed
+    print(f"phases B-C in {time.perf_counter() - t_phase:.1f} s")
 
     # 12. this slice's main path: full_scheduler_profile() through
     # Cluster(...).start() with SchedulerConfig(), a fifth of the pods
@@ -2299,6 +2702,12 @@ def main() -> int:
           f"times), {cm['resident_checks']} carry checks, no desync, "
           f"placements = the fault-free run's")
 
+    # D. the overload ladder on the card, on the same cluster
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as scratch:
+        ladder_phase(smi, scratch)
+    print(f"phase D in {time.perf_counter() - t_phase:.1f} s")
+
     # 20. the auction kernels vs their plain versions on the card
     t_phase = time.perf_counter()
     au = auction_kernels_phase(smi, eb, nf, af, key)
@@ -2350,6 +2759,7 @@ def main() -> int:
         "plain_ms": s_select_plain_ms,
         "bound_ms": s_select_bound_s * 1e3,
         "bound_by": s_select_bound_by,
+        "tuner_widths": tuner["shortlist_select"],
         "library_ms": None,
     }, {
         "name": "shortlist_scan",
@@ -2365,6 +2775,7 @@ def main() -> int:
         "plain_ms": s_scan_plain_ms,
         "bound_ms": s_scan_bound_s * 1e3,
         "bound_by": s_scan_bound_by,
+        "tuner_widths": tuner["shortlist_scan"],
         "library_ms": None,
     }, {
         "name": "insert_ports",
@@ -2435,6 +2846,7 @@ def main() -> int:
         "plain_ms": au[("sampled", K)]["plain_ms"],
         "bound_ms": au[("sampled", K)]["bound_s"] * 1e3,
         "bound_by": au[("sampled", K)]["bound_by"],
+        "tuner_widths": tuner["bid_auction"],
         "rounds": au[("sampled", K)]["rounds"],
         "ms_full_width": au[("full width", K)]["ms"],
         "select_ms_full_width": au[("full width", K)]["select_ms"],

@@ -31,6 +31,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
+from ..faults import FAULTS, FaultInjected
+from ..obs import span
+from ..obs.journal import note as jnote
 from ..state.events import ClusterEvent
 from ..state.objects import Pod, gang_key
 
@@ -257,6 +260,19 @@ class SchedulingQueue:
             self._admission = fn
             self._shed_backoff_fn = backoff_fn
 
+    def _ingress_fault(self) -> bool:
+        """The ``admission`` fault gate (faults.py), hit once per
+        ingress transaction (the per-batch-seam discipline). ``corrupt``
+        force-sheds the whole transaction — the chaos handle on the
+        shed path (pods re-admit via the flusher; nothing is lost);
+        ``err`` models the verdict machinery failing and FAILS OPEN
+        (admit — a broken gate must not drop ingress); ``stall`` sleeps
+        in the registry. Never called under the queue lock."""
+        try:
+            return FAULTS.hit("admission") == "corrupt"
+        except FaultInjected:
+            return False
+
     def _admits(self, pod: Pod) -> bool:
         """Consult the installed admission gate (caller may hold the
         lock — the gate is a plain int compare on the overload
@@ -271,38 +287,58 @@ class SchedulingQueue:
 
     def add(self, pod: Pod) -> None:
         """New unscheduled pod (reference queue.go:35-43)."""
+        forced = self._ingress_fault()
+        shed = False
         with self._cond:
             if pod.key in self._known or self._closed:
                 return
             self._known.add(pod.key)
             qpi = QueuedPodInfo(pod=pod)
-            if not self._admits(pod):
-                self._push_shed(qpi)
+            if forced or not self._admits(pod):
+                self._push_shed(qpi, time.monotonic())
+                shed = True
             else:
                 self._push_active(qpi)
                 self._cond.notify_all()
+        if shed:
+            # Journal OUTSIDE the queue lock (the journal's JSONL sink
+            # write must never extend a lock hold the scheduling
+            # thread's pop waits on), one event per ingress transaction
+            # — never per pod in a loop.
+            jnote("queue.shed", pods=1, pod=pod.key)
 
     def add_many(self, pods: List[Pod]) -> None:
         """Bulk ``add``: one lock acquisition and ONE consumer wake-up for
         a whole arrival burst (per-pod adds wake the batch-gathering
         ``pop_batch`` thread once per pod — 10k context-switch round-trips
         per workload submission)."""
+        forced = self._ingress_fault()
+        shed_n = 0
         with self._cond:
             if self._closed:
                 return
             added = False
+            now = time.monotonic()  # one due time for the whole shed wave
             for pod in pods:
                 if pod.key in self._known:
                     continue
                 self._known.add(pod.key)
                 qpi = QueuedPodInfo(pod=pod)
-                if not self._admits(pod):
-                    self._push_shed(qpi)
+                if forced or not self._admits(pod):
+                    self._push_shed(qpi, now)
+                    shed_n += 1
                     continue
                 self._push_active(qpi)
                 added = True
             if added:
                 self._cond.notify_all()
+        if shed_n:
+            # One aggregate event per ingress transaction, outside the
+            # lock — a shed WAVE must not flood the journal ring with
+            # per-pod entries (evicting the ladder history the ring
+            # exists to keep) nor pay a sink write per pod under the
+            # queue lock.
+            jnote("queue.shed", pods=shed_n)
 
     def update(self, old: Pod, new: Pod) -> None:
         """Pod updated (reference Update panics, queue.go:109-118; we
@@ -501,6 +537,19 @@ class SchedulingQueue:
     def pop_batch(self, max_n: int, timeout: Optional[float] = None,
                   gather_window: float = 0.0,
                   gather_idle: float = 0.0) -> List[QueuedPodInfo]:
+        """Flight-recorded wrapper around :meth:`_pop_batch` — the
+        ``queue.pop`` span covers the blocking wait plus the batch-
+        formation window (on the gather worker's own lane in pipelined
+        mode), with the popped size attached."""
+        with span("queue.pop") as sp:
+            batch = self._pop_batch(max_n, timeout, gather_window,
+                                    gather_idle)
+            sp.set(pods=len(batch))
+            return batch
+
+    def _pop_batch(self, max_n: int, timeout: Optional[float] = None,
+                   gather_window: float = 0.0,
+                   gather_idle: float = 0.0) -> List[QueuedPodInfo]:
         """Block until activeQ is non-empty (condvar — fixes the busy-wait at
         reference queue.go:84-92), then pop up to max_n pods ordered by
         descending priority (stable FIFO within a priority).
@@ -670,12 +719,17 @@ class SchedulingQueue:
         # genuinely quiescent, not merely between condvar wakeups.
         self._arrival_seq += 1
 
-    def _push_shed(self, qpi: QueuedPodInfo) -> None:
+    def _push_shed(self, qpi: QueuedPodInfo, now: float) -> None:
         """Park a declined arrival in the shed lane (caller holds the
         lock): counted, indexed, backoff doubling per re-shed up to the
         ceiling. The flusher re-offers due entries to the gate, so a
         shed pod ALWAYS re-enters scheduling once the overload clears
-        (or at the ceiling cadence while it persists)."""
+        (or at the ceiling cadence while it persists). ``now`` is the
+        transaction's clock: every pod parked in one transaction falls
+        due at one instant, so one flush pass re-offers the wave whole
+        (a wave split across two passes would see its own first half,
+        re-admitted by the idle override, as a busy queue and re-park
+        the rest)."""
         qpi.where, qpi.gone = "shed", False
         self._index[qpi.key] = qpi
         initial, ceiling = 0.5, 5.0
@@ -684,7 +738,7 @@ class SchedulingQueue:
                 initial, ceiling = self._shed_backoff_fn()
             except Exception:
                 pass  # a broken knob source must not drop the park
-        ready = time.monotonic() + min(
+        ready = now + min(
             initial * (2 ** min(qpi.shed_count, 30)), ceiling)
         if qpi.shed_count == 0:
             self._shed_pods += 1
@@ -711,6 +765,8 @@ class SchedulingQueue:
             self._shed_readmitted += moved
             if moved:
                 self._cond.notify_all()
+        if moved:
+            jnote("queue.release_shed", pods=moved)
         return moved
 
     def _push_backoff(self, qpi: QueuedPodInfo,
@@ -800,7 +856,11 @@ class SchedulingQueue:
                         readmitted += 1
                         fired = True
                     else:
-                        self._push_shed(qpi)
+                        self._push_shed(qpi, now)
                 if fired:
                     self._cond.notify_all()
+            if readmitted:
+                # One aggregate event per flush pass, outside the lock
+                # (see add_many's shed event for the rationale).
+                jnote("queue.readmit", pods=readmitted)
             time.sleep(interval)

@@ -30,6 +30,15 @@ With ``config.pipeline`` (the default) the loop is the bounded two-deep
 pipeline of ``_run_pipelined``; otherwise the three phases run back to
 back on the scheduling thread.
 
+Observability and overload control (each hook one attribute test while
+unarmed): the phase and gap clocks, the lifecycle histograms and the
+per-pod provenance in ``metrics()`` / ``provenance()``; the snapshot
+ring, the SLO sentinel (whose alerts warn the supervisor) and the
+overload ladder (engine/overload.py: smaller batches and a retuned
+shortlist K, admission shedding, brownout's node sampling) at snapshot
+cadence; incident bundles (obs/bundle.py); ``dump_trace`` and
+``trace_next_batch``.
+
 A supervisor (``_Supervisor``) contains batch faults: a raised phase, a
 readback that fails its sanity check, a resident carry that left its
 host mirror, a shortlist decision the full-width scan disagrees with.
@@ -49,6 +58,7 @@ the pod in unschedulableQ keyed by those plugins for event-driven revival.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -63,8 +73,12 @@ from ..encode.cache import bucket_for, step_bucket
 from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
 from ..faults import FAULTS, FaultWorkerDeath
-from ..obs import instant, span
+from ..obs import Histogram, instant, span
+from ..obs import bundle as bundle_mod
+from ..obs import slo as slo_mod
+from ..obs.journal import JOURNAL, ProvenanceStore
 from ..obs.journal import note as jnote
+from ..obs.timeseries import TIMELINE, TimelineTracker
 from ..ops import prng
 from ..ops._cuda_build import KERNELS, LAUNCHES
 from ..ops.pipeline import Decision, build_step
@@ -76,6 +90,7 @@ from ..plugins.base import PluginSet
 from ..state.events import ActionType, ClusterEvent, EventBroadcaster, GVK
 from ..state.objects import (CLAIM_UNUSED, CLOUD_VOLUME_AXES, Pod,
                              claim_keys, gang_key)
+from . import overload as overload_mod
 from .clusterstate import SharedClusterState
 from .queue import (BATCH_CAPACITY, COSCHEDULING, QueuedPodInfo,
                     SchedulingQueue)
@@ -102,6 +117,14 @@ class EngineDesync(RuntimeError):
 #: The supervisor's degradation ladder, fastest first. Level indexes it.
 DEGRADATION_LADDER = ("resident", "upload", "sync", "quarantine")
 
+#: SLO early-warning pre-arming (obs/slo.py → _Supervisor.early_warning):
+#: a burning SLO arms the per-batch watchdog at this fallback deadline
+#: for this many batches even when ``watchdog_s`` is unset, so the
+#: sentinel's trend verdict buys the ladder a tripwire before a wedged
+#: step forces the exception path.
+SLO_PREARM_BATCHES = 64
+SLO_PREARM_WATCHDOG_S = 30.0
+
 
 class _Supervisor:
     """Fault detection and containment state for one engine.
@@ -123,12 +146,16 @@ class _Supervisor:
     consecutive clean batches at a degraded level the supervisor climbs
     one rung back toward the full fast path."""
 
-    __slots__ = ("_sched", "level", "_clean")
+    __slots__ = ("_sched", "level", "_clean", "prearm")
 
     def __init__(self, sched: "Scheduler"):
         self._sched = sched
         self.level = 0
         self._clean = 0
+        # Batches left on the SLO early-warning posture: while > 0 the
+        # watchdog runs at SLO_PREARM_WATCHDOG_S even with the knob
+        # unset. Scheduling-thread only, like ``level``.
+        self.prearm = 0
 
     def allows_residency(self) -> bool:
         return self.level == 0
@@ -145,26 +172,63 @@ class _Supervisor:
         s._sup_count("supervisor_escalations")
         instant("supervisor.escalate", to=DEGRADATION_LADDER[self.level],
                 level=self.level, reason=reason)
-        jnote("supervisor.escalate", frm=DEGRADATION_LADDER[self.level - 1],
-              to=DEGRADATION_LADDER[self.level], level=self.level,
-              reason=reason, batch=s._batch_seq, step=s._step_counter)
+        if JOURNAL.enabled:
+            jnote("supervisor.escalate", profile=s.profile,
+                  replica=s.replica, frm=DEGRADATION_LADDER[self.level - 1],
+                  to=DEGRADATION_LADDER[self.level], level=self.level,
+                  reason=reason, batch=s._batch_seq, step=s._step_counter)
         log.warning("supervisor: degraded to %r (%s)",
                     DEGRADATION_LADDER[self.level], reason)
 
+    def early_warning(self, reason: str) -> None:
+        """SLO sentinel input (obs/slo.py): a burning objective is a
+        leading indicator of the faults the ladder contains. Two counted,
+        reversible reactions: the probation counter resets (a degraded
+        engine cannot climb back while its SLO burns), and the per-batch
+        watchdog is pre-armed for the next SLO_PREARM_BATCHES batches
+        even when ``watchdog_s`` is unset. No rung changes here: the
+        sentinel warns, the detectors decide."""
+        s = self._sched
+        self._clean = 0
+        self.prearm = SLO_PREARM_BATCHES
+        s._sup_count("supervisor_early_warnings")
+        instant("supervisor.early_warning", reason=reason, level=self.level)
+        if JOURNAL.enabled:
+            jnote("supervisor.early_warning", profile=s.profile,
+                  replica=s.replica, reason=reason, level=self.level,
+                  batch=s._batch_seq)
+        log.warning("supervisor: SLO early warning (%s); probation "
+                    "extended, watchdog pre-armed for %d batches",
+                    reason, SLO_PREARM_BATCHES)
+
     def note_clean(self) -> None:
-        """One batch resolved with no fault: probation bookkeeping."""
+        """One batch resolved with no fault: probation bookkeeping. While
+        any SLO burns the engine cannot climb (clean batches during a burn
+        do not count toward probation) and the watchdog pre-arm stays
+        topped up, also at level 0: a continuous burn fires one
+        rising-edge alert only."""
+        s = self._sched
+        burning = s._slo_burning_any()
+        if burning:
+            self.prearm = SLO_PREARM_BATCHES
         if self.level == 0:
             return
+        if burning:
+            self._clean = 0
+            return
         self._clean += 1
-        if self._clean >= max(1, self._sched.config.probation_batches):
+        if self._clean >= max(1, s.config.probation_batches):
             self._clean = 0
             self.level -= 1
-            self._sched._sup_count("supervisor_recoveries")
+            s._sup_count("supervisor_recoveries")
             instant("supervisor.recover",
                     to=DEGRADATION_LADDER[self.level], level=self.level)
-            jnote("supervisor.recover", frm=DEGRADATION_LADDER[self.level + 1],
-                  to=DEGRADATION_LADDER[self.level], level=self.level,
-                  batch=self._sched._batch_seq)
+            if JOURNAL.enabled:
+                jnote("supervisor.recover", profile=s.profile,
+                      replica=s.replica,
+                      frm=DEGRADATION_LADDER[self.level + 1],
+                      to=DEGRADATION_LADDER[self.level], level=self.level,
+                      batch=s._batch_seq)
             log.info("supervisor: probation passed; re-escalated to %r",
                      DEGRADATION_LADDER[self.level])
 
@@ -177,10 +241,22 @@ class _Batch:
                  "spread_dev", "fail_closed", "vol_memo", "nom_reserved",
                  "res_carried", "failures", "n_assigned", "launches",
                  "sl_repairs", "assumed", "detached", "seq", "t0",
-                 "t_encode", "t_dispatch", "t_fetch_start", "t_fetched",
-                 "t_resolved")
+                 "t_enc0", "t_encode", "t_dispatch", "t_fetch_start",
+                 "t_fetched", "t_resolved", "commit_t0", "commit_t1",
+                 "gap", "h2d0", "fetch0", "h2d1", "fetch1", "scored_rows",
+                 "shapes")
 
     def __init__(self):
+        # Inter-batch gap components (gather/encode/commit) booked since
+        # the previous prepare and adopted by this batch (_book_gap).
+        self.gap: Dict[str, float] = {}
+        self.commit_t0 = self.commit_t1 = 0.0
+        # Transfer ledger at prepare and after resolve: the per-batch
+        # series' byte deltas.
+        self.h2d0 = self.fetch0 = self.h2d1 = self.fetch1 = 0.0
+        # Plugin evaluations the main step paid, pod rows × node rows.
+        self.scored_rows = 0
+        self.shapes = (0, 0, 0)  # padded (P, N, A)
         self.failures: List[tuple] = []  # (qpi, plugins, message, retryable)
         self.n_assigned = 0
         self.decision: Optional[Decision] = None
@@ -813,10 +889,18 @@ def arbitrate_spread(batch: List[QueuedPodInfo], assigned, pf, gf,
 class Scheduler:
     def __init__(self, store, plugin_set: PluginSet,
                  config: Optional[SchedulerConfig] = None,
-                 shared: Optional[SharedClusterState] = None):
+                 shared: Optional[SharedClusterState] = None,
+                 profile: Optional[str] = None,
+                 replica: Optional[str] = None):
         self.store = store
         self.plugin_set = plugin_set
         self.config = config or SchedulerConfig()
+        # Serving-profile label: journal events, timeline rows and
+        # provenance records carry it, and it names the overload
+        # controller (per-profile shed budgets resolve against it).
+        self.profile = profile or "default"
+        # Replica id tagged beside the profile ("" = a solo engine).
+        self.replica = replica or ""
         if self.config.assignment not in ("greedy", "auction"):
             raise ValueError(f"unknown assignment strategy "
                              f"{self.config.assignment!r}; expected "
@@ -942,7 +1026,33 @@ class Scheduler:
         if self.config.device_resident:
             self._residency = _DeviceResidency(
                 self.cache.register_dyn_listener())
+        # Batch-scoped provenance path (journal armed only): set by
+        # _resolve_batch_impl, read by the placement stamp sites on the
+        # same thread. None = journal unarmed.
+        self._prov_batch: Optional[dict] = None
+        # Armed trace request (trace_next_batch); the lock covers the
+        # arm/consume pair.
+        self._trace_lock = threading.Lock()
+        self._trace_dir: Optional[str] = None
         self._metrics_lock = threading.Lock()
+        # Commits can complete out of batch order (an inline fold while
+        # the previous batch's worker flush runs): last_* only accept the
+        # highest sequence seen. The prepare window lets a commit book
+        # the encode-vs-flush overlap. Both under _metrics_lock.
+        self._last_committed_seq = -1
+        self._prep_window: tuple = (0.0, 0.0)
+        # Inter-batch gap components booked since the last prepare
+        # (scheduling thread only; see _book_gap).
+        self._gap_pending: Dict[str, float] = {}
+        # Per-pod lifecycle histograms, fed from the QueuedPodInfo stamps
+        # (added_at, gathered_at, decided_at) where pods_bound increments,
+        # so create_to_bound's count equals the bound pods. Always on.
+        self._hists: Dict[str, Histogram] = {
+            "pod_queue_wait_s": Histogram(),
+            "pod_decide_s": Histogram(),
+            "pod_bind_s": Histogram(),
+            "pod_create_to_bound_s": Histogram(),
+        }
         self._metrics: Dict[str, float] = {
             "batches": 0, "pods_seen": 0, "pods_assigned": 0,
             "pods_failed": 0, "pods_bound": 0, "bind_conflicts": 0,
@@ -961,6 +1071,34 @@ class Scheduler:
             # device time.
             "prepare_s_total": 0.0, "step_s_total": 0.0,
             "resolve_s_total": 0.0, "bind_s_total": 0.0,
+            # The JAX engine's clocks: encode (after the gang pull and
+            # sort, to the dispatch), the step's dispatch alone, commit
+            # (the resolve tail after the fetch plus the flush).
+            "encode_s_total": 0.0, "step_dispatch_s_total": 0.0,
+            "commit_s_total": 0.0,
+            # Inter-batch glue: every gap_s_total booking is tagged with
+            # one component, so the four partition it exactly: gather =
+            # blocking queue-pop waits; encode = batch formation (gang
+            # pull + priority sort) before the encode window; fetch =
+            # the dispatch→fetch turnaround (the next batch's gather
+            # runs there in pipelined mode); commit = the scheduling
+            # thread's wait on the previous batch's commit flush.
+            "gap_s_total": 0.0, "gap_gather_s_total": 0.0,
+            "gap_encode_s_total": 0.0, "gap_fetch_s_total": 0.0,
+            "gap_commit_s_total": 0.0,
+            # Pipelined overlap: commit-flush time hidden behind the next
+            # batch's stages, and the prepare time that ran while the
+            # previous commit flushed. Both 0 in the synchronous loop.
+            "encode_overlap_s": 0.0, "commit_overlap_s": 0.0,
+            "last_encode_s": 0.0, "last_step_s": 0.0, "last_commit_s": 0.0,
+            # Main-step dispatches, blocking decision readbacks (main,
+            # residual, repair), and plugin evaluations in pod-row ×
+            # node-row units (the full step's P_pad·N, a sampled K).
+            "steps_dispatched": 0, "decision_fetches": 0,
+            "scored_rows_total": 0, "last_scored_rows": 0,
+            # SLO sentinel alerts (total; per-objective keys appear on
+            # first fire) and the supervisor's early-warning reactions.
+            "slo_alerts_total": 0, "supervisor_early_warnings": 0,
             # Transfer ledger: host→device bytes (static-leaf uploads,
             # full dynamic-leaf uploads, residency corrections, port
             # insertions; the pod encode is not counted) and
@@ -991,6 +1129,29 @@ class Scheduler:
             "residency_nomination_carries": 0,
             "last_batch_size": 0,
         }
+        # Rolling ring of metrics() snapshots (obs/timeseries.py). Always
+        # constructed; ticked only while TIMELINE.enabled (one attribute
+        # test per resolved batch when disarmed).
+        self._timeline = TimelineTracker(self.metrics, name=self.profile)
+        # Per-pod decision provenance, written only while the journal is
+        # armed.
+        self._provenance = ProvenanceStore()
+        # SLO sentinel, built from the epoch-current process config at
+        # the first armed snapshot.
+        self._slo_sentinel: Optional[slo_mod.SLOSentinel] = None
+        self._slo_epoch = -1
+        # Overload controller (engine/overload.py): admission control,
+        # batch/window/shortlist tuning and the brownout rung. Every hook
+        # gates on the process-wide enabled flag or the controller's
+        # level, so disarmed decisions are unchanged.
+        self._overload = overload_mod.OverloadController(name=self.profile)
+        # Base shortlist width the tuner retunes around; a permanent
+        # certification revert (_shortlist_k = None) wins over any target.
+        self._sl_base = self._shortlist_k
+        self.queue.set_admission(
+            self._overload.admits,
+            backoff_fn=lambda: (overload_mod.OVERLOAD.shed_backoff,
+                                overload_mod.OVERLOAD.shed_backoff_max))
 
     # ---- lifecycle -----------------------------------------------------
 
@@ -1003,6 +1164,11 @@ class Scheduler:
         """Start the informers + this engine's scheduling loop
         (reference scheduler.go:72-75)."""
         self._shared.ensure_started()
+        jnote("engine.start", profile=self.profile, replica=self.replica,
+              mode="pipelined" if self.config.pipeline else "sync",
+              resident=bool(self._residency is not None),
+              shortlist_k=int(self._shortlist_k or 0), loop=False,
+              index=False)
         self._thread = threading.Thread(target=self.run, daemon=True,
                                         name="scheduling-loop")
         self._thread.start()
@@ -1022,10 +1188,36 @@ class Scheduler:
         self.broadcaster.close()
 
     def _pop(self) -> List[QueuedPodInfo]:
+        max_n, window, idle = self._pop_params()
+        return self.queue.pop_batch(max_n, timeout=0.2,
+                                    gather_window=window, gather_idle=idle)
+
+    def _pop_params(self):
+        """(max_n, gather_window, gather_idle) for the next queue pop:
+        the config's, unless the overload tuner is engaged (batch stepped
+        down toward ``min_batch``, formation window stepped up). At tune
+        depth 0 the config passes through untouched."""
         cfg = self.config
-        return self.queue.pop_batch(
-            cfg.max_batch_size, timeout=0.2,
-            gather_window=cfg.batch_window_s, gather_idle=cfg.batch_idle_s)
+        ov = self._overload
+        if ov.tune_steps == 0:
+            return cfg.max_batch_size, cfg.batch_window_s, cfg.batch_idle_s
+        return (ov.effective_max_batch(cfg.max_batch_size),
+                ov.effective_window(cfg.batch_window_s),
+                ov.effective_idle(cfg.batch_idle_s))
+
+    def _book_gap(self, component: str, dt: float) -> None:
+        """Book inter-batch glue into gap_s_total, tagged with its
+        component (gather/encode/commit; the fetch slot is booked at
+        commit). Scheduling thread only: the next prepare adopts the
+        pending dict, so the per-batch series attribute each wait to the
+        batch it preceded."""
+        if dt <= 0.0:
+            return
+        with self._metrics_lock:
+            self._metrics["gap_s_total"] += dt
+            self._metrics[f"gap_{component}_s_total"] += dt
+        self._gap_pending[component] = (
+            self._gap_pending.get(component, 0.0) + dt)
 
     def run(self) -> None:
         """The scheduling loop (reference minisched.go:28-30
@@ -1035,10 +1227,18 @@ class Scheduler:
         if self.config.pipeline:
             self._run_pipelined()
             return
+        last_done = None
         while not self._stop.is_set():
             batch = self._pop()
-            if batch:
-                self._schedule_guarded(batch)
+            if not batch:
+                # Idle (no pending pods) is not inter-batch overhead.
+                last_done = None
+                continue
+            # Batch-to-batch dead time, spent inside the pop: gather glue.
+            if last_done is not None:
+                self._book_gap("gather", time.perf_counter() - last_done)
+            self._schedule_guarded(batch)
+            last_done = time.perf_counter()
 
     def _schedule_guarded(self, batch: List[QueuedPodInfo]) -> None:
         """One synchronous cycle; a fault engages the supervisor."""
@@ -1077,8 +1277,13 @@ class Scheduler:
                 self._step_counter = anchor  # no decision consumed it
                 for qpi in retry:
                     self.queue.quarantine(qpi)
-                jnote("supervisor.quarantine", pods=len(retry),
+                jnote("supervisor.quarantine", profile=self.profile,
+                      replica=self.replica, pods=len(retry),
                       batch=self._batch_seq, step=anchor)
+                bundle_mod.capture(
+                    "quarantine", scheduler=self,
+                    reason=f"degradation ladder exhausted; "
+                           f"{len(retry)} pod(s) quarantined")
                 log.error("supervisor: exhausted the degradation ladder; "
                           "quarantined %d pods (requeued at the backoff "
                           "ceiling)", len(retry))
@@ -1087,12 +1292,14 @@ class Scheduler:
             self._step_counter = anchor  # replay, don't advance
             try:
                 self.schedule_batch(list(retry))
-                jnote("supervisor.retry", outcome="ok",
+                jnote("supervisor.retry", profile=self.profile,
+                      replica=self.replica, outcome="ok",
                       rung=DEGRADATION_LADDER[self._sup.level],
                       pods=len(retry), batch=self._batch_seq, step=anchor)
                 return
             except Exception:
-                jnote("supervisor.retry", outcome="failed",
+                jnote("supervisor.retry", profile=self.profile,
+                      replica=self.replica, outcome="failed",
                       rung=DEGRADATION_LADDER[self._sup.level],
                       pods=len(retry), batch=self._batch_seq, step=anchor)
                 log.exception("degraded retry failed at rung %r; "
@@ -1125,20 +1332,30 @@ class Scheduler:
         inflight = None            # prepared + dispatched, not resolved
         pending = None             # (future, batch) commit in flight
         gather_fut = None          # in-flight pop on the gather worker
+        last_done = None           # the gap clock (see _book_gap)
         try:
             while not self._stop.is_set():
                 if inflight is None:
                     if gather_fut is not None:
+                        # The last_done booking below covers this wait.
                         with span("gather.wait"):
                             batch = gather_fut.result()
                         gather_fut = None
                     else:
                         batch = self._pop()
                     if not batch:
+                        last_done = None
                         pending = self._await_commit(pending)
                         continue
+                    if last_done is not None:
+                        self._book_gap("gather",
+                                       time.perf_counter() - last_done)
                     inflight, pending = self._prepare_guarded(batch,
                                                               pending)
+                    if inflight is None:
+                        # Ran synchronously (or failed): the next gap
+                        # starts after it.
+                        last_done = time.perf_counter()
                     continue
                 if gather_fut is None and not self._stop.is_set():
                     try:
@@ -1146,14 +1363,16 @@ class Scheduler:
                     except RuntimeError:  # executor torn down (shutdown)
                         gather_fut = None
                 pending = self._finish(inflight, pending)
+                last_done = time.perf_counter()
                 nxt = []
                 if gather_fut is not None and not self._stop.is_set():
-                    with span("gather.wait"):
-                        nxt = gather_fut.result() or []
+                    nxt = self._take_gather(gather_fut) or []
                     gather_fut = None
                 inflight = None
                 if nxt:
                     inflight, pending = self._prepare_guarded(nxt, pending)
+                    if inflight is None:
+                        last_done = time.perf_counter()
         finally:
             # Drain: a dispatched batch is completed, then the last
             # commit is awaited. A gather that raced the stop and popped
@@ -1165,12 +1384,27 @@ class Scheduler:
                     self.queue.requeue_backoff(qpi)
             self._await_commit(pending)
 
+    def _take_gather(self, gather_fut):
+        """Consume an overlapped pop, booking the blocking part of a
+        productive wait as gather gap (the synchronous loop's pop waits
+        land there too). An empty result is idle and books nothing."""
+        t0 = time.perf_counter()
+        with span("gather.wait"):
+            batch = gather_fut.result()
+        waited = time.perf_counter() - t0
+        if batch:
+            self._book_gap("gather", waited)
+        return batch
+
     def _prepare_guarded(self, batch, pending):
         """Prepare (encode + dispatch) a popped batch → (batch in flight
-        or None, pending). At the supervisor's sync rung the pipeline is
-        drained and the batch runs its whole cycle here; a failed prepare
-        engages the supervisor."""
-        if self._sup.sync_only():
+        or None, pending). An armed trace request (the whole cycle must
+        sit in one profiler scope) and the supervisor's sync rung drain
+        the pipeline and run the batch's whole cycle here; a failed
+        prepare engages the supervisor."""
+        with self._trace_lock:
+            trace_armed = self._trace_dir is not None
+        if trace_armed or self._sup.sync_only():
             pending = self._await_commit(pending)
             self._schedule_guarded(batch)
             return None, pending
@@ -1213,13 +1447,23 @@ class Scheduler:
     def _await_commit(self, pending):
         """Bound the pipeline at ONE commit in flight; a commit worker
         that died mid-flush is replaced."""
-        if pending is not None:
-            fut, b = pending
-            try:
-                with span("commit.wait"):
-                    fut.result()
-            except FaultWorkerDeath:
-                self._restart_commit_worker(b)
+        if pending is None:
+            return None
+        fut, b = pending
+        t0 = time.perf_counter()
+        try:
+            with span("commit.wait"):
+                fut.result()
+        except FaultWorkerDeath:
+            self._restart_commit_worker(b)
+            return None
+        waited = time.perf_counter() - t0
+        # The exposed flush wait is the commit slot of the gap; the part
+        # of the flush the scheduling thread did not wait for overlapped.
+        self._book_gap("commit", waited)
+        flush = max(0.0, b.commit_t1 - b.commit_t0)
+        with self._metrics_lock:
+            self._metrics["commit_overlap_s"] += max(0.0, flush - waited)
         return None
 
     def _restart_commit_worker(self, b: _Batch) -> None:
@@ -1239,7 +1483,64 @@ class Scheduler:
 
     # ---- one batched scheduling cycle ----------------------------------
 
+    def trace_next_batch(self, trace_dir: str) -> None:
+        """Capture a ``torch.profiler`` trace (host and, on a card, CUDA
+        activity) of the next scheduling batch into ``trace_dir`` as a
+        Chrome trace (``trace.json``). The batch runs its whole cycle
+        synchronously inside the profiler scope."""
+        with self._trace_lock:
+            self._trace_dir = trace_dir
+        os.makedirs(trace_dir, exist_ok=True)
+
+    def dump_trace(self, path: str) -> str:
+        """Export the process-wide flight recorder (obs.TRACE: spans at
+        every engine seam, fault and ladder instants) as Chrome
+        trace-event JSON. Arm it with MINISCHED_TRACE=1 (or
+        obs.configure) first; an unarmed dump writes a valid, empty
+        trace. Returns ``path``."""
+        from ..obs import TRACE
+
+        return TRACE.export_chrome(path)
+
     def schedule_batch(self, batch: List[QueuedPodInfo]) -> Decision:
+        with self._trace_lock:
+            trace_dir, self._trace_dir = self._trace_dir, None
+        if trace_dir:
+            return self._schedule_traced(batch, trace_dir)
+        return self._schedule_batch_impl(batch)
+
+    def _schedule_traced(self, batch: List[QueuedPodInfo],
+                         trace_dir: str) -> Decision:
+        """One cycle under ``torch.profiler``: CPU activity always, CUDA
+        activity when the engine runs on a card. On a card a capture with
+        no device event is an error, not an empty trace: it writes
+        ``error.txt`` instead of ``trace.json`` (raising here would send
+        an already committed batch into the supervised retry)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        on_card = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU]
+        if on_card:
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            out = self._schedule_batch_impl(batch)
+            if on_card:
+                torch.cuda.synchronize(self.device)
+        cuda = torch.autograd.DeviceType.CUDA
+        if on_card and not any(e.device_type == cuda for e in prof.events()):
+            msg = "the capture holds no CUDA activity"
+            log.error("trace_next_batch: %s", msg)
+            with open(os.path.join(trace_dir, "error.txt"), "w") as f:
+                f.write(msg + "\n")
+            return out
+        # Written aside, then renamed: a reader polling for trace.json
+        # never sees a partial file.
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return out
+
+    def _schedule_batch_impl(self, batch: List[QueuedPodInfo]) -> Decision:
         """One synchronous cycle: prepare → resolve → commit."""
         b = self._prepare_batch(batch)
         self._resolve_batch(b)
@@ -1340,7 +1641,8 @@ class Scheduler:
                             "forcing a full re-upload", e)
                 self._sup_count("residency_desyncs")
                 instant("residency.desync", reason=str(e))
-                jnote("residency.desync", reason=str(e),
+                jnote("residency.desync", profile=self.profile,
+                      replica=self.replica, reason=str(e),
                       batch=self._batch_seq)
                 self._sup.escalate("resident carry desync")
                 res.drop("carry cross-check mismatch")
@@ -1389,10 +1691,10 @@ class Scheduler:
         cfg = self.config
         if full_axis:
             return None, None
-        # This package has no overload controller, so the dial is the
-        # configured percentage; the JAX engine's controller passes it
-        # through unchanged while it is off (engine/overload.py:536-537).
-        pct = cfg.percentage_of_nodes_to_score
+        # Brownout (overload level 3) pulls the dial down to
+        # ``brownout_pct``; otherwise the configured percentage.
+        pct = self._overload.effective_pct_nodes(
+            cfg.percentage_of_nodes_to_score)
         if pct >= 100:
             return None, None
         n_real = self.cache.node_count()
@@ -1421,6 +1723,9 @@ class Scheduler:
         # scheduling thread, so at any batch fault this is the step
         # counter the aborted attempt started from.
         self._prep_step0 = self._step_counter
+        with self._metrics_lock:
+            b.h2d0 = self._metrics["h2d_bytes_total"]
+            b.fetch0 = self._metrics["fetch_bytes_total"]
         # Pull queued gang-mates so no batch boundary splits a gang (the
         # step would reject the partial group for missing quorum).
         for group in {gang_key(q.pod) for q in batch
@@ -1431,6 +1736,17 @@ class Scheduler:
                         "pulling gang mates", len(batch), cfg.max_batch_size)
         batch = sorted(batch, key=lambda q: -q.pod.spec.priority)
         pods = [q.pod for q in batch]
+        b.t_enc0 = time.perf_counter()
+        # Batch formation (gang pull + sort) is the encode slot of the
+        # gap; then adopt every gap component booked since the previous
+        # prepare, so the per-batch series attribute each wait to the
+        # batch it preceded.
+        self._book_gap("encode", b.t_enc0 - b.t0)
+        b.gap, self._gap_pending = self._gap_pending, {}
+        with self._metrics_lock:
+            # Prepare started; the end is published at dispatch (None =
+            # still preparing: a flush's overlap booking clips at its end).
+            self._prep_window = (b.t_enc0, None)
         # Encode pods FIRST: constraints may register new topology keys,
         # which the node snapshot's domain tables must reflect.
         b.vol_memo, b.fail_closed, eb = self._encode_batch(
@@ -1490,6 +1806,11 @@ class Scheduler:
                 self._spread_enabled and self._anti_enabled
                 and (eb.pf.anti_req_group[:L] >= 0).any())
             b.spread_dev = _pack_spread(d) if needs_arb else None
+        self._sup_count("steps_dispatched")
+        b.scored_rows = int(eb.pf.valid.shape[0]) * int(
+            b.sample_k if b.sample_k is not None else nf.valid.shape[0])
+        b.shapes = (int(eb.pf.valid.shape[0]), int(nf.valid.shape[0]),
+                    int(af.valid.shape[0]))
         if hard_spread:
             self._sup_count("hard_spread_batches")
         if b.sample_k is not None:
@@ -1500,6 +1821,8 @@ class Scheduler:
         self._batch_seq += 1
         b.seq = self._batch_seq
         b.t_dispatch = time.perf_counter()
+        with self._metrics_lock:
+            self._prep_window = (b.t_enc0, b.t_dispatch)
         return b
 
     def _encode_batch(self, batch: List[QueuedPodInfo], pods, p_pad: int):
@@ -1546,15 +1869,16 @@ class Scheduler:
                 return pairs
 
         encode_hard: Dict[int, list] = {}
-        eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
-                         registry=self.cache.registry,
-                         overflow=self.cache.overflow,
-                         volumes_ready_fn=lambda p: vol_state(p)[0],
-                         gang_bound_fn=self.cache.gang_bound_count,
-                         volume_info_fn=lambda p: vol_state(p)[1:],
-                         anti_forbidden_fn=anti_fn,
-                         hard_failed=encode_hard,
-                         selector_spread=self._selspread_enabled)
+        with span("encode.pods", pods=len(pods)):
+            eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
+                             registry=self.cache.registry,
+                             overflow=self.cache.overflow,
+                             volumes_ready_fn=lambda p: vol_state(p)[0],
+                             gang_bound_fn=self.cache.gang_bound_count,
+                             volume_info_fn=lambda p: vol_state(p)[1:],
+                             anti_forbidden_fn=anti_fn,
+                             hard_failed=encode_hard,
+                             selector_spread=self._selspread_enabled)
         for idx, infos in encode_hard.items():
             for info in infos:
                 if self._fail_closed_plugins.get(info[0], True):
@@ -1687,6 +2011,7 @@ class Scheduler:
         # plane with absurd node rows, which the resolve sanity detector
         # must catch.
         act = FAULTS.hit("fetch")
+        self._sup_count("decision_fetches")
         with span("fetch.decision"):
             buf = np.array(packed_dev.cpu().numpy())
         self._count_fetch(buf.nbytes)
@@ -1712,9 +2037,15 @@ class Scheduler:
         finally:
             self._fail_sink = None
             self._track = None
+            self._prov_batch = None
             b.t_resolved = time.perf_counter()
+        with self._metrics_lock:
+            b.h2d1 = self._metrics["h2d_bytes_total"]
+            b.fetch1 = self._metrics["fetch_bytes_total"]
         self._watchdog_check(b)
         self._sup.note_clean()
+        if TIMELINE.enabled:
+            self._timeline_tick()
 
     def _rollback_assumed(self, b: _Batch) -> None:
         if not b.assumed:
@@ -1737,6 +2068,12 @@ class Scheduler:
         is retried: the next batches stop leaning on a path that just
         blew its budget."""
         wd = self.config.watchdog_s
+        if self._sup.prearm > 0:
+            # SLO early-warning posture: the fallback deadline (or the
+            # configured one if tighter) for the pre-armed batches.
+            self._sup.prearm -= 1
+            wd = min(wd, SLO_PREARM_WATCHDOG_S) if wd else \
+                SLO_PREARM_WATCHDOG_S
         if not wd:
             return
         gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
@@ -1745,7 +2082,8 @@ class Scheduler:
             self._sup_count("watchdog_trips")
             instant("watchdog.trip", window_s=round(window, 6),
                     deadline_s=wd)
-            jnote("watchdog.trip", window_s=round(window, 6),
+            jnote("watchdog.trip", profile=self.profile,
+                  replica=self.replica, window_s=round(window, 6),
                   deadline_s=wd, batch=b.seq)
             self._sup.escalate(f"watchdog: device step took {window:.3f}s "
                                f"(deadline {wd}s)")
@@ -1795,7 +2133,8 @@ class Scheduler:
                          | (assigned[:L] != ref_assigned[:L])))
         self._sup_count("shortlist_desyncs")
         instant("shortlist.desync", pods=bad)
-        jnote("shortlist.desync", pods=bad, batch=b.seq)
+        jnote("shortlist.desync", profile=self.profile, replica=self.replica,
+              pods=bad, batch=b.seq)
         self._disable_shortlist(
             f"decisions diverged from the full scan on {bad} pod(s)")
         raise EngineDesync(
@@ -1807,10 +2146,10 @@ class Scheduler:
         read ``_shortlist_k`` per batch."""
         log.error("disabling shortlist-compressed arbitration (%s); "
                   "reverting to the full-width scan", reason)
-        jnote("shortlist.disable", reason=reason, batch=self._batch_seq)
-        self._shortlist_k = None
-        self._step = build_step(self.plugin_set, shortlist=None,
-                                assignment=self.config.assignment)
+        jnote("shortlist.disable", profile=self.profile, replica=self.replica,
+              reason=reason, batch=self._batch_seq)
+        bundle_mod.capture("shortlist_revert", scheduler=self, reason=reason)
+        self._set_shortlist_k(None)
 
     def _slice_eb(self, eb, rows, bucket: Optional[int] = None):
         """(eb_sub, P2): the pod rows ``rows`` of a host EncodedBatch,
@@ -1970,6 +2309,9 @@ class Scheduler:
             self._check_shortlist(b, chosen, assigned)
             b.sl_repairs += int(sl_repaired[:L].sum())
         sp = self._fetch_spread(b.spread_dev)
+        # Provenance path (journal armed only), before any placement
+        # stamp.
+        self._prov_batch = self._prov_path(b) if JOURNAL.enabled else None
         if b.res_carried:
             # The main step's debits, before the residual merge mutates
             # chosen/assigned: residual placements reach the device as
@@ -1985,6 +2327,11 @@ class Scheduler:
                                    gang_rejected, feasible, rejects,
                                    feasible_static, sp)
         b.t_fetched = time.perf_counter()
+        # Lifecycle stamp: the device's verdict exists from here on
+        # (decided_at feeds the pod_decide / pod_bind histograms).
+        now_mono = time.monotonic()
+        for qpi in batch:
+            qpi.decided_at = now_mono
 
         revoked, parked_gangs = (
             arbitrate_rwo(batch, assigned, chosen, b.vol_memo)
@@ -2085,6 +2432,9 @@ class Scheduler:
             if assigned_l[i]:
                 node_name = names[chosen_l[i]]
                 inc = int(b.row_incs[chosen_l[i]])
+                if self._prov_batch is not None:
+                    self._prov_stamp(qpi, node_name,
+                                     repaired=bool(sl_repaired[i]))
                 if bulk_assume:
                     assume_items.append((qpi.pod, node_name))
                     assume_rows.append(i)
@@ -2322,6 +2672,10 @@ class Scheduler:
                     # as the main cycle counts permit-parked pods.
                     n_admitted += 1
                     node_name = names[int(chosen2[j])]
+                    if self._prov_batch is not None:
+                        self._prov_stamp(batch[i], node_name,
+                                         repaired=bool(rep2[j]),
+                                         spread_repaired=True)
                     if bulk:
                         items.append((batch[i].pod, node_name))
                         req_rows.append(j)
@@ -2777,7 +3131,7 @@ class Scheduler:
         """Flush the deferred failure verdicts (one store transaction, one
         queue lock hold, one event payload) and fold the metrics. Runs on
         the commit worker in pipelined mode when the batch has failures."""
-        t_commit = time.perf_counter()
+        t_commit = b.commit_t0 = time.perf_counter()
         if b.failures:
             try:
                 with span("commit.flush", pods=len(b.failures)):
@@ -2792,10 +3146,17 @@ class Scheduler:
                               "tranche with backoff")
                 for qpi, _plugins, _msg, _retry in b.failures:
                     self.queue.requeue_backoff(qpi)
-        t_end = time.perf_counter()
+        t_end = b.commit_t1 = time.perf_counter()
         # The step window: dispatch to fetch, less the next batch's
-        # gather that ran between them in pipelined mode.
+        # gather that ran between them in pipelined mode; that
+        # turnaround is the fetch slot of the gap, booked here where the
+        # window is known (commits may run on the worker, so it cannot
+        # go through _book_gap).
         gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
+        step_s = b.t_fetched - b.t_encode - gather_gap
+        # The resolve tail after the fetch plus this flush.
+        commit_s = (b.t_resolved - b.t_fetched) + (t_end - t_commit)
+        gap = b.gap
         with self._metrics_lock:
             m = self._metrics
             m["batches"] += 1
@@ -2803,16 +3164,60 @@ class Scheduler:
             m["pods_assigned"] += b.n_assigned
             m["pods_failed"] += len(b.batch) - b.n_assigned
             m["prepare_s_total"] += b.t_encode - b.t0
-            m["step_s_total"] += b.t_fetched - b.t_encode - gather_gap
-            m["resolve_s_total"] += ((b.t_resolved - b.t_fetched)
-                                     + (t_end - t_commit))
+            m["encode_s_total"] += b.t_encode - b.t_enc0
+            m["step_s_total"] += step_s
+            m["step_dispatch_s_total"] += b.t_dispatch - b.t_encode
+            m["resolve_s_total"] += commit_s
+            m["commit_s_total"] += commit_s
+            m["gap_s_total"] += gather_gap
+            m["gap_fetch_s_total"] += gather_gap
             m["shortlist_repairs"] += b.sl_repairs
             m["shortlist_certified"] += max(0, len(b.batch) - b.sl_repairs)
-            m["last_shortlist_repairs"] = b.sl_repairs
+            m["scored_rows_total"] += b.scored_rows
             for name, n in b.launches.items():
                 m["kernel_launches"] += n
                 m[f"kernel_launches_{name}"] += n
-            m["last_batch_size"] = len(b.batch)
+            # Per-batch series (bounded): step window, bytes moved,
+            # repairs, scored rows and the gap components this batch
+            # adopted, plus its own dispatch→fetch window.
+            ser = m.setdefault("batch_series", {
+                "device_s": [], "h2d_bytes": [], "fetch_bytes": [],
+                "shortlist_repairs": [], "scored_rows": [],
+                "gap_gather_s": [], "gap_encode_s": [],
+                "gap_fetch_s": [], "gap_commit_s": []})
+            if len(ser["device_s"]) < 64:
+                ser["device_s"].append(round(step_s, 6))
+                ser["h2d_bytes"].append(int(b.h2d1 - b.h2d0))
+                ser["fetch_bytes"].append(int(b.fetch1 - b.fetch0))
+                ser["shortlist_repairs"].append(int(b.sl_repairs))
+                ser["scored_rows"].append(int(b.scored_rows))
+                ser["gap_gather_s"].append(round(gap.get("gather", 0.0), 6))
+                ser["gap_encode_s"].append(round(gap.get("encode", 0.0), 6))
+                ser["gap_fetch_s"].append(
+                    round(gap.get("fetch", 0.0) + gather_gap, 6))
+                ser["gap_commit_s"].append(round(gap.get("commit", 0.0), 6))
+            if b.failures:
+                # Prepare-vs-flush overlap, booked here where the flush
+                # window is known; a still-preparing window (end None) is
+                # clipped at this flush's end.
+                w0, w1 = self._prep_window
+                if w1 is None:
+                    w1 = t_end
+                m["encode_overlap_s"] += max(
+                    0.0, min(t_end, w1) - max(t_commit, w0))
+            if b.seq > self._last_committed_seq:
+                # Only the newest batch writes the last_* diagnostics.
+                self._last_committed_seq = b.seq
+                m["last_batch_size"] = len(b.batch)
+                sizes = m.setdefault("batch_sizes", [])
+                if len(sizes) < 16:
+                    sizes.append(len(b.batch))
+                m["last_encode_s"] = b.t_encode - b.t_enc0
+                m["last_step_s"] = step_s
+                m["last_commit_s"] = commit_s
+                m["last_shapes"] = b.shapes
+                m["last_shortlist_repairs"] = b.sl_repairs
+                m["last_scored_rows"] = int(b.scored_rows)
 
     def _flush_failures(self, items: List[tuple]) -> None:
         """Apply a cycle's deferred failure verdicts in bulk. Pods deleted
@@ -2838,18 +3243,249 @@ class Scheduler:
             self.queue.requeue_failures(retryable, unsched)
 
     def metrics(self) -> Dict[str, float]:
-        """Cumulative scheduling metrics plus current queue depths."""
+        """Cumulative and last-batch scheduling metrics plus current queue
+        depths, the lifecycle histograms and the overload, timeline, SLO,
+        journal and provenance surfaces."""
         with self._metrics_lock:
             out = dict(self._metrics)
+            # dict() is shallow: the live lists must not escape the lock.
+            if "batch_sizes" in out:
+                out["batch_sizes"] = list(out["batch_sizes"])
+            if "batch_series" in out:
+                out["batch_series"] = {k: list(v) for k, v
+                                       in out["batch_series"].items()}
         out.update({f"queue_{k}": v for k, v in self.queue.stats().items()})
         out["waiting_pods"] = len(self.waiting_pods)
+        # Histogram snapshots (bounds/counts/sum/count); quantiles come
+        # from obs.hist_quantile.
+        out["histograms"] = {name: h.snapshot()
+                             for name, h in self._hists.items()}
         out["shortlist_width"] = int(self._shortlist_k or 0)
+        out["degradation_level"] = self._sup.level
         out["degradation_state"] = DEGRADATION_LADDER[self._sup.level]
+        # Overload controller: its rung, counters and the live effective
+        # knobs (all zeros and bases while MINISCHED_OVERLOAD is unset),
+        # with ``shed_total`` beside the queue's shed stats.
+        out.update(self._overload.metrics())
+        out["shed_total"] = out.get("queue_shed_total", 0)
+        out["overload_max_batch"] = self._overload.effective_max_batch(
+            self.config.max_batch_size)
+        out["overload_window_s"] = self._overload.effective_window(
+            self.config.batch_window_s)
+        out["overload_shortlist_k"] = int(self._shortlist_k or 0)
+        out["timeline_snapshots"] = self._timeline.snapshots()
+        out["timeline_dropped"] = self._timeline.dropped()
+        # Burning gauges only from the current sentinel, re-derived at
+        # the current clock (an idle engine resolves no batches, so the
+        # batch-driven evaluate() alone would latch a stale 1).
+        sent = self._slo_sentinel
+        if (sent is not None and slo_mod.SLO.enabled
+                and self._slo_epoch == slo_mod.SLO.epoch):
+            live = sent.burning_now(self._timeline.entries(),
+                                    self._timeline.now_t())
+            for name, burning in live.items():
+                out[f"slo_burning_{name}"] = int(burning)
+        # The process-wide journal's ledger and this engine's provenance
+        # store (all zeros with MINISCHED_JOURNAL unset).
+        out["journal_events"] = JOURNAL.next_seq()
+        out["journal_dropped"] = JOURNAL.dropped()
+        out["journal_dropped_by_fault"] = JOURNAL.dropped_by_fault
+        pstats = self._provenance.stats()
+        out["provenance_records"] = pstats["records"]
+        out["provenance_evictions"] = pstats["evictions"]
         # Per-gate fault fire counts (a process-wide registry; all zeros
         # with MINISCHED_FAULTS unset, proving a run was fault-free).
         for gate, n in FAULTS.counts().items():
             out[f"fault_fires_{gate}"] = n
         return out
+
+    # ---- timeline, SLO sentinel, overload ladder ------------------------
+
+    def _timeline_tick(self) -> None:
+        """The telemetry cadence point (scheduling thread, one per
+        resolved batch, gated on TIMELINE.enabled by the caller). When
+        the cadence elapses the tracker appends a row and the SLO
+        sentinel evaluates its burn windows; a rising-edge alert is
+        counted, traced, journaled, listed on the timeline and fed to
+        the supervisor as an early warning."""
+        entry = self._timeline.tick()
+        if entry is None:
+            return
+        cfg = slo_mod.SLO
+        if not cfg.enabled:
+            self._overload_disarm_check()
+            return
+        if self._slo_sentinel is None or self._slo_epoch != cfg.epoch:
+            self._slo_sentinel = slo_mod.SLOSentinel.from_config(cfg)
+            self._slo_epoch = cfg.epoch
+        for alert in self._slo_sentinel.evaluate(self._timeline.entries()):
+            self._sup_count("slo_alerts_total")
+            self._sup_count(f"slo_alerts_{alert['slo']}")
+            flat = {k: v for k, v in alert.items()
+                    if isinstance(v, (int, float, str))}
+            instant("slo.burn", **flat)
+            jnote("slo.burn", profile=self.profile, replica=self.replica,
+                  batch=self._batch_seq, **flat)
+            self._timeline.note_alert(alert)
+            self._sup.early_warning(f"slo:{alert['slo']}")
+        for name in self._slo_sentinel.last_cleared:
+            instant("slo.clear", slo=name)
+            jnote("slo.clear", profile=self.profile, replica=self.replica,
+                  slo=name, batch=self._batch_seq)
+        if overload_mod.OVERLOAD.enabled:
+            self._drive_overload(entry)
+        else:
+            self._overload_disarm_check()
+
+    def _set_shortlist_k(self, k: Optional[int]) -> None:
+        """Rebuild the main step at shortlist width ``k`` (any K is
+        exact: repairs absorb a narrow one; None = the full-width
+        assignment); sampled steps read ``_shortlist_k`` per batch."""
+        self._shortlist_k = k
+        self._step = build_step(self.plugin_set, shortlist=k,
+                                assignment=self.config.assignment)
+
+    def _overload_disarm_check(self) -> None:
+        """A runtime disarm (overload.configure("")) must not leave the
+        controller's latched actuation applied: reset its level machine,
+        the timeline stretch and a retuned shortlist width, and release
+        any shed pods."""
+        if not self._overload.note_window(set()):
+            return
+        self._timeline.stretch = 1
+        want = self._sl_base
+        if (self._shortlist_k is not None and want is not None
+                and self._shortlist_k != want):
+            self._set_shortlist_k(want)
+        n = self.queue.release_shed()
+        log.info("overload controller disarmed at runtime; actuation "
+                 "neutralized (%d shed pod(s) released)", n)
+
+    def _drive_overload(self, entry: dict) -> None:
+        """Feed the controller one snapshot window (scheduling thread, at
+        sentinel cadence) and apply what changed. It sees only the
+        sentinel's symptom verdicts: the degraded-posture objective is
+        excluded, or load shedding would hold itself engaged while the
+        fault ladder is off the fast path."""
+        sent = self._slo_sentinel
+        burning = {sp.name for sp in sent.specs
+                   if sp.kind != "degraded" and sent.burning.get(sp.name)}
+        ov = self._overload
+        prev_shedding = ov.shedding
+        prev_brownout = ov.brownout_active
+        if not ov.note_window(burning, entry.get("d_shortlist_repairs", 0.0)):
+            return
+        if ov.brownout_active and not prev_brownout:
+            bundle_mod.capture(
+                "brownout", scheduler=self,
+                reason=f"overload ladder entered brownout "
+                       f"(burning: {', '.join(sorted(burning))})")
+        # Shortlist retune within the certified machinery; a permanent
+        # certification revert (_shortlist_k None) wins.
+        want = ov.shortlist_target(self._sl_base)
+        if (self._shortlist_k is not None and want is not None
+                and want != self._shortlist_k):
+            log.warning("overload tuner: shortlist K %d -> %d",
+                        self._shortlist_k, want)
+            self._set_shortlist_k(want)
+        # Brownout's quality shed: a coarser timeline cadence.
+        self._timeline.stretch = ov.timeline_stretch
+        # Recovery below the shedding rung re-admits every parked pod now.
+        if prev_shedding and not ov.shedding:
+            n = self.queue.release_shed()
+            if n:
+                log.info("overload recovered below shedding; re-admitted "
+                         "%d shed pod(s)", n)
+
+    def _slo_burning_any(self) -> bool:
+        """Is any symptom objective of the current sentinel burning? (The
+        supervisor's probation gate.) The degraded-posture objective is
+        excluded: it burns because the engine is degraded, and gating the
+        climb on it would hold the ladder down forever."""
+        sent = self._slo_sentinel
+        if (sent is None or not slo_mod.SLO.enabled
+                or self._slo_epoch != slo_mod.SLO.epoch):
+            return False
+        return any(sent.burning.get(sp.name) for sp in sent.specs
+                   if sp.kind != "degraded")
+
+    def timeline(self, since: int = 0) -> Dict:
+        """The snapshot ring and the SLO alert log as one JSON-able
+        document (rows with ``seq > since``); empty but valid while
+        MINISCHED_TIMELINE is unset."""
+        return self._timeline.to_doc(since)
+
+    def burn_signal(self) -> tuple:
+        """(overload level, "obj1,obj2"): the controller's rung and the
+        last window's burning symptom objectives. Any-thread safe."""
+        return (int(self._overload.level),
+                ",".join(sorted(self._overload.last_burning)))
+
+    def overload_reject_reason(self) -> Optional[str]:
+        """An ingress front end's verdict for a pod create: a reason while
+        the controller is at or past its reject rung (counted in
+        admission_rejects_total), else None. Any-thread safe."""
+        return self._overload.http_reject_reason()
+
+    # ---- per-pod decision provenance (obs/journal.ProvenanceStore) -------
+
+    def _prov_path(self, b: _Batch) -> dict:
+        """The batch-scoped half of a provenance record: the path that
+        served this batch, shared by every pod it settles."""
+        return {
+            "profile": self.profile,
+            "replica": self.replica,
+            "batch": b.seq,
+            "step": self._prep_step0 + 1,
+            "mode": "pipelined" if self.config.pipeline else "sync",
+            "loop_slot": None,
+            "rung": DEGRADATION_LADDER[self._sup.level],
+            "resident": bool(b.res_carried),
+            "index": "off",
+            "shortlist_k": int(self._shortlist_k or 0),
+            "overload_level": self._overload.level,
+            "decided_unix": round(time.time(), 3),
+        }
+
+    def _prov_stamp(self, qpi: QueuedPodInfo, node_name: str, *,
+                    repaired: bool = False,
+                    spread_repaired: bool = False) -> None:
+        """Stamp a pod's provenance onto its QueuedPodInfo at placement
+        (scheduling thread, inside resolve); the bound or failed
+        settlement publishes it with the outcome."""
+        path = self._prov_batch
+        if path is None:
+            return
+        qpi.prov = {**path, "pod": qpi.pod.key, "node": node_name,
+                    "attempts": qpi.attempts,
+                    "shed_count": qpi.shed_count,
+                    "shortlist_repaired": bool(repaired),
+                    "spread_repaired": bool(spread_repaired)}
+
+    def _prov_settle_failure(self, qpi: QueuedPodInfo, plugins,
+                             message: str, retryable: bool) -> None:
+        """Publish a failed or requeued pod's provenance record (journal
+        armed only). A pod with no placement stamp still gets the batch
+        path when the verdict lands on the scheduling thread."""
+        base = qpi.prov
+        qpi.prov = None  # consumed, as at the bound settlement
+        if base is None:
+            path = (self._prov_batch
+                    if threading.get_ident() == self._fail_sink_tid
+                    else None)
+            base = {**path, "pod": qpi.pod.key} if path else {
+                "profile": self.profile, "replica": self.replica,
+                "pod": qpi.pod.key}
+        self._provenance.record(qpi.pod.key, {
+            **base, "outcome": "requeued" if retryable else "failed",
+            "plugins": sorted(plugins), "message": message[:200],
+            "attempts": qpi.attempts,
+            "settled_unix": round(time.time(), 3)})
+
+    def provenance(self, pod_key: str) -> Optional[dict]:
+        """One pod's provenance record, or None (an empty store while
+        MINISCHED_JOURNAL was never armed)."""
+        return self._provenance.get(pod_key)
 
     # ---- binding cycle -------------------------------------------------
 
@@ -2936,7 +3572,8 @@ class Scheduler:
         t0 = time.perf_counter()
         pod = qpi.pod
         try:
-            bound = self.store.bind_pod(pod.key, node_name)
+            with span("bind.pod"):
+                bound = self.store.bind_pod(pod.key, node_name)
         except (ConflictError, NotFoundError) as e:
             self._bind_failed(qpi, node_name, e)
             return
@@ -2944,8 +3581,48 @@ class Scheduler:
         with self._metrics_lock:
             self._metrics["pods_bound"] += 1
             self._metrics["bind_s_total"] += time.perf_counter() - t0
+        self._observe_bound((qpi,))
         self.broadcaster.scheduled(bound, node_name)
         log.info("bound %s to %s", pod.key, node_name)
+
+    def _observe_bound(self, qpis) -> None:
+        """Feed the lifecycle histograms for pods that just bound. Called
+        at every site that counts ``pods_bound`` (and only there), so
+        ``pod_create_to_bound_s``'s count equals the bound pods. Stage
+        windows come from the QueuedPodInfo stamps (added_at →
+        gathered_at → decided_at → now); create→bound pairs the store's
+        wall-clock creation stamp with wall-clock now. With the journal
+        armed, it also settles the pods' provenance records."""
+        now_m = time.monotonic()
+        now_w = time.time()
+        qw, dec, bnd, c2b = [], [], [], []
+        for qpi in qpis:
+            if qpi.gathered_at:
+                qw.append(max(0.0, qpi.gathered_at - qpi.added_at))
+                if qpi.decided_at:
+                    dec.append(max(0.0, qpi.decided_at - qpi.gathered_at))
+            if qpi.decided_at:
+                bnd.append(max(0.0, now_m - qpi.decided_at))
+            created = qpi.pod.metadata.creation_timestamp or now_w
+            c2b.append(max(0.0, now_w - created))
+        h = self._hists
+        if qw:
+            h["pod_queue_wait_s"].observe_many(qw)
+        if dec:
+            h["pod_decide_s"].observe_many(dec)
+        if bnd:
+            h["pod_bind_s"].observe_many(bnd)
+        h["pod_create_to_bound_s"].observe_many(c2b)
+        if JOURNAL.enabled:
+            for qpi in qpis:
+                rec = qpi.prov
+                if rec is not None:
+                    # Consumed: a later attempt must never publish this
+                    # attempt's node and batch under its own verdict.
+                    qpi.prov = None
+                    self._provenance.record(qpi.pod.key, {
+                        **rec, "outcome": "bound",
+                        "bound_unix": round(now_w, 3)})
 
     def _bind_many(self, items: List[tuple]) -> None:
         """Bulk binding commit with failure containment: an unhandled
@@ -2974,6 +3651,7 @@ class Scheduler:
         keyed = [(qpi.pod.key, qpi, node_name) for qpi, node_name in items]
         bound_keys = set(self.store.bind_pods(
             [(k, n) for k, _, n in keyed]))
+        self._observe_bound([qpi for k, qpi, _n in keyed if k in bound_keys])
         self.queue.forget_many(bound_keys)
         if self._nominations:  # a bound nominee releases its reservation
             with self._nom_lock:
@@ -3011,6 +3689,7 @@ class Scheduler:
                 self.queue.forget(key)
                 with self._metrics_lock:
                     self._metrics["pods_bound"] += 1
+                self._observe_bound((qpi,))
             else:
                 self._bind_failed(qpi, node_name, "bulk bind task aborted")
 
@@ -3055,6 +3734,8 @@ class Scheduler:
 
     def _handle_failure(self, qpi: QueuedPodInfo, plugins: Set[str],
                         message: str, *, retryable: bool) -> None:
+        if JOURNAL.enabled:
+            self._prov_settle_failure(qpi, plugins, message, retryable)
         sink = self._fail_sink
         if sink is not None and threading.get_ident() == self._fail_sink_tid:
             sink.append((qpi, set(plugins), message, retryable))

@@ -20,13 +20,18 @@ on purpose. Named gates sit at the seams; this package wires these:
     commit      commit-worker failure flush  (engine/scheduler.py)
     bind        bulk binding task            (engine/scheduler.py)
     informer    informer dispatch loop       (state/informer.py)
+    admission   queue ingress, once per add  (engine/queue.py) —
+                ``corrupt`` force-sheds the transaction (the pods
+                re-admit through the shed lane); ``err`` admits
+    journal     journal event write          (obs/journal.py)
+    auction_mirror
+                the auction's residency replay (engine/scheduler.py)
 
 ``GATES`` keeps the JAX package's whole catalog, in its order, so a spec
 parses alike in both packages and every gate's PRNG stream (seeded by
 its catalog index) is the same. The other gates (http, checkpoint,
-lifecycle, admission, index, journal, lease, auction_mirror, proc,
-election, tenant_index) parse and count, but no seam of this package
-calls them yet.
+lifecycle, index, lease, proc, election, tenant_index) parse and count,
+but no seam of this package calls them yet.
 
 Configured once per process from ``MINISCHED_FAULTS`` (tests reconfigure
 via :func:`configure`), a comma-separated list of ``gate:action@trigger``

@@ -19,21 +19,29 @@ Arming:
 
 Seam catalog (the span names the engine emits):
 
+    queue.pop        batch gather (engine/queue.py; the gather worker's
+                     lane in pipelined mode)
     prepare          encode → snapshot → dispatch (scheduling thread)
+    encode.pods      pod-feature encode
     h2d.dyn          residency attach corrections
     step.dispatch    step dispatch + decision pack
     resolve          fetch → residual → assume → bind submit
-    fetch.decision   blocking device readback (+ unpack)
+    fetch.decision / fetch.spread
+                     blocking device readbacks (+ unpack)
     gather.wait      the scheduling thread waiting on the next pop
     commit / commit.flush
                      metrics fold / bulk failure flush (commit worker)
     commit.wait      the scheduling thread waiting on the commit worker
-    bind.bulk        binder-pool store commits
+    bind.bulk / bind.pod
+                     binder-pool store commits
 
 Instants: ``fault.<gate>`` (every fault-gate fire, faults.py),
-``supervisor.escalate`` / ``supervisor.recover`` (ladder transitions),
-``watchdog.trip``, ``residency.desync``, ``shortlist.desync`` — so a
-faulted run's timeline shows *where* the ladder moved.
+``supervisor.escalate`` / ``supervisor.recover`` /
+``supervisor.early_warning`` (ladder transitions, SLO warnings),
+``watchdog.trip``, ``residency.desync``, ``shortlist.desync``,
+``slo.burn`` / ``slo.clear``, ``overload.escalate`` /
+``overload.recover`` / ``overload.tune`` — so a faulted or overloaded
+run's timeline shows *where* the ladders moved.
 
 While the tracer is on, every span also enters a
 ``torch.profiler.record_function`` of the same name, so a

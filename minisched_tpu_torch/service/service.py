@@ -39,7 +39,8 @@ class SchedulerService:
         # (unknown plugin, bad args) leaves nothing half-started.
         plugin_set = profile.build()
         shared = SharedClusterState(self._store)
-        sched = Scheduler(self._store, plugin_set, config, shared=shared)
+        sched = Scheduler(self._store, plugin_set, config, shared=shared,
+                          profile=profile.name)
         self._shared_state, self._sched = shared, sched
         sched.start()
         cfg = sched.config

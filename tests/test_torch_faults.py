@@ -151,6 +151,12 @@ def test_supervisor_ladder_and_probation_unit():
         def _sup_count(self, k, n=1):
             self.counts[k] = self.counts.get(k, 0) + n
 
+        def _slo_burning_any(self):
+            # no SLO sentinel in this unit harness, as in
+            # tests/test_faults.py (the burning gate's own tests are in
+            # tests/test_torch_timeline.py)
+            return False
+
     fake = _FakeSched()
     sup = _Supervisor(fake)
     assert DEGRADATION_LADDER[sup.level] == "resident"

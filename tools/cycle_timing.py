@@ -12,7 +12,9 @@ profile, loads 50,000 nodes, zeroes the kernel launch counts, creates
 the pods (chip_smoke.py's main-path workload) and waits until all are
 bound. Each run prints the burst create-to-bound,
 the per-pod p50/p99, the engine's phase clocks, per-batch transfer
-bytes and the kernel launches. Modes run in the order given, then
+bytes and the kernel launches, then the engine's gap decomposition
+(gap_s_total = gather + encode + fetch + commit) and the p50/p99 of the
+four lifecycle histograms (queue wait, decide, bind, create-to-bound). Modes run in the order given, then
 reversed, ``--rounds`` times (A B C C B A ...); the medians per mode
 come last.
 
@@ -37,8 +39,12 @@ controller on, which relists every claim and PV on each claim-carrying
 pod event); auction (the bench burst with assignment="auction": the bid
 shortlist, sampled as the default); c5-auction (BASELINE config 5 under
 the auction: the bench pods in gangs of 8 at quorum 8,
-chip_smoke.c5_pods, every batch unsampled). The default list is
-default,unsampled.
+chip_smoke.c5_pods, every batch unsampled); armed (the default with the
+flight recorder, the journal, the timeline, the SLO sentinel and the
+overload controller armed, default knobs, as ``MINISCHED_TRACE=1
+MINISCHED_JOURNAL=1 MINISCHED_TIMELINE=1 MINISCHED_SLO=1
+MINISCHED_OVERLOAD=1`` arm them: the instrumentation's cost, read in
+turns against default). The default list is default,unsampled.
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ MODES = {
     "full-pv": {},
     "auction": {"assignment": "auction"},
     "c5-auction": {"assignment": "auction"},
+    "armed": {},
 }
 # Modes with another workload and profile than the bench's.
 WORKLOADS = {
@@ -99,6 +106,12 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
     """One run in this process: warm up, then the measured burst; the
     last line is the run's numbers as JSON."""
     cfg = SchedulerConfig(platform="", **MODES[mode])
+    if mode == "armed":
+        cs.obs.configure(True)
+        cs.journal.configure("1")
+        cs.timeseries.configure(True)
+        cs.slo.configure("1")
+        cs.overload.configure("1")
     workload, prof_ = WORKLOADS.get(mode, (cs.bench_workload,
                                            cs.BENCH_PROFILE))
     # The full profile's claims are Bound up front: no PV controller, as
@@ -120,10 +133,30 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
                                                 prof_, with_pv_controller=pv)
     print(cs.path_line(f"{mode} {cs.N_NODES} nodes x {n_pods} pods", m,
                        launches, c2b, per_pod, n_pods, smi))
+    gaps, quant = gap_and_lifecycle(m)
+    print(f"{mode} gap {m['gap_s_total']:.4f} s = "
+          + " + ".join(f"{g} {v:.4f}" for g, v in zip(cs.GAPS, gaps))
+          + "; lifecycle p50/p99: " + ", ".join(
+              f"{h} {quant[2 * i]:.4f}/{quant[2 * i + 1]:.4f} s"
+              for i, h in enumerate(cs.LIFECYCLE)) + f" ({smi})")
     b = m["batches"]
     print(json.dumps([c2b, m["step_s_total"] / b, m["prepare_s_total"],
                       m["step_s_total"], m["resolve_s_total"],
-                      m["bind_s_total"]]))
+                      m["bind_s_total"], m["gap_s_total"], *gaps, *quant]))
+
+
+def gap_and_lifecycle(m):
+    """The gap components (chip_smoke.GAPS order) and the p50, p99 of
+    each lifecycle histogram (chip_smoke.LIFECYCLE order), from one
+    run's metrics."""
+    from minisched_tpu_torch.obs import hist_quantile
+
+    gaps = [m[f"gap_{g}_s_total"] for g in cs.GAPS]
+    quant = []
+    for h in cs.LIFECYCLE:
+        snap = m["histograms"][h]
+        quant += [hist_quantile(snap, 0.5), hist_quantile(snap, 0.99)]
+    return gaps, quant
 
 
 def main() -> int:
@@ -162,14 +195,19 @@ def main() -> int:
             raise SystemExit(f"FAILED: the {mode} run exited "
                              f"{out.returncode}")
         lines = out.stdout.strip().splitlines()
-        print("\n".join(lines[-3 if args.profile else -2:-1]), flush=True)
+        print("\n".join(lines[-4 if args.profile else -3:-1]), flush=True)
         results[mode].append(json.loads(lines[-1]))
     for mode, rows in results.items():
         med = np.median(np.array(rows), axis=0)
         print(f"median {mode} over {len(rows)} runs: create-to-bound "
               f"{med[0]:.3f} s, step {med[1] * 1e3:.2f} ms per batch; "
               f"prepare {med[2]:.3f} s, step {med[3]:.3f} s, resolve "
-              f"{med[4]:.3f} s, bind {med[5]:.3f} s ({smi})")
+              f"{med[4]:.3f} s, bind {med[5]:.3f} s; gap {med[6]:.4f} s = "
+              + " + ".join(f"{g} {v:.4f}" for g, v in zip(cs.GAPS,
+                                                          med[7:11]))
+              + "; lifecycle p50/p99: " + ", ".join(
+                  f"{h} {med[11 + 2 * i]:.4f}/{med[12 + 2 * i]:.4f} s"
+                  for i, h in enumerate(cs.LIFECYCLE)) + f" ({smi})")
     return 0
 
 
