@@ -92,8 +92,8 @@ them, and on any mismatch. Phases, each printing its own lines:
   C. trace_next_batch during that burst: one sampled batch under
      torch.profiler, its device operations by time (the kernels by
      name) and the device's busy share of the batch window;
- 12. this slice's main path: the same with full_scheduler_profile()
-     and a fifth of the pods holding a Bound claim on a zone-labelled
+ 12. the volume slice's main path: the same with full_scheduler_profile()
+     (CUT_PODS = 5,120 pods) and a fifth of the pods holding a Bound claim on a zone-labelled
      PV (every claim Bound up front, no PV controller): all bound, no node over its allocatable (attach slots
      included), no claim mounted on two nodes, each zone-bound pod in
      its PV's zone, the selection and scan kernels in every batch, the
@@ -103,8 +103,8 @@ them, and on any mismatch. Phases, each printing its own lines:
      InterPodAffinity, DefaultPreemption) and make_c4_workload's pods
      (ScheduleAnyway max_skew 8, preferred affinity on every other pod):
      every batch sampled, the selection and scan kernels in each, no
-     host sync in its step, the ten 1,024-pod batches (no pod fails, so
-     the PostFilter never runs);
+     host sync in its step, the five 1,024-pod batches of CUT_PODS (no
+     pod fails, so the PostFilter never runs);
  14. config 4 hard (DoNotSchedule max_skew 1): every batch unsampled,
      the caps kernel launched in each, no pod revoked by the host
      arbitration on a scan-enforced group, all bound in ten batches,
@@ -172,7 +172,36 @@ them, and on any mismatch. Phases, each printing its own lines:
      dense kernel as the shortlist's reference), then under
      auction_mirror:corrupt@2: the phantom debit caught as a carry
      desync, the placements equal the fault-free run's;
- 25. the reference's README scenario on the card (default config).
+ 25. the reference's README scenario on the card (default config);
+ E1. the explain step (SchedulerConfig.explain) cuda = cpu on every
+     Decision field, the three per-plugin stacks and total_scores
+     included: the bench profile at 1024 x 53,248 (in phase 5), the full
+     profile at 256 x 53,248 (in phase 10), and config 4 hard at 1024 x
+     53,248 (after phase 10) with no caps built or launched, the
+     shortlist kernels launched and no host sync with hard_spread=None;
+     each step's time beside the step without explain, its peak device
+     memory;
+ E2. (after phase 11, with the native clone's status) the explain burst:
+     bench-50k with SchedulerConfig(explain=True), every batch unsampled
+     (1024 x 53,248): the selection and scan kernels in every batch, all
+     bound, none over-committed, every pod with its three annotations
+     of at most 128 nodes, filter_verdict for 16 pods on 3 nodes
+     outside the annotation and on the chosen node (every filter
+     passed, as the annotation says where it lists it); create-to-bound,
+     the gap decomposition beside phase 11's, the result store's
+     counters, the worker's ingest seconds per batch, peak device memory;
+ E3. explain mode cuda = cpu at the engine level (1,200 nodes x 512
+     pods): config 4 hard (the caps off: the host arbitration and its
+     repair) and the bench profile under the auction: placements, every
+     pod's three annotation strings byte for byte, filter_verdict on
+     three nodes outside each annotation; no zone over its skew;
+ E4. the pod-chunked step at 8,192 x 53,248 (C = 2,048), bench profile
+     and config 4 hard, against the unchunked step: every Decision field
+     bitwise, peak memory both ways; the selection and scan kernels vs
+     plain at that shape, with times and bounds;
+ E5. phase D's pinned rung 3 with explain on, cuda against cpu:
+     overload_explain_skipped equal (every batch), no pod annotated;
+ E6. the demo scenario (scenario/demo.py) on the card: demo OK.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -182,7 +211,9 @@ The line before the last is the kernel table as JSON (the shortlist
 kernels' launches are the full-profile burst's, with each path's beside
 them; the bid-shortlist kernel's the auction bench burst's, the dense
 auction's the cross-check run's; the preemption op, PyTorch ops and no
-kernel, under "stages"); the last line is {"ok": true, "device": {...}}.
+kernel, under "stages"; the explain burst's numbers under "explain";
+the native clone's status under "native_clone"); the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -198,14 +229,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from minisched_tpu_torch import faults, obs
+from minisched_tpu_torch import faults, native, obs
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
 from minisched_tpu_torch.engine import overload
+from minisched_tpu_torch.explain import FILTER_RESULT_KEY, ResultStore
 from minisched_tpu_torch.engine import scheduler as engine_scheduler
 from minisched_tpu_torch.obs import bundle, journal, slo, timeseries
-from minisched_tpu_torch.ops import _cuda_build, prng
+from minisched_tpu_torch.ops import _cuda_build
+from minisched_tpu_torch.ops import pipeline as PIPE
+from minisched_tpu_torch.ops import prng, spreadcap
 from minisched_tpu_torch.ops import residency as RES
 from minisched_tpu_torch.ops._cuda_build import LAUNCHES
 from minisched_tpu_torch.ops.auction import auction_assign_plain
@@ -228,6 +262,7 @@ from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
 from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
 from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
+from minisched_tpu_torch.scenario import demo
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
 from minisched_tpu_torch.service.defaultconfig import (Profile,
@@ -247,6 +282,10 @@ from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES,  # noqa: E402
                           select_list_case)
 
 N_NODES, N_PODS, BATCH, K = 50_000, 10_000, 1024, 128
+# The depth of the full-profile and config-4-soft bursts (phases 12-13):
+# cut from N_PODS to five batches to keep the script's time near its
+# earlier length beside the explain phases (PERF.md §4).
+CUT_PODS = 5 * BATCH
 # The node sample of the default config at bench-50k: pct = max(5, 50 -
 # 50,000 / 125) = 5, want = max(256, 2,500, 2 x 1,024) = 2,500, K = its
 # power-of-two bucket (engine/scheduler.py _sampled_step).
@@ -518,11 +557,12 @@ def shortlist_case(P, N, R, seed, *, plateau=False, contend=False):
     return [torch.from_numpy(a).cuda() for a in (s, req, free)]
 
 
-def full_width_batch(nodes, pods, bound=(), selector_spread=False):
-    """The first 1024-pod batch of a workload against every node, encoded
-    by the port's own cache and encoder (host numpy). The pods are
-    encoded first, as the engine does: their constraints register the
-    topology keys the node snapshot's domains reflect."""
+def full_width_batch(nodes, pods, bound=(), selector_spread=False,
+                     n_pods=BATCH):
+    """The first ``n_pods``-pod batch of a workload against every node,
+    encoded by the port's own cache and encoder (host numpy). The pods
+    are encoded first, as the engine does: their constraints register
+    the topology keys the node snapshot's domains reflect."""
     cache = NodeFeatureCache()
     if selector_spread:
         cache.enable_owner_pairs()
@@ -530,7 +570,7 @@ def full_width_batch(nodes, pods, bound=(), selector_spread=False):
     for pod, node_name in bound:
         pod.spec.node_name = node_name
         cache.account_bind(pod)
-    eb = encode_pods(pods[:BATCH], step_bucket(BATCH), cfg=cache.cfg,
+    eb = encode_pods(pods[:n_pods], step_bucket(n_pods), cfg=cache.cfg,
                      registry=cache.registry,
                      anti_forbidden_fn=cache.anti_forbidden_for,
                      selector_spread=selector_spread)
@@ -617,7 +657,7 @@ def port_cases(N, rng):
 
 
 def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
-          with_pv_controller=True):
+          with_pv_controller=True, inspect=None):
     """Boot a cluster with ``cfg``, load the nodes, zero the launch
     counts, create the pods and wait until every pod is bound and every
     batch folded into the metrics. With residency on, the carried device
@@ -625,7 +665,8 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
     kernels' outputs at the path's own shapes against the host replay).
     ``probe(scheduler)`` runs once the nodes are synced;
     ``with_pv_controller=False`` boots without the PV controller, as
-    bench.py runs its engine cells (bench.py:1457). Returns
+    bench.py runs its engine cells (bench.py:1457); ``inspect(cluster)``
+    runs after the checks, before the cluster shuts down. Returns
     (metrics, launches, burst create-to-bound, per-pod create-to-bound,
     placements)."""
     cluster = Cluster()
@@ -727,6 +768,8 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
                   f"{label}: pod bound to unschedulable "
                   f"{node.metadata.name}")
         m["zone_bound_claims"] = n_zoned
+        if inspect is not None:
+            inspect(cluster)
         return (m, launches, float(bound_at.max() - created.min()),
                 bound_at - created,
                 {p.key: p.spec.node_name for p in placed})
@@ -1078,6 +1121,10 @@ def full_step_phase(smi, key):
               f"{ms:.3f} ms per step back to back on the card, cpu "
               f"{cpu_s:.1f} s ({smi})")
         del d_gpu, d_cpu, dev
+        if sample is None:
+            # E1. the full profile's explain step (256 x 53,248)
+            explain_step_pair("full profile", plugin_set, (eb, nf, af), key,
+                              smi, has_gang=False, hard_spread=False)
 
 
 def preempt_bound_s(eb, nf, af, R):
@@ -1909,13 +1956,15 @@ def armed_main_path_phase(smi, main_placed, trace_dir):
 
 
 def pinned_burst(platform: str, level: int, label: str, *, tune_steps=2,
-                 sl_exp=0, split_priority=False):
+                 sl_exp=0, split_priority=False, explain=False):
     """D. Phase 19's 1,201-node sampled cluster, every object in the store
     before the engine starts, with the overload controller pinned at
     ``level`` (tune depth ``tune_steps``, shortlist exponent ``sl_exp``
     applied to the step as the tuner does) before its informers list
     the pods; ``split_priority`` puts every other pod at priority 1,000
-    and the rest at 0 (below shed_priority 500). Returns (placements,
+    and the rest at 0 (below shed_priority 500); ``explain`` runs the
+    engine in explain mode, and the metrics then also count the pods
+    that carry an annotation (``annotated_pods``). Returns (placements,
     metrics, the node sample K the engine picks for a 16-pod batch)."""
     first, pods = sampled_cluster(O)
     if split_priority:
@@ -1945,8 +1994,8 @@ def pinned_burst(platform: str, level: int, label: str, *, tune_steps=2,
         engine_scheduler.Scheduler.start = pinned_start
         try:
             cluster.start(BENCH_PROFILE, SchedulerConfig(
-                platform=platform, max_batch_size=64, batch_window_s=0.3),
-                with_pv_controller=False)
+                platform=platform, max_batch_size=64, batch_window_s=0.3,
+                explain=explain), with_pv_controller=False)
         finally:
             engine_scheduler.Scheduler.start = orig
         sched = cluster.service.scheduler
@@ -1959,7 +2008,14 @@ def pinned_burst(platform: str, level: int, label: str, *, tune_steps=2,
             sched._node_pad(sched.cache.node_count()), 16, False)[1])
         placed = {p.key: p.spec.node_name for p in cluster.list_pods()}
         check(all(placed.values()), f"{label}: a pod left unbound")
-        return placed, sched.metrics(), picked[0]
+        m = sched.metrics()
+        if explain:
+            check(cluster.service.result_store.drain(timeout=60),
+                  f"{label}: the result store did not drain")
+            m["annotated_pods"] = sum(
+                FILTER_RESULT_KEY in p.metadata.annotations
+                for p in cluster.list_pods())
+        return placed, m, picked[0]
     finally:
         cluster.shutdown()
         disarm_obs()
@@ -2060,6 +2116,407 @@ def ladder_phase(smi, scratch):
           f"{bm['slo_alerts_total']} SLO alerts): bundle "
           f"{os.path.basename(path)} with "
           f"{sorted(os.listdir(path))}; tools/postmortem.py: {verdict}")
+
+
+# ---- explain mode, the chunked step, the native clone (phases E1-E6) ------
+
+# E2's depth: the bench burst's 10,000 pods, every batch unsampled.
+EXPLAIN_PODS = N_PODS
+# E4's batch: where the pod-chunked evaluation starts to matter (P x N x
+# 4 bytes of scores past 1 GiB: C = 2,048 at 53,248 nodes).
+CHUNK_PODS, CHUNK_C = 8192, 2048
+# E3's engine-level cuda = cpu check: config 4 hard at 1,200 nodes (the
+# repair runs up to 64 rounds a batch so that every batch places all of
+# its pods in the cycle: a pod that fails comes back when its backoff
+# expires, and the next batches then follow the wall clock).
+PARITY_NODES, PARITY_PODS = 1200, 512
+GB = float(1 << 30)
+
+
+def explain_step_pair(label, plugin_set, batch, key, smi, **call_kw):
+    """E1. ``plugin_set``'s explain step (shortlist K) on the card against
+    the CPU on one batch, every Decision field bitwise (the three stacks
+    and total_scores included); its time beside the step without explain
+    (CUDA events) and its peak device memory. Returns the launches of
+    its first call on the card."""
+    dev = [to_torch(x, "cuda") for x in batch]
+    step = build_step(plugin_set, shortlist=K, explain=True)
+    base = build_step(plugin_set, shortlist=K)
+    base(*dev, key, **call_kw)  # warm
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    d_gpu = step(*dev, key, **call_kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+    t = time.perf_counter()
+    d_cpu = step(*(to_torch(x, "cpu") for x in batch), key, **call_kw)
+    cpu_s = time.perf_counter() - t
+    for field in d_cpu._fields:
+        check(torch.equal(bits(getattr(d_gpu, field)),
+                          bits(getattr(d_cpu, field))),
+              f"{label} explain step: field {field} cuda != cpu")
+    P, N = d_cpu.total_scores.shape
+    F, S = len(plugin_set.filter_plugins), len(plugin_set.score_plugins)
+    check(tuple(d_cpu.filter_masks.shape) == (F, P, N)
+          and tuple(d_cpu.raw_scores.shape) == (S, P, N),
+          f"{label} explain step: stacks of the wrong shape")
+    stacks = sum(t.numel() * t.element_size() for t in (
+        d_gpu.filter_masks, d_gpu.raw_scores, d_gpu.norm_scores,
+        d_gpu.total_scores))
+    del d_gpu, d_cpu
+    ms = cuda_ms(lambda: step(*dev, key, **call_kw), reps=3)
+    base_ms = cuda_ms(lambda: base(*dev, key, **call_kw), reps=3)
+    print(f"explain step {label} {P}x{N} ({F} filters, {S} scorers): every "
+          f"Decision field bitwise equal cuda vs cpu, the stacks and "
+          f"total_scores {stacks / GB:.3f} GB; {ms:.3f} ms per step back to "
+          f"back against {base_ms:.3f} ms without explain; peak device "
+          f"memory {peak / GB:.3f} GB ({held / GB:.3f} GB held before); "
+          f"launches {launched}; cpu {cpu_s:.1f} s ({smi})")
+    return launched
+
+
+def explain_c4_step_phase(smi, key):
+    """E1. Config 4 hard's first 1,024-pod batch against 50,000 nodes in
+    explain mode, cuda = cpu: the caps are never built (so the step
+    makes no read of any_enforced: it runs under torch's sync debug mode
+    "error" with hard_spread=None), the caps kernel is not launched and
+    the selection and scan kernels are."""
+    nodes, pods = c4_workload(N_NODES, BATCH, max_skew=1, hard=True)
+    batch = full_width_batch(nodes, pods)
+    plugin_set = C4_PROFILE.build()
+    launched = explain_step_pair("config 4 hard", plugin_set, batch, key,
+                                 smi, has_gang=False, hard_spread=None)
+    dev = [to_torch(x, "cuda") for x in batch]
+    step = build_step(plugin_set, shortlist=K, explain=True)
+    built = []
+    orig = spreadcap.build_domain_caps
+
+    def counted(*a, **kw):
+        built.append(1)
+        return orig(*a, **kw)
+
+    spreadcap.build_domain_caps = counted
+    try:
+        check_no_sync(lambda: step(*dev, key, has_gang=False,
+                                   hard_spread=None),
+                      "the config 4 hard explain step (hard_spread=None)")
+    finally:
+        spreadcap.build_domain_caps = orig
+    check(not built, "config 4 hard explain step: the caps were built")
+    check(launched["caps_scan"] == 0, "config 4 hard explain step: the caps "
+          "kernel was launched")
+    check(launched["shortlist_select"] >= 1
+          and launched["shortlist_scan"] >= 1,
+          "config 4 hard explain step: the shortlist kernels did not run")
+    print(f"explain step config 4 hard: no caps built, caps kernel not "
+          f"launched, no host sync with hard_spread=None ({smi})")
+
+
+def explain_view(cluster, rng, n_pods, outside=3):
+    """The explain surface of a finished burst: every pod's three
+    annotation strings, and for ``n_pods`` pods picked by ``rng``
+    (all when None), filter_verdict on ``outside`` nodes not in the
+    pod's annotation (the first by name when ``rng`` is None, else
+    drawn) and on its chosen node, beside the annotation's own verdict
+    for the chosen node where it lists it."""
+    from minisched_tpu_torch.explain import (FINAL_SCORE_RESULT_KEY,
+                                             SCORE_RESULT_KEY)
+
+    rs = cluster.service.result_store
+    check(rs.drain(timeout=120), "the result store did not drain")
+    keys = (FILTER_RESULT_KEY, SCORE_RESULT_KEY, FINAL_SCORE_RESULT_KEY)
+    nodes = sorted(n.metadata.name for n in cluster.list_nodes())
+    ann, verdicts, listed_sizes = {}, {}, []
+    pods = sorted(cluster.list_pods(), key=lambda p: p.key)
+    for pod in pods:
+        a = pod.metadata.annotations
+        ann[pod.key] = tuple(a.get(k) for k in keys)
+        check(None not in ann[pod.key], f"{pod.key} lacks an annotation")
+        listed_sizes.append(len(json.loads(a[FILTER_RESULT_KEY])))
+    picked = (pods if n_pods is None else
+              [pods[i] for i in rng.choice(len(pods), n_pods, replace=False)])
+    for pod in picked:
+        listed = json.loads(pod.metadata.annotations[FILTER_RESULT_KEY])
+        others = [n for n in nodes if n not in listed]
+        if rng is None:
+            others = others[:outside]
+        else:
+            others = [others[i] for i in rng.choice(len(others), outside,
+                                                    replace=False)]
+        chosen = pod.spec.node_name
+        v = {n: rs.filter_verdict(pod.key, n) for n in others + [chosen]}
+        check(all(x is not None for x in v.values()),
+              f"{pod.key}: filter_verdict has no answer")
+        check(set(v[chosen].values()) == {"passed"},
+              f"{pod.key}: its chosen node failed a filter: {v[chosen]}")
+        if chosen in listed:
+            check(listed[chosen] == v[chosen],
+                  f"{pod.key}: annotation and filter_verdict disagree")
+        verdicts[pod.key] = v
+    return ann, verdicts, listed_sizes, rs.stats()
+
+
+def explain_burst_phase(smi, main_m):
+    """E2. bench-50k (50,000 nodes x EXPLAIN_PODS pods, bench profile)
+    with SchedulerConfig(explain=True): pipelined, device-resident,
+    shortlist K=128, every batch unsampled (1,024 x 53,248). Every
+    batch launches the selection and scan kernels; all bound, none
+    over-committed (drive); every pod carries the three annotations,
+    each of at most 128 nodes; for 16 pods picked by seed,
+    filter_verdict answers for 3 nodes outside the annotation and says
+    every filter passed on the chosen node, as the annotation does where
+    it lists that node. Prints create-to-bound, the gap decomposition
+    beside phase 11's, the result store's counters, the worker's ingest
+    seconds per batch and the peak device memory."""
+    nodes, pods = bench_workload(N_NODES, EXPLAIN_PODS)
+    ingest_s, flush_s = [], []
+    orig, orig_flush = ResultStore._ingest, ResultStore.flush_pod
+
+    def timed(self, *a):
+        t = time.perf_counter()
+        try:
+            return orig(self, *a)
+        finally:
+            ingest_s.append(time.perf_counter() - t)
+
+    def timed_flush(self, *a):
+        t = time.perf_counter()
+        try:
+            return orig_flush(self, *a)
+        finally:
+            flush_s.append(time.perf_counter() - t)
+
+    view = {}
+
+    def inspect(cluster):
+        view["peak"] = torch.cuda.max_memory_allocated()
+        view["out"] = explain_view(cluster, np.random.default_rng(13), 16)
+
+    ResultStore._ingest, ResultStore.flush_pod = timed, timed_flush
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        m, launches, c2b, per_pod, _ = drive(
+            SchedulerConfig(platform="", explain=True), nodes, pods,
+            "explain burst", inspect=inspect)
+    finally:
+        ResultStore._ingest, ResultStore.flush_pod = orig, orig_flush
+        print(f"explain burst: the worker's ingest per batch (s) "
+              f"{[round(x, 3) for x in ingest_s]}, flush "
+              f"{sum(flush_s):.3f} s for {len(flush_s)} pods")
+    b = m["batches"]
+    check(m["sampled_batches"] == 0, f"explain burst: "
+          f"{m['sampled_batches']} of {b} batches sampled")
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(launches[name] >= b > 0,
+              f"explain burst: {name} launched {launches[name]} times in "
+              f"{b} batches")
+    ann, _verdicts, sizes, stats = view["out"]
+    check(len(ann) == EXPLAIN_PODS and max(sizes) <= K,
+          f"explain burst: {len(ann)} annotated pods, up to {max(sizes)} "
+          "nodes each")
+    print(path_line(f"explain burst (SchedulerConfig(explain=True): every "
+                    f"batch unsampled, {BATCH}x{step_bucket(N_NODES)}) "
+                    f"{N_NODES} nodes x {EXPLAIN_PODS} pods", m, launches,
+                    c2b, per_pod, EXPLAIN_PODS, smi))
+    print(f"explain burst: every pod with 3 annotations of {min(sizes)}.."
+          f"{max(sizes)} nodes; filter_verdict for 16 pods x 3 nodes outside "
+          f"the annotation answered, the chosen node passed every filter; "
+          f"gap {m['gap_s_total']:.4f} s = " + " + ".join(
+              f"{g} {m[f'gap_{g}_s_total']:.4f}" for g in GAPS)
+          + f" (phase 11: gap {main_m['gap_s_total']:.4f} s, fetch "
+          f"{main_m['gap_fetch_s_total']:.4f}); result store {stats}; ingest "
+          f"{len(ingest_s)} batches, {np.median(ingest_s):.3f} s median, "
+          f"{max(ingest_s):.3f} s max, {sum(ingest_s):.3f} s in all per "
+          f"batch on the worker; peak device memory {view['peak'] / GB:.3f} "
+          f"GB ({smi})")
+    return launches, c2b, ingest_s, view["peak"]
+
+
+def explain_parity_phase(smi):
+    """E3. Explain mode on the card against the CPU at the engine level:
+    config 4 hard (DoNotSchedule max_skew 1; explain keeps the caps off,
+    the host arbitration and its repair do the work) at PARITY_NODES x
+    PARITY_PODS, then the bench profile under the auction. Placements,
+    each pod's three annotation strings byte for byte, and
+    filter_verdict on the first three nodes outside each pod's
+    annotation are equal; in config 4 hard no zone is over its skew."""
+    for label, (nodes, pods), profile, kw in (
+            ("config 4 hard", c4_workload(PARITY_NODES, PARITY_PODS,
+                                          max_skew=1, hard=True),
+             C4_PROFILE, dict(spread_repair_iters=64)),
+            ("auction", bench_workload(PARITY_NODES, PARITY_PODS),
+             BENCH_PROFILE, dict(assignment="auction"))):
+        out = {}
+        for platform in ("", "cpu"):
+            n, p = ((nodes, pods) if platform == "" else
+                    (c4_workload(PARITY_NODES, PARITY_PODS, max_skew=1,
+                                 hard=True) if profile is C4_PROFILE
+                     else bench_workload(PARITY_NODES, PARITY_PODS)))
+            view = {}
+            m, _l, c2b, _pp, placed = drive(
+                SchedulerConfig(platform=platform, explain=True, **kw), n, p,
+                f"explain {label} on {platform or 'cuda'}", profile,
+                with_pv_controller=False,
+                inspect=lambda c: view.update(out=explain_view(c, None,
+                                                                None)))
+            out[platform] = (placed, *view["out"][:2], m, c2b)
+        (g_placed, g_ann, g_ver, gm, g_c2b) = out[""]
+        (c_placed, c_ann, c_ver, _cm, c_c2b) = out["cpu"]
+        check(g_placed == c_placed, f"explain {label}: placements cuda != cpu")
+        check(g_ann == c_ann, f"explain {label}: annotations cuda != cpu")
+        check(g_ver == c_ver, f"explain {label}: filter_verdict cuda != cpu")
+        extra = ""
+        if profile is C4_PROFILE:
+            zc = zone_counts(nodes, g_placed)
+            check(max(zc.values()) - min(zc.values()) <= 1,
+                  f"explain {label}: per-zone counts {sorted(zc.values())}")
+            check(gm["hard_spread_batches"] == gm["batches"]
+                  and gm["kernel_launches_caps_scan"] == 0,
+                  f"explain {label}: the caps kernel ran")
+            extra = (f", {gm['spread_revoked']} revoked by the host "
+                     f"arbitration, {gm['spread_repaired']} repaired, "
+                     f"app=bench per zone {min(zc.values())}.."
+                     f"{max(zc.values())}, no caps launch")
+        print(f"explain {label} {PARITY_NODES} nodes x {PARITY_PODS} pods: "
+              f"placements, {len(g_ann)} pods' annotation strings and "
+              f"{sum(len(v) for v in g_ver.values())} filter_verdict answers "
+              f"equal on the card and on the CPU{extra}; create-to-bound "
+              f"{g_c2b:.3f} s on the card, {c_c2b:.3f} s on the CPU ({smi})")
+
+
+def chunked_step_phase(smi, key):
+    """E4. The pod-chunked step at CHUNK_PODS x 53,248: the bench profile
+    and config 4 hard (its caps kernel, feasible_static per chunk) at
+    the default knobs, which chunk at C = 2,048, against the same step
+    with _CHUNK_WHEN_BYTES past the size (no chunks): every Decision
+    field bitwise, the peak device memory both ways. Then the selection
+    and scan kernels against their plain versions at that shape, with
+    their times and bounds."""
+    C = PIPE._chunk_pods(CHUNK_PODS, step_bucket(N_NODES))
+    check(C == CHUNK_C, f"the chunk rule picks C={C} at {CHUNK_PODS} pods")
+    out = {}
+    for label, (nodes, pods), profile, hard in (
+            ("bench", bench_workload(N_NODES, CHUNK_PODS), BENCH_PROFILE,
+             False),
+            ("config 4 hard", c4_workload(N_NODES, CHUNK_PODS, max_skew=1,
+                                          hard=True), C4_PROFILE, True)):
+        batch = full_width_batch(nodes, pods, n_pods=CHUNK_PODS)
+        dev = [to_torch(x, "cuda") for x in batch]
+        step = build_step(profile.build(), shortlist=K)
+        ds, peaks, ms = {}, {}, {}
+        when = PIPE._CHUNK_WHEN_BYTES
+        for chunked in (True, False):
+            PIPE._CHUNK_WHEN_BYTES = when if chunked else 1 << 62
+            try:
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ds[chunked] = step(*dev, key, has_gang=False,
+                                   hard_spread=hard)
+                torch.cuda.synchronize()
+                peaks[chunked] = torch.cuda.max_memory_allocated() - held
+                ms[chunked] = cuda_ms(lambda: step(
+                    *dev, key, has_gang=False, hard_spread=hard), reps=2)
+            finally:
+                PIPE._CHUNK_WHEN_BYTES = when
+        for field in ds[True]._fields:
+            check(torch.equal(bits(getattr(ds[True], field)),
+                              bits(getattr(ds[False], field))),
+                  f"chunked step {label}: field {field} differs from the "
+                  "unchunked step")
+        d = ds[True]
+        if hard:
+            check(bool(d.scan_groups.any()),
+                  f"chunked step {label}: no group enforced")
+        print(f"chunked step {label} {CHUNK_PODS}x{step_bucket(N_NODES)} "
+              f"(C={C}, {CHUNK_PODS // C} chunks): every Decision field "
+              f"bitwise equal to the unchunked step, feasible_static "
+              f"included, {int(d.assigned.sum())} assigned"
+              + (f", {int(d.scan_groups.sum())} groups enforced by the caps "
+                 f"kernel" if hard else "")
+              + f"; peak device memory above the inputs {peaks[True] / GB:.3f}"
+              f" GB chunked, {peaks[False] / GB:.3f} GB unchunked; "
+              f"{ms[True]:.3f} ms vs {ms[False]:.3f} ms per step ({smi})")
+        out[label] = (peaks, ms)
+        del ds, d
+        if not hard:
+            eb_d, nf_d, af_d = dev
+            scores, _fc, _rc = evaluate(profile.build(), eb_d, nf_d, af_d)
+            P, N = scores.shape
+            R = eb_d.pf.requests.shape[1]
+            seed = prng.bits(prng.fold_in(prng.PRNGKey(0), 1))
+            sel_err = select_pair(scores, seed, K)
+            got, plain, sel, scan_plain_ms = scan_pair(
+                scores, eb_d.pf.requests, nf_d.free, seed, K)
+            scan_err = compare(got, plain, ("chosen", "assigned",
+                                            "free_after", "repaired"))
+            repairs = int(plain.repaired.sum())
+            sel4 = shortlist_select_cuda(scores, seed, K)
+            select_ms = cuda_ms(lambda: shortlist_select_cuda(scores, seed, K),
+                                reps=10)
+            select_plain_ms = cuda_ms(
+                lambda: shortlist_select_plain(scores, seed, K), reps=2)
+            scan_ms = cuda_ms(lambda: shortlist_scan_cuda(
+                scores, sel4[0], sel4[1], sel4[2], eb_d.pf.requests,
+                nf_d.free, seed, cand_scores=sel4[3]), reps=5)
+            sb, sby = select_bound_s(P, N, K)
+            cb, cby = scan_bound_s(P, N, K, R, repairs)
+            out["kernels"] = dict(
+                select_err=sel_err, scan_err=scan_err, select_ms=select_ms,
+                select_plain_ms=select_plain_ms, select_bound_s=sb,
+                select_bound_by=sby, scan_ms=scan_ms,
+                scan_plain_ms=scan_plain_ms, scan_bound_s=cb,
+                scan_bound_by=cby)
+            print(f"selection and scan kernels vs plain at {P}x{N}x{R} K={K}: "
+                  f"bitwise equal, {int(plain.assigned.sum())} assigned, "
+                  f"{repairs} repaired; selection {select_ms:.4f} ms (plain "
+                  f"{select_plain_ms:.3f} ms, bound {sb * 1e3:.4f} ms {sby}); "
+                  f"scan {scan_ms:.4f} ms ({scan_ms * 1e3 / P:.3f} us per pod;"
+                  f" plain {scan_plain_ms:.1f} ms, bound {cb * 1e3:.4f} ms "
+                  f"{cby}) ({smi})")
+            del scores, got, plain, sel, sel4
+        del dev, batch
+    return out
+
+
+def explain_brownout_phase(smi):
+    """E5. Phase D's pinned rung 3 (brownout) with explain on, on the card
+    and on the CPU: the same placements, overload_explain_skipped equal
+    (every batch), and no pod with an annotation."""
+    label = "rung 3 (brownout) with explain"
+    got, m, _k = pinned_burst("", 3, label, explain=True)
+    want, cm, _k = pinned_burst("cpu", 3, label, explain=True)
+    check(got == want, f"{label}: placements on the card differ from the "
+          "CPU's")
+    check(m["overload_explain_skipped"] == cm["overload_explain_skipped"]
+          == m["batches"] > 0,
+          f"{label}: explain skipped {m['overload_explain_skipped']} on the "
+          f"card, {cm['overload_explain_skipped']} on the CPU, in "
+          f"{m['batches']} batches")
+    check(m["annotated_pods"] == cm["annotated_pods"] == 0,
+          f"{label}: {m['annotated_pods']} annotated pods")
+    print(f"ladder {label} pinned on 1,201 nodes: {len(got)} placements on "
+          f"the card = the CPU's, explain ingestion skipped in all "
+          f"{m['overload_explain_skipped']} batches on both, no pod "
+          f"annotated, {m['sampled_batches']} batches sampled ({smi})")
+
+
+def demo_phase() -> None:
+    """E6. The port's demo scenario on the card (scenario/demo.py)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        demo.main(platform="")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"demo: {line}")
+    check(lines and lines[-1] == "demo OK", "the demo did not print demo OK")
 
 
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
@@ -2274,6 +2731,9 @@ def main() -> int:
           f"and free_after bitwise equal; {steps[K][1] * 1e3:.3f} ms vs "
           f"{steps[None][1] * 1e3:.3f} ms per step ({smi})")
     del steps
+    # E1. the explain step at full width, cuda = cpu
+    explain_step_pair("bench", plugin_set, (eb, nf, af), key, smi,
+                      has_gang=False, hard_spread=False)
 
     # 6. the sampled step at bench-50k: the default config's K of the pad
     skey_step, skey = prng.split(key)
@@ -2473,6 +2933,10 @@ def main() -> int:
     full_step_phase(smi, key)
     preempt_t = preempt_op_phase(smi)
     print(f"phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    # E1. config 4 hard's explain step: the shortlist kernels, no caps
+    t_phase = time.perf_counter()
+    explain_c4_step_phase(smi, key)
+    print(f"phase E1 (config 4 hard) in {time.perf_counter() - t_phase:.1f} s")
 
     # 11. the bench main path: SchedulerConfig(), the default cycle
     nodes, pods = bench_workload(N_NODES, N_PODS)
@@ -2497,6 +2961,20 @@ def main() -> int:
             f"device free/used_ports = host mirror bitwise; 9577057 "
             f"(unsampled): bursts {UNSAMPLED_BURSTS_S} s, full-width step "
             f"{UNSAMPLED_STEP_MS} ms")
+    main_m = m
+    clone = native.status()
+    check(clone["native"], f"the native clone is not loaded: {clone}")
+    print(f"native clone: loaded from {os.path.relpath(clone['path'])}, "
+          + (f"built at first use in {clone['build_s']:.2f} s"
+             if clone["built"] else "found built")
+          + f"; phase 11's bind {m['bind_s_total']:.3f} s, create-to-bound "
+          f"{c2b:.3f} s ({smi})")
+
+    # E2. the explain burst at bench-50k
+    t_phase = time.perf_counter()
+    explain_launches, explain_c2b, explain_ingest, explain_peak = \
+        explain_burst_phase(smi, main_m)
+    print(f"phase E2 in {time.perf_counter() - t_phase:.1f} s")
 
     # B-C. the main path armed: timeline, SLO sentinel, overload
     # controller, journal and trace recorder; one batch's device trace
@@ -2506,14 +2984,14 @@ def main() -> int:
     del main_placed
     print(f"phases B-C in {time.perf_counter() - t_phase:.1f} s")
 
-    # 12. this slice's main path: full_scheduler_profile() through
+    # 12. the volume slice's main path: full_scheduler_profile() through
     # Cluster(...).start() with SchedulerConfig(), a fifth of the pods
     # holding a Bound claim on a zone-labelled PV
     t_phase = time.perf_counter()
     # Every claim is Bound before the burst, so the PV controller has
     # nothing to bind; it is off, as in bench.py's engine cells (it relists
     # every claim and PV on each claim-carrying pod event).
-    first, pods = full_workload(N_NODES, N_PODS)
+    first, pods = full_workload(N_NODES, CUT_PODS)
     m, full_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform=""), first, pods, "full profile",
         FULL_PROFILE, with_pv_controller=False)
@@ -2522,13 +3000,13 @@ def main() -> int:
         check(full_launches[name] >= b > 0,
               f"full profile: {name} launched {full_launches[name]} times in "
               f"{b} batches")
-    check(m["zone_bound_claims"] == N_PODS // 5,
+    check(m["zone_bound_claims"] == CUT_PODS // 5,
           f"full profile: {m['zone_bound_claims']} zone-bound claims placed")
     print(path_line(f"full profile (default config, 15 filters, 7 scorers, "
-                    f"DefaultPreemption; {N_PODS // 5} pods with a Bound "
+                    f"DefaultPreemption; {CUT_PODS // 5} pods with a Bound "
                     f"claim on a zone-labelled PV) {N_NODES} nodes x "
-                    f"{N_PODS} pods", m, full_launches, c2b, per_pod, N_PODS,
-                    smi)
+                    f"{CUT_PODS} pods", m, full_launches, c2b, per_pod,
+                    CUT_PODS, smi)
           + f"; {m['sampled_batches']} of {b} batches sampled; every pod "
             "in its PV's zone, no claim on two nodes, no node over its "
             "attach limit; device free/used_ports = host mirror bitwise")
@@ -2539,7 +3017,7 @@ def main() -> int:
     # config, BASELINE config 4's profile (DefaultPreemption on),
     # make_c4_workload's burst
     t_phase = time.perf_counter()
-    nodes, pods = c4_workload(N_NODES, N_PODS)
+    nodes, pods = c4_workload(N_NODES, CUT_PODS)
     picked = []
     m, c4_launches, c2b, per_pod, _ = drive(
         SchedulerConfig(platform=""), nodes, pods, "config 4 soft",
@@ -2555,7 +3033,7 @@ def main() -> int:
           f"config 4 soft: {m['sampled_batches']} of {b} batches sampled")
     # No pod fails here, so the PostFilter never runs: the batches are
     # the 1,024-pod tranches, as without it.
-    check(b == -(-N_PODS // SchedulerConfig().max_batch_size),
+    check(b == -(-CUT_PODS // SchedulerConfig().max_batch_size),
           f"config 4 soft: {b} batches with the PostFilter on")
     c4eb, c4nf, c4af = (to_torch(x, "cuda")
                         for x in full_width_batch(nodes, pods))
@@ -2568,7 +3046,7 @@ def main() -> int:
     print(path_line(f"config 4 soft (default config, node sample "
                     f"K={picked[0]}, ScheduleAnyway max_skew 8, preferred "
                     f"affinity on every other pod) {N_NODES} nodes x "
-                    f"{N_PODS} pods", m, c4_launches, c2b, per_pod, N_PODS,
+                    f"{CUT_PODS} pods", m, c4_launches, c2b, per_pod, CUT_PODS,
                     smi) + "; no host sync in its step")
 
     # 14. config 4 hard: DoNotSchedule max_skew 1, the skew worst case
@@ -2733,6 +3211,26 @@ def main() -> int:
     print("README scenario: pod1 pending on NodeUnschedulable, then bound "
           "to node10")
 
+    # E3. explain mode, cuda = cpu at the engine level
+    t_phase = time.perf_counter()
+    explain_parity_phase(smi)
+    print(f"phase E3 in {time.perf_counter() - t_phase:.1f} s")
+    # E4. the pod-chunked step at 8,192 x 53,248
+    t_phase = time.perf_counter()
+    chunk = chunked_step_phase(smi, key)
+    print(f"phase E4 in {time.perf_counter() - t_phase:.1f} s")
+    # E5. the brownout's explain pause
+    t_phase = time.perf_counter()
+    explain_brownout_phase(smi)
+    print(f"phase E5 in {time.perf_counter() - t_phase:.1f} s")
+    # E6. the demo scenario on the card
+    t_phase = time.perf_counter()
+    demo_phase()
+    print(f"phase E6 in {time.perf_counter() - t_phase:.1f} s")
+    ck = chunk["kernels"]
+    err["shortlist_select"] = max(err["shortlist_select"], ck["select_err"])
+    err["shortlist_scan"] = max(err["shortlist_scan"], ck["scan_err"])
+
     print(json.dumps({"kernels": [{
         "name": "greedy_assign",
         "route": "cuda",
@@ -2753,13 +3251,20 @@ def main() -> int:
         "launches": full_launches["shortlist_select"],
         "launches_by_path": {"full profile": full_launches[
             "shortlist_select"], "bench": main_launches["shortlist_select"],
-            "config 4 soft": c4_launches["shortlist_select"]},
+            "config 4 soft": c4_launches["shortlist_select"],
+            "explain bench": explain_launches["shortlist_select"]},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
         "bound_ms": s_select_bound_s * 1e3,
         "bound_by": s_select_bound_by,
         "tuner_widths": tuner["shortlist_select"],
+        "ms_full_width": select_ms,
+        "plain_ms_full_width": select_plain_ms,
+        "bound_ms_full_width": select_bound_s_ * 1e3,
+        "ms_8192": ck["select_ms"],
+        "plain_ms_8192": ck["select_plain_ms"],
+        "bound_ms_8192": ck["select_bound_s"] * 1e3,
         "library_ms": None,
     }, {
         "name": "shortlist_scan",
@@ -2769,13 +3274,20 @@ def main() -> int:
         "launches": full_launches["shortlist_scan"],
         "launches_by_path": {"full profile": full_launches[
             "shortlist_scan"], "bench": main_launches["shortlist_scan"],
-            "config 4 soft": c4_launches["shortlist_scan"]},
+            "config 4 soft": c4_launches["shortlist_scan"],
+            "explain bench": explain_launches["shortlist_scan"]},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
         "bound_ms": s_scan_bound_s * 1e3,
         "bound_by": s_scan_bound_by,
         "tuner_widths": tuner["shortlist_scan"],
+        "ms_full_width": scan_ms,
+        "plain_ms_full_width": scan_plain_ms,
+        "bound_ms_full_width": scan_bound_s_ * 1e3,
+        "ms_8192": ck["scan_ms"],
+        "plain_ms_8192": ck["scan_plain_ms"],
+        "bound_ms_8192": ck["scan_bound_s"] * 1e3,
         "library_ms": None,
     }, {
         "name": "insert_ports",
@@ -2866,7 +3378,15 @@ def main() -> int:
         "bound_by": preempt_t["bound_by"],
         "candidates": preempt_t["found"],
         "preemption_burst_s": preempt_burst_s,
-    }]}))
+    }], "explain": {
+        "burst_s": explain_c2b, "pods": EXPLAIN_PODS,
+        "ingest_s_per_batch": explain_ingest,
+        "peak_device_gb": explain_peak / GB,
+        "chunked_peak_gb": {label: {"chunked": v[0][True] / GB,
+                                    "unchunked": v[0][False] / GB}
+                            for label, v in chunk.items()
+                            if label != "kernels"},
+    }, "native_clone": native.status()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,13 @@ class SchedulerConfig:
     node_bucket_min: int = 16        # bucket ladder minimum (pad N)
     backoff_initial_s: float = 1.0   # reference queue.go:218-221
     backoff_max_s: float = 10.0
+    # Explain mode: the step also returns every filter's mask and every
+    # scorer's raw and normalized matrix, and the service's result store
+    # publishes them as pod annotations (explain/resultstore.py). It
+    # turns node sampling and the in-scan domain caps off: the recorded
+    # columns must be the full node table, and the recorded spread
+    # verdict upstream's static one.
+    explain: bool = False
     # Host-selection strategy: "greedy" (priority-faithful sequential
     # semantics; the shortlist scan or the full greedy kernel) or
     # "auction" (parallel bidding rounds in descending priority bands,

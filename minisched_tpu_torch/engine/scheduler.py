@@ -17,9 +17,11 @@ three phases:
   resolve  read the packed decision back (one fetch) → replay the
            device's debits and port insertions into the residency mirror
            → the full-axis residual pass for pods the sample found no
-           node for → the RWO arbitration (arbitrate_rwo) and the
-           topology arbitration (hard skew and required anti-affinity
-           within the batch, arbitrate_spread) → per pod: assume + permit
+           node for → the explain recorder (explain mode: the step's
+           per-plugin stacks to the result store) → the RWO arbitration
+           (arbitrate_rwo) and the topology arbitration (hard skew and
+           required anti-affinity within the batch, arbitrate_spread)
+           → per pod: assume + permit
            plugins (host) or a failure verdict → the in-cycle repair of
            revoked pods (_repair_spread) → the preemption pass for
            terminally unschedulable pods (DefaultPreemption,
@@ -889,12 +891,16 @@ def arbitrate_spread(batch: List[QueuedPodInfo], assigned, pf, gf,
 class Scheduler:
     def __init__(self, store, plugin_set: PluginSet,
                  config: Optional[SchedulerConfig] = None,
+                 recorder=None,
                  shared: Optional[SharedClusterState] = None,
                  profile: Optional[str] = None,
                  replica: Optional[str] = None):
         self.store = store
         self.plugin_set = plugin_set
         self.config = config or SchedulerConfig()
+        # Explainability hook (explain/resultstore.ResultStore): every
+        # batch's step output goes to record_batch when set.
+        self.recorder = recorder
         # Serving-profile label: journal events, timeline rows and
         # provenance records carry it, and it names the overload
         # controller (per-profile shed budgets resolve against it).
@@ -935,7 +941,8 @@ class Scheduler:
         self._shortlist_k = (self.config.shortlist_k
                              if self.config.shortlist else None)
         self._step = build_step(plugin_set, shortlist=self._shortlist_k,
-                                assignment=self.config.assignment)
+                                assignment=self.config.assignment,
+                                explain=self.config.explain)
         self._key = prng.PRNGKey(self.config.seed)
         self._step_counter = 0
         # Supervisor replay anchor: the step counter the batch in prepare
@@ -1184,6 +1191,13 @@ class Scheduler:
         if self._owns_shared:
             self._shared.shutdown()
         self._binder.shutdown(wait=False)
+        if self.recorder is not None:
+            # Past one flush's full retry backoff (~6 s at the defaults),
+            # so a flush mid-retry is not abandoned silently.
+            if not self.recorder.drain(timeout=8.0):
+                log.warning("unflushed scheduling results at shutdown: %s",
+                            self.recorder.pending_keys()[:10])
+            self.recorder.close()
         self.broadcaster.flush(timeout=2.0)
         self.broadcaster.close()
 
@@ -1685,11 +1699,12 @@ class Scheduler:
         only unsampled) pass ``full_axis``; the percentage is 100; the cluster
         has fewer than 2 × min_sample_nodes real nodes; or K would reach
         half the node pad (the gather and residual then cost more than
-        they save). K = the power-of-two bucket of
-        max(min_sample_nodes, n × pct / 100, 2 × batch), pct 0 meaning
-        upstream's max(5, 50 - n / 125)."""
+        they save). Explain mode never samples: the recorded columns
+        must line up with the full name table. K = the power-of-two
+        bucket of max(min_sample_nodes, n × pct / 100, 2 × batch), pct 0
+        meaning upstream's max(5, 50 - n / 125)."""
         cfg = self.config
-        if full_axis:
+        if cfg.explain or full_axis:
             return None, None
         # Brownout (overload level 3) pulls the dial down to
         # ``brownout_pct``; otherwise the configured percentage.
@@ -2120,7 +2135,8 @@ class Scheduler:
         self._sup_count("shortlist_checks")
         check_step = build_step(self.plugin_set, shortlist=None,
                                 sample_nodes=b.sample_k,
-                                assignment=self.config.assignment)
+                                assignment=self.config.assignment,
+                                explain=self.config.explain)
         d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key)
         ref_chosen = d.chosen.cpu().numpy()
         ref_assigned = d.assigned.cpu().numpy()
@@ -2332,6 +2348,13 @@ class Scheduler:
         now_mono = time.monotonic()
         for qpi in batch:
             qpi.decided_at = now_mono
+
+        if self.recorder is not None and not self._overload.explain_skip():
+            # The step's device output (its explain stacks), not the slim
+            # fetch. Brownout (overload level 3) pauses explain
+            # ingestion, counted in overload_explain_skipped.
+            self.recorder.record_batch([q.pod for q in batch], names,
+                                       b.decision, self.plugin_set)
 
         revoked, parked_gangs = (
             arbitrate_rwo(batch, assigned, chosen, b.vol_memo)
@@ -3273,6 +3296,11 @@ class Scheduler:
         out["overload_window_s"] = self._overload.effective_window(
             self.config.batch_window_s)
         out["overload_shortlist_k"] = int(self._shortlist_k or 0)
+        # Result-store retention (explain/resultstore.py), with a
+        # recorder only.
+        if self.recorder is not None:
+            for k, v in self.recorder.stats().items():
+                out[f"resultstore_{k}"] = v
         out["timeline_snapshots"] = self._timeline.snapshots()
         out["timeline_dropped"] = self._timeline.dropped()
         # Burning gauges only from the current sentinel, re-derived at
@@ -3343,7 +3371,8 @@ class Scheduler:
         assignment); sampled steps read ``_shortlist_k`` per batch."""
         self._shortlist_k = k
         self._step = build_step(self.plugin_set, shortlist=k,
-                                assignment=self.config.assignment)
+                                assignment=self.config.assignment,
+                                explain=self.config.explain)
 
     def _overload_disarm_check(self) -> None:
         """A runtime disarm (overload.configure("")) must not leave the

@@ -18,7 +18,10 @@ scan. ``assignment="auction"`` takes the banded bidding rounds instead
 (``auction.auction_assign``, or with a shortlist
 ``bid_select.auction_assign_shortlist``). With ``sample_nodes=K`` the
 step first picks K candidate nodes and runs on them alone (node-axis
-sampling).
+sampling). In explain mode it also returns each filter's mask and each
+scorer's raw and normalized matrix (the result store's input). Above a
+size threshold the filters and scorers run over pod chunks, so only one
+chunk's temporaries are live at a time.
 """
 from __future__ import annotations
 
@@ -54,6 +57,10 @@ class Decision(NamedTuple):
     # a static skew block (terminal). Equal to feasible_counts elsewhere.
     feasible_static: torch.Tensor  # (P,) int32
     reject_counts: torch.Tensor    # (F,P) int32 nodes rejected per filter
+    # Explain mode: the (P,N) float32 weighted sum, NEG on infeasible
+    # pairs; else a (0,N) placeholder (nothing on the scheduling path
+    # reads it).
+    total_scores: torch.Tensor
     free_after: torch.Tensor       # (N,R) float32
     # Per-pod × per-selector-group state at the chosen node, for the
     # engine's intra-batch spread arbitration; (P,G)/(G,)/(G,D) when the
@@ -72,6 +79,21 @@ class Decision(NamedTuple):
     # Shortlist repair ledger: pods whose step fell back to a full-row
     # rescan (all False without the shortlist and on the caps scan).
     shortlist_repaired: torch.Tensor  # (P,) bool
+    # Explain mode only, else zero-size placeholders:
+    filter_masks: torch.Tensor     # (F,P,N) bool per-filter pass mask
+    raw_scores: torch.Tensor       # (S,P,N) float32 before normalize
+    norm_scores: torch.Tensor      # (S,P,N) float32 normalized, unweighted
+
+
+# Pod-chunked evaluation: where the (P,N) float32 score matrix exceeds
+# _CHUNK_WHEN_BYTES, the filters and scorers run over pod chunks of about
+# _CHUNK_TARGET_BYTES (never fewer than _CHUNK_MIN_PODS pods), so that
+# only one chunk's (C,N) temporaries are live while the (P,N) matrix
+# fills. The JAX package's values; module-level so tests can force the
+# chunked path at small shapes.
+_CHUNK_WHEN_BYTES = 1 << 30
+_CHUNK_TARGET_BYTES = 768 << 20
+_CHUNK_MIN_PODS = 128
 
 
 def max_normalize_100(scores: torch.Tensor,
@@ -109,19 +131,27 @@ def cycle_state(plugin_set: PluginSet, eb, nf, af) -> dict:
     return ctx
 
 
-def _evaluate(plugin_set: PluginSet, pf, nf, ctx):
+def _evaluate(plugin_set: PluginSet, pf, nf, ctx, explain: bool = False):
     """Filters and scores of one batch: ``(masked_total, feasible (P,N)
-    bool, feasible_counts, reject_counts)``."""
+    bool, feasible_counts, reject_counts, (masks, raws, norms))``; the
+    three lists hold each filter's mask and each scorer's raw and
+    normalized matrix under ``explain``, and are empty otherwise."""
     P = pf.valid.shape[0]
     valid_pair = pf.valid[:, None] & nf.valid[None, :]
     # One pass over filters: each (P,N) mask contributes its reject count
-    # and the running AND, then dies.
+    # and the running AND, then dies (outside explain mode no list holds
+    # all F masks at once).
     feasible = valid_pair
     rc: List[torch.Tensor] = []
+    masks: List[torch.Tensor] = []
+    raws: List[torch.Tensor] = []
+    norms: List[torch.Tensor] = []
     for p in plugin_set.filter_plugins:
         m = p.filter(pf, nf, ctx)
         rc.append((valid_pair & ~m).sum(dim=1).to(torch.int32))
         feasible = feasible & m
+        if explain:
+            masks.append(m)
     feasible_counts = feasible.sum(dim=1).to(torch.int32)
     reject_counts = (torch.stack(rc) if rc else torch.zeros(
         (0, P), dtype=torch.int32, device=feasible.device))
@@ -133,8 +163,32 @@ def _evaluate(plugin_set: PluginSet, pf, nf, ctx):
         raw = p.score(pf, nf, ctx).to(torch.float32)
         norm = p.normalize(raw, feasible).to(torch.float32)
         total = total + plugin_set.weight_of(p) * norm
+        if explain:
+            raws.append(raw)
+            norms.append(norm)
     return (torch.where(feasible, total, NEG), feasible, feasible_counts,
-            reject_counts)
+            reject_counts, (masks, raws, norms))
+
+
+def _chunk_pods(P: int, N: int) -> Optional[int]:
+    """The pod-chunk size C for a (P,N) evaluation, or None when the
+    batch is evaluated whole. C = P halved through even values while
+    above _CHUNK_MIN_PODS and C x N x 4 bytes exceeds
+    _CHUNK_TARGET_BYTES, so C divides P."""
+    if P * N * 4 <= _CHUNK_WHEN_BYTES:
+        return None
+    C = P
+    while (C > _CHUNK_MIN_PODS and C % 2 == 0
+           and C * N * 4 > _CHUNK_TARGET_BYTES):
+        C //= 2
+    return C
+
+
+def _pod_rows(pf, start: int, stop: int):
+    """PodFeatures restricted to pod rows [start, stop) (every leaf leads
+    with P)."""
+    return pf._replace(**{f: getattr(pf, f)[start:stop]
+                          for f in pf._fields})
 
 
 def evaluate(plugin_set: PluginSet, eb, nf, af):
@@ -142,7 +196,8 @@ def evaluate(plugin_set: PluginSet, eb, nf, af):
     ``(masked_total (P,N) float32 with NEG on infeasible pairs,
     feasible_counts (P,) int32, reject_counts (F,P) int32)``."""
     ctx = cycle_state(plugin_set, eb, nf, af)
-    total, _feasible, counts, rejects = _evaluate(plugin_set, eb.pf, nf, ctx)
+    total, _feasible, counts, rejects, _ = _evaluate(plugin_set, eb.pf, nf,
+                                                    ctx)
     return total, counts, rejects
 
 
@@ -197,7 +252,7 @@ def _gather_nodes(nf, idx: torch.Tensor):
 
 def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                sample_nodes: Optional[int] = None,
-               assignment: str = "greedy"):
+               assignment: str = "greedy", explain: bool = False):
     """The scheduling step for a plugin profile:
     ``step(eb, nf, af, key, has_gang=None, hard_spread=None) -> Decision``
     where ``eb`` is an EncodedBatch, ``nf`` the NodeFeatures and ``af``
@@ -241,10 +296,26 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
     the card in such a batch. Under the auction the caps never run (only
     the greedy scan carries running counts): a hard-spread batch keeps
     the static filter and the engine's arbitration. ``has_gang=False``
-    likewise lets the gang admission skip its read (ops/gang.py)."""
+    likewise lets the gang admission skip its read (ops/gang.py).
+
+    ``explain=True`` also returns ``total_scores`` (P,N) and the
+    per-plugin stacks ``filter_masks`` (F,P,N), ``raw_scores`` and
+    ``norm_scores`` (S,P,N); otherwise they are zero-size placeholders.
+    The caps never run under explain (the recorded spread verdict is
+    upstream's static one), and it cannot be combined with
+    ``sample_nodes`` (the recorded columns must be the full node table).
+
+    Pod chunks: outside explain mode, a batch whose (P,N) float32
+    matrix exceeds ``_CHUNK_WHEN_BYTES`` is filtered and scored over
+    pod chunks (``_chunk_pods``); each chunk's rows are written into
+    preallocated (P,N), (P,) and (F,P) outputs, and the undeferred
+    spread pass of ``feasible_static`` runs per chunk. Every plugin op
+    is row-wise, so the result equals the unchunked one."""
     if assignment not in ("greedy", "auction"):
         raise ValueError(f"unknown assignment strategy {assignment!r}; "
                          "expected 'greedy' or 'auction'")
+    if sample_nodes is not None and explain:
+        raise ValueError("sample_nodes is incompatible with explain mode")
     if shortlist is not None and shortlist < 1:
         shortlist = None
     base_fn = greedy_assign
@@ -285,7 +356,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
         # alone, while the filter's global-min check stands down).
         caps, enforced = None, False
         if (needs_topology and sample_idx is None and assignment == "greedy"
-                and hard_spread is not False):
+                and hard_spread is not False and not explain):
             from .spreadcap import build_domain_caps
 
             caps = build_domain_caps(pf, eb.gf, nf, ctx["counts_dom"],
@@ -294,18 +365,52 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             if enforced:
                 ctx["spread_scan_groups"] = caps.scan_groups
 
-        masked_total, feasible, feasible_counts, reject_counts = _evaluate(
-            plugin_set, pf, nf, ctx)
-        feasible_static = feasible_counts
+        ctx_static = None
         if enforced and spread_plugin is not None:
             # The undeferred spread verdict, for the engine's terminal-
             # versus-contention classification.
             ctx_static = dict(ctx)
             ctx_static.pop("spread_scan_groups")
-            m_static = spread_plugin.filter(pf, nf, ctx_static)
-            feasible_static = (feasible & m_static).sum(dim=1).to(
-                torch.int32)
-        del feasible
+
+        def static_counts(feasible, pf_rows):
+            if ctx_static is None:
+                return None
+            m_static = spread_plugin.filter(pf_rows, nf, ctx_static)
+            return (feasible & m_static).sum(dim=1).to(torch.int32)
+
+        P = pf.valid.shape[0]
+        C = None if explain else _chunk_pods(P, N)
+        if C is None:
+            (masked_total, feasible, feasible_counts, reject_counts,
+             (masks, raws, norms)) = _evaluate(plugin_set, pf, nf, ctx,
+                                               explain)
+            feasible_static = static_counts(feasible, pf)
+            del feasible
+        else:
+            dev = pf.valid.device
+            masked_total = torch.empty((P, N), dtype=torch.float32,
+                                       device=dev)
+            feasible_counts = torch.empty((P,), dtype=torch.int32,
+                                          device=dev)
+            reject_counts = torch.empty(
+                (len(plugin_set.filter_plugins), P), dtype=torch.int32,
+                device=dev)
+            feasible_static = (None if ctx_static is None else
+                               torch.empty((P,), dtype=torch.int32,
+                                           device=dev))
+            for start in range(0, P, C):
+                rows = slice(start, start + C)
+                pf_c = _pod_rows(pf, start, start + C)
+                mt, feasible, fc, rc, _ = _evaluate(plugin_set, pf_c, nf, ctx)
+                masked_total[rows] = mt
+                feasible_counts[rows] = fc
+                reject_counts[:, rows] = rc
+                if feasible_static is not None:
+                    feasible_static[rows] = static_counts(feasible, pf_c)
+                del mt, feasible, fc, rc
+            masks, raws, norms = [], [], []
+        if feasible_static is None:
+            feasible_static = feasible_counts
         if assignment == "auction":
             greedy_fn = (functools.partial(auction_assign,
                                            priority=pf.priority)
@@ -351,6 +456,19 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                                       device=dev)
             spread_dexist = torch.zeros((0, 0), dtype=torch.bool, device=dev)
 
+        # The explain stacks (the lists are empty outside explain mode:
+        # zero-size placeholders, as in JAX).
+        def stack(parts, dtype):
+            return (torch.stack(parts) if parts else
+                    torch.zeros((0, P, N), dtype=dtype, device=dev))
+
+        filter_stack = stack(masks, torch.bool)
+        raw_stack = stack(raws, torch.float32)
+        norm_stack = stack(norms, torch.float32)
+        total_scores = (masked_total if explain else torch.zeros(
+            (0, N), dtype=torch.float32, device=dev))
+        del masks, raws, norms
+
         chosen, free_after = assign.chosen, assign.free_after
         if sample_idx is not None:
             safe = torch.clamp(chosen, 0, sample_nodes - 1).long()
@@ -364,6 +482,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             feasible_counts=feasible_counts,
             feasible_static=feasible_static,
             reject_counts=reject_counts,
+            total_scores=total_scores,
             free_after=free_after,
             spread_pre=spread_pre,
             spread_dom=spread_dom,
@@ -372,6 +491,9 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             spread_dexist=spread_dexist,
             scan_groups=scan_groups,
             shortlist_repaired=assign.repaired,
+            filter_masks=filter_stack,
+            raw_scores=raw_stack,
+            norm_scores=norm_stack,
         )
 
     return step

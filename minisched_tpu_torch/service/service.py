@@ -3,7 +3,9 @@
 Rebuild of reference scheduler/scheduler.go: NewSchedulerService (:36),
 StartScheduler (:50-80: informers + event broadcaster + the scheduler +
 start informers + go Run) and ShutdownScheduler (:82-87), for one
-profile and one engine.
+profile and one engine. With ``SchedulerConfig.explain`` the service
+also runs the result store (``result_store``), which publishes every
+pod's per-plugin verdicts and scores as annotations.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Optional
 from ..config import SchedulerConfig
 from ..engine.clusterstate import SharedClusterState
 from ..engine.scheduler import Scheduler
+from ..explain import ResultStore
+from ..state.informer import ResourceEventHandlers
 from .defaultconfig import Profile, default_scheduler_profile
 
 log = logging.getLogger(__name__)
@@ -23,6 +27,8 @@ class SchedulerService:
         self._store = store
         self._sched: Optional[Scheduler] = None
         self._shared_state: Optional[SharedClusterState] = None
+        # The explain-mode result store of the running engine, else None.
+        self.result_store: Optional[ResultStore] = None
 
     @property
     def scheduler(self) -> Optional[Scheduler]:
@@ -39,8 +45,25 @@ class SchedulerService:
         # (unknown plugin, bad args) leaves nothing half-started.
         plugin_set = profile.build()
         shared = SharedClusterState(self._store)
-        sched = Scheduler(self._store, plugin_set, config, shared=shared,
-                          profile=profile.name)
+        recorder = None
+        if config is not None and config.explain:
+            # Annotations flush on the store's worker, off the scheduling
+            # thread (the reference flushes on informer events).
+            self.result_store = recorder = ResultStore(self._store,
+                                                       async_flush=True)
+            # Pod updates re-drive a flush that ran out of CAS retries
+            # (results land on the pod's next update); a deleted pod's
+            # records are evicted. Registered before the engine starts
+            # the informers.
+            shared.informer_factory.add_handlers(
+                "Pod", ResourceEventHandlers(
+                    on_update=lambda old, new: recorder.on_pod_event(
+                        new.key),
+                    on_update_many=lambda pairs: recorder.on_pod_events(
+                        [new.key for _old, new in pairs]),
+                    on_delete=lambda pod: recorder.delete_data(pod.key)))
+        sched = Scheduler(self._store, plugin_set, config, recorder=recorder,
+                          shared=shared, profile=profile.name)
         self._shared_state, self._sched = shared, sched
         sched.start()
         cfg = sched.config

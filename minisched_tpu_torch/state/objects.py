@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -652,6 +653,33 @@ def shallow_evolve(o: Any, **kw: Any) -> Any:
     return new
 
 
+# Every dataclass the API object tree can contain: the clone and codec
+# type universe, which the native fastclone registers. Derived from this
+# module's definitions, so a dataclass added later cannot be missing
+# (a miss would send each of its objects through the Python walk).
+_WIRE_TYPES = tuple(
+    v for v in list(globals().values())
+    if isinstance(v, type) and dataclasses.is_dataclass(v))
+
+_native_clone = None
+_native_lock = threading.Lock()
+
+
+def _try_native_clone():
+    """Load the C fastclone (minisched_tpu_torch/native, raising when it
+    cannot be built) and register every dataclass type of the object
+    tree. Returns its clone callable, or None under
+    ``MINISCHED_NO_NATIVE=1``."""
+    from ..native import load
+
+    mod = load()
+    if mod is None:
+        return None
+    for cls in _WIRE_TYPES:
+        mod.register(cls)
+    return mod.clone
+
+
 def deepcopy_obj(obj):
     """Structural deep copy of the pure-dataclass API objects.
 
@@ -659,8 +687,23 @@ def deepcopy_obj(obj):
     create/update/get behind a copy, so this sits on the ingestion hot
     path (50k-node clusters = 10^5 copies before the first scheduling
     cycle). Rebuilding via __dict__ skips deepcopy's memo machinery and
-    __init__, ~10x cheaper on these object trees."""
-    return _clone(obj)
+    __init__, ~10x cheaper on these object trees. The native fastclone
+    (minisched_tpu_torch/native, the same recursion in C) takes the
+    walk unless ``MINISCHED_NO_NATIVE=1``; a type it was never given
+    raises TypeError there, and that object takes the Python walk."""
+    global _native_clone
+    fn = _native_clone
+    if fn is None:
+        # One resolver at a time: a thread racing the first build must
+        # wait for it, not resolve a second time.
+        with _native_lock:
+            if _native_clone is None:
+                _native_clone = _try_native_clone() or _clone
+            fn = _native_clone
+    try:
+        return fn(obj)
+    except TypeError:
+        return _clone(obj)  # unregistered type: the Python walk handles it
 
 
 from .codec import build as _codec_build  # noqa: E402  (after the

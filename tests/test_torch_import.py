@@ -57,7 +57,19 @@ def test_whole_port_imports_with_jax_blocked():
             "minisched_tpu_torch.obs.journal",
             "minisched_tpu_torch.ops.auction",
             "minisched_tpu_torch.ops.bid_select",
-            "minisched_tpu_torch.ops.auction_kernel"} <= set(mods)
+            "minisched_tpu_torch.ops.auction_kernel",
+            "minisched_tpu_torch.explain",
+            "minisched_tpu_torch.explain.annotation",
+            "minisched_tpu_torch.explain.resultstore",
+            "minisched_tpu_torch.native",
+            "minisched_tpu_torch.utils",
+            "minisched_tpu_torch.utils.retry",
+            "minisched_tpu_torch.scenario.demo"} <= set(mods)
+    for path in ("minisched_tpu_torch/explain/resultstore.py",
+                 "minisched_tpu_torch/native/__init__.py",
+                 "minisched_tpu_torch/utils/retry.py",
+                 "minisched_tpu_torch/scenario/demo.py"):
+        assert path in PORT_FILES
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -44,7 +44,10 @@ flight recorder, the journal, the timeline, the SLO sentinel and the
 overload controller armed, default knobs, as ``MINISCHED_TRACE=1
 MINISCHED_JOURNAL=1 MINISCHED_TIMELINE=1 MINISCHED_SLO=1
 MINISCHED_OVERLOAD=1`` arm them: the instrumentation's cost, read in
-turns against default). The default list is default,unsampled.
+turns against default); no-native (the default with
+``MINISCHED_NO_NATIVE=1`` in the run's process: the store's clone takes
+the Python walk instead of the native fastclone, read in turns against
+default). The default list is default,unsampled.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
+from minisched_tpu_torch import native  # noqa: E402
 from minisched_tpu_torch.config import SchedulerConfig  # noqa: E402
 
 MODES = {
@@ -75,7 +79,10 @@ MODES = {
     "auction": {"assignment": "auction"},
     "c5-auction": {"assignment": "auction"},
     "armed": {},
+    "no-native": {},
 }
+# Environment of a mode's process beyond the caller's.
+MODE_ENV = {"no-native": {"MINISCHED_NO_NATIVE": "1"}}
 # Modes with another workload and profile than the bench's.
 WORKLOADS = {
     "c4-soft": (cs.c4_workload, cs.C4_PROFILE),
@@ -134,7 +141,10 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
     print(cs.path_line(f"{mode} {cs.N_NODES} nodes x {n_pods} pods", m,
                        launches, c2b, per_pod, n_pods, smi))
     gaps, quant = gap_and_lifecycle(m)
-    print(f"{mode} gap {m['gap_s_total']:.4f} s = "
+    clone = native.status()
+    if clone["native"] == (mode == "no-native"):
+        raise SystemExit(f"FAILED: {mode}: native clone status {clone}")
+    print(f"{mode} (native clone {'on' if clone['native'] else 'off'}) gap {m['gap_s_total']:.4f} s = "
           + " + ".join(f"{g} {v:.4f}" for g, v in zip(cs.GAPS, gaps))
           + "; lifecycle p50/p99: " + ", ".join(
               f"{h} {quant[2 * i]:.4f}/{quant[2 * i + 1]:.4f} s"
@@ -189,7 +199,8 @@ def main() -> int:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", mode,
              "--pods", str(args.pods)] + ["--profile"] * args.profile,
-            capture_output=True, text=True)
+            capture_output=True, text=True,
+            env=dict(os.environ, **MODE_ENV.get(mode, {})))
         if out.returncode:
             print(out.stdout + out.stderr, file=sys.stderr)
             raise SystemExit(f"FAILED: the {mode} run exited "
