@@ -202,6 +202,33 @@ them, and on any mismatch. Phases, each printing its own lines:
  E5. phase D's pinned rung 3 with explain on, cuda against cpu:
      overload_explain_skipped equal (every batch), no pod annotated;
  E6. the demo scenario (scenario/demo.py) on the card: demo OK.
+ F1. the device loop: the bench profile at 50,000 nodes x LOOP_PODS,
+     every pod in the store first, unsampled (percentage 100), with
+     device_loop=True (depth 8) against the same burst without:
+     placements bitwise equal, steps_dispatched < batches,
+     decision_fetches == steps_dispatched, no loop break, the selection
+     and scan kernels once a slot, no host sync inside a tranche (torch's
+     sync debug mode "error" around each tranche's slots), the carried
+     free equal to its host mirror; both create-to-bound times and the
+     stacked fetch bytes;
+ F2. 1,200 nodes x 512 pods in batches of 64, unsampled, loop on,
+     greedy and auction: placements and the loop counters on the card
+     equal the CPU's; then fetch:corrupt@2 on the card: one break, every
+     pod bound once on its fault-free node;
+ G1. the maintained index on F1's workload (index_classes=128: the bench
+     pods make 70 classes): all bound, index hits, placements equal to
+     F1's index-off burst, the first indexed batch's gathered class-row
+     view through the selection and scan kernels equal to their plain
+     versions, the index state's bytes and the peak device memory; then
+     at the default 64 classes (a batch at a time) every batch a counted
+     fallback;
+ G2. F2's cluster with index_check_every=1, its pods created a batch at
+     a time once the previous are bound and the cache is quiet (no bind
+     confirmation in flight when a batch prepares: an index race depends
+     on the informer's timing): placements and the index counters on the
+     card equal the CPU's, no desync; then index:corrupt@2: one desync,
+     the index disabled, an index_revert bundle, the fault-free
+     placements.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -238,6 +265,7 @@ from minisched_tpu_torch.explain import FILTER_RESULT_KEY, ResultStore
 from minisched_tpu_torch.engine import scheduler as engine_scheduler
 from minisched_tpu_torch.obs import bundle, journal, slo, timeseries
 from minisched_tpu_torch.ops import _cuda_build
+from minisched_tpu_torch.ops import index as PIPE_INDEX
 from minisched_tpu_torch.ops import pipeline as PIPE
 from minisched_tpu_torch.ops import prng, spreadcap
 from minisched_tpu_torch.ops import residency as RES
@@ -657,10 +685,12 @@ def port_cases(N, rng):
 
 
 def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
-          with_pv_controller=True, inspect=None):
+          with_pv_controller=True, inspect=None, pods_first=False):
     """Boot a cluster with ``cfg``, load the nodes, zero the launch
     counts, create the pods and wait until every pod is bound and every
-    batch folded into the metrics. With residency on, the carried device
+    batch folded into the metrics (``pods_first``: the pods are in the
+    store before the engine starts, so its informers list them all
+    before the first pop and the batches are the same on every run). With residency on, the carried device
     free/used_ports must then equal their host mirrors bitwise (the
     kernels' outputs at the path's own shapes against the host replay).
     ``probe(scheduler)`` runs once the nodes are synced;
@@ -672,6 +702,10 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
     cluster = Cluster()
     try:
         cluster.create_objects(nodes)
+        if pods_first:
+            cluster.create_objects(pods)
+            for name in LAUNCHES:
+                LAUNCHES[name] = 0
         cluster.start(profile, cfg, with_pv_controller=with_pv_controller)
         n_nodes = sum(isinstance(o, O.Node) for o in nodes)
         check(wait_until(lambda: cluster.service.scheduler.cache.node_count()
@@ -679,9 +713,10 @@ def drive(cfg, nodes, pods, label, profile=BENCH_PROFILE, probe=None,
               f"{label}: informers did not sync the nodes")
         if probe is not None:
             probe(cluster.service.scheduler)
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-        cluster.create_objects(pods)
+        if not pods_first:
+            for name in LAUNCHES:
+                LAUNCHES[name] = 0
+            cluster.create_objects(pods)
         sched = cluster.service.scheduler
 
         def settled() -> bool:
@@ -2519,6 +2554,365 @@ def demo_phase() -> None:
     check(lines and lines[-1] == "demo OK", "the demo did not print demo OK")
 
 
+# F-G. The device loop and the maintained index (their parity bursts:
+# SMALL_NODES x SMALL_PODS in batches of SMALL_BATCH, every batch
+# unsampled, as tests/test_torch_device_loop.py and test_torch_index.py
+# run them at a smaller size).
+LOOP_DEPTH = 8
+# F1 and G1's depth: four batches (the first per batch, then a tranche of
+# three; a cold index build, then three served batches), cut from
+# CUT_PODS to keep the script near 400 s (PERF.md §4); the 64-class run
+# needs two batches to show that every batch falls back.
+LOOP_PODS, FALLBACK_PODS = 4 * BATCH, 2 * BATCH
+SMALL_NODES, SMALL_PODS, SMALL_BATCH = 1_200, 512, 64
+UNSAMPLED = {"percentage_of_nodes_to_score": 100}
+# The bench pods are named pod-{i}-{i % 10} with 7 CPU sizes: a class is
+# a pod's whole feature row, the name suffix included, so 70 classes,
+# past the default registry of 64.
+INDEX_CLASSES = 128
+# The counters that do not depend on timing. index_races does (a cache
+# mutation landing between a batch's drain and its dispatch), and a race
+# moves the index counters with it: they are compared only between runs
+# that saw none.
+LOOP_COUNTERS = ("batches", "steps_dispatched", "decision_fetches",
+                 "loop_tranches", "loop_iterations", "loop_breaks")
+INDEX_COUNTERS = ("batches", "steps_dispatched", "decision_fetches",
+                  "index_hits", "index_rebuilds", "index_appends",
+                  "index_fallbacks", "index_repair_rows")
+
+
+def watched_loop(record):
+    """A stand-in for the engine's build_loop_step whose tranches run
+    under torch's sync debug mode "error" (the host never waits on the
+    card from the first slot's launches to the stacked buffer's return)
+    and record (slots, stacked bytes); a sync raises, which the engine's
+    containment turns into a counted loop break."""
+    def build(*args, **kw):
+        loop = PIPE.build_loop_step(*args, **kw)
+
+        def run(slot_ebs, nf, af, seeds):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                packed, free = loop(slot_ebs, nf, af, seeds)
+            except RuntimeError as e:
+                record["sync"].append(str(e))
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            record["tranches"].append(
+                (len(slot_ebs), packed.numel() * packed.element_size()))
+            return packed, free
+        return run
+    return build
+
+
+def cache_quiet(cache, span=0.15) -> None:
+    """Wait until the cache's version holds still for ``span`` seconds:
+    the informer has confirmed every bind."""
+    last = cache.version
+    while True:
+        time.sleep(span)
+        if cache.version == last:
+            return
+        last = cache.version
+
+
+def stored_burst(cfg, nodes, pods, label, spec="", burst=None):
+    """The nodes and the pods in the store before the engine starts (the
+    batches are then the same on every run and device), ``spec`` armed on
+    the fault gates; waits until every pod is bound. ``burst``: only the
+    first ``burst`` pods are stored first, and each further ``burst``
+    once the previous ones are bound and the cache is quiet, so that no
+    bind confirmation lands while an index batch prepares (an index race
+    depends on the informer's timing). Returns (placements, metrics)."""
+    step = burst or len(pods)
+    chunks = [pods[i:i + step] for i in range(0, len(pods), step)]
+    cluster = Cluster()
+    try:
+        cluster.create_objects(nodes)
+        cluster.create_objects(chunks[0])
+        if spec:
+            faults.configure(spec, 0)
+        cluster.start(BENCH_PROFILE, cfg, with_pv_controller=False)
+        sched = cluster.service.scheduler
+        want = 0
+        for i, chunk in enumerate(chunks):
+            if i:
+                cache_quiet(sched.cache)
+                cluster.create_objects(chunk)
+            want += len(chunk)
+            check(wait_until(lambda: sched.metrics()["pods_bound"] >= want
+                             and sched.metrics()["pods_assigned"] >= want,
+                             timeout=120, interval=0.02),
+                  f"{label}: {sched.metrics()['pods_bound']} of {want} "
+                  f"pods bound")
+        placed = {p.key: p.spec.node_name for p in cluster.list_pods()}
+        check(sched.metrics()["pods_bound"] == len(pods),
+              f"{label}: a pod bound twice or lost")
+        return placed, sched.metrics()
+    finally:
+        faults.configure("")
+        cluster.shutdown()
+
+
+def same_counters(a, b, keys, label) -> None:
+    for k in keys:
+        check(a[k] == b[k], f"{label}: {k} {a[k]} on the card, {b[k]} on "
+              f"the CPU")
+
+
+def loop_phase(smi):
+    """F1. The bench profile at 50,000 nodes x LOOP_PODS, unsampled, with
+    the device loop (depth LOOP_DEPTH) against the same burst without it:
+    placements bitwise equal, fewer dispatches than batches, one fetch a
+    dispatch, no break, the selection and scan kernels once a slot, no
+    host sync in a tranche, the carried free equal to its mirror (drive).
+    F2. SMALL_NODES x SMALL_PODS in batches of SMALL_BATCH, greedy and
+    auction: placements and LOOP_COUNTERS on the card = on the CPU; then
+    fetch:corrupt@2 on the card: one break, every pod bound once, the
+    fault-free placements. Returns (launches of the loop burst, its
+    create-to-bound, the loop-off burst's placements and create-to-bound,
+    the loop-off metrics)."""
+    nodes, pods = bench_workload(N_NODES, LOOP_PODS)
+    m0, l0, c2b0, pp0, placed0 = drive(
+        SchedulerConfig(platform="", **UNSAMPLED), nodes, pods,
+        "F1 loop off", with_pv_controller=False, pods_first=True)
+    rec = {"sync": [], "tranches": []}
+    nodes, pods = bench_workload(N_NODES, LOOP_PODS)
+    engine_scheduler.build_loop_step = watched_loop(rec)
+    try:
+        m1, l1, c2b1, pp1, placed1 = drive(
+            SchedulerConfig(platform="", device_loop=True,
+                            loop_depth=LOOP_DEPTH, **UNSAMPLED),
+            nodes, pods, "F1 loop on", with_pv_controller=False,
+            pods_first=True)
+    finally:
+        engine_scheduler.build_loop_step = PIPE.build_loop_step
+    b = m1["batches"]
+    check(not rec["sync"], f"F1: a tranche waited on the card: "
+          f"{rec['sync'][:1]}")
+    check(m1["loop_tranches"] >= 1 and m1["steps_dispatched"] < b
+          and m1["decision_fetches"] == m1["steps_dispatched"]
+          and m1["loop_breaks"] == 0 and m1["batch_faults"] == 0,
+          f"F1: tranches {m1['loop_tranches']}, dispatches "
+          f"{m1['steps_dispatched']}, fetches {m1['decision_fetches']}, "
+          f"breaks {m1['loop_breaks']} in {b} batches")
+    check(len(rec["tranches"]) == m1["loop_tranches"],
+          f"F1: {len(rec['tranches'])} tranches ran, engine counts "
+          f"{m1['loop_tranches']}")
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(l1[name] == b, f"F1: {name} launched {l1[name]} times in "
+              f"{b} batches")
+    check(placed1 == placed0, "F1: placements with the loop != without")
+    print(f"F1 device loop {N_NODES} nodes x {LOOP_PODS} pods unsampled, "
+          f"depth {LOOP_DEPTH}: placements bitwise equal to the loop-off "
+          f"burst; {b} batches in {m1['steps_dispatched']} dispatches "
+          f"({m1['loop_tranches']} tranches of {m1['loop_iterations']} "
+          f"slots, tranche sizes and stacked fetch bytes "
+          f"{rec['tranches']}), {m1['decision_fetches']} fetches, 0 "
+          f"breaks, no host sync in a tranche, the selection and scan "
+          f"kernels {l1['shortlist_select']} and {l1['shortlist_scan']} "
+          f"times, device free = host mirror; create-to-bound "
+          f"{c2b1:.3f} s (p50 {np.percentile(pp1, 50):.3f} p99 "
+          f"{np.percentile(pp1, 99):.3f}) against {c2b0:.3f} s (p50 "
+          f"{np.percentile(pp0, 50):.3f} p99 {np.percentile(pp0, 99):.3f}) "
+          f"without; fetch {m1['fetch_bytes_total']:.0f} against "
+          f"{m0['fetch_bytes_total']:.0f} B, step {m1['step_s_total']:.3f} "
+          f"against {m0['step_s_total']:.3f} s, prepare "
+          f"{m1['prepare_s_total']:.3f} against {m0['prepare_s_total']:.3f}"
+          f" s ({smi})")
+
+    for assignment in ("greedy", "auction"):
+        out = {}
+        for platform in ("", "cpu"):
+            cfg = SchedulerConfig(platform=platform, device_loop=True,
+                                  loop_depth=LOOP_DEPTH,
+                                  max_batch_size=SMALL_BATCH,
+                                  assignment=assignment, **UNSAMPLED)
+            out[platform] = stored_burst(
+                cfg, *bench_workload(SMALL_NODES, SMALL_PODS),
+                f"F2 {assignment} on {platform or 'cuda'}")
+        (g_placed, gm), (c_placed, cm) = out[""], out["cpu"]
+        check(g_placed == c_placed,
+              f"F2 {assignment}: placements cuda != cpu")
+        same_counters(gm, cm, LOOP_COUNTERS, f"F2 {assignment}")
+        check(gm["loop_tranches"] >= 1 and gm["loop_breaks"] == 0,
+              f"F2 {assignment}: {gm['loop_tranches']} tranches, "
+              f"{gm['loop_breaks']} breaks")
+        line = (f"F2 device loop {assignment} {SMALL_NODES} nodes x "
+                f"{SMALL_PODS} pods in batches of {SMALL_BATCH}: "
+                f"placements and " + ", ".join(
+                    f"{k} {gm[k]}" for k in LOOP_COUNTERS)
+                + " equal on the card and on the CPU")
+        if assignment == "greedy":
+            f_placed, fm = stored_burst(
+                SchedulerConfig(platform="", device_loop=True,
+                                loop_depth=LOOP_DEPTH,
+                                max_batch_size=SMALL_BATCH, **UNSAMPLED),
+                *bench_workload(SMALL_NODES, SMALL_PODS),
+                "F2 fetch:corrupt@2", spec="fetch:corrupt@2")
+            check(fm["loop_breaks"] == 1 and fm["fault_fires_fetch"] == 1
+                  and fm["batch_faults"] >= 1,
+                  f"F2 fetch:corrupt@2: breaks {fm['loop_breaks']}, fires "
+                  f"{fm['fault_fires_fetch']}, faults {fm['batch_faults']}")
+            check(f_placed == g_placed,
+                  "F2 fetch:corrupt@2: placements != the fault-free run's")
+            line += (f"; under fetch:corrupt@2 on the card 1 break, "
+                     f"{fm['batch_faults']} batch fault, every pod bound "
+                     f"once on its fault-free node")
+        print(line + f" ({smi})")
+    return l1, c2b1, placed0, c2b0, m0
+
+
+def index_phase(smi, off_placed, off_c2b, off_m):
+    """G1. F1's workload with the maintained index (INDEX_CLASSES
+    classes): all bound (drive), index hits, placements equal to F1's
+    index-off burst, the first indexed batch's gathered class-row view
+    through the selection and scan kernels equal to their plain
+    versions, the index state's bytes and the peak device memory; then
+    at the default 64 classes every batch a counted fallback. G2. F2's
+    cluster with index_check_every=1: placements and INDEX_COUNTERS on
+    the card = on the CPU, no desync; then index:corrupt@2: one desync,
+    the index disabled, an index_revert bundle, the fault-free
+    placements. Returns (launches, create-to-bound, the view's kernel
+    times and errors)."""
+    cap = {}
+
+    def capturing(plugin_set, k_eff):
+        build_, refresh_, append_, assign_ = PIPE_INDEX.build_index_ops(
+            plugin_set, k_eff)
+
+        def assign_c(state, cls, valid, requests, free0, key):
+            if "args" not in cap:
+                cap["args"] = (state.score, cls.clone(), valid.clone(),
+                               requests.clone(), free0.clone(), key)
+            return assign_(state, cls, valid, requests, free0, key)
+        return build_, refresh_, append_, assign_c
+
+    st = {}
+    nodes, pods = bench_workload(N_NODES, LOOP_PODS)
+    torch.cuda.reset_peak_memory_stats()
+    engine_scheduler.build_index_ops = capturing
+    try:
+        m, launches, c2b, pp, placed = drive(
+            SchedulerConfig(platform="", index=True,
+                            index_classes=INDEX_CLASSES, **UNSAMPLED),
+            nodes, pods, "G1 index", with_pv_controller=False,
+            pods_first=True,
+            inspect=lambda c: st.update(state=c.service.scheduler._index
+                                        .state))
+    finally:
+        engine_scheduler.build_index_ops = PIPE_INDEX.build_index_ops
+    peak = torch.cuda.max_memory_allocated()
+    b = m["batches"]
+    check(m["index_hits"] >= 1 and m["index_desyncs"] == 0,
+          f"G1: {m['index_hits']} hits, {m['index_desyncs']} desyncs")
+    check(placed == off_placed, "G1: placements with the index != without")
+    state = st["state"]
+    state_bytes = sum(t.numel() * t.element_size() for t in state)
+    score, cls, valid, req, free0, key = cap["args"]
+    view = torch.where(valid[:, None], score[cls.long()], NEG)
+    view_shape = tuple(view.shape)
+    seed = prng.bits(key)
+    view_err = {"shortlist_select": select_pair(view, seed, K)}
+    got, plain, sel, _ms = scan_pair(view, req, free0, seed, K)
+    view_err["shortlist_scan"] = compare(
+        got, plain, ("chosen", "assigned", "free_after", "repaired"))
+    view_ms = {
+        "shortlist_select": cuda_ms(
+            lambda: shortlist_select_cuda(view, seed, K), reps=10),
+        "shortlist_scan": cuda_ms(lambda: shortlist_scan_cuda(
+            view, sel[0], sel[1], sel[2], req, free0, seed), reps=10)}
+    del got, plain, sel, view, cap["args"], st["state"], state
+    print(f"G1 maintained index {N_NODES} nodes x {LOOP_PODS} pods "
+          f"unsampled, {INDEX_CLASSES} classes ({m['index_classes_registered']}"
+          f" registered): placements bitwise equal to the index-off burst; "
+          f"{b} batches, {m['index_hits']} served, {m['index_rebuilds']} "
+          f"rebuilds, {m['index_appends']} appended class rows, "
+          f"{m['index_repair_rows']} columns repaired in place, "
+          f"{m['index_fallbacks']} fallbacks, {m['index_races']} races, "
+          f"{m['index_uncertified']} in-scan repairs; scored rows "
+          f"{m['scored_rows_total']} against {off_m['scored_rows_total']} "
+          f"without (series {m['batch_series']['scored_rows']}); the first "
+          f"indexed batch's gathered {view_shape} class-row view"
+          f" through the selection and scan kernels bitwise equal to their "
+          f"plain versions (selection {view_ms['shortlist_select']:.4f} ms, "
+          f"scan {view_ms['shortlist_scan']:.4f} ms); kernels "
+          f"{ {k: launches[k] for k in ('shortlist_select', 'shortlist_scan')} }; "
+          f"index state {state_bytes / GB:.3f} GB, peak device memory "
+          f"{peak / GB:.3f} GB; create-to-bound {c2b:.3f} s (p50 "
+          f"{np.percentile(pp, 50):.3f} p99 {np.percentile(pp, 99):.3f}) "
+          f"against {off_c2b:.3f} s without; step {m['step_s_total']:.3f} "
+          f"against {off_m['step_s_total']:.3f} s ({smi})")
+    del score, cls, valid, req, free0
+
+    p64, m64 = stored_burst(
+        SchedulerConfig(platform="", index=True, **UNSAMPLED),
+        *bench_workload(N_NODES, FALLBACK_PODS), "G1 index, 64 classes",
+        burst=BATCH)
+    check(m64["index_fallbacks"] == m64["batches"]
+          and m64["index_hits"] == 0 and m64["index_rebuilds"] == 0,
+          f"G1 64 classes: {m64['index_fallbacks']} fallbacks, "
+          f"{m64['index_hits']} hits in {m64['batches']} batches")
+    check(all(p64[k] == off_placed[k] for k in p64),
+          "G1 64 classes: placements != index-off")
+    print(f"G1 at index_classes=64: every batch a counted fallback "
+          f"({m64['index_fallbacks']} of {m64['batches']}, "
+          f"{m64['index_classes_registered']} classes registered), "
+          f"placements equal to the index-off burst ({smi})")
+
+    cfg_kw = dict(index=True, index_classes=INDEX_CLASSES,
+                  index_check_every=1, max_batch_size=SMALL_BATCH,
+                  **UNSAMPLED)
+    for attempt in range(5):
+        out = {platform: stored_burst(
+            SchedulerConfig(platform=platform, **cfg_kw),
+            *bench_workload(SMALL_NODES, SMALL_PODS),
+            f"G2 index on {platform or 'cuda'}", burst=SMALL_BATCH)
+            for platform in ("", "cpu")}
+        (g_placed, gm), (c_placed, cm) = out[""], out["cpu"]
+        check(g_placed == c_placed, "G2: placements cuda != cpu")
+        check(gm["index_desyncs"] == 0 and cm["index_desyncs"] == 0
+              and gm["index_hits"] >= 1, f"G2: desyncs "
+              f"{gm['index_desyncs']}/{cm['index_desyncs']}, hits "
+              f"{gm['index_hits']}")
+        if gm["index_races"] == 0 and cm["index_races"] == 0:
+            break
+        print(f"G2 attempt {attempt + 1}: index races "
+              f"{gm['index_races']} on the card, {cm['index_races']} on the "
+              f"CPU; counters compared only between race-free runs")
+    check(gm["index_races"] == 0 and cm["index_races"] == 0,
+          "G2: no race-free pair of runs in 5 attempts")
+    same_counters(gm, cm, INDEX_COUNTERS, "G2")
+    with tempfile.TemporaryDirectory() as bdir:
+        bundle.configure(bdir)
+        try:
+            f_placed, fm = stored_burst(
+                SchedulerConfig(platform="", **cfg_kw),
+                *bench_workload(SMALL_NODES, SMALL_PODS),
+                "G2 index:corrupt@2", spec="index:corrupt@2",
+                burst=SMALL_BATCH)
+            bundles = sorted(os.listdir(bdir))
+        finally:
+            bundle.configure("")
+    check(fm["index_desyncs"] == 1 and fm["index_width"] == 0
+          and fm["fault_fires_index"] == 1,
+          f"G2 index:corrupt@2: desyncs {fm['index_desyncs']}, width "
+          f"{fm['index_width']}, fires {fm['fault_fires_index']}")
+    check(any(n.startswith("incident-index_revert") for n in bundles),
+          f"G2 index:corrupt@2: no index_revert bundle in {bundles}")
+    check(f_placed == g_placed,
+          "G2 index:corrupt@2: placements != the fault-free run's")
+    print(f"G2 maintained index {SMALL_NODES} nodes x {SMALL_PODS} pods in "
+          f"batches of {SMALL_BATCH}, index_check_every=1: placements and "
+          + ", ".join(f"{k} {gm[k]}" for k in INDEX_COUNTERS)
+          + f" equal on the card and on the CPU, {gm['index_checks']} "
+          f"checks, no desync; under index:corrupt@2 on the card 1 desync, "
+          f"the index disabled, bundle {bundles}, every pod on its "
+          f"fault-free node ({smi})")
+    return launches, c2b, view_ms, view_err
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -3227,9 +3621,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     demo_phase()
     print(f"phase E6 in {time.perf_counter() - t_phase:.1f} s")
+    # F. the device loop on the card
+    t_phase = time.perf_counter()
+    loop_launches, loop_c2b, off_placed, off_c2b, off_m = loop_phase(smi)
+    print(f"phase F in {time.perf_counter() - t_phase:.1f} s")
+    # G. the maintained index on the card
+    t_phase = time.perf_counter()
+    index_launches, index_c2b, view_ms, view_err = index_phase(
+        smi, off_placed, off_c2b, off_m)
+    del off_placed
+    print(f"phase G in {time.perf_counter() - t_phase:.1f} s")
     ck = chunk["kernels"]
-    err["shortlist_select"] = max(err["shortlist_select"], ck["select_err"])
-    err["shortlist_scan"] = max(err["shortlist_scan"], ck["scan_err"])
+    err["shortlist_select"] = max(err["shortlist_select"], ck["select_err"],
+                                  view_err["shortlist_select"])
+    err["shortlist_scan"] = max(err["shortlist_scan"], ck["scan_err"],
+                                view_err["shortlist_scan"])
 
     print(json.dumps({"kernels": [{
         "name": "greedy_assign",
@@ -3252,7 +3658,9 @@ def main() -> int:
         "launches_by_path": {"full profile": full_launches[
             "shortlist_select"], "bench": main_launches["shortlist_select"],
             "config 4 soft": c4_launches["shortlist_select"],
-            "explain bench": explain_launches["shortlist_select"]},
+            "explain bench": explain_launches["shortlist_select"],
+            "loop bench unsampled": loop_launches["shortlist_select"],
+            "index bench unsampled": index_launches["shortlist_select"]},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -3265,6 +3673,7 @@ def main() -> int:
         "ms_8192": ck["select_ms"],
         "plain_ms_8192": ck["select_plain_ms"],
         "bound_ms_8192": ck["select_bound_s"] * 1e3,
+        "ms_index_view": view_ms["shortlist_select"],
         "library_ms": None,
     }, {
         "name": "shortlist_scan",
@@ -3275,7 +3684,9 @@ def main() -> int:
         "launches_by_path": {"full profile": full_launches[
             "shortlist_scan"], "bench": main_launches["shortlist_scan"],
             "config 4 soft": c4_launches["shortlist_scan"],
-            "explain bench": explain_launches["shortlist_scan"]},
+            "explain bench": explain_launches["shortlist_scan"],
+            "loop bench unsampled": loop_launches["shortlist_scan"],
+            "index bench unsampled": index_launches["shortlist_scan"]},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
@@ -3288,6 +3699,7 @@ def main() -> int:
         "ms_8192": ck["scan_ms"],
         "plain_ms_8192": ck["scan_plain_ms"],
         "bound_ms_8192": ck["scan_bound_s"] * 1e3,
+        "ms_index_view": view_ms["shortlist_scan"],
         "library_ms": None,
     }, {
         "name": "insert_ports",
@@ -3386,7 +3798,11 @@ def main() -> int:
                                     "unchunked": v[0][False] / GB}
                             for label, v in chunk.items()
                             if label != "kernels"},
-    }, "native_clone": native.status()}))
+    }, "device_loop": {"burst_s": loop_c2b, "off_burst_s": off_c2b,
+                       "pods": LOOP_PODS},
+        "index": {"burst_s": index_c2b, "off_burst_s": off_c2b,
+                  "pods": LOOP_PODS, "classes": INDEX_CLASSES},
+        "native_clone": native.status()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

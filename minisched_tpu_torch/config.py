@@ -118,6 +118,53 @@ class SchedulerConfig:
     # before the step consumes it. A mismatch counts a desync, forces a
     # full re-upload and degrades the engine one rung. 0 disables.
     resident_check_every: int = 0
+    # Device loop (engine/scheduler.py tranche machinery +
+    # ops/pipeline.build_loop_step): when the queue holds several ready
+    # batches of loop-safe pods (no gangs, pod (anti-)affinity, spread
+    # constraints, volumes or host ports: the workloads whose decisions
+    # are independent of the host state the ring cannot carry), the
+    # engine stages up to ``loop_depth`` encoded batches at one pod pad
+    # and runs them as one tranche: each slot's step takes the previous
+    # slot's ``free_after`` on the device, every slot's packed decision
+    # lands in one stacked device buffer, and the host reads the whole
+    # tranche back in one transfer. Between slots the engine checks
+    # host truth against the carried chain (cache.drain_dyn_rows) and
+    # breaks back to per-batch dispatch on any divergence, replaying
+    # the unconsumed slots with their original PRNG draws: decisions
+    # are bit-identical loop on or off. Only unsampled batches ride the
+    # ring (a sampled step draws another key path). False keeps
+    # per-batch dispatch exactly.
+    device_loop: bool = False
+    # Work-ring depth: the most batches one tranche runs. The overload
+    # tuner halves the effective depth per tune step.
+    loop_depth: int = 8
+    # Maintained arbitration index (ops/index.py +
+    # engine/scheduler._ArbIndex): per-pod-class score rows stay on the
+    # device across batches in a (C,N) matrix that the cache's sparse
+    # deltas repair in place, so a steady-state batch skips the (P,N)
+    # filter+score pass and runs only a gather of its pods' class rows
+    # and the certified shortlist scan over them. A batch with an
+    # unassigned live row discards the speculative result and
+    # re-dispatches the full step with the same PRNG draw, so decisions
+    # are bit-identical index on or off. Engages only for eligible
+    # profiles (column-local plugins, row-local normalizes:
+    # ops/index.index_eligible), the greedy assignment, and unsampled
+    # batches of loop-safe pods. False keeps the per-batch dataflow.
+    index: bool = False
+    # Indexed-scan width K: the shortlist width over the gathered class
+    # rows (exact at any width; in-scan repairs absorb a narrow one).
+    # The overload tuner's K-dial retunes it live, with no rebuild.
+    index_k: int = 128
+    # Most registered pod classes (the class axis of the (C,N) matrix,
+    # padded to a power-of-two bucket). A class is a pod's whole
+    # feature row, its name suffix included; a batch whose pods exceed
+    # the registry takes the full step (a counted fallback).
+    index_classes: int = 64
+    # Index cross-check: every N index-served batches, re-run the
+    # batch's inputs through the full step and compare decisions. A
+    # divergence counts an index_desync, disables the index for good
+    # and aborts the batch into the supervised retry. 0 disables.
+    index_check_every: int = 0
     # Device of the scheduling step: "" = the first CUDA device (raises
     # when there is none), "cpu", "cuda" or "cuda:<n>".
     platform: str = ""

@@ -83,11 +83,14 @@ from ..obs.journal import note as jnote
 from ..obs.timeseries import TIMELINE, TimelineTracker
 from ..ops import prng
 from ..ops._cuda_build import KERNELS, LAUNCHES
-from ..ops.pipeline import Decision, build_step
-from ..ops.residency import (apply_rows, apply_rows_bytes, insert_ports,
-                             insert_ports_bytes, pack_decision_i32,
-                             pack_decision_slim, replay_ports_host,
-                             unpack_decision_i32, unpack_decision_slim)
+from ..ops.index import (build_index_ops, corrupt_slab, index_eligible,
+                         unpack_index_decision)
+from ..ops.pipeline import Decision, build_loop_step, build_step
+from ..ops.residency import (I16_SAT, apply_rows, apply_rows_bytes,
+                             insert_ports, insert_ports_bytes,
+                             pack_decision_i32, pack_decision_slim,
+                             replay_ports_host, unpack_decision_i32,
+                             unpack_decision_slim)
 from ..plugins.base import PluginSet
 from ..state.events import ActionType, ClusterEvent, EventBroadcaster, GVK
 from ..state.objects import (CLAIM_UNUSED, CLOUD_VOLUME_AXES, Pod,
@@ -246,13 +249,15 @@ class _Batch:
                  "t_enc0", "t_encode", "t_dispatch", "t_fetch_start",
                  "t_fetched", "t_resolved", "commit_t0", "commit_t1",
                  "gap", "h2d0", "fetch0", "h2d1", "fetch1", "scored_rows",
-                 "shapes")
+                 "shapes", "step_share", "loop_slot", "index_mode",
+                 "index_packed_dev", "index_free_after")
 
     def __init__(self):
         # Inter-batch gap components (gather/encode/commit) booked since
         # the previous prepare and adopted by this batch (_book_gap).
         self.gap: Dict[str, float] = {}
         self.commit_t0 = self.commit_t1 = 0.0
+        self.seq = 0
         # Transfer ledger at prepare and after resolve: the per-batch
         # series' byte deltas.
         self.h2d0 = self.fetch0 = self.h2d1 = self.fetch1 = 0.0
@@ -288,6 +293,20 @@ class _Batch:
         # bulk commit, a permit wait) now holds.
         self.assumed: Dict[str, QueuedPodInfo] = {}
         self.detached: Set[str] = set()
+        # Device-loop slot: this batch's share of its tranche's window
+        # (the tranche's dispatch-to-fetch time over its slots) and its
+        # ring slot; the share stands in for the dispatch-to-fetch stamps
+        # in the watchdog and step_s_total, so a tranche is not booked
+        # (or judged) once per slot. None on the per-batch path.
+        self.step_share: Optional[float] = None
+        self.loop_slot: Optional[int] = None
+        # Maintained index: "off" | "hit" | "fallback" (provenance), the
+        # speculative scan's [chosen | assigned | repaired] device buffer
+        # that resolve settles, and its carried free_after (adopted by
+        # residency when the index serves the batch).
+        self.index_mode = "off"
+        self.index_packed_dev = None
+        self.index_free_after = None
 
 
 def _count_launches(b: _Batch, fn, *args, **kwargs):
@@ -496,6 +515,128 @@ class _DeviceResidency:
         self.pending_rows = self.pending_pre = None
         self.pending_prows = self.pending_ppre = None
         self.listener.invalidate()
+
+
+class _ArbIndex:
+    """The engine's side of the maintained arbitration index
+    (ops/index.py): the pod-class registry, the pending repair rows, the
+    device IndexState and its rebuild bookkeeping.
+
+    Invariants (held against the JAX engine by
+    tests/test_torch_index.py):
+
+      I1. every served class row equals the masked total the full step
+          computes for that class, as of the snapshot of the last build
+          or refresh; rows whose truth moved since are in ``pending``
+          (the cache marks every free/used_ports mutation and every
+          narrowing static change into the IndexDeltaListener, and the
+          drain runs before the snapshot a refresh evaluates against);
+      I2. a column not in ``pending`` kept its build/refresh value; a
+          widening static change (a fresh node, an uncordon, a topology
+          refresh) bumps the listener's ``inval`` epoch and forces a
+          rebuild before the index serves again;
+      I3. decisions equal the index-off engine's bitwise: a served batch
+          runs the certified shortlist scan over gathered class rows,
+          and a batch with an unassigned live row discards the result
+          and re-runs the full step with the batch's PRNG draw.
+    """
+
+    __slots__ = ("listener", "k_base", "k_target", "n_built", "c_max",
+                 "registry", "rows", "reg_version", "state", "pending",
+                 "fresh_rows", "pending_inval", "inval_seen",
+                 "needs_rebuild", "rebuild_streak", "drain_version",
+                 "_stack_memo")
+
+    def __init__(self, listener, k: int, c_max: int):
+        self.listener = listener
+        self.k_base = k          # the configured width (index_k)
+        self.k_target = k        # the tuner's width (the K-dial)
+        self.n_built = -1        # node pad the live state was built at
+        self.c_max = c_max
+        self.registry: Dict[bytes, int] = {}   # class key → class row
+        self.rows: List[dict] = []             # each class's pf row
+        self.reg_version = 0
+        self.state = None                      # ops.index.IndexState
+        self.pending: Set[int] = set()         # node rows to rescore
+        self.fresh_rows: List[int] = []        # class rows to append
+        self.pending_inval = 0   # listener.inval at the last drain
+        self.inval_seen = -1     # listener.inval the live state covers
+        self.needs_rebuild = True
+        self.rebuild_streak = 0  # consecutive fallback batches
+        self.drain_version = -1  # cache.version at the last drain
+        self._stack_memo = None  # (reg_version, class PodFeatures)
+
+    @property
+    def k_eff(self) -> int:
+        """The indexed-scan width: the tuner's target (exact at any
+        width, so a dial move costs no rebuild)."""
+        return max(1, self.k_target)
+
+    def drain(self, cache) -> None:
+        """Collect the listener's repair rows and inval epoch. Runs
+        before the snapshot the next refresh evaluates against; the
+        cache version recorded here gates serving (_index_dispatch)."""
+        rows, inval, version = cache.drain_index_rows(self.listener)
+        self.pending.update(int(r) for r in rows)
+        self.pending_inval = inval
+        self.drain_version = version
+
+    def classify(self, pf, length: int):
+        """Map the batch's pods to class rows, registering unseen
+        classes. The class key is the pod's whole feature-row byte image
+        (every PodFeatures leaf, the name suffix included). Returns the
+        (L,) int32 class rows, or None when the registry is full (the
+        batch takes the full step)."""
+        mats = [np.ascontiguousarray(
+            getattr(pf, f)[:length]).reshape(length, -1).view(np.uint8)
+            for f in pf._fields]
+        blob = np.concatenate(mats, axis=1)
+        cls = np.empty(length, dtype=np.int32)
+        for i in range(length):
+            key = blob[i].tobytes()
+            row = self.registry.get(key)
+            if row is None:
+                if len(self.rows) >= self.c_max:
+                    return None
+                row = len(self.rows)
+                self.registry[key] = row
+                self.rows.append({f: np.copy(getattr(pf, f)[i])
+                                  for f in pf._fields})
+                self.reg_version += 1
+                # Appended incrementally unless the registry crossed the
+                # class-pad bucket (_index_dispatch decides).
+                self.fresh_rows.append(row)
+            cls[i] = row
+        return cls
+
+    def class_pf(self, template, device):
+        """The class PodFeatures (C_pad rows, a power-of-two bucket) on
+        ``device``, memoized per registry version. Padding rows are all
+        zero: invalid, NEG everywhere, never chosen."""
+        if self._stack_memo and self._stack_memo[0] == self.reg_version:
+            return self._stack_memo[1]
+        c_pad = bucket_for(max(len(self.rows), 1), 16)
+        leaves = {}
+        for f in template._fields:
+            proto = self.rows[0][f]
+            arr = np.zeros((c_pad,) + proto.shape, dtype=proto.dtype)
+            for c, row in enumerate(self.rows):
+                arr[c] = row[f]
+            leaves[f] = arr
+        self._stack_memo = (self.reg_version,
+                            to_torch(type(template)(**leaves), device))
+        return self._stack_memo[1]
+
+    def invalidate(self, reason: str) -> None:
+        """Drop the device state; the next index batch rebuilds (counted).
+        Used when the inputs a refresh consumed are no longer trusted: a
+        carry desync means the ``free`` the last refresh scored against
+        may have been wrong."""
+        log.info("arbitration index invalidated (%s); next index batch "
+                 "rebuilds", reason)
+        jnote("index.invalidate", reason=reason)
+        self.state = None
+        self.needs_rebuild = True
 
 
 def arbitrate_rwo(batch: List[QueuedPodInfo], assigned, chosen,
@@ -1029,10 +1170,47 @@ class Scheduler:
         # Slim decision readback rides the residency knob, as in the JAX
         # package: device_resident=False restores the all-i32 fetch.
         self._slim = bool(self.config.device_resident)
+        # The first slim fetch is checked against direct reads of the
+        # decision's leaves (byte order and bit packing); a mismatch
+        # reverts to the i32 layout. The device loop opens after it.
+        self._slim_verified = False
         self._residency: Optional[_DeviceResidency] = None
         if self.config.device_resident:
             self._residency = _DeviceResidency(
                 self.cache.register_dyn_listener())
+        # Device loop (_maybe_run_tranche): not under explain mode (the
+        # step's stacks would stack D deep). The loop's own dyn listener
+        # feeds the between-slot validator (cache.drain_dyn_rows); it is
+        # never handed to snapshot_resident, so the residency epoch
+        # protocol is untouched. _loop_cooldown is the loop→pipelined
+        # rung: a tranche fault closes the ring for probation_batches
+        # resolved batches.
+        self._loop_enabled = (self.config.device_loop
+                              and not self.config.explain)
+        self._loop_listener = (self.cache.register_dyn_listener()
+                               if self._loop_enabled else None)
+        self._loop_cooldown = 0
+        # Crash-stop flag (abandon()), honoured between ring slots.
+        self._abandoned = False
+        # Maintained arbitration index (ops/index.py, _ArbIndex): the
+        # greedy assignment, not explain mode, an index-eligible profile.
+        self._index: Optional[_ArbIndex] = None
+        if (self.config.index and self.config.assignment == "greedy"
+                and not self.config.explain):
+            if index_eligible(plugin_set):
+                self._index = _ArbIndex(
+                    self.cache.register_index_listener(),
+                    self.config.index_k, self.config.index_classes)
+            else:
+                log.info("index=True but profile %s is not index-eligible "
+                         "(topology or affinity state, a plugin that is "
+                         "not column-local, or an undeclared normalize "
+                         "override); keeping the per-batch dataflow",
+                         [p.name for p in plugin_set.plugins])
+        # The index ladder's full-rescore rung: a fallback storm parks
+        # the index for probation_batches resolved batches.
+        self._index_cooldown = 0
+        self._idx_check_tick = 0
         # Batch-scoped provenance path (journal armed only): set by
         # _resolve_batch_impl, read by the placement stamp sites on the
         # same thread. None = journal unarmed.
@@ -1103,6 +1281,24 @@ class Scheduler:
             # node-row units (the full step's P_pad·N, a sampled K).
             "steps_dispatched": 0, "decision_fetches": 0,
             "scored_rows_total": 0, "last_scored_rows": 0,
+            # Device loop: tranches (one dispatch and one fetch each),
+            # the slots they consumed, and the breaks back to per-batch
+            # dispatch (a divergence or a machinery fault mid-tranche).
+            "loop_tranches": 0, "loop_iterations": 0, "loop_breaks": 0,
+            # Maintained index: batches served from it (no full
+            # filter+score pass ran), batches it attempted that re-ran
+            # the full step (an unassigned live row, a full registry),
+            # node columns rescored in place, full rebuilds, fresh class
+            # rows appended, per-pod certificate failures the scan
+            # repaired in place (counted, never a fallback), serves
+            # declined because a cache mutation landed between the
+            # drain and the dispatch, the cross-check's runs and trips,
+            # and fallback-storm parks.
+            "index_hits": 0, "index_fallbacks": 0,
+            "index_repair_rows": 0, "index_rebuilds": 0,
+            "index_appends": 0, "index_uncertified": 0,
+            "index_races": 0, "index_checks": 0, "index_desyncs": 0,
+            "index_cooldowns": 0,
             # SLO sentinel alerts (total; per-objective keys appear on
             # first fire) and the supervisor's early-warning reactions.
             "slo_alerts_total": 0, "supervisor_early_warnings": 0,
@@ -1174,11 +1370,34 @@ class Scheduler:
         jnote("engine.start", profile=self.profile, replica=self.replica,
               mode="pipelined" if self.config.pipeline else "sync",
               resident=bool(self._residency is not None),
-              shortlist_k=int(self._shortlist_k or 0), loop=False,
-              index=False)
+              shortlist_k=int(self._shortlist_k or 0),
+              loop=bool(self._loop_enabled),
+              index=bool(self._index is not None))
         self._thread = threading.Thread(target=self.run, daemon=True,
                                         name="scheduling-loop")
         self._thread.start()
+
+    def abandon(self) -> None:
+        """Crash-stop, the model of a killed process: stop the loop and
+        skip every graceful drain (no commit wait, no recorder drain, no
+        event flush). Ring slots staged past the point where the flag is
+        seen are dropped without being resolved or committed; their pods
+        stay pending in the store."""
+        self._abandoned = True
+        self._stop.set()
+        self.queue.close()
+        jnote("engine.abandon", profile=self.profile, replica=self.replica)
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._binder.shutdown(wait=False)
+        self._committer.shutdown(wait=False)
+        self._gatherer.shutdown(wait=False)
+        if self._owns_shared:
+            self._shared.shutdown()
+        if self.recorder is not None:
+            self.recorder.close()
+        self.broadcaster.close()
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -1251,7 +1470,8 @@ class Scheduler:
             # Batch-to-batch dead time, spent inside the pop: gather glue.
             if last_done is not None:
                 self._book_gap("gather", time.perf_counter() - last_done)
-            self._schedule_guarded(batch)
+            if not self._maybe_run_tranche(batch):
+                self._schedule_guarded(batch)
             last_done = time.perf_counter()
 
     def _schedule_guarded(self, batch: List[QueuedPodInfo]) -> None:
@@ -1422,6 +1642,14 @@ class Scheduler:
             pending = self._await_commit(pending)
             self._schedule_guarded(batch)
             return None, pending
+        if self._loop_gates_open() and self._loop_safe(batch):
+            # A device-loop tranche commits inline on this thread, so the
+            # previous batch's flush lands first (commit order). A
+            # decline (no second ready batch) falls through to the
+            # normal prepare, the pipeline merely drained one slot early.
+            pending = self._await_commit(pending)
+            if self._maybe_run_tranche(batch, checked=True):
+                return None, pending
         try:
             return self._prepare_batch(batch), pending
         except Exception:
@@ -1494,6 +1722,406 @@ class Scheduler:
             max_workers=1, thread_name_prefix="commit")
         for qpi, _plugins, _msg, _retry in b.failures:
             self.queue.requeue_backoff(qpi)
+
+    # ---- device loop (config.device_loop) ------------------------------
+
+    def _effective_loop_depth(self) -> int:
+        """Ring depth for the next tranche: the configured depth, halved
+        per overload tune step (floor 1: the loop disengaged)."""
+        return self._overload.effective_loop_depth(self.config.loop_depth)
+
+    def _loop_gates_open(self) -> bool:
+        """The tranche's gates that hold whatever the batch's pods: the
+        fast rung only, no nomination reserve, no permit profile, no
+        explain recorder, no armed shortlist cross-check (its full-width
+        replay needs per-batch inputs), no armed trace, no instance-
+        patched schedule_batch, the first slim fetch verified (that
+        check runs per batch), and no loop cooldown."""
+        if not self._loop_enabled or self._loop_cooldown > 0:
+            return False
+        if (self.recorder is not None or self.plugin_set.permit_plugins
+                or self._nominations or self._sup.level != 0
+                or self.config.shortlist_check_every):
+            return False
+        with self._trace_lock:
+            if self._trace_dir is not None:
+                return False
+        if "schedule_batch" in self.__dict__:
+            return False
+        if self._slim and not self._slim_verified:
+            return False
+        return self._effective_loop_depth() >= 2
+
+    def _loop_safe(self, batch: List[QueuedPodInfo]) -> bool:
+        """May this batch ride the ring? Its pods pass the shared safety
+        walk (_ring_safe_pods), and the per-batch path would not sample
+        nodes for it: the ring runs the full node axis, and a sampled
+        step draws another key path."""
+        if not self._ring_safe_pods(batch):
+            return False
+        n_pad = self._node_pad(self.cache.rows_high_water())
+        return self._sampled_step(n_pad, len(batch), False)[1] is None
+
+    def _ring_safe_pods(self, batch: List[QueuedPodInfo]) -> bool:
+        """The per-pod safety walk shared by the device loop and the
+        maintained index: every pod's decision is independent of host
+        state neither can carry. No gangs (quorum spans batches), no pod
+        (anti-)affinity and no spread constraints (they read the
+        assigned corpus), no volumes (the RWO arbitration and the claim
+        table live on the host), no host ports (the cache's bulk assume
+        debits port pods out of pod order, which would break the
+        bitwise mirror check), and no owner references when
+        SelectorSpread runs (owner groups read the corpus too)."""
+        for q in batch:
+            pod = q.pod
+            sp = pod.spec
+            if (sp.pod_group or sp.topology_spread_constraints
+                    or sp.volumes or sp.ports):
+                return False
+            a = sp.affinity
+            if a is not None and (a.pod_affinity is not None
+                                  or a.pod_anti_affinity is not None):
+                return False
+            if self._selspread_enabled and pod.metadata.owner_references:
+                return False
+        return True
+
+    def _maybe_run_tranche(self, batch: List[QueuedPodInfo], *,
+                           checked: bool = False) -> bool:
+        """Run ``batch`` and up to depth-1 further ready batches as one
+        tranche. True when the pods were consumed (run as a tranche, or
+        per batch after a break); False: the caller schedules ``batch``.
+        The ring pops with timeout 0, so only pods already queued join
+        and a shallow stream runs per batch with no added latency.
+        ``checked``: the caller ran the per-pod walk; the gates are
+        checked again all the same (the commit drain before this call
+        can escalate the supervisor)."""
+        if not (self._loop_gates_open()
+                and (checked or self._loop_safe(batch))):
+            return False
+        depth = self._effective_loop_depth()
+        max_n, _window, _idle = self._pop_params()
+        slots: List[List[QueuedPodInfo]] = [batch]
+        held: Optional[List[QueuedPodInfo]] = None
+        while len(slots) < depth:
+            nxt = self.queue.pop_batch(max_n, timeout=0.0)
+            if not nxt:
+                break
+            if not self._loop_safe(nxt):
+                held = nxt
+                break
+            slots.append(nxt)
+        if len(slots) < 2:
+            if held is None:
+                return False
+            # A second batch was popped but cannot ride the ring: both
+            # run per batch, in pop order.
+            self._schedule_guarded(batch)
+            self._schedule_guarded(held)
+            return True
+        self._run_tranche(slots)
+        if held is not None:
+            self._schedule_guarded(held)
+        return True
+
+    def _loop_break(self, reason: str, *, slot: int) -> None:
+        """Back to per-batch dispatch: counted, traced, journaled, and
+        the carried residency dropped (the tranche's final free holds
+        every staged slot's debits, the invalidated ones included)."""
+        self._sup_count("loop_breaks")
+        instant("loop.break", reason=reason, slot=slot)
+        jnote("loop.break", profile=self.profile, replica=self.replica,
+              reason=reason, slot=slot, batch=self._batch_seq)
+        res = self._residency
+        if res is not None:
+            res.drop(f"device-loop break: {reason}")
+
+    def _loop_probation(self) -> None:
+        """Engage the loop→pipelined rung after a fault's containment
+        (set here, not in the break: every resolved batch, the replay
+        tail's included, pays one cooldown tick)."""
+        self._loop_cooldown = max(1, self.config.probation_batches)
+
+    def _replay_tail(self, slot_batches, start: int,
+                     anchor: Optional[int]) -> None:
+        """Replay the unconsumed slots per batch with their original PRNG
+        draws. With ``anchor`` the step counter rewinds to the first
+        unconsumed slot's draw; the slot-fault path passes None, since
+        the supervised retry already left the counter where a run
+        without the loop would have it."""
+        if anchor is not None:
+            self._step_counter = anchor + start
+        for bt in slot_batches[start:]:
+            self._schedule_guarded(bt)
+
+    def _run_tranche(self, slot_batches: List[List[QueuedPodInfo]]) -> None:
+        """One tranche end to end. A machinery fault (staging, dispatch,
+        the stacked fetch, the validator) never loses a pod: every slot
+        that did not consume its decision replays per batch."""
+        progress = {"done": 0}
+        anchor = self._step_counter
+        try:
+            self._run_tranche_impl(slot_batches, progress, anchor)
+        except Exception:
+            log.exception("device-loop tranche failed; replaying the "
+                          "remaining slots per batch")
+            self._loop_break("tranche machinery fault",
+                             slot=progress["done"])
+            self._replay_tail(slot_batches, progress["done"], anchor)
+            self._loop_probation()
+
+    def _run_tranche_impl(self, slot_batches, progress, anchor) -> None:
+        cfg = self.config
+        n_slots = len(slot_batches)
+        res = self._residency
+        dev = self.device
+        # Baseline-drain the loop listener BEFORE the snapshot: a mark
+        # landing between the drain and the snapshot is inside the
+        # snapshot's truth, so seeing it again at slot 0 costs at worst a
+        # conservative break, where a drain after the snapshot could
+        # discard a real divergence.
+        self.cache.drain_dyn_rows(self._loop_listener)
+
+        # One snapshot and carry attach for the whole tranche; an attach
+        # or cross-check failure goes to the containment (the replay
+        # re-snapshots per batch).
+        cached = self._nf_static_device
+        known = cached[0] if cached else None
+        res_live = (res is not None and not self._nominations
+                    and self._sup.allows_residency())
+        if res_live:
+            nf, names, static_v, row_incs, delta = (
+                self.cache.snapshot_resident(pad=self._node_pad,
+                                             known_static=known,
+                                             dyn=res.listener))
+        else:
+            nf, names, static_v, row_incs = self.cache.snapshot_versioned(
+                pad=self._node_pad, known_static=known)
+            delta = None
+        nf = self._with_device_static(nf, static_v, row_incs.shape[0])
+        carried = False
+        if res_live:
+            act = FAULTS.hit("residency")
+            with span("h2d.dyn"):
+                nf = res.attach(self, nf, delta)
+            carried = True
+            if act == "corrupt" and res.mirror_free is not None:
+                res.mirror_free[0, :] += 1.0
+            if cfg.resident_check_every:
+                self._check_resident_carry(res, nf)
+        # The tranche's host twins of the carried chain: each slot's
+        # debits fold into ``mirror`` and the validator compares the
+        # rows the cache marked against it; ``pmirror`` is compared only
+        # (no ring slot inserts a port).
+        if carried:
+            mirror = res.mirror_free.copy()
+            pmirror = res.mirror_ports
+        else:
+            mirror = np.array(nf.free, copy=True)
+            pmirror = np.array(nf.used_ports, copy=True)
+            # One full dynamic upload per tranche.
+            self._count_h2d(nf.free.nbytes + pmirror.nbytes)
+            nf = nf._replace(free=to_torch(nf.free, dev),
+                             used_ports=to_torch(nf.used_ports, dev))
+        af = to_torch(self.cache.snapshot_assigned(pad=self._af_pad), dev)
+
+        # Stage the ring: every slot encoded at one pod pad, on the card
+        # before the first slot runs.
+        P_ring = step_bucket(max(len(bt) for bt in slot_batches),
+                             cfg.pod_bucket_min)
+        slots: List[_Batch] = []
+        counters: List[int] = []
+        for bt in slot_batches:
+            # The step gate, once per slot as on the per-batch path: an
+            # err here aborts into the containment.
+            FAULTS.hit("step")
+            slots.append(self._stage_slot(bt, P_ring, nf, names, af,
+                                          row_incs))
+            counters.append(self._step_counter)
+
+        # One dispatch of every slot, one stacked fetch.
+        loop_fn = build_loop_step(self.plugin_set,
+                                  assignment=cfg.assignment,
+                                  shortlist=self._shortlist_k,
+                                  slim=self._slim)
+        before = dict(LAUNCHES)
+        t_disp0 = time.perf_counter()
+        with span("loop.dispatch", slots=n_slots):
+            packed_dev, free_final = loop_fn(
+                [b.eb_dev for b in slots], nf, af, [b.key for b in slots])
+        self._fold_launches(before)
+        self._sup_count("steps_dispatched")
+        self._sup_count("loop_tranches")
+        self._sup_count("loop_iterations", n_slots)
+        with span("fetch.loop", slots=n_slots):
+            stack = np.array(packed_dev.cpu().numpy())
+        t_fetched = time.perf_counter()
+        self._count_fetch(stack.nbytes)
+        self._sup_count("decision_fetches")
+        if FAULTS.hit("fetch") == "corrupt":
+            # Every slot's chosen plane scribbled: the resolve sanity
+            # detector catches slot 0 and the containment replays the
+            # rest without losing a pod.
+            if self._slim:
+                stack[:, :4 * P_ring] = 0x7F
+            else:
+                stack[:, 0, :] = 0x7F7F7F7F
+        share = max(0.0, t_fetched - t_disp0) / n_slots
+
+        # Per slot: resolve, commit, then check host truth against the
+        # carried chain before the next slot's decisions are consumed.
+        n_filters = len(self.filter_names)
+        for j, b in enumerate(slots):
+            if self._abandoned:
+                # Crash-stop: slots [j:] are staged but never resolved
+                # or committed; their pods stay pending in the store. No
+                # replay and no carry adoption: a dead process does
+                # neither.
+                self._sup_count("loop_abandoned_slots", n_slots - j)
+                jnote("loop.abandon", profile=self.profile,
+                      replica=self.replica, slot=j, slots_staged=n_slots,
+                      pods_staged=sum(len(bt)
+                                      for bt in slot_batches[j:]))
+                return
+            buf = stack[j]
+            tup = (unpack_decision_slim(buf, P_ring, n_filters)
+                   if self._slim else unpack_decision_i32(buf))
+            b.packed_dev = tup
+            b.step_share = share
+            b.loop_slot = j
+            b.t_dispatch = t_disp0
+            self._prep_step0 = counters[j] - 1
+            try:
+                self._resolve_batch(b)
+            except Exception:
+                log.exception("device-loop slot resolve failed; "
+                              "engaging supervisor")
+                self._supervised_retry(b.batch, b)
+                progress["done"] = j + 1
+                self._loop_break("slot fault", slot=j)
+                # anchor None: the supervised retry left the counter
+                # where a run without the loop would have it.
+                self._replay_tail(slot_batches, j + 1, None)
+                self._loop_probation()
+                return
+            # Consumed once resolve returns (assumes made, binds
+            # submitted): no containment may schedule it again.
+            progress["done"] = j + 1
+            try:
+                self._commit_batch(b)
+            except FaultWorkerDeath:
+                log.error("commit flush died in a device-loop slot; "
+                          "requeueing its %d-pod tranche", len(b.failures))
+                self._sup_count("worker_deaths")
+                self._sup.escalate("commit flush death")
+                for qpi, _plugins, _msg, _retry in b.failures:
+                    self.queue.requeue_backoff(qpi)
+
+            # Did host truth move off the carried chain? Fold this slot's
+            # debits into the mirror as the order-free per-node aggregate
+            # (bitwise the scan's sequential carry under the
+            # exact-integer resource grammar, _DeviceResidency I1), then
+            # compare every row the cache marked since the last slot. A
+            # mismatch (an assume miss, a failed bind, informer churn, a
+            # revocation) means slot j+1 was computed against inputs the
+            # per-batch path would not have fed it: break and replay.
+            ch, asg = tup[0], tup[1]
+            rows_deb = ch[asg].astype(np.int64)
+            if rows_deb.size:
+                uniq_deb = np.unique(rows_deb)
+                agg = np.zeros((uniq_deb.shape[0], mirror.shape[1]),
+                               dtype=mirror.dtype)
+                np.add.at(agg, np.searchsorted(uniq_deb, rows_deb),
+                          b.eb.pf.requests[asg])
+                mirror[uniq_deb] -= agg
+            diverged = bool(
+                rows_deb.size
+                and not np.isfinite(mirror[np.unique(rows_deb)]).all())
+            rows, fvals, pvals = self.cache.drain_dyn_rows(
+                self._loop_listener)
+            if not diverged and rows.size:
+                # A row outside the tranche's pad (a node add that grew
+                # the cache mid-tranche) diverges by definition: the
+                # per-batch path would re-snapshot at the bigger pad.
+                if int(rows[-1]) >= mirror.shape[0]:
+                    diverged = True
+                else:
+                    diverged = (not np.array_equal(fvals, mirror[rows])
+                                or not np.array_equal(pvals,
+                                                      pmirror[rows]))
+            if not diverged and self._nominations:
+                # A nomination reserves capacity the carried chain cannot
+                # represent.
+                diverged = True
+            if diverged:
+                if j < n_slots - 1:
+                    self._loop_break("carry divergence", slot=j)
+                    self._replay_tail(slot_batches, j + 1, anchor)
+                else:
+                    # Every decision consumed; only the carry adoption
+                    # is off: drop it (the next batch re-uploads).
+                    self._loop_break("tail divergence", slot=j)
+                return
+
+        # Clean completion: adopt the tranche's carry.
+        if carried:
+            res.free_dev = free_final
+            res.mirror_free = mirror
+            res.pending_rows = res.pending_pre = None
+            res.pending_prows = res.pending_ppre = None
+
+    def _stage_slot(self, batch: List[QueuedPodInfo], P_ring: int,
+                    nf, names, af, row_incs) -> _Batch:
+        """Encode one ring slot at the tranche's pod pad and put it on the
+        device: the prepare phase without the snapshot and the dispatch.
+        A ragged slot pads with invalid rows, which every assignment
+        masks, so its real rows decide as at their own bucket."""
+        b = _Batch()
+        b.t0 = time.perf_counter()
+        self._prep_step0 = self._step_counter
+        self._step_counter += 1
+        with self._metrics_lock:
+            b.h2d0 = self._metrics["h2d_bytes_total"]
+            b.fetch0 = self._metrics["fetch_bytes_total"]
+        batch = sorted(batch, key=lambda q: -q.pod.spec.priority)
+        pods = [q.pod for q in batch]
+        b.t_enc0 = time.perf_counter()
+        self._book_gap("encode", b.t_enc0 - b.t0)
+        b.gap, self._gap_pending = self._gap_pending, {}
+        b.vol_memo, fail_closed, eb = self._encode_batch(batch, pods, P_ring,
+                                                         loop_slot=True)
+        if fail_closed:
+            # Loop-safe pods cannot trip a slot limit themselves, but an
+            # anti-affinity overflow from running pods still can: the
+            # containment replays per batch, where fail-closed applies.
+            raise EngineDesync("loop slot hit a fail-closed encode verdict")
+        b.batch, b.eb, b.names, b.row_incs = batch, eb, names, row_incs
+        b.eb_dev = to_torch(eb, self.device)
+        b.nf, b.af = nf, af
+        b.key = prng.fold_in(self._key, self._step_counter)
+        b.sample_k = None
+        # Every slot pays the full (P_ring, N) filter+score pass.
+        b.scored_rows = int(P_ring) * int(nf.valid.shape[0])
+        b.shapes = (int(P_ring), int(nf.valid.shape[0]),
+                    int(af.valid.shape[0]))
+        b.t_encode = b.t_dispatch = time.perf_counter()
+        self._batch_seq += 1
+        b.seq = self._batch_seq
+        with self._metrics_lock:
+            self._prep_window = (b.t_enc0, b.t_dispatch)
+        return b
+
+    def _fold_launches(self, before: Dict[str, int]) -> None:
+        """Book the kernel launches made since ``before`` (a LAUNCHES
+        copy) straight into the metrics: a tranche's launches belong to
+        no single slot."""
+        with self._metrics_lock:
+            m = self._metrics
+            for name, n in LAUNCHES.items():
+                d = n - before[name]
+                if d:
+                    m["kernel_launches"] += d
+                    m[f"kernel_launches_{name}"] += d
 
     # ---- one batched scheduling cycle ----------------------------------
 
@@ -1660,10 +2288,16 @@ class Scheduler:
                       batch=self._batch_seq)
                 self._sup.escalate("resident carry desync")
                 res.drop("carry cross-check mismatch")
+                if self._index is not None:
+                    # The index's last refresh scored against the carried
+                    # free now distrusted: rebuild before it serves again.
+                    self._index.invalidate("resident carry desync")
             except Exception:
                 log.exception("device residency attach failed; resyncing "
                               "through a full snapshot")
                 res.drop("attach error")
+                if self._index is not None:
+                    self._index.invalidate("residency attach error")
             cached = self._nf_static_device
             known = cached[0] if cached else None
         nf, names, static_v, row_incs = self.cache.snapshot_versioned(
@@ -1766,6 +2400,12 @@ class Scheduler:
         # which the node snapshot's domain tables must reflect.
         b.vol_memo, b.fail_closed, eb = self._encode_batch(
             batch, pods, step_bucket(len(pods), cfg.pod_bucket_min))
+        if self._index is not None:
+            # Drain the index listener BEFORE the snapshot a refresh
+            # evaluates against: a mutation landing after the drain is
+            # caught by the version gate in _index_dispatch (a counted
+            # race and the full step, never a stale serve).
+            self._index.drain(self.cache)
         nf, names, row_incs, b.res_carried = self._snapshot()
         if self._nominations:
             # Nominated-capacity protection (upstream nominatedNodeName):
@@ -1806,24 +2446,34 @@ class Scheduler:
         # Fault gate: step dispatch (err → supervised retry down the
         # ladder; stall → lands in the watchdog's step window).
         FAULTS.hit("step")
-        with span("step.dispatch"):
-            # The host flags spare the step its reads of the card: a
-            # gang-free batch skips the gang admission's, a batch with no
-            # DoNotSchedule slot the caps' any_enforced.
-            d = _count_launches(b, step_fn, eb_dev, nf, af, key,
-                                has_gang=has_gang, hard_spread=dns)
-            b.packed_dev = self._pack(d)
-            # The spread/anti arbitration inputs are staged only when the
-            # batch carries something the host must arbitrate: a hard
-            # spread slot or a required anti-affinity term. A soft-only
-            # topology batch pays neither the pack nor the fetch.
-            needs_arb = hard_spread or bool(
-                self._spread_enabled and self._anti_enabled
-                and (eb.pf.anti_req_group[:L] >= 0).any())
-            b.spread_dev = _pack_spread(d) if needs_arb else None
-        self._sup_count("steps_dispatched")
-        b.scored_rows = int(eb.pf.valid.shape[0]) * int(
-            b.sample_k if b.sample_k is not None else nf.valid.shape[0])
+        # Maintained index: serve the batch from the device-resident
+        # class rows, repaired from this prepare's drained deltas, in
+        # place of the full (P,N) pass. Speculative: resolve settles it
+        # and re-runs the full step with the same key on an unassigned
+        # live row.
+        d = None
+        if not (self._index is not None and b.sample_k is None
+                and self._index_dispatch(b, batch, eb, eb_dev, nf, af,
+                                         key)):
+            with span("step.dispatch"):
+                # The host flags spare the step its reads of the card: a
+                # gang-free batch skips the gang admission's, a batch
+                # with no DoNotSchedule slot the caps' any_enforced.
+                d = _count_launches(b, step_fn, eb_dev, nf, af, key,
+                                    has_gang=has_gang, hard_spread=dns)
+                b.packed_dev = self._pack(d)
+                # The spread/anti arbitration inputs are staged only when
+                # the batch carries something the host must arbitrate: a
+                # hard spread slot or a required anti-affinity term. A
+                # soft-only topology batch pays neither the pack nor the
+                # fetch.
+                needs_arb = hard_spread or bool(
+                    self._spread_enabled and self._anti_enabled
+                    and (eb.pf.anti_req_group[:L] >= 0).any())
+                b.spread_dev = _pack_spread(d) if needs_arb else None
+            self._sup_count("steps_dispatched")
+            b.scored_rows += int(eb.pf.valid.shape[0]) * int(
+                b.sample_k if b.sample_k is not None else nf.valid.shape[0])
         b.shapes = (int(eb.pf.valid.shape[0]), int(nf.valid.shape[0]),
                     int(af.valid.shape[0]))
         if hard_spread:
@@ -1840,7 +2490,8 @@ class Scheduler:
             self._prep_window = (b.t_enc0, b.t_dispatch)
         return b
 
-    def _encode_batch(self, batch: List[QueuedPodInfo], pods, p_pad: int):
+    def _encode_batch(self, batch: List[QueuedPodInfo], pods, p_pad: int, *,
+                      loop_slot: bool = False):
         """Encode the (priority-sorted) batch → (vol_memo, fail_closed, eb).
         One store pass per pod resolves every volume-derived input
         (readiness, claim mount rows, cloud typing, the zone requirement)
@@ -1851,7 +2502,9 @@ class Scheduler:
         cannot fit the encoding slots, or whose forbidden domains exceed
         the anti_forbid slots: they are rejected after the step rather
         than scheduled against a silently weakened constraint. Only
-        constraints this profile enforces fail closed."""
+        constraints this profile enforces fail closed. Shared by the
+        per-batch prepare and the device loop's slot staging
+        (``loop_slot`` tags the span)."""
         vol_memo: Dict[str, tuple] = {}
 
         def vol_state(pod) -> tuple:
@@ -1884,7 +2537,8 @@ class Scheduler:
                 return pairs
 
         encode_hard: Dict[int, list] = {}
-        with span("encode.pods", pods=len(pods)):
+        with span("encode.pods", pods=len(pods),
+                  **({"loop_slot": 1} if loop_slot else {})):
             eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
                              registry=self.cache.registry,
                              overflow=self.cache.overflow,
@@ -2018,10 +2672,17 @@ class Scheduler:
                     d.feasible_counts, d.feasible_static, d.reject_counts,
                     d.shortlist_repaired)
 
-    def _fetch_decision(self, packed_dev, p: int, f: int):
+    def _fetch_decision(self, packed_dev, p: int, f: int, decision=None):
         """Block on the ONE packed decision fetch and unpack it into
         writable host arrays: (chosen, assigned, gang_rejected, feasible,
-        feasible_static, rejects (F,P), repaired)."""
+        feasible_static, rejects (F,P), repaired). A tuple is a device-
+        loop slot's (or an index-served batch's) planes, already read
+        back and counted: it passes through. The first slim fetch is
+        checked against direct reads of ``decision``'s leaves when it is
+        given; a mismatch reverts to the i32 layout for good and fetches
+        this batch again through it."""
+        if type(packed_dev) is tuple:
+            return packed_dev
         # Fault gate: decision fetch. ``corrupt`` scribbles the chosen
         # plane with absurd node rows, which the resolve sanity detector
         # must catch.
@@ -2030,9 +2691,34 @@ class Scheduler:
         with span("fetch.decision"):
             buf = np.array(packed_dev.cpu().numpy())
         self._count_fetch(buf.nbytes)
-        out = (unpack_decision_slim(buf, p, f) if self._slim
-               else unpack_decision_i32(buf))
+        if not self._slim:
+            out = unpack_decision_i32(buf)
+        else:
+            out = unpack_decision_slim(buf, p, f)
+            if not self._slim_verified and decision is not None:
+                self._slim_verified = True
+                ok = (np.array_equal(out[0], decision.chosen.cpu().numpy())
+                      and np.array_equal(out[1],
+                                         decision.assigned.cpu().numpy())
+                      and np.array_equal(out[3], np.minimum(
+                          decision.feasible_counts.cpu().numpy(),
+                          I16_SAT)))
+                if not ok:
+                    log.error("slim decision readback failed its "
+                              "first-batch check; reverting to the i32 "
+                              "packed fetch")
+                    self._slim = False
+                    return self._fetch_decision(
+                        pack_decision_i32(
+                            decision.chosen, decision.assigned,
+                            decision.gang_rejected,
+                            decision.feasible_counts,
+                            decision.feasible_static,
+                            decision.reject_counts,
+                            decision.shortlist_repaired), p, f)
         if act == "corrupt":
+            # After the first-batch check: the scribble must reach the
+            # resolve sanity detector, not pass for an odd byte order.
             out[0][:] = 0x7F7F7F7F
         return out
 
@@ -2059,6 +2745,13 @@ class Scheduler:
             b.fetch1 = self._metrics["fetch_bytes_total"]
         self._watchdog_check(b)
         self._sup.note_clean()
+        if self._loop_cooldown > 0:
+            # The loop→pipelined rung's probation: one clean resolved
+            # batch pays one tick.
+            self._loop_cooldown -= 1
+        if self._index_cooldown > 0:
+            # The index's full-rescore rung pays down the same way.
+            self._index_cooldown -= 1
         if TIMELINE.enabled:
             self._timeline_tick()
 
@@ -2091,8 +2784,13 @@ class Scheduler:
                 SLO_PREARM_WATCHDOG_S
         if not wd:
             return
-        gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
-        window = (b.t_fetched - b.t_encode) - gather_gap
+        if b.step_share is not None:
+            # A device-loop slot is judged by its share of the tranche's
+            # window, so the deadline scales with the loop depth.
+            window = b.step_share
+        else:
+            gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
+            window = (b.t_fetched - b.t_encode) - gather_gap
         if window > wd:
             self._sup_count("watchdog_trips")
             instant("watchdog.trip", window_s=round(window, 6),
@@ -2167,6 +2865,255 @@ class Scheduler:
         bundle_mod.capture("shortlist_revert", scheduler=self, reason=reason)
         self._set_shortlist_k(None)
 
+    # ---- maintained arbitration index (config.index) ---------------------
+
+    def _index_dispatch(self, b: _Batch, batch, eb, eb_dev, nf, af,
+                        key) -> bool:
+        """Try to serve this batch from the maintained index in place of
+        the full (P,N) filter+score pass: bring the (C,N) class rows to
+        this snapshot (rescore the drained columns in place, append fresh
+        classes; rebuild on a widening invalidation, a class-pad crossing
+        or a node-pad change), then dispatch the certified shortlist scan
+        over the gathered class rows. True with ``b.index_packed_dev``
+        staged for resolve to settle; False: the caller dispatches the
+        full step.
+
+        The gates are the device loop's posture: the fast rung only, no
+        nominations (their debits change the step's ``free`` outside the
+        delta protocol), no explain recorder, no armed shortlist
+        cross-check, no fail-closed verdict, the shared per-pod walk.
+        Serving also needs no cache mutation between this batch's drain
+        and here (cache.version unchanged): a mutation in that window is
+        marked for the next refresh but already inside this snapshot, so
+        its row would be stale; that is a counted race, not a desync."""
+        idx = self._index
+        if (idx is None or self._index_cooldown > 0
+                or self._sup.level != 0 or self._nominations
+                or self.recorder is not None or b.fail_closed
+                or self.config.shortlist_check_every
+                or not self._ring_safe_pods(batch)):
+            return False
+        if (self.cache.version != idx.drain_version
+                or idx.listener.inval != idx.pending_inval):
+            self._sup_count("index_races")
+            return False
+        cls = idx.classify(eb.pf, len(batch))
+        if cls is None:
+            # The class registry is full: a counted fallback.
+            self._sup_count("index_fallbacks")
+            return False
+        # Fault gate: the index's dispatch seam. ``corrupt`` scribbles one
+        # entry per class after the repair below, a defect the scan's
+        # certificate cannot see; only index_check_every catches it.
+        act = FAULTS.hit("index")
+        n_pad = int(nf.valid.shape[0])
+        k_eff = idx.k_eff
+        rebuild = (idx.state is None or idx.needs_rebuild
+                   or idx.pending_inval != idx.inval_seen
+                   or idx.n_built != n_pad)
+        build_fn, refresh_fn, append_fn, assign_fn = build_index_ops(
+            self.plugin_set, k_eff)
+        class_pf = idx.class_pf(eb.pf, self.device)
+        c_pad = int(class_pf.valid.shape[0])
+        if (not rebuild and idx.fresh_rows
+                and c_pad != int(idx.state.score.shape[0])):
+            # Fresh classes crossed the class-pad bucket: the matrix must
+            # grow, the one fresh-class case that still rebuilds.
+            rebuild = True
+        if rebuild:
+            # Cause, in order: a moved inval epoch; never built; dropped
+            # by invalidate(); node-pad growth; else the class-pad
+            # crossing above.
+            cause = ("widening-invalidation"
+                     if idx.pending_inval != idx.inval_seen
+                     else "cold" if idx.n_built == -1
+                     else "invalidated" if idx.state is None
+                     else "node-pad" if idx.n_built != n_pad
+                     else "class-pad")
+            with span("index.build", classes=len(idx.rows), n=n_pad):
+                idx.state = build_fn(class_pf, nf, af)
+            idx.n_built = n_pad
+            idx.inval_seen = idx.pending_inval
+            idx.pending.clear()
+            idx.fresh_rows.clear()
+            idx.needs_rebuild = False
+            self._sup_count("index_rebuilds")
+            jnote("index.rebuild", profile=self.profile,
+                  replica=self.replica, cause=cause, classes=len(idx.rows),
+                  n=n_pad, batch=self._batch_seq)
+            b.scored_rows += c_pad * n_pad
+        else:
+            self._index_repair_slab(idx, b, class_pf, nf, af, refresh_fn,
+                                    append_fn, c_pad, n_pad)
+        if act == "corrupt" and idx.state is not None:
+            idx.state = idx.state._replace(
+                score=corrupt_slab(idx.state.score, n_pad))
+        cls_pad = np.zeros((int(eb.pf.valid.shape[0]),), dtype=np.int32)
+        cls_pad[:len(batch)] = cls
+        with span("index.assign", pods=len(batch), k=k_eff):
+            packed, free_after = _count_launches(
+                b, assign_fn, idx.state, to_torch(cls_pad, self.device),
+                eb_dev.pf.valid, eb_dev.pf.requests, nf.free, key)
+        self._sup_count("steps_dispatched")
+        b.index_packed_dev = packed
+        b.index_free_after = free_after
+        return True
+
+    def _index_repair_slab(self, idx: _ArbIndex, b: _Batch, class_pf, nf,
+                           af, refresh_fn, append_fn, c_pad: int,
+                           n_pad: int) -> None:
+        """Bring a live (C,N) slab to this snapshot without a rebuild:
+        rescore exactly the drained node columns in place, then write in
+        any fresh class rows still inside the class-pad bucket."""
+        if idx.pending:
+            rows = np.fromiter(idx.pending, dtype=np.int64,
+                               count=len(idx.pending))
+            rows.sort()
+            rows = rows[rows < n_pad]  # pad growth forces a rebuild
+            idx.pending.clear()
+            if rows.size:
+                rb = bucket_for(int(rows.size), 16)
+                rows_pad = np.full((rb,), n_pad, dtype=np.int32)
+                rows_pad[:rows.size] = rows
+                with span("index.refresh", rows=int(rows.size)):
+                    idx.state = refresh_fn(idx.state, class_pf, nf, af,
+                                           rows_pad)
+                self._sup_count("index_repair_rows", int(rows.size))
+                jnote("index.repair", profile=self.profile,
+                      replica=self.replica, rows=int(rows.size),
+                      batch=self._batch_seq)
+                b.scored_rows += c_pad * rb
+        if idx.fresh_rows:
+            # The per-class add: only the fresh rows over the full node
+            # axis, against this snapshot, as a rebuild would compute
+            # them (the refresh above already brought every existing
+            # row's changed columns up to date).
+            n_fresh = len(idx.fresh_rows)
+            rb = bucket_for(n_fresh, 16)
+            rows_pad = np.full((rb,), c_pad, dtype=np.int32)
+            rows_pad[:n_fresh] = np.asarray(idx.fresh_rows, dtype=np.int32)
+            idx.fresh_rows.clear()
+            with span("index.append", rows=n_fresh):
+                idx.state = append_fn(idx.state, class_pf, nf, af,
+                                      rows_pad)
+            self._sup_count("index_appends", n_fresh)
+            jnote("index.append", profile=self.profile,
+                  replica=self.replica, rows=n_fresh, batch=self._batch_seq)
+            b.scored_rows += rb * n_pad
+
+    def _settle_index(self, b: _Batch) -> None:
+        """Settle an index-dispatched batch (resolve, before anything
+        consumes a decision): read the [chosen | assigned | repaired]
+        buffer back in one transfer. Every live row assigned: serve the
+        batch from the indexed scan (an index hit; its in-scan repairs
+        are exact and counted in index_uncertified). An unassigned live
+        row (the failure path needs the per-plugin reject attribution
+        the index does not compute): discard the result and run the full
+        step with the batch's PRNG draw, so decisions equal the index-off
+        engine's in every case (I3)."""
+        idx = self._index
+        p_pad = int(b.eb.pf.valid.shape[0])
+        with span("fetch.index"):
+            buf = np.array(b.index_packed_dev.cpu().numpy())
+        b.index_packed_dev = None
+        self._count_fetch(buf.nbytes)
+        self._sup_count("decision_fetches")
+        chosen, assigned, repaired = unpack_index_decision(buf, p_pad)
+        L = len(b.batch)
+        if bool(assigned[:L].all()):
+            n_f = len(self.filter_names)
+            # The gang, feasibility and reject planes are read only for
+            # unassigned rows (none here; index-safe batches have no
+            # gangs); the scan's repairs ride in the shortlist slot.
+            b.packed_dev = (
+                chosen.astype(np.int32), assigned,
+                np.zeros((p_pad,), dtype=bool),
+                np.ones((p_pad,), dtype=np.int32),
+                np.ones((p_pad,), dtype=np.int32),
+                np.zeros((n_f, p_pad), dtype=np.int32),
+                repaired)
+            b.index_mode = "hit"
+            if idx is not None:
+                idx.rebuild_streak = 0
+            self._sup_count("index_hits")
+            self._sup_count("index_uncertified", int(repaired[:L].sum()))
+            self._check_index(b, chosen, assigned)
+            return
+        # Fallback: the full step for the whole batch, the ladder's
+        # engine-level repair rung.
+        self._sup_count("index_fallbacks")
+        b.index_mode = "fallback"
+        jnote("index.fallback", profile=self.profile, replica=self.replica,
+              batch=b.seq)
+        b.index_free_after = None
+        if idx is not None:
+            idx.rebuild_streak += 1
+            if idx.rebuild_streak >= max(2, self.config.probation_batches):
+                # A fallback storm: park the index for a probation of
+                # resolved batches (the full-rescore rung).
+                idx.rebuild_streak = 0
+                self._index_cooldown = max(1, self.config.probation_batches)
+                self._sup_count("index_cooldowns")
+                instant("index.cooldown", batches=self._index_cooldown)
+                jnote("index.cooldown", profile=self.profile,
+                      replica=self.replica, batches=self._index_cooldown,
+                      batch=b.seq)
+        with span("step.dispatch"):
+            d = _count_launches(b, self._step, b.eb_dev, b.nf, b.af, b.key,
+                                has_gang=False, hard_spread=False)
+        self._sup_count("steps_dispatched")
+        b.decision = d
+        b.packed_dev = self._pack(d)
+        b.scored_rows += p_pad * int(b.nf.valid.shape[0])
+
+    def _check_index(self, b: _Batch, chosen, assigned) -> None:
+        """Every ``index_check_every`` served batches, re-run this batch's
+        inputs through the full step and compare decisions: the cover
+        for defects outside the certificate's proof (a scribbled index
+        entry, the ``index:corrupt`` gate; a broken gather). A
+        divergence counts an index_desync, disables the index for good
+        and aborts the batch into the supervised retry, which replays it
+        on the index-off path."""
+        if not self.config.index_check_every:
+            return
+        self._idx_check_tick += 1
+        if self._idx_check_tick % self.config.index_check_every:
+            return
+        self._sup_count("index_checks")
+        check_step = build_step(self.plugin_set, shortlist=self._shortlist_k,
+                                assignment=self.config.assignment,
+                                explain=self.config.explain)
+        d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key,
+                            has_gang=False, hard_spread=False)
+        ref_c = d.chosen.cpu().numpy()
+        ref_a = d.assigned.cpu().numpy()
+        self._count_fetch(ref_c.nbytes + ref_a.nbytes)
+        L = len(b.batch)
+        if (np.array_equal(chosen[:L], ref_c[:L])
+                and np.array_equal(assigned[:L], ref_a[:L])):
+            return
+        bad = int(np.sum((chosen[:L] != ref_c[:L])
+                         | (assigned[:L] != ref_a[:L])))
+        self._sup_count("index_desyncs")
+        instant("index.desync", pods=bad)
+        jnote("index.desync", profile=self.profile, replica=self.replica,
+              pods=bad, batch=b.seq)
+        self._disable_index(
+            f"decisions diverged from the full step on {bad} pod(s)")
+        raise EngineDesync(
+            "maintained-index certification cross-check failed: "
+            f"decisions diverged from the full step on {bad} pod(s)")
+
+    def _disable_index(self, reason: str) -> None:
+        """Revert to the per-batch dataflow for good; the listener keeps
+        collecting marks that nothing reads again."""
+        log.error("disabling the maintained arbitration index (%s); "
+                  "reverting to the per-batch full step", reason)
+        jnote("index.disable", profile=self.profile, replica=self.replica,
+              reason=reason, batch=self._batch_seq)
+        bundle_mod.capture("index_revert", scheduler=self, reason=reason)
+        self._index = None
+
     def _slice_eb(self, eb, rows, bucket: Optional[int] = None):
         """(eb_sub, P2): the pod rows ``rows`` of a host EncodedBatch,
         padded to a fresh bucket (or the caller's ``bucket``), with the
@@ -2206,7 +3153,7 @@ class Scheduler:
                              b.af, prng.fold_in(b.key, 0x5E5),
                              has_gang=False, hard_spread=False)
         ch2, as2, gr2, fc2, fs2, rj2, rep2 = self._fetch_decision(
-            self._pack(d2), P2, rejects.shape[0])
+            self._pack(d2), P2, rejects.shape[0], d2)
         b.sl_repairs += int(rep2[:n_res].sum())
         chosen[rows] = ch2[:n_res]
         assigned[rows] = as2[:n_res]
@@ -2280,8 +3227,11 @@ class Scheduler:
         port-carrying pods, padded to a power-of-two bucket; -1 rows are
         skipped)."""
         res = self._residency
+        # An index-served batch has no Decision: its carried array is the
+        # indexed scan's free_after, bitwise the full step's.
         res.note_debits(chosen, assigned, b.eb.pf.requests,
-                        b.decision.free_after, add_back=b.nom_reserved)
+                        b.decision.free_after if b.decision is not None
+                        else b.index_free_after, add_back=b.nom_reserved)
         ports = np.asarray(b.eb.pf.ports)
         live = assigned & (ports != 0).any(axis=1)
         if live.any():
@@ -2301,9 +3251,15 @@ class Scheduler:
         # batch's gather sits between dispatch and here; the fetch-start
         # stamp keeps it out of the step window.
         b.t_fetch_start = time.perf_counter()
+        if b.index_packed_dev is not None:
+            # Settle the speculative indexed scan: serve it (an index
+            # hit: no full pass ran) or discard it and run the full step
+            # with the batch's PRNG draw.
+            self._settle_index(b)
         (chosen, assigned, gang_rejected, feasible, feasible_static,
          rejects, sl_repaired) = self._fetch_decision(
-            b.packed_dev, eb.pf.valid.shape[0], len(self.filter_names))
+            b.packed_dev, eb.pf.valid.shape[0], len(self.filter_names),
+            b.decision)
         # Supervisor sanity detector, before the residency replay trusts
         # ``chosen``: a corrupted readback must abort the batch, not
         # poison the carried mirror.
@@ -2676,7 +3632,7 @@ class Scheduler:
                 self._hard_spread(eb2, len(rows)))
             (chosen2, assigned2, _gr2, _fc2, _fs2, _rj2, rep2) = (
                 self._fetch_decision(self._pack(d2), eb2.pf.valid.shape[0],
-                                     d2.reject_counts.shape[0]))
+                                     d2.reject_counts.shape[0], d2))
             b.sl_repairs += int(rep2[:len(rows)].sum())
             n_r = len(rows)
             sub = [batch[i] for i in rows]
@@ -3177,6 +4133,10 @@ class Scheduler:
         # go through _book_gap).
         gather_gap = max(0.0, b.t_fetch_start - b.t_dispatch)
         step_s = b.t_fetched - b.t_encode - gather_gap
+        if b.step_share is not None:
+            # A device-loop slot books its share of the tranche's window:
+            # its own stamps span the whole tranche.
+            gather_gap, step_s = 0.0, b.step_share
         # The resolve tail after the fetch plus this flush.
         commit_s = (b.t_resolved - b.t_fetched) + (t_end - t_commit)
         gap = b.gap
@@ -3284,6 +4244,18 @@ class Scheduler:
         out["histograms"] = {name: h.snapshot()
                              for name, h in self._hists.items()}
         out["shortlist_width"] = int(self._shortlist_k or 0)
+        # The ring depth the next tranche would use (0: the loop is off).
+        out["loop_depth_effective"] = (self._effective_loop_depth()
+                                       if self._loop_enabled else 0)
+        # The index's scan width (0: off, ineligible, not built yet, or
+        # disabled by a desync), its registered classes and the batches
+        # left on its cooldown.
+        idx = self._index
+        out["index_width"] = (int(idx.k_eff) if idx is not None
+                              and idx.state is not None else 0)
+        out["index_classes_registered"] = (len(idx.rows) if idx is not None
+                                           else 0)
+        out["index_cooldown_left"] = int(self._index_cooldown)
         out["degradation_level"] = self._sup.level
         out["degradation_state"] = DEGRADATION_LADDER[self._sup.level]
         # Overload controller: its rung, counters and the live effective
@@ -3386,6 +4358,11 @@ class Scheduler:
         if (self._shortlist_k is not None and want is not None
                 and self._shortlist_k != want):
             self._set_shortlist_k(want)
+        idx = self._index
+        if idx is not None and idx.k_target != idx.k_base:
+            # The configured indexed-scan width back (exact at any width,
+            # no rebuild).
+            idx.k_target = idx.k_base
         n = self.queue.release_shed()
         log.info("overload controller disarmed at runtime; actuation "
                  "neutralized (%d shed pod(s) released)", n)
@@ -3417,6 +4394,15 @@ class Scheduler:
             log.warning("overload tuner: shortlist K %d -> %d",
                         self._shortlist_k, want)
             self._set_shortlist_k(want)
+        # The K-dial on the indexed-scan width: live and free both ways
+        # (the index keeps whole class rows, so any width is exact).
+        idx = self._index
+        if idx is not None:
+            want_k = ov.shortlist_target(idx.k_base)
+            if want_k is not None and want_k != idx.k_target:
+                log.warning("overload tuner: index scan K %d -> %d",
+                            idx.k_target, want_k)
+                idx.k_target = want_k
         # Brownout's quality shed: a coarser timeline cadence.
         self._timeline.stretch = ov.timeline_stretch
         # Recovery below the shedding rung re-admits every parked pod now.
@@ -3460,17 +4446,19 @@ class Scheduler:
 
     def _prov_path(self, b: _Batch) -> dict:
         """The batch-scoped half of a provenance record: the path that
-        served this batch, shared by every pod it settles."""
+        served this batch (engine mode, ring slot, rung, residency, index
+        posture, shortlist width), shared by every pod it settles."""
         return {
             "profile": self.profile,
             "replica": self.replica,
             "batch": b.seq,
             "step": self._prep_step0 + 1,
-            "mode": "pipelined" if self.config.pipeline else "sync",
-            "loop_slot": None,
+            "mode": ("loop" if b.step_share is not None
+                     else "pipelined" if self.config.pipeline else "sync"),
+            "loop_slot": b.loop_slot,
             "rung": DEGRADATION_LADDER[self._sup.level],
             "resident": bool(b.res_carried),
-            "index": "off",
+            "index": b.index_mode,
             "shortlist_k": int(self._shortlist_k or 0),
             "overload_level": self._overload.level,
             "decided_unix": round(time.time(), 3),

@@ -11,12 +11,17 @@ reference annotation/annotation.go:5-9), retried with exponential backoff
 Hot-path cost: in async mode (``async_flush=True``, the engine mode — the
 analog of the reference flushing on informer events off the scheduling
 thread, store.go:60-68) ``record_batch`` ONLY enqueues the step's output
-tensors; the device readback (``.cpu()``), the per-pod top-k selection
-(numpy, float64 ranking, ``np.argpartition``), dict building and the
-annotation writes all happen on the worker. A two-batch backpressure
-semaphore bounds how many steps' explain stacks can stay in device
-memory awaiting ingestion. Synchronous mode (``flush=True``, the
-test/table mode) ingests and flushes inline.
+tensors; the device readback (``.cpu()``) and the per-pod top-k
+selection (numpy, float64 ranking, ``np.argpartition``) happen on the
+ingest worker, the dict building and the annotation writes on a writer
+thread behind it, in the order the batches were ingested. A two-batch
+backpressure semaphore bounds how many steps' explain stacks can stay in
+device memory awaiting ingestion; it is released after the ingest, and
+with the writes on their own thread the next ingest does not wait for
+the last batch's 1,024 annotation writes (the JAX package's store runs
+both on one worker: at bench-50k on a slow host the scheduling thread
+then waited past the 5 s deadline and dropped batches). Synchronous
+mode (``flush=True``, the test/table mode) ingests and flushes inline.
 
 The worker's readback runs on the device's default stream, which every
 host thread shares: it waits for every launch queued before it, and the
@@ -113,7 +118,10 @@ class ResultStore:
         self._retry_initial = retry_initial_s
         self._retry_steps = retry_steps
         self._worker: Optional[threading.Thread] = None
+        self._writer: Optional[threading.Thread] = None
         self._q: Optional[queue_mod.Queue] = None
+        # The writer's queue: lists of pod keys to flush, in order.
+        self._fq: Optional[queue_mod.Queue] = None
         # At most 2 un-ingested batches: their explain-mode device arrays
         # stay pinned until the worker reads them back, and an unbounded
         # backlog of (F/S,P,N) stacks would eat HBM at 50k nodes.
@@ -127,10 +135,15 @@ class ResultStore:
         self._queued_keys: Dict[str, int] = {}
         if async_flush:
             self._q = queue_mod.Queue()
+            self._fq = queue_mod.Queue()
             self._worker = threading.Thread(target=self._flush_loop,
                                             daemon=True,
                                             name="resultstore-flusher")
+            self._writer = threading.Thread(target=self._write_loop,
+                                            daemon=True,
+                                            name="resultstore-writer")
             self._worker.start()
+            self._writer.start()
 
     # ---- recording (called by the engine after each step) ---------------
 
@@ -371,12 +384,12 @@ class ResultStore:
         find pending keys, then enqueue only the matches."""
         with self._lock:
             pending = [k for k in keys if k in self._results]
+        if self._fq is not None:
+            if pending and not self._closed:
+                self._fq.put(pending)
+            return
         for k in pending:
-            if self._q is not None:
-                if not self._closed:
-                    self._q.put(("flush", k))
-            else:
-                self.flush_pod(k)
+            self.flush_pod(k)
 
     def on_pod_event(self, key: str) -> None:
         """Informer-event flush trigger (the reference's contract:
@@ -389,14 +402,15 @@ class ResultStore:
         self.on_pod_events((key,))
 
     def _flush_loop(self) -> None:
+        """The ingest worker: read each batch back and hand its keys to the
+        writer (before this queue's task_done, so drain() never sees both
+        queues empty in between)."""
         while True:
             item = self._q.get()
             try:
                 if item is None:
+                    self._fq.put(None)  # after every batch ingested
                     return
-                if len(item) == 2 and item[0] == "flush":
-                    self.flush_pod(item[1])  # informer-event re-drive
-                    continue
                 pods, names, decision, plugin_set = item
                 try:
                     keys = self._ingest(pods, names, decision, plugin_set)
@@ -412,24 +426,38 @@ class ResultStore:
                                 self._queued_keys[p.key] = n
                             else:
                                 self._queued_keys.pop(p.key, None)
-                # Ingest copied everything to host — drop the references
-                # so the step's device arrays aren't pinned through the
-                # (long) per-pod flush phase.
+                # Ingest copied everything to host: drop the references
+                # so the step's device arrays aren't pinned until the
+                # writer is done.
                 del item, pods, decision
+                self._fq.put(keys)
+            except Exception:
+                log.exception("async explain ingest failed")
+            finally:
+                self._q.task_done()
+
+    def _write_loop(self) -> None:
+        """The writer: flush each ingested batch's pods (and each
+        informer-event re-drive) in order."""
+        while True:
+            keys = self._fq.get()
+            try:
+                if keys is None:
+                    return
                 with span("explain.flush", pods=len(keys)):
                     for k in keys:
                         self.flush_pod(k)
             except Exception:
-                log.exception("async explain ingest/flush failed")
+                log.exception("async explain flush failed")
             finally:
-                self._q.task_done()
+                self._fq.task_done()
 
     def drain(self, timeout: float = 10.0) -> bool:
         """Wait for the async flusher to finish everything enqueued so far."""
         if self._q is None:
             return True
         deadline = time.monotonic() + timeout
-        while self._q.unfinished_tasks:
+        while self._q.unfinished_tasks or self._fq.unfinished_tasks:
             if time.monotonic() >= deadline:
                 return False
             time.sleep(0.005)
@@ -438,7 +466,7 @@ class ResultStore:
     def close(self) -> None:
         self._closed = True
         if self._q is not None:
-            self._q.put(None)
+            self._q.put(None)  # the ingest worker passes it to the writer
 
     def filter_verdict(self, pod_key: str,
                        node_name: str) -> Optional[Dict[str, str]]:

@@ -21,7 +21,9 @@ step first picks K candidate nodes and runs on them alone (node-axis
 sampling). In explain mode it also returns each filter's mask and each
 scorer's raw and normalized matrix (the result store's input). Above a
 size threshold the filters and scorers run over pod chunks, so only one
-chunk's temporaries are live at a time.
+chunk's temporaries are live at a time. ``build_loop_step`` runs the
+step over the device loop's ring slots, carrying ``free`` on the device
+from slot to slot into one stacked decision buffer.
 """
 from __future__ import annotations
 
@@ -497,3 +499,59 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
         )
 
     return step
+
+
+def build_loop_step(plugin_set: PluginSet, *, assignment: str = "greedy",
+                    shortlist: Optional[int] = None, slim: bool = True):
+    """The device loop's tranche runner:
+    ``loop(slot_ebs, nf, af, slot_seeds) -> (packed_stack, free_final)``.
+
+    ``slot_ebs`` are D EncodedBatches on the step's device, all at one
+    pod pad, ``nf``/``af`` shared by the tranche, and ``slot_seeds`` the
+    D PRNG keys each slot would draw on the per-batch path (the engine's
+    ``fold_in(base_key, counter)``, computed on the host with ops/prng).
+    Each slot runs ``build_step``'s step, in order; slot k+1's
+    ``nf.free`` is slot k's ``free_after``, the device tensor itself.
+    Each slot's packed decision (``pack_decision_slim``, or
+    ``pack_decision_i32`` with ``slim=False``) is written into row k of
+    one preallocated (D, ...) device buffer, so the host reads the whole
+    tranche back with one copy; ``free_final`` is the last slot's
+    ``free_after``.
+
+    The ring carries loop-safe batches only (the engine stages no gang,
+    no spread constraint, no host port): each slot runs with
+    ``has_gang=False, hard_spread=False``, so no slot waits on the card
+    between the first launch and the stacked read back. ``used_ports``
+    is shared, not carried (no slot inserts a port). Both assignments
+    ride the ring: the auction's slot k+1 starts its prices fresh while
+    its ``free`` is slot k's ``free_after``."""
+    if assignment not in ("greedy", "auction"):
+        raise ValueError(f"unknown assignment strategy {assignment!r}; "
+                         "expected 'greedy' or 'auction'")
+    if shortlist is not None and shortlist < 1:
+        shortlist = None
+    step = build_step(plugin_set, shortlist=shortlist, assignment=assignment)
+    from .residency import (pack_decision_i32, pack_decision_slim,
+                            slim_buffer_bytes)
+
+    pack = pack_decision_slim if slim else pack_decision_i32
+    n_filters = len(plugin_set.filter_plugins)
+
+    def loop(slot_ebs, nf, af, slot_seeds):
+        P = slot_ebs[0].pf.valid.shape[0]
+        row = ((slim_buffer_bytes(P, n_filters),) if slim
+               else (6 + n_filters, P))
+        out = torch.empty((len(slot_ebs),) + row,
+                          dtype=torch.uint8 if slim else torch.int32,
+                          device=nf.valid.device)
+        free = nf.free
+        for j, (eb, key) in enumerate(zip(slot_ebs, slot_seeds)):
+            d = step(eb, nf._replace(free=free), af, key, has_gang=False,
+                     hard_spread=False)
+            out[j] = pack(d.chosen, d.assigned, d.gang_rejected,
+                          d.feasible_counts, d.feasible_static,
+                          d.reject_counts, d.shortlist_repaired)
+            free = d.free_after
+        return out, free
+
+    return loop

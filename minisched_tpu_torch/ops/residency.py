@@ -83,17 +83,18 @@ def _i16(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, max=I16_SAT).to(torch.int16)
 
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
-
 def _packbits(x: torch.Tensor) -> torch.Tensor:
     """np.packbits of a (P,) bool tensor: ceil(P/8) bytes, the first pod
-    in the most significant bit, zero bits after the last pod."""
+    in the most significant bit, zero bits after the last pod. The bit
+    weights are made on the device (128 >> j): a copy from the host
+    would make the pack wait for the card."""
     p = x.shape[0]
     bits = torch.zeros(((p + 7) // 8) * 8, dtype=torch.int32,
                        device=x.device)
     bits[:p] = x.to(torch.int32)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=x.device)
+    w = torch.bitwise_right_shift(
+        torch.full((8,), 128, dtype=torch.int32, device=x.device),
+        torch.arange(8, dtype=torch.int32, device=x.device))
     return (bits.view(-1, 8) * w).sum(dim=1).to(torch.uint8)
 
 

@@ -195,6 +195,40 @@ def test_async_flush_off_hot_path():
     rs_async.close()
 
 
+def test_ingest_does_not_wait_for_the_writes():
+    """The annotation writes run on their own thread: while they are
+    stuck (the store's update blocked), later batches are still read
+    back and free their backpressure slot, so none waits out the 5 s
+    deadline and none is dropped; once the store answers, every pod is
+    annotated, in order."""
+    import threading
+    import time
+
+    store, pods, ps, _rs, names, dec = _setup(n_pods=2, flush=False)
+    more = [store.create(_pod(f"q{i}")) for i in range(6)]
+    gate = threading.Event()
+    update = store.update
+
+    def slow_update(obj_, **kw):
+        gate.wait(timeout=30)
+        return update(obj_, **kw)
+
+    store.update = slow_update
+    rs = ResultStore(store, async_flush=True, retry_initial_s=0.001)
+    t0 = time.monotonic()
+    for i in range(4):
+        rs.record_batch(pods if i == 0 else more[2 * i - 2:2 * i], names,
+                        dec, ps)
+    assert time.monotonic() - t0 < 4.0  # no producer waited out 5 s
+    assert not rs.drain(timeout=0.2)    # the writer is still stuck
+    gate.set()
+    assert rs.drain(timeout=10.0)
+    for p in pods + more[:6]:
+        assert FILTER_RESULT_KEY in store.get(
+            "Pod", p.key).metadata.annotations, p.key
+    rs.close()
+
+
 def test_top_k_prefers_feasible_nodes():
     """Feasible nodes rank strictly above higher-scoring infeasible ones,
     so the chosen node always appears in a bounded annotation."""

@@ -44,17 +44,10 @@ PORT = SimpleNamespace(
     slo=tslo, overload=toverload, bundle=tbundle, scheduler=tscheduler)
 
 # The JAX engine's metrics() keys the port does not report yet: they
-# belong to modules of later slices (the maintained index, the device
-# loop, tenant fusion, the persistent compile cache, the fleet and the
-# apiserver's outage ride-through). A slice that ports one of those
-# modules removes its keys here.
+# belong to modules of later slices (tenant fusion, the persistent
+# compile cache, the fleet and the apiserver's outage ride-through). A
+# slice that ports one of those modules removes its keys here.
 LATER_SLICE_KEYS = frozenset({
-    "index_appends", "index_checks", "index_classes_registered",
-    "index_cooldown_left", "index_cooldowns", "index_desyncs",
-    "index_fallbacks", "index_hits", "index_races", "index_rebuilds",
-    "index_repair_rows", "index_uncertified", "index_width",
-    "loop_breaks", "loop_depth_effective", "loop_iterations",
-    "loop_tranches",
     "tenant_fused_lanes", "tenant_races", "tenant_solo_fallbacks",
     "compile_cache_on", "stale_owner_binds", "store_reconciles",
 })

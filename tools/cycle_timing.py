@@ -47,7 +47,11 @@ MINISCHED_OVERLOAD=1`` arm them: the instrumentation's cost, read in
 turns against default); no-native (the default with
 ``MINISCHED_NO_NATIVE=1`` in the run's process: the store's clone takes
 the Python walk instead of the native fastclone, read in turns against
-default). The default list is default,unsampled.
+default); loop (unsampled with device_loop=True: ready batches run as
+tranches of up to loop_depth=8 slots, one dispatch and one fetch each)
+and index (unsampled with index=True, index_classes=128: the bench pods
+make 70 classes, past the default registry of 64), both read in turns
+against unsampled. The default list is default,unsampled.
 """
 from __future__ import annotations
 
@@ -80,6 +84,9 @@ MODES = {
     "c5-auction": {"assignment": "auction"},
     "armed": {},
     "no-native": {},
+    "loop": {"percentage_of_nodes_to_score": 100, "device_loop": True},
+    "index": {"percentage_of_nodes_to_score": 100, "index": True,
+              "index_classes": 128},
 }
 # Environment of a mode's process beyond the caller's.
 MODE_ENV = {"no-native": {"MINISCHED_NO_NATIVE": "1"}}
@@ -149,6 +156,16 @@ def one(mode: str, n_pods: int, smi: str, profile: bool = False) -> None:
           + "; lifecycle p50/p99: " + ", ".join(
               f"{h} {quant[2 * i]:.4f}/{quant[2 * i + 1]:.4f} s"
               for i, h in enumerate(cs.LIFECYCLE)) + f" ({smi})")
+    if mode in ("loop", "index"):
+        print(f"{mode} counters: " + ", ".join(f"{k} {m[k]}" for k in (
+            "batches", "steps_dispatched", "decision_fetches",
+            "loop_tranches", "loop_iterations", "loop_breaks",
+            "index_hits", "index_fallbacks", "index_races",
+            "index_rebuilds", "index_appends", "index_repair_rows",
+            "index_classes_registered", "scored_rows_total"))
+            + f"; batch sizes {m.get('batch_sizes')}, scored rows "
+            f"{m['batch_series']['scored_rows']}, step s "
+            f"{m['batch_series']['device_s']} ({smi})")
     b = m["batches"]
     print(json.dumps([c2b, m["step_s_total"] / b, m["prepare_s_total"],
                       m["step_s_total"], m["resolve_s_total"],
@@ -206,7 +223,8 @@ def main() -> int:
             raise SystemExit(f"FAILED: the {mode} run exited "
                              f"{out.returncode}")
         lines = out.stdout.strip().splitlines()
-        print("\n".join(lines[-4 if args.profile else -3:-1]), flush=True)
+        n_show = (4 if args.profile else 3) + (mode in ("loop", "index"))
+        print("\n".join(lines[-n_show:-1]), flush=True)
         results[mode].append(json.loads(lines[-1]))
     for mode, rows in results.items():
         med = np.median(np.array(rows), axis=0)
