@@ -229,6 +229,28 @@ them, and on any mismatch. Phases, each printing its own lines:
      card equal the CPU's, no desync; then index:corrupt@2: one desync,
      the index disabled, an index_revert bundle, the fault-free
      placements.
+ H1. fused multi-tenant arbitration (service.TenantFusionCoordinator):
+     TENANTS tenants, each the bench-50k cluster with its own
+     TENANT_PODS pods, all in the stores first, unsampled, rounds
+     single-stepped over quiet caches: fused (one lane a tenant) against
+     sequential, placements equal per tenant, the fused rounds'
+     dispatches and fetches against the sequential steps', one
+     selection and one scan launch per fused group, no pod bound twice,
+     no node over-committed; the first group's stacked (T, 1,024,
+     53,248) inputs through the lane kernels equal their plain versions
+     and T solo launches bitwise, the batched launches timed against
+     the solo launches in turns with their bounds; the rounds' host
+     time; peak device memory;
+ H2. the same tenants with the index (128 classes): round 1 ejects every
+     lane (cold) and rebuilds it solo, round 2 serves every lane in one
+     fused indexed dispatch; placements equal H1's; the lane kernels on
+     the gathered class rows against plain and solo;
+ H3. 1,200 nodes, four tenants of 256, 256, 200 and 40 pods, rounds of
+     64 slots (mixed-bucket rounds), unsampled: placements and the
+     deterministic counters cuda = cpu, full and indexed
+     (index_check_every=1); then tenant_index:corrupt@2: the gate fires
+     once, one lane desyncs and runs its supervised retry, the others
+     settle, every pod on its fault-free node.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -283,12 +305,14 @@ from minisched_tpu_torch.ops.pipeline import (_evaluate, _gather_nodes,
                                               evaluate)
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
 from minisched_tpu_torch.ops.preempt import build_preempt_op, fetch_preempt
-from minisched_tpu_torch.ops.select import (NEG, greedy_assign_plain,
-                                            greedy_assign_shortlist_plain,
-                                            shortlist_select,
-                                            shortlist_select_plain)
-from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
-from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
+from minisched_tpu_torch.ops.select import (
+    NEG, greedy_assign_plain, greedy_assign_shortlist_lanes_plain,
+    greedy_assign_shortlist_plain, lane_seeds, shortlist_select,
+    shortlist_select_lanes_plain, shortlist_select_plain)
+from minisched_tpu_torch.ops.select_kernel import (
+    shortlist_select_cuda, shortlist_select_lanes_cuda)
+from minisched_tpu_torch.ops.shortlist_kernel import (
+    shortlist_scan_cuda, shortlist_scan_lanes_cuda)
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
 from minisched_tpu_torch.scenario import demo
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
@@ -2913,6 +2937,493 @@ def index_phase(smi, off_placed, off_c2b, off_m):
     return launches, c2b, view_ms, view_err
 
 
+# H. Fused multi-tenant arbitration. TENANTS tenants, each the bench-50k
+# cluster (bench_workload seed 0: their static node images are equal, so
+# their lanes fuse) with its own TENANT_PODS bench pods (seed 1 + t). The
+# coordinator's max_batch_size is the round's slots across the tenants:
+# TENANTS x BATCH, so each lane is one 1,024 x 53,248 batch.
+TENANTS, TENANT_PODS = 8, 2 * BATCH
+TENANT_SMALL = (256, 256, 200, 40)  # H3's ragged demands
+# The coordinator's counters and the tenant engines' that follow the
+# inputs alone on single-stepped rounds over quiet caches.
+TENANT_COUNTERS = ("tenant_rounds", "tenant_dispatches", "tenant_fetches",
+                   "tenant_groups", "tenant_lanes_fused", "tenant_races",
+                   "tenant_solo_fallbacks", "tenant_index_dispatches",
+                   "tenant_index_lanes", "tenant_groups_round_max",
+                   "steps_dispatched_total", "decision_fetches_total")
+TENANT_ENGINE_COUNTERS = ("batches", "pods_bound", "tenant_fused_lanes",
+                          "steps_dispatched", "decision_fetches",
+                          "index_hits", "index_fused_hits",
+                          "index_lane_ejects", "index_rebuilds",
+                          "index_fallbacks", "index_races",
+                          "index_repair_rows", "index_appends",
+                          "index_checks", "index_desyncs", "batch_faults")
+
+
+def tenant_stores(nodes, tenant_pods):
+    """One ClusterStore a tenant holding ``nodes`` and its own pods."""
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    stores = []
+    for pods in tenant_pods:
+        store = ClusterStore()
+        store.create_many(nodes)
+        store.create_many(pods)
+        stores.append(store)
+    return stores
+
+
+def reset_tenant_pods(stores, tenant_pods) -> None:
+    """Each store's pods deleted and created again unbound, in their
+    first order: the stores serve another run with their nodes kept (a
+    store of 50,000 nodes takes seconds to build)."""
+    for store, pods in zip(stores, tenant_pods):
+        for q in pods:
+            store.delete("Pod", q.key)
+        store.create_many(pods)
+
+
+def tenant_run(cfg, nodes, tenant_pods, fuse, label, spec="",
+               capture=None, stores=None):
+    """A TenantFusionCoordinator (``fuse`` lanes; 0: sequential) over one
+    store a tenant (``stores``, else built here), each holding ``nodes``
+    and its own pods before the informers start; rounds single-stepped
+    with serve_round until every queue drains, and before each round
+    every bind in the store and every cache quiet (no mutation lands
+    between a lane's submit and the dispatch: the batches and the
+    counters follow the inputs). The launch counts are zeroed just
+    before the first round and read after the last; each fused group's
+    own launches are read around its dispatch. ``capture`` records the
+    first lane-form assignment's arguments, moved to the host after the
+    round (outside its time) so that no later round's peak memory holds
+    them. Checks every pod bound once, no node over its allocatable.
+    Returns (placements per tenant, metrics, each round's host seconds,
+    launches, each fused group's launches)."""
+    from minisched_tpu_torch.ops import select as SEL
+    from minisched_tpu_torch.service.service import (
+        Tenant, TenantFusionCoordinator)
+
+    names = [f"t{i}" for i in range(len(tenant_pods))]
+    if stores is None:
+        stores = tenant_stores(nodes, tenant_pods)
+    tenants = [Tenant(name=nm, store=store, profile=BENCH_PROFILE)
+               for nm, store in zip(names, stores)]
+    lanes = SEL.greedy_assign_shortlist_lanes
+
+    def capturing(scores, requests, free0, seeds, k=128):
+        if "args" not in capture:
+            capture["args"] = (scores, requests, free0, list(seeds), k)
+        return lanes(scores, requests, free0, seeds, k=k)
+
+    coord = TenantFusionCoordinator(tenants, cfg, fuse=fuse)
+    engines = [coord.engine(nm) for nm in names]
+    group_launches: list = []
+    if coord.mux is not None:
+        for attr in ("_dispatch_group", "_dispatch_index_group"):
+            def counted(group, _fn=getattr(coord.mux, attr)):
+                before = dict(LAUNCHES)
+                _fn(group)
+                group_launches.append(
+                    {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            setattr(coord.mux, attr, counted)
+    if capture is not None:
+        SEL.greedy_assign_shortlist_lanes = capturing
+        PIPE._TENANT_CACHE.clear()
+        PIPE._TENANT_INDEX_CACHE.clear()
+    try:
+        if spec:
+            faults.configure(spec, 0)
+        for eng in engines:
+            eng._shared.ensure_started()
+        check(wait_until(lambda: all(
+            eng.queue.pending_count() == len(pods)
+            for eng, pods in zip(engines, tenant_pods)), timeout=120),
+            f"{label}: the tenants' pods are not all queued")
+        cache_quiet_all(engines)
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        rounds = []
+        while any(eng.queue.pending_count() for eng in engines):
+            t = time.perf_counter()
+            coord.serve_round()
+            rounds.append(time.perf_counter() - t)
+            if capture is not None and "args" in capture:
+                capture["args"] = tuple(
+                    a.cpu() if torch.is_tensor(a) else a
+                    for a in capture["args"])
+            check(wait_until(lambda: all(
+                eng.metrics()["pods_bound"] >= eng.metrics()["pods_assigned"]
+                for eng in engines), timeout=120, interval=0.02),
+                f"{label}: a round's binds did not land")
+            cache_quiet_all(engines)
+            check(len(rounds) < 1000, f"{label}: the queues do not drain")
+        launches = dict(LAUNCHES)
+        m = coord.metrics()
+        by_name = {n.metadata.name: n for n in nodes}
+        placed = {}
+        for nm, pods, t in zip(names, tenant_pods, tenants):
+            check(m[f"{nm}_pods_bound"] == len(pods)
+                  and m[f"{nm}_batch_faults"] == 0 or spec,
+                  f"{label}: {nm} bound {m[f'{nm}_pods_bound']} of "
+                  f"{len(pods)}")
+            bound = [q for q in t.store.list("Pod") if q.spec.node_name]
+            check(len(bound) == len(pods),
+                  f"{label}: {nm} has {len(bound)} of {len(pods)} bound")
+            used: dict = {}
+            for q in bound:
+                u = used.setdefault(q.spec.node_name, [0.0, 0.0, 0])
+                u[0] += q.spec.requests["cpu"]
+                u[1] += q.spec.requests.get("memory", 0.0)
+                u[2] += 1
+            # The nodes as created (every store holds the same ones;
+            # listing a store would clone its 50,000 nodes a tenant).
+            for name, u in used.items():
+                node = by_name[name]
+                a = node.status.allocatable
+                check(u[0] <= a["cpu"] and u[1] <= a["memory"]
+                      and u[2] <= a["pods"] and not node.spec.unschedulable,
+                      f"{label}: {nm} node {name} over-committed")
+            placed[nm] = {q.key: q.spec.node_name for q in bound}
+        return placed, m, rounds, launches, group_launches
+    finally:
+        faults.configure("")
+        SEL.greedy_assign_shortlist_lanes = lanes
+        PIPE._TENANT_CACHE.clear()
+        PIPE._TENANT_INDEX_CACHE.clear()
+        coord.shutdown()
+
+
+def cache_quiet_all(engines, span=0.15) -> None:
+    """cache_quiet over every engine's cache at once."""
+    last = [eng.cache.version for eng in engines]
+    while True:
+        time.sleep(span)
+        now = [eng.cache.version for eng in engines]
+        if now == last:
+            return
+        last = now
+
+
+def lane_kernels_check(args, label, smi):
+    """The lane kernels on one captured fused group (scores (T,P,N),
+    requests, free0, the lanes' seeds, K): one selection and one scan
+    launch equal the lane-looped plain versions bitwise and equal T solo
+    launches; the batched launches timed against the T solo launches in
+    turns (CUDA events), each beside its bound. Returns the numbers."""
+    scores, req, free0, seeds, k = args
+    scores, req, free0 = (a.cuda() for a in (scores, req, free0))
+    T, P, N = scores.shape
+    R = req.shape[2]
+    seeds_dev = lane_seeds(seeds, scores.device)
+    sel = shortlist_select_lanes_cuda(scores, seeds_dev, k)
+    got = shortlist_scan_lanes_cuda(scores, sel[0], sel[1], sel[2], req,
+                                    free0, seeds_dev, cand_scores=sel[3])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want_sel = shortlist_select_lanes_plain(scores, seeds, k)
+    torch.cuda.synchronize()
+    select_plain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    plain = greedy_assign_shortlist_lanes_plain(scores, req, free0, seeds,
+                                                *want_sel)
+    torch.cuda.synchronize()
+    scan_plain_ms = (time.perf_counter() - t) * 1e3
+    err = {"shortlist_select": 0.0, "shortlist_scan": 0.0}
+    want_cs = torch.gather(scores, 2, want_sel[0].long())
+    for name, a, b in zip(("cand", "kth", "kth_noise", "cand_scores"), sel,
+                          (*want_sel, want_cs)):
+        check(torch.equal(bits(a), bits(b)),
+              f"{label}: lane selection {name} != plain")
+        err["shortlist_select"] = max(err["shortlist_select"], float(
+            (a.double() - b.double()).abs().max()))
+    fields = ("chosen", "assigned", "free_after", "repaired")
+    err["shortlist_scan"] = compare(got, plain, fields)
+    for t_ in range(T):
+        s_sel = shortlist_select_cuda(scores[t_], seeds[t_], k)
+        for name, a, b in zip(("cand", "kth", "kth_noise", "cand_scores"),
+                              s_sel, sel):
+            check(torch.equal(bits(a), bits(b[t_])),
+                  f"{label}: lane {t_} selection {name} != its solo launch")
+        s_scan = shortlist_scan_cuda(scores[t_], *s_sel[:3], req[t_],
+                                     free0[t_], seeds[t_],
+                                     cand_scores=s_sel[3])
+        for f in fields:
+            check(torch.equal(bits(getattr(s_scan, f)),
+                              bits(getattr(got, f)[t_])),
+                  f"{label}: lane {t_} scan {f} != its solo launch")
+    repairs = [int(r) for r in plain.repaired.sum(dim=1)]
+    del plain, want_sel, want_cs
+
+    def lane_select():
+        shortlist_select_lanes_cuda(scores, seeds_dev, k)
+
+    def solo_select():
+        for t_ in range(T):
+            shortlist_select_cuda(scores[t_], seeds[t_], k)
+
+    def lane_scan():
+        shortlist_scan_lanes_cuda(scores, sel[0], sel[1], sel[2], req, free0,
+                                  seeds_dev, cand_scores=sel[3])
+
+    def solo_scan():
+        for t_ in range(T):
+            shortlist_scan_cuda(scores[t_], sel[0][t_], sel[1][t_],
+                                sel[2][t_], req[t_], free0[t_], seeds[t_],
+                                cand_scores=sel[3][t_])
+
+    times = {"select_lanes": [], "select_solo": [], "scan_lanes": [],
+             "scan_solo": []}
+    for key, fn in (("select_lanes", lane_select),
+                    ("select_solo", solo_select),
+                    ("select_solo", solo_select),
+                    ("select_lanes", lane_select),
+                    ("scan_lanes", lane_scan), ("scan_solo", solo_scan),
+                    ("scan_solo", solo_scan), ("scan_lanes", lane_scan)):
+        times[key].append(cuda_ms(fn, reps=5))
+    sb, sby = select_bound_s(T * P, N, k)
+    cb = [scan_bound_s(P, N, k, R, r) for r in repairs]
+    out = {"shape": [T, P, N], "k": k, "err": err, "repairs": repairs,
+           "select_ms": times["select_lanes"],
+           "select_solo_ms": times["select_solo"],
+           "select_plain_ms": select_plain_ms,
+           "select_bound_s": sb, "select_bound_by": sby,
+           "scan_ms": times["scan_lanes"], "scan_solo_ms": times["scan_solo"],
+           "scan_plain_ms": scan_plain_ms,
+           "scan_bound_s": sum(b for b, _ in cb),
+           "scan_bound_by": cb[0][1]}
+    print(f"{label}: the lane kernels on the stacked {tuple(scores.shape)} "
+          f"K={k} batch equal their plain versions and {T} solo launches "
+          f"bitwise (repairs per lane {repairs}); selection one launch "
+          f"{'/'.join(f'{x:.4f}' for x in out['select_ms'])} ms against "
+          f"{T} solo {'/'.join(f'{x:.4f}' for x in out['select_solo_ms'])}"
+          f" ms in turns, plain {select_plain_ms:.1f} ms, bound "
+          f"{sb * 1e3:.4f} ms ({sby}); scan one launch "
+          f"{'/'.join(f'{x:.4f}' for x in out['scan_ms'])} ms against "
+          f"{T} solo {'/'.join(f'{x:.4f}' for x in out['scan_solo_ms'])} "
+          f"ms, plain {scan_plain_ms:.1f} ms, bound "
+          f"{out['scan_bound_s'] * 1e3:.4f} ms ({out['scan_bound_by']}; "
+          f"the chains of {P} dependent steps are the real limit) ({smi})")
+    return out
+
+
+def tenant_phase(smi):
+    """H1. TENANTS bench-50k tenants with their own TENANT_PODS pods,
+    unsampled, fused (one lane each) against sequential: placements
+    equal per tenant, the fused rounds' dispatches and fetches against
+    the sequential steps', one selection and one scan launch per fused
+    group, the first group's lane kernels against plain and solo
+    (lane_kernels_check), the rounds' host time, peak device memory.
+    The tenants' stores are built once for H1 and H2.
+    H2. The same tenants with the index (INDEX_CLASSES classes): the
+    first round ejects every lane (cold) and rebuilds solo, the second
+    serves every lane in one fused indexed dispatch; placements equal
+    H1's; the lane kernels on the gathered class rows against plain.
+    H3. SMALL_NODES nodes, four tenants of TENANT_SMALL pods, rounds of
+    SMALL_BATCH slots (mixed-bucket rounds), unsampled: cuda = cpu on
+    placements and counters, full and indexed; then
+    tenant_index:corrupt@2 with index_check_every=1: the gate fires
+    once, one lane desyncs and retries, the others settle, the
+    fault-free placements. Returns the numbers for the kernels line."""
+    nodes, _ = bench_workload(N_NODES, 0)
+    tenant_pods = [bench_workload(0, TENANT_PODS, seed=1 + t)[1]
+                   for t in range(TENANTS)]
+    cfg = dict(max_batch_size=TENANTS * BATCH, **UNSAMPLED)
+    t_sub = time.perf_counter()
+    # The tenants' stores are built once: H1 sequential and H2 run on
+    # them again with their pods created anew.
+    stores = tenant_stores(nodes, tenant_pods)
+    times = {"stores": time.perf_counter() - t_sub}
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cap1: dict = {}
+    t_sub = time.perf_counter()
+    f_placed, fm, f_rounds, f_launches, f_groups = tenant_run(
+        SchedulerConfig(platform="", **cfg), nodes, tenant_pods, TENANTS,
+        "H1 fused", capture=cap1, stores=stores)
+    peak = torch.cuda.max_memory_allocated()
+    times["H1 fused"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+    reset_tenant_pods(stores, tenant_pods)
+    s_placed, sm, s_rounds, s_launches, _g = tenant_run(
+        SchedulerConfig(platform="", **cfg), nodes, tenant_pods, 0,
+        "H1 sequential", stores=stores)
+    times["H1 sequential"] = time.perf_counter() - t_sub
+    check(f_placed == s_placed, "H1: fused placements != sequential")
+    n_rounds = len(f_rounds)
+    check(fm["tenant_dispatches"] == fm["tenant_fetches"] == n_rounds
+          and fm["tenant_lanes_fused"] == TENANTS * n_rounds
+          and fm["tenant_races"] == 0,
+          f"H1: {fm['tenant_dispatches']} fused dispatches, "
+          f"{fm['tenant_fetches']} fetches, {fm['tenant_lanes_fused']} "
+          f"lanes in {n_rounds} rounds, {fm['tenant_races']} races")
+    check(sm["steps_dispatched_total"] == sm["decision_fetches_total"]
+          == TENANTS * len(s_rounds),
+          f"H1 sequential: {sm['steps_dispatched_total']} steps, "
+          f"{sm['decision_fetches_total']} fetches")
+    check(len(f_groups) == fm["tenant_groups"] == n_rounds,
+          f"H1: {len(f_groups)} fused groups read, {fm['tenant_groups']} "
+          f"counted, in {n_rounds} rounds")
+    for name in ("shortlist_select", "shortlist_scan"):
+        check(f_launches[name] == n_rounds
+              and all(g[name] == 1 for g in f_groups),
+              f"H1: {name} launched {f_launches[name]} times in "
+              f"{n_rounds} fused groups, by group "
+              f"{[g[name] for g in f_groups]}")
+        check(sum(fm[f"t{i}_kernel_launches_{name}"] for i in range(TENANTS))
+              == f_launches[name], f"H1: {name} launches booked on the "
+              f"engines != launched")
+    t_sub = time.perf_counter()
+    lanes1 = lane_kernels_check(cap1.pop("args"), "H1 lane kernels", smi)
+    times["H1 lane kernels"] = time.perf_counter() - t_sub
+    print(f"H1 {TENANTS} tenants x {N_NODES} nodes x {TENANT_PODS} pods "
+          f"unsampled: placements equal fused and sequential per tenant; "
+          f"fused {n_rounds} rounds, {fm['tenant_dispatches']} dispatches, "
+          f"{fm['tenant_fetches']} fetches ({fm['tenant_fetch_bytes']:.0f} "
+          f"B) against {sm['steps_dispatched_total']:.0f} steps and "
+          f"{sm['decision_fetches_total']:.0f} fetches; kernels "
+          f"{ {k: f_launches[k] for k in ('shortlist_select', 'shortlist_scan')} } "
+          f"fused against "
+          f"{ {k: s_launches[k] for k in ('shortlist_select', 'shortlist_scan')} } "
+          f"sequential; round host time fused "
+          f"{'/'.join(f'{x:.3f}' for x in f_rounds)} s against sequential "
+          f"{'/'.join(f'{x:.3f}' for x in s_rounds)} s ({TENANTS} steps a "
+          f"round); peak device memory {peak / GB:.3f} GB "
+          f"({held / GB:.3f} GB held before) ({smi})")
+
+    cap2: dict = {}
+    t_sub = time.perf_counter()
+    reset_tenant_pods(stores, tenant_pods)
+    held2 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    i_placed, im, i_rounds, i_launches, i_groups = tenant_run(
+        SchedulerConfig(platform="", index=True, index_classes=INDEX_CLASSES,
+                        **cfg), nodes, tenant_pods, TENANTS, "H2 indexed",
+        capture=cap2, stores=stores)
+    peak2 = torch.cuda.max_memory_allocated()
+    times["H2 indexed"] = time.perf_counter() - t_sub
+    del stores
+    check(i_placed == f_placed, "H2: indexed placements != H1's")
+    check(len(i_groups) == im["tenant_groups"] >= 1
+          and all(g[name] == 1 for g in i_groups
+                  for name in ("shortlist_select", "shortlist_scan")),
+          f"H2: fused groups' launches {i_groups}, {im['tenant_groups']} "
+          f"groups counted")
+    ejects = sum(im.get(f"t{i}_index_lane_ejects", 0)
+                 for i in range(TENANTS))
+    fused_hits = sum(im.get(f"t{i}_index_fused_hits", 0)
+                     for i in range(TENANTS))
+    check(ejects == TENANTS and im["tenant_index_dispatches"] >= 1
+          and im["tenant_index_lanes"] == TENANTS * (len(i_rounds) - 1)
+          and fused_hits == im["tenant_index_lanes"],
+          f"H2: {ejects} ejects, {im['tenant_index_dispatches']} indexed "
+          f"dispatches, {im['tenant_index_lanes']} lanes, {fused_hits} fused "
+          f"hits in {len(i_rounds)} rounds; " + ", ".join(
+              f"{k} {v}" for k, v in im.items()
+              if k.startswith("t0_index") or k.startswith("tenant")))
+    t_sub = time.perf_counter()
+    lanes2 = lane_kernels_check(cap2.pop("args"), "H2 lane kernels on the "
+                                "gathered class rows", smi)
+    times["H2 lane kernels"] = time.perf_counter() - t_sub
+    print(f"H2 the same tenants with the index ({INDEX_CLASSES} classes): "
+          f"placements equal H1's; round 1 ejected {ejects} lanes (cold) "
+          f"and rebuilt them solo, then {im['tenant_index_dispatches']} "
+          f"fused indexed dispatches served {im['tenant_index_lanes']} "
+          f"lanes, {fused_hits} fused hits; kernels "
+          f"{ {k: i_launches[k] for k in ('shortlist_select', 'shortlist_scan')} }; "
+          f"round host time {'/'.join(f'{x:.3f}' for x in i_rounds)} s; "
+          f"peak device memory {peak2 / GB:.3f} GB ({held2 / GB:.3f} GB "
+          f"held before) ({smi})")
+    t_sub = time.perf_counter()
+
+    small_nodes, _ = bench_workload(SMALL_NODES, 0)
+    small_pods = [bench_workload(0, n, seed=20 + t)[1]
+                  for t, n in enumerate(TENANT_SMALL)]
+    runs = {}
+    for index in (False, True):
+        kw = dict(max_batch_size=SMALL_BATCH, **UNSAMPLED)
+        if index:
+            kw.update(index=True, index_classes=INDEX_CLASSES,
+                      index_check_every=1)
+        for platform in ("", "cpu"):
+            runs[(index, platform)] = tenant_run(
+                SchedulerConfig(platform=platform, **kw), small_nodes,
+                small_pods, TENANTS,
+                f"H3 {'indexed' if index else 'full'} on "
+                f"{platform or 'cuda'}")
+    names = [f"t{i}" for i in range(len(TENANT_SMALL))]
+    for index in (False, True):
+        (gp, gm, *_), (cp, cm, *_) = runs[(index, "")], runs[(index, "cpu")]
+        check(gp == cp, f"H3 index={index}: placements cuda != cpu")
+        for k in TENANT_COUNTERS:
+            check(gm[k] == cm[k], f"H3 index={index}: {k} {gm[k]} on the "
+                  f"card, {cm[k]} on the CPU")
+        for nm in names:
+            same_counters({k: gm.get(f"{nm}_{k}", 0) for k in
+                           TENANT_ENGINE_COUNTERS},
+                          {k: cm.get(f"{nm}_{k}", 0) for k in
+                           TENANT_ENGINE_COUNTERS},
+                          TENANT_ENGINE_COUNTERS, f"H3 {nm} index={index}")
+    gm = runs[(True, "")][1]
+    check(runs[(True, "")][0] == runs[(False, "")][0],
+          "H3: indexed placements != full")
+    check(gm["tenant_groups_round_max"] >= 2
+          and gm["tenant_index_dispatches"] >= 2,
+          f"H3: {gm['tenant_groups_round_max']} groups in a round at most, "
+          f"{gm['tenant_index_dispatches']} indexed dispatches")
+    f3, fm3, *_ = tenant_run(
+        SchedulerConfig(platform="", max_batch_size=SMALL_BATCH,
+                        index=True, index_classes=INDEX_CLASSES,
+                        index_check_every=1, probation_batches=1,
+                        **UNSAMPLED),
+        small_nodes, small_pods, TENANTS, "H3 tenant_index:corrupt@2",
+        spec="tenant_index:corrupt@2")
+    desyncs = {nm: fm3[f"{nm}_index_desyncs"] for nm in names}
+    hit = max(desyncs, key=desyncs.get)
+    check(fm3["t0_fault_fires_tenant_index"] == 1
+          and sum(desyncs.values()) == 1 and fm3[f"{hit}_index_width"] == 0
+          and fm3[f"{hit}_batch_faults"] >= 1
+          and all(fm3[f"{nm}_index_width"] > 0
+                  and fm3[f"{nm}_batch_faults"] == 0
+                  for nm in names if nm != hit),
+          f"H3 tenant_index:corrupt@2: fires "
+          f"{fm3['t0_fault_fires_tenant_index']}, desyncs {desyncs}")
+    check(f3 == runs[(True, "")][0],
+          "H3 tenant_index:corrupt@2: placements != the fault-free run's")
+    print(f"H3 {SMALL_NODES} nodes, tenants of {TENANT_SMALL} pods, rounds "
+          f"of {SMALL_BATCH} slots, unsampled: placements and "
+          + ", ".join(f"{k} {gm[k]:.0f}" for k in TENANT_COUNTERS)
+          + f" equal on the card and on the CPU, full and indexed "
+          f"(index_check_every=1, {sum(gm[f'{nm}_index_checks'] for nm in names)} "
+          f"checks, no desync); under tenant_index:corrupt@2 the gate fired "
+          f"once, {hit} desynced once and ran its supervised retry, the "
+          f"other lanes settled undisturbed, every pod on its fault-free "
+          f"node ({smi})")
+    times["H3"] = time.perf_counter() - t_sub
+    print("phase H by part: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in times.items()))
+    groups = f_groups + i_groups
+    return {"launches_per_fused_group": {
+                name: sum(g[name] for g in groups) / len(groups)
+                for name in ("shortlist_select", "shortlist_scan")},
+            "fused_groups": len(groups),
+            "h1": {"rounds": n_rounds, "fused_round_s": f_rounds,
+                   "sequential_round_s": s_rounds,
+                   "dispatches": fm["tenant_dispatches"],
+                   "fetches": fm["tenant_fetches"],
+                   "sequential_steps": sm["steps_dispatched_total"],
+                   "sequential_fetches": sm["decision_fetches_total"],
+                   "peak_device_gb": peak / GB, "held_gb": held / GB,
+                   "launches": f_launches,
+                   "lanes": lanes1},
+            "h2": {"rounds": len(i_rounds), "round_s": i_rounds,
+                   "index_dispatches": im["tenant_index_dispatches"],
+                   "index_lanes": im["tenant_index_lanes"],
+                   "fused_hits": fused_hits, "ejects": ejects,
+                   "peak_device_gb": peak2 / GB, "held_gb": held2 / GB,
+                   "launches": i_launches,
+                   "lanes": lanes2}}
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -3631,6 +4142,14 @@ def main() -> int:
         smi, off_placed, off_c2b, off_m)
     del off_placed
     print(f"phase G in {time.perf_counter() - t_phase:.1f} s")
+    # H. fused multi-tenant arbitration on the card
+    t_phase = time.perf_counter()
+    ten = tenant_phase(smi)
+    print(f"phase H in {time.perf_counter() - t_phase:.1f} s")
+    for h in ("h1", "h2"):
+        for name in ("shortlist_select", "shortlist_scan"):
+            err[name] = max(err[name], ten[h]["lanes"]["err"][name])
+    lanes = ten["h1"]["lanes"]
     ck = chunk["kernels"]
     err["shortlist_select"] = max(err["shortlist_select"], ck["select_err"],
                                   view_err["shortlist_select"])
@@ -3660,7 +4179,9 @@ def main() -> int:
             "config 4 soft": c4_launches["shortlist_select"],
             "explain bench": explain_launches["shortlist_select"],
             "loop bench unsampled": loop_launches["shortlist_select"],
-            "index bench unsampled": index_launches["shortlist_select"]},
+            "index bench unsampled": index_launches["shortlist_select"],
+            "tenants fused (H1)": ten["h1"]["launches"]["shortlist_select"],
+            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_select"]},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -3674,6 +4195,19 @@ def main() -> int:
         "plain_ms_8192": ck["select_plain_ms"],
         "bound_ms_8192": ck["select_bound_s"] * 1e3,
         "ms_index_view": view_ms["shortlist_select"],
+        # The tenant-lane form: one launch for the first fused group of
+        # H1 (T x 1,024 x 53,248), timed in turns against T solo
+        # launches of the same lanes; launches_per_fused_group is the
+        # mean of each fused group's own launches over H1 and H2.
+        "lanes_shape": lanes["shape"],
+        "ms_lanes": lanes["select_ms"],
+        "ms_solo_lanes": lanes["select_solo_ms"],
+        "plain_ms_lanes": lanes["select_plain_ms"],
+        "bound_ms_lanes": lanes["select_bound_s"] * 1e3,
+        "bound_by_lanes": lanes["select_bound_by"],
+        "launches_per_fused_group": ten["launches_per_fused_group"][
+            "shortlist_select"],
+        "fused_groups": ten["fused_groups"],
         "library_ms": None,
     }, {
         "name": "shortlist_scan",
@@ -3686,7 +4220,9 @@ def main() -> int:
             "config 4 soft": c4_launches["shortlist_scan"],
             "explain bench": explain_launches["shortlist_scan"],
             "loop bench unsampled": loop_launches["shortlist_scan"],
-            "index bench unsampled": index_launches["shortlist_scan"]},
+            "index bench unsampled": index_launches["shortlist_scan"],
+            "tenants fused (H1)": ten["h1"]["launches"]["shortlist_scan"],
+            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_scan"]},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
@@ -3700,6 +4236,19 @@ def main() -> int:
         "plain_ms_8192": ck["scan_plain_ms"],
         "bound_ms_8192": ck["scan_bound_s"] * 1e3,
         "ms_index_view": view_ms["shortlist_scan"],
+        # The tenant-lane form: one launch for the first fused group of
+        # H1 (T x 1,024 x 53,248), timed in turns against T solo
+        # launches of the same lanes; launches_per_fused_group is the
+        # mean of each fused group's own launches over H1 and H2.
+        "lanes_shape": lanes["shape"],
+        "ms_lanes": lanes["scan_ms"],
+        "ms_solo_lanes": lanes["scan_solo_ms"],
+        "plain_ms_lanes": lanes["scan_plain_ms"],
+        "bound_ms_lanes": lanes["scan_bound_s"] * 1e3,
+        "bound_by_lanes": lanes["scan_bound_by"],
+        "launches_per_fused_group": ten["launches_per_fused_group"][
+            "shortlist_scan"],
+        "fused_groups": ten["fused_groups"],
         "library_ms": None,
     }, {
         "name": "insert_ports",
@@ -3802,6 +4351,14 @@ def main() -> int:
                        "pods": LOOP_PODS},
         "index": {"burst_s": index_c2b, "off_burst_s": off_c2b,
                   "pods": LOOP_PODS, "classes": INDEX_CLASSES},
+        "tenants": {
+            "tenants": TENANTS, "pods_per_tenant": TENANT_PODS,
+            **{k: v for k, v in ten["h1"].items()
+               if k not in ("lanes", "launches")},
+            "indexed": {k: v for k, v in ten["h2"].items()
+                        if k not in ("lanes", "launches")},
+            "index_lanes_ms": {"select": ten["h2"]["lanes"]["select_ms"],
+                               "scan": ten["h2"]["lanes"]["scan_ms"]}},
         "native_clone": native.status()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

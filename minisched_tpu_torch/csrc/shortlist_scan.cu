@@ -70,6 +70,17 @@
 //     kernel's own choice for large P; tests/test_torch_kernel.py holds it
 //     on the card.
 //
+// Lanes. One launch may serve T independent batches of the same P, N, K
+// and R (the fused tenant step, minisched_tpu/ops/pipeline.py
+// build_tenant_step's jax.vmap of the scan): every input and output gains
+// a leading lane axis, contiguous per lane, and one block walks each lane
+// (grid = T). A block takes about the whole shared memory of an SM, so the
+// lanes' chains run side by side, one SM each, up to 132 at once. Lane t's
+// seed is seeds[t] (a (T,) u32 array in device memory); with no seeds
+// array (the per-batch launch, T = 1) the scalar seed serves. The
+// layout (ring depth, overlay in shared or device memory) depends only on
+// P, N, K and R, so it is chosen once for all lanes.
+//
 // Measured (NVIDIA H100 80GB HBM3, 700 W; tools/shortlist_timing.py,
 // chip_smoke.py, PERF.md): 0.588-0.595 ms at the main path's shape (0.57
 // us per pod) against 1.499-1.546 ms for that first design in the same calls;
@@ -86,8 +97,9 @@
 // the only float arithmetic is the __fsub_rn debit.
 //
 // Interface: a plain C function that launches on the caller's stream and
-// returns the cudaError_t of the launch, or kNoLaunch (-1) for an empty
-// batch, where it only copies free0 into free_after. It allocates nothing.
+// returns the cudaError_t of the launch, or kNoLaunch (-1) for empty
+// batches, where it only copies free0 into free_after (one copy of all
+// T lanes). It allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,6 +137,7 @@ struct Params {
   int32_t* chosen;
   uint8_t* assigned;
   uint8_t* repaired;
+  const uint32_t* seeds;  // T lane seeds in device memory, or null
   uint32_t seed;
   int P, N, K, R;
   int ring_k;        // min(K, kRingK)
@@ -503,9 +516,29 @@ __device__ Best repair_pick(const Params& p,
   return b;
 }
 
+// Block b's view of the launch: lane b's inputs and outputs and seed.
+__device__ __forceinline__ Params lane_params(const Params& pb) {
+  Params p = pb;
+  const size_t t = blockIdx.x;
+  const size_t pn = t * pb.P, nr = t * pb.N * pb.R;
+  p.scores += pn * pb.N;
+  p.cand += pn * pb.K;
+  p.cand_scores += pn * pb.K;
+  p.kth += pn;
+  p.kth_noise += pn;
+  p.requests += pn * pb.R;
+  p.free0 += nr;
+  p.free_after += nr;
+  p.chosen += pn;
+  p.assigned += pn;
+  p.repaired += pn;
+  if (pb.seeds != nullptr) p.seed = pb.seeds[t];
+  return p;
+}
+
+// One block's walk over its batch (the kernel's body).
 template <int MaxR, bool kSharedRows>
-__global__ void __launch_bounds__(kThreads, 1)
-    shortlist_scan_kernel(const Params p) {
+__device__ __forceinline__ void scan_block(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t s_full[kMaxStages];
   __shared__ uint64_t s_empty[kMaxStages];
@@ -712,33 +745,58 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int MaxR, bool kSharedRows>
-cudaError_t launch(const Params& p, size_t dyn, cudaStream_t st) {
-  auto kernel = shortlist_scan_kernel<MaxR, kSharedRows>;
+// kLanes: the lane form (one block a lane, block b on lane b's slices and
+// seed); else the one-batch launch, which reads its parameters as given
+// (no per-block copy: the walker warp's registers stay as they were).
+template <int MaxR, bool kSharedRows, bool kLanes>
+__global__ void __launch_bounds__(kThreads, 1)
+    shortlist_scan_kernel(const Params pb) {
+  if constexpr (kLanes) {
+    const Params p = lane_params(pb);
+    scan_block<MaxR, kSharedRows>(p);
+  } else {
+    scan_block<MaxR, kSharedRows>(pb);
+  }
+}
+
+template <int MaxR, bool kSharedRows, bool kLanes>
+cudaError_t launch_as(const Params& p, int T, size_t dyn, cudaStream_t st) {
+  auto kernel = shortlist_scan_kernel<MaxR, kSharedRows, kLanes>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  kernel<<<1, kThreads, dyn, st>>>(p);
+  kernel<<<T, kThreads, dyn, st>>>(p);
   return cudaGetLastError();
+}
+
+template <int MaxR, bool kSharedRows>
+cudaError_t launch(const Params& p, int T, size_t dyn, cudaStream_t st) {
+  return p.seeds != nullptr
+             ? launch_as<MaxR, kSharedRows, true>(p, T, dyn, st)
+             : launch_as<MaxR, kSharedRows, false>(p, T, dyn, st);
 }
 
 }  // namespace
 
+// seeds: null (one lane, the scalar seed) or T u32 seeds in device memory.
+// Every array leads with the lane axis: scores (T,P,N), free0 (T,N,R), ...
 extern "C" int shortlist_scan_launch(const float* scores, const int32_t* cand,
                                      const float* cand_scores, const float* kth,
                                      const float* kth_noise,
                                      const float* requests, const float* free0,
-                                     uint32_t seed, int P, int N, int K, int R,
+                                     const uint32_t* seeds, uint32_t seed,
+                                     int T, int P, int N, int K, int R,
                                      int32_t* chosen, uint8_t* assigned,
                                      float* free_after, uint8_t* repaired,
                                      void* stream) {
-  if (N < 1 || P < 0 || K < 1 || K > N || R < 1 || R > kMaxR)
+  if (T < 1 || N < 1 || P < 0 || K < 1 || K > N || R < 1 || R > kMaxR ||
+      (seeds == nullptr && T != 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyAsync(free_after, free0,
-                                    sizeof(float) * static_cast<size_t>(N) * R,
-                                    cudaMemcpyDeviceToDevice, st);
+  cudaError_t err = cudaMemcpyAsync(
+      free_after, free0, sizeof(float) * static_cast<size_t>(T) * N * R,
+      cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return err;
   if (P == 0) return kNoLaunch;
 
@@ -748,12 +806,13 @@ extern "C" int shortlist_scan_launch(const float* scores, const int32_t* cand,
                                dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, shortlist_scan_kernel<kMaxR, false>);
+  err = cudaFuncGetAttributes(&attr,
+                              shortlist_scan_kernel<kMaxR, false, true>);
   if (err != cudaSuccess) return err;
   const size_t budget = static_cast<size_t>(optin) - attr.sharedSizeBytes;
 
   Params p{scores, cand, cand_scores, kth, kth_noise, requests, free0,
-           free_after, chosen, assigned, repaired, seed, P, N, K, R};
+           free_after, chosen, assigned, repaired, seeds, seed, P, N, K, R};
   const int rs = R <= 16 ? 16 : kMaxR;  // the build's MaxR: padded rows
   auto up16 = [](size_t x) { return (x + 15) & ~static_cast<size_t>(15); };
   p.ring_k = K < kRingK ? K : kRingK;
@@ -788,10 +847,10 @@ extern "C" int shortlist_scan_launch(const float* scores, const int32_t* cand,
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   const size_t dyn = p.stages * stage + over;
   if (R <= 16)
-    return in_shared ? launch<16, true>(p, dyn, st)
-                     : launch<16, false>(p, dyn, st);
-  return in_shared ? launch<kMaxR, true>(p, dyn, st)
-                   : launch<kMaxR, false>(p, dyn, st);
+    return in_shared ? launch<16, true>(p, T, dyn, st)
+                     : launch<16, false>(p, T, dyn, st);
+  return in_shared ? launch<kMaxR, true>(p, T, dyn, st)
+                   : launch<kMaxR, false>(p, T, dyn, st);
 }
 
 extern "C" const char* shortlist_scan_error_string(int err) {

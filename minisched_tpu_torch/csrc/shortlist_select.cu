@@ -14,6 +14,14 @@
 // The noise is computed inline from (seed, row, column) in native u32; no
 // (P,N) lattice exists.
 //
+// Lanes. One launch may serve T independent batches of the same P, N and K
+// (the fused tenant step, minisched_tpu/ops/pipeline.py build_tenant_step's
+// jax.vmap of the two lax.top_k passes): scores is (T*P, N), each lane's
+// rows contiguous, and the outputs are (T*P, ...). Row r belongs to lane
+// r / P, whose seed is seeds[r / P] (a (T,) u32 array in device memory),
+// and its noise row is r mod P, the pod's row within its lane. With no
+// seeds array (the per-batch launch, T = 1) the scalar seed serves.
+//
 // Bound. The function must read the scores once (P*N*4: 218 MB at 1024 x
 // 53248, 0.065 ms at 3.35 TB/s) and write the outputs once. The design
 // reads each row from device memory once and touches it twice more in
@@ -58,7 +66,7 @@
 // row's cache. Only a row whose rebuilt list still fails reads it from
 // device memory in every pass (the cache already holds the next row).
 //
-// Layout. One block of 1024 threads per SM walks rows (grid = min(P,
+// Layout. One block of 1024 threads per SM walks rows (grid = min(T*P,
 // SMs)) when the row and the list fit in shared memory (N*4 + 12 KB, up
 // to N = 54,000); else one block per row reads the row from device
 // memory (L2) in both passes. The launcher reads the device's attributes
@@ -494,11 +502,21 @@ __device__ void select_exact(Shared& sh, const float* src, float* cache,
 }
 
 
+// Row r's seed and its pod row within its lane.
+__device__ __forceinline__ void row_lane(const uint32_t* seeds, uint32_t seed,
+                                         uint32_t P, uint32_t r, uint32_t& sd,
+                                         uint32_t& pod) {
+  const uint32_t t = r / P;
+  sd = seeds != nullptr ? seeds[t] : seed;
+  pod = r - t * P;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
-    shortlist_select_kernel(const float* __restrict__ scores, uint32_t seed,
-                            int P, int N, int K, int mode, int exact_smem,
-                            int32_t* cand, float* kth_out, float* kthn_out,
-                            float* cand_scores) {
+    shortlist_select_kernel(const float* __restrict__ scores,
+                            const uint32_t* __restrict__ seeds, uint32_t seed,
+                            int P, int rows, int N, int K, int mode,
+                            int exact_smem, int32_t* cand, float* kth_out,
+                            float* kthn_out, float* cand_scores) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Shared sh;
   const int tid = threadIdx.x;
@@ -507,9 +525,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (mode == kExact) {  // one row per block: the keys, then the row
     const uint32_t i = blockIdx.x;
+    uint32_t sd, pod;
+    row_lane(seeds, seed, P, i, sd, pod);
     float* cache = reinterpret_cast<float*>(smem + static_cast<size_t>(K) * 8);
     select_exact(sh, scores + static_cast<size_t>(i) * N,
-                 exact_smem == kKeysAndRow ? cache : nullptr, seed, i, N, K,
+                 exact_smem == kKeysAndRow ? cache : nullptr, sd, pod, N, K,
                  exact_smem != kNothing ? reinterpret_cast<uint64_t*>(smem)
                                         : nullptr,
                  cand + static_cast<size_t>(i) * K,
@@ -544,8 +564,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   uint32_t parity = 0;
-  for (uint32_t i = blockIdx.x; i < static_cast<uint32_t>(P);
+  for (uint32_t i = blockIdx.x; i < static_cast<uint32_t>(rows);
        i += gridDim.x, parity ^= 1u) {
+    uint32_t sd, pod;  // the lane's seed, the pod's row in its lane
+    row_lane(seeds, seed, P, i, sd, pod);
     const float* g = scores + static_cast<size_t>(i) * N;
     const uint32_t next = i + gridDim.x;
     int32_t* crow = cand + static_cast<size_t>(i) * K;
@@ -613,7 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    bool take = up;
                    if (in && key == L) {
                      ++e;
-                     take = noise_key(seed, i, j) >= T;
+                     take = noise_key(sd, pod, j) >= T;
                      et += take;
                    }
                    a += up;
@@ -630,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  });
         if (handover) {  // chunk c is read: the next row may land there
           __syncthreads();
-          if (tid == 0 && next < static_cast<uint32_t>(P)) issue(c, next);
+          if (tid == 0 && next < static_cast<uint32_t>(rows)) issue(c, next);
         }
       }
       block_sum3(sh, a, e, et);
@@ -659,15 +681,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         ok = fits(a, et);
       }
     } else if (cached) {  // the exact path on the cached row, then hand it on
-      select_exact(sh, s_row, nullptr, seed, i, N, K, lkeys, crow, csrow,
+      select_exact(sh, s_row, nullptr, sd, pod, N, K, lkeys, crow, csrow,
                    kth_out + i, kthn_out + i);
-      if (tid == 0 && next < static_cast<uint32_t>(P))
+      if (tid == 0 && next < static_cast<uint32_t>(rows))
         for (int c = 0; c < nchunks; ++c) issue(c, next);
       continue;
     }
     // A failed list: the cache, if any, already holds the next row.
     if (!ok) {
-      select_exact(sh, g, nullptr, seed, i, N, K, lkeys, crow, csrow,
+      select_exact(sh, g, nullptr, sd, pod, N, K, lkeys, crow, csrow,
                    kth_out + i, kthn_out + i);
       continue;
     }
@@ -689,7 +711,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (s > kth) {
         cls = kAbove + 1;
       } else if (s == kth) {
-        cls = noise_key(seed, i, col) + 1;
+        cls = noise_key(sd, pod, col) + 1;
       }
       lkeys[x] = (cls << 32) | static_cast<uint32_t>(v);
       lpay[x] = __float_as_uint(s);
@@ -737,12 +759,19 @@ void read_device(int dev, DeviceInfo& d) {
 
 }  // namespace
 
-extern "C" int shortlist_select_launch(const float* scores, uint32_t seed,
-                                       int P, int N, int K, int32_t* cand,
-                                       float* kth, float* kth_noise,
-                                       float* cand_scores, void* stream) {
-  if (P < 0 || N < 1 || K < 1 || K > N) return cudaErrorInvalidValue;
+// seeds: null (one lane, the scalar seed) or T u32 seeds in device memory.
+extern "C" int shortlist_select_launch(const float* scores,
+                                       const uint32_t* seeds, uint32_t seed,
+                                       int T, int P, int N, int K,
+                                       int32_t* cand, float* kth,
+                                       float* kth_noise, float* cand_scores,
+                                       void* stream) {
+  if (T < 1 || P < 0 || N < 1 || K < 1 || K > N ||
+      (seeds == nullptr && T != 1) ||
+      static_cast<long long>(T) * P > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   if (P == 0) return kNoLaunch;
+  const int rows = T * P;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -752,7 +781,7 @@ extern "C" int shortlist_select_launch(const float* scores, uint32_t seed,
   if (d.err != cudaSuccess) return d.err;
   const size_t rowb = static_cast<size_t>(N) * 4;
   const size_t keyb = static_cast<size_t>(K) * 8;
-  int mode = kListGlobal, exact_smem = kNothing, grid = P;
+  int mode = kListGlobal, exact_smem = kNothing, grid = rows;
   size_t dyn = kListBytes;
   if (K > kFastK) {
     mode = kExact;
@@ -769,12 +798,12 @@ extern "C" int shortlist_select_launch(const float* scores, uint32_t seed,
              kListBytes + rowb <= d.budget) {
     mode = kListCached;  // one block per SM walks the rows
     dyn = kListBytes + rowb;
-    grid = P < d.sms ? P : d.sms;
+    grid = rows < d.sms ? rows : d.sms;
   }
   shortlist_select_kernel<<<grid, kThreads, dyn,
                             static_cast<cudaStream_t>(stream)>>>(
-      scores, seed, P, N, K, mode, exact_smem, cand, kth, kth_noise,
-      cand_scores);
+      scores, seeds, seed, P, rows, N, K, mode, exact_smem, cand, kth,
+      kth_noise, cand_scores);
   return cudaGetLastError();
 }
 

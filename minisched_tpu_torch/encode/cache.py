@@ -1416,3 +1416,284 @@ class NodeFeatureCache:
                 if row[j] == p:
                     row[j] = 0
                     break
+
+
+def static_token(leaves: Dict[str, np.ndarray]) -> str:
+    """A content hash over a snapshot's STATIC node-feature leaves (host
+    numpy arrays, by field name): two tenants with equal tokens may share
+    one broadcast static encoding in a fused step."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for f in NodeFeatures._fields:
+        if f in NodeFeatureCache.DYNAMIC_NF_FIELDS:
+            continue
+        arr = np.asarray(leaves[f])
+        h.update(f.encode())
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def _leaf_sig(tree) -> tuple:
+    """(shape, dtype) of every array leaf of a nest of NamedTuples, in
+    field order (numpy arrays or tensors)."""
+    if isinstance(tree, tuple):
+        return tuple(s for x in tree for s in _leaf_sig(x))
+    return ((tuple(tree.shape), str(tree.dtype)),)
+
+
+class _TenantLane:
+    """One tenant engine's submitted batch inside a fusion round: the
+    fully staged step inputs (exactly what the solo dispatch would have
+    consumed, on the engine's device), the cache version at submit (the
+    race gate), and the engine's batch (``inf``, its ``_Batch``) that
+    the decision planes go back to. An INDEXED lane also carries its
+    engine's repaired (C,N) score slab and this batch's class rows on the
+    device (idx_slab / idx_cls / idx_k)."""
+
+    __slots__ = ("engine", "inf", "eb", "nf", "af", "key", "version",
+                 "w_vec", "group_key", "idx_slab", "idx_cls", "idx_k")
+
+
+class TenantCacheMux:
+    """Fused multi-tenant dispatch rendezvous (MINISCHED_TENANTS_FUSE).
+
+    One mux serves a fusion coordinator's round: the coordinator sets
+    ``round_pods`` (the round's common pod pad: ragged tenant batches pad
+    to it with invalid rows), drives each tenant engine's prepare (a
+    fusable batch SUBMITS its staged step inputs here instead of
+    dispatching), then calls ``dispatch()``, which groups compatible
+    lanes, runs ONE fused step per group (ops/pipeline.build_tenant_step:
+    one selection launch and one scan launch for every lane of the
+    group), reads the whole group's decisions back in ONE (T, 6+F, P)
+    copy, and hands every lane its unpacked planes and its ``free``
+    after, before the coordinator resolves it.
+
+    Contract:
+
+      * submit captures the lane's inputs fully staged (the objects the
+        solo dispatch would have consumed), so a cache mutation landing
+        mid-round cannot change the fused result. The recorded
+        ``cache.version`` still gates dispatch: a moved version
+        re-dispatches that lane SOLO through the engine's own step (same
+        inputs, same key, so the same decision) and counts a tenant race.
+      * lanes fuse only within a compatibility group: equal plugin trace
+        keys (weights excluded: they ride the (T,S) weight matrix), the
+        shortlist width, the input leaves' shapes and dtypes, and a
+        content token over the static node leaves (the fused step
+        broadcasts lane 0's statics). The token is the hash of the host
+        arrays the engine uploaded them from, computed once per (static
+        version, pad) (``Scheduler._with_device_static``): hashing the
+        device tensors would make every round wait for the card.
+      * per-tenant sparse deltas keep routing through each tenant's own
+        listeners: the mux multiplexes dispatch, never the caches.
+
+    Single-threaded: submit and dispatch run on the coordinator's serve
+    thread, as the engine's own prepare and resolve phases do.
+    """
+
+    def __init__(self):
+        self.round_pods = 0          # common P pad for the current round
+        self.max_lanes = 0           # fused-tranche width cap (0 = none)
+        self.lanes: List[_TenantLane] = []
+        # The fusion ledger: tenant_dispatches counts fused dispatches
+        # (one per compatibility group per round; solo fallbacks book on
+        # their engine's steps_dispatched), tenant_fetches the one
+        # read-back per group; tenant_index_* the fused indexed subset;
+        # tenant_groups_round_max the most groups one round fused.
+        self.counters: Dict[str, float] = {
+            "tenant_rounds": 0, "tenant_dispatches": 0,
+            "tenant_fetches": 0, "tenant_fetch_bytes": 0.0,
+            "tenant_groups": 0, "tenant_lanes_fused": 0,
+            "tenant_races": 0, "tenant_solo_fallbacks": 0,
+            "tenant_index_dispatches": 0, "tenant_index_lanes": 0,
+            "tenant_groups_round_max": 0,
+        }
+        # Test seam: called at the top of dispatch() so a test can land a
+        # mid-round cache mutation between submit and dispatch (the
+        # counted race fallback).
+        self._pre_dispatch_hook = None
+
+    # ---- compatibility grouping -----------------------------------------
+
+    @staticmethod
+    def _static_token(engine) -> object:
+        """The content token of the static node leaves the engine's lane
+        was staged with; an engine whose statics were uploaded before a
+        mux was armed has none, and its lanes group alone."""
+        cached = engine._nf_static_device
+        tok = cached[2] if cached is not None else None
+        return tok if tok is not None else ("engine", id(engine))
+
+    def _compat_key(self, engine, eb, nf, af) -> tuple:
+        pset = engine.plugin_set
+        dyn_sig = tuple((f,) + _leaf_sig(getattr(nf, f))
+                        for f in NodeFeatureCache.DYNAMIC_NF_FIELDS)
+        return (
+            tuple(p.trace_key() for p in pset.filter_plugins),
+            tuple(p.trace_key() for p in pset.score_plugins),
+            engine._shortlist_k, _leaf_sig(eb), _leaf_sig(af), dyn_sig,
+            str(nf.valid.device), self._static_token(engine),
+        )
+
+    # ---- the round --------------------------------------------------------
+
+    def submit(self, engine, inf, eb, nf, af, key,
+               index=None) -> _TenantLane:
+        """Stage one tenant engine's prepared batch (``eb``/``nf``/``af``
+        on the engine's device, ``key`` its PRNG key) for the round's
+        fused dispatch. Returns the lane ticket the engine parks on
+        ``inf.tenant_ticket``; ``dispatch()`` fills the decision planes
+        and clears it. ``index`` is the engine's staged index payload
+        ``(score_slab, cls (P,) on the device, k_eff)``
+        (Scheduler._tenant_index_stage): indexed lanes group apart from
+        full lanes (the slab's class pad and the scan width join the
+        group key), so a group is homogeneous and dispatches through
+        ops/pipeline.build_tenant_index_step."""
+        pset = engine.plugin_set
+        lane = _TenantLane()
+        lane.engine, lane.inf = engine, inf
+        lane.eb, lane.nf, lane.af, lane.key = eb, nf, af, key
+        lane.version = engine.cache.version
+        lane.w_vec = np.asarray(
+            [pset.weight_of(p) for p in pset.score_plugins],
+            dtype=np.float32)
+        if index is not None:
+            lane.idx_slab, lane.idx_cls, lane.idx_k = index
+            mode = ("idx", int(lane.idx_slab.shape[0]), int(lane.idx_k))
+        else:
+            lane.idx_slab = lane.idx_cls = lane.idx_k = None
+            mode = ("full",)
+        lane.group_key = self._compat_key(engine, eb, nf, af) + mode
+        self.lanes.append(lane)
+        return lane
+
+    def dispatch(self) -> None:
+        """Fire the round: ONE fused dispatch per compatibility group (a
+        one-lane group too, so every ticket is filled by the same
+        machinery), split into tranches of ``max_lanes``, and a solo
+        per-engine dispatch for raced lanes."""
+        lanes, self.lanes = self.lanes, []
+        if not lanes:
+            return
+        if self._pre_dispatch_hook is not None:
+            self._pre_dispatch_hook()
+        self.counters["tenant_rounds"] += 1
+        groups: Dict[tuple, List[_TenantLane]] = {}
+        for lane in lanes:
+            if lane.engine.cache.version != lane.version:
+                # A mutation raced the collect window: the staged inputs
+                # would still give the same decision, but serving past a
+                # moved version is the index's race posture too. Solo,
+                # counted, never wrong.
+                self._dispatch_solo(lane)
+            else:
+                groups.setdefault(lane.group_key, []).append(lane)
+        fused_this_round = 0
+        for group in groups.values():
+            cap = self.max_lanes if self.max_lanes > 0 else len(group)
+            for i in range(0, len(group), cap):
+                tranche = group[i:i + cap]
+                if tranche[0].idx_slab is not None:
+                    self._dispatch_index_group(tranche)
+                else:
+                    self._dispatch_group(tranche)
+                fused_this_round += 1
+        self.counters["tenant_groups_round_max"] = max(
+            self.counters["tenant_groups_round_max"], fused_this_round)
+
+    def _dispatch_solo(self, lane: _TenantLane) -> None:
+        from ..engine.scheduler import _count_launches
+
+        eng, inf = lane.engine, lane.inf
+        self.counters["tenant_races"] += 1
+        self.counters["tenant_solo_fallbacks"] += 1
+        eng._sup_count("tenant_races")
+        eng._sup_count("tenant_solo_fallbacks")
+        decision = _count_launches(inf, eng._step, lane.eb, lane.nf,
+                                   lane.af, lane.key, has_gang=False,
+                                   hard_spread=False)
+        eng._sup_count("steps_dispatched")
+        inf.decision = decision
+        inf.packed_dev = eng._pack(decision)
+        inf.scored_rows += (int(lane.eb.pf.valid.shape[0])
+                            * int(lane.nf.valid.shape[0]))
+        inf.tenant_ticket = None
+
+    def _dispatch_group(self, group: List[_TenantLane]) -> None:
+        from ..engine.scheduler import _count_launches
+        from ..ops.pipeline import build_tenant_step
+
+        eng0 = group[0].engine
+        fused_fn = build_tenant_step(eng0.plugin_set,
+                                     shortlist=eng0._shortlist_k)
+        # The group's launches are booked on its first lane's batch, so
+        # the engines' kernel_launches sum to the process's.
+        packed_stack, free_stack = _count_launches(
+            group[0].inf, fused_fn, [ln.eb for ln in group],
+            [ln.nf for ln in group], [ln.af for ln in group],
+            [ln.key for ln in group], np.stack([ln.w_vec for ln in group]))
+        self.counters["tenant_dispatches"] += 1
+        self.counters["tenant_groups"] += 1
+        self.counters["tenant_lanes_fused"] += len(group)
+        buf = np.array(packed_stack.cpu().numpy())  # ONE fetch, writable
+        self.counters["tenant_fetches"] += 1
+        self.counters["tenant_fetch_bytes"] += buf.nbytes
+        for i, lane in enumerate(group):
+            b = buf[i]
+            # The engine's i32 unpack order (unpack_decision_i32): rows
+            # chosen, assigned, gang_rejected, feasible, feasible_static,
+            # repaired, rejects...
+            lane.inf.packed_dev = (
+                b[0], b[1].astype(bool), b[2].astype(bool),
+                b[3], b[4], b[6:], b[5].astype(bool))
+            lane.inf.index_free_after = free_stack[i]
+            lane.inf.scored_rows += (int(lane.eb.pf.valid.shape[0])
+                                     * int(lane.nf.valid.shape[0]))
+            lane.inf.tenant_ticket = None
+            lane.engine._sup_count("tenant_fused_lanes")
+
+    def _dispatch_index_group(self, group: List[_TenantLane]) -> None:
+        """ONE fused INDEXED dispatch: each lane's class rows gathered
+        from its own repaired (C,N) slab into one (T,P,N) buffer, one
+        selection and one scan launch (ops/pipeline.
+        build_tenant_index_step), no plugin evaluation, one (T,·) fetch.
+        Each lane's row lands on ``inf.index_packed_dev`` as a host
+        array, which the engine's resolve settles through the same
+        _settle_index ladder as a solo indexed batch."""
+        from ..engine.scheduler import _count_launches
+        from ..faults import FAULTS
+        from ..ops.index import corrupt_slab
+        from ..ops.pipeline import build_tenant_index_step
+
+        fused_fn = build_tenant_index_step(int(group[0].idx_k))
+        slabs = [ln.idx_slab for ln in group]
+        # Fault gate: the fused indexed dispatch seam. ``corrupt``
+        # scribbles a COPY of lane 0's slab (ops/index.corrupt_slab, the
+        # solo index gate's scheme): range-sane, accepted by the scan's
+        # certificate, caught only by that lane's index_check_every
+        # cross-check. The maintained slab itself stays intact.
+        if FAULTS.hit("tenant_index") == "corrupt":
+            slabs[0] = corrupt_slab(slabs[0],
+                                    int(group[0].nf.valid.shape[0]))
+        packed_stack, free_after = _count_launches(
+            group[0].inf, fused_fn, slabs, [ln.idx_cls for ln in group],
+            [ln.eb.pf.valid for ln in group],
+            [ln.eb.pf.requests for ln in group],
+            [ln.nf.free for ln in group], [ln.key for ln in group])
+        self.counters["tenant_dispatches"] += 1
+        self.counters["tenant_groups"] += 1
+        self.counters["tenant_lanes_fused"] += len(group)
+        self.counters["tenant_index_dispatches"] += 1
+        self.counters["tenant_index_lanes"] += len(group)
+        buf = np.array(packed_stack.cpu().numpy())  # ONE (T,·) fetch
+        self.counters["tenant_fetches"] += 1
+        self.counters["tenant_fetch_bytes"] += buf.nbytes
+        for i, lane in enumerate(group):
+            lane.inf.index_packed_dev = buf[i]
+            lane.inf.index_free_after = free_after[i]
+            lane.inf.tenant_ticket = None
+            lane.engine._sup_count("tenant_fused_lanes")
+            lane.engine._sup_count("tenant_index_lanes")

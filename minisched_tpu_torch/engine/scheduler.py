@@ -71,7 +71,7 @@ import torch
 
 from ..config import SchedulerConfig
 from ..encode import NodeFeatureCache, encode_pods, to_torch
-from ..encode.cache import bucket_for, step_bucket
+from ..encode.cache import bucket_for, static_token, step_bucket
 from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
 from ..faults import FAULTS, FaultWorkerDeath
@@ -250,7 +250,7 @@ class _Batch:
                  "t_fetched", "t_resolved", "commit_t0", "commit_t1",
                  "gap", "h2d0", "fetch0", "h2d1", "fetch1", "scored_rows",
                  "shapes", "step_share", "loop_slot", "index_mode",
-                 "index_packed_dev", "index_free_after")
+                 "index_packed_dev", "index_free_after", "tenant_ticket")
 
     def __init__(self):
         # Inter-batch gap components (gather/encode/commit) booked since
@@ -300,13 +300,20 @@ class _Batch:
         # (or judged) once per slot. None on the per-batch path.
         self.step_share: Optional[float] = None
         self.loop_slot: Optional[int] = None
-        # Maintained index: "off" | "hit" | "fallback" (provenance), the
-        # speculative scan's [chosen | assigned | repaired] device buffer
-        # that resolve settles, and its carried free_after (adopted by
-        # residency when the index serves the batch).
+        # Maintained index: "off" | "hit" | "fused-hit" | "fallback"
+        # (provenance), the speculative scan's [chosen | assigned |
+        # repaired] buffer that resolve settles, and its carried
+        # free_after (adopted by residency when the index serves the
+        # batch; a fused lane's free after its fused step too).
         self.index_mode = "off"
         self.index_packed_dev = None
         self.index_free_after = None
+        # Fused multi-tenant lane ticket (encode/cache.TenantCacheMux):
+        # set between the prepare's submit and the mux's fused dispatch,
+        # which fills packed_dev (a host tuple; or index_packed_dev, a
+        # host row) and index_free_after and clears it. Resolve refuses a
+        # batch whose ticket is still armed.
+        self.tenant_ticket = None
 
 
 def _count_launches(b: _Batch, fn, *args, **kwargs):
@@ -1165,8 +1172,18 @@ class Scheduler:
         # WFFC candidate-zone memo: pvc key → (zones, computed_at).
         self._wffc_memo: Dict[str, tuple] = {}
         # Device copies of the static node-feature leaves, keyed on
-        # (cache static version, pad). Scheduling thread only.
+        # (cache static version, pad), with their content token when a
+        # tenant mux is armed: ((version, pad), leaves, token or None).
+        # Scheduling thread only.
         self._nf_static_device = None
+        # Fused multi-tenant arbitration (MINISCHED_TENANTS_FUSE;
+        # encode/cache.TenantCacheMux): installed by the service's
+        # fusion coordinator on each tenant engine it serves. When armed,
+        # a fusable batch's prepare SUBMITS its staged step inputs to the
+        # mux instead of dispatching, and the coordinator's one fused
+        # dispatch per group fills the batch's decision before resolve.
+        # None: a solo engine (every other path, unchanged).
+        self._tenant_mux = None
         # Slim decision readback rides the residency knob, as in the JAX
         # package: device_resident=False restores the all-i32 fetch.
         self._slim = bool(self.config.device_resident)
@@ -1299,6 +1316,14 @@ class Scheduler:
             "index_appends": 0, "index_uncertified": 0,
             "index_races": 0, "index_checks": 0, "index_desyncs": 0,
             "index_cooldowns": 0,
+            # Fused multi-tenant arbitration (MINISCHED_TENANTS_FUSE):
+            # batches this engine served as one lane of a fused tenant
+            # dispatch (the mux books the one dispatch and fetch of a
+            # group on its own counters), submitted batches dispatched
+            # solo after a cache mutation raced the collect window, and
+            # those races.
+            "tenant_fused_lanes": 0, "tenant_solo_fallbacks": 0,
+            "tenant_races": 0,
             # SLO sentinel alerts (total; per-objective keys appear on
             # first fire) and the supervisor's early-warning reactions.
             "slo_alerts_total": 0, "supervisor_early_warnings": 0,
@@ -1786,6 +1811,28 @@ class Scheduler:
                 return False
         return True
 
+    def _tenant_fusable(self, batch: List[QueuedPodInfo], hard_spread: bool,
+                        fail_closed) -> bool:
+        """May this batch ride a fused tenant dispatch? The index's and
+        the loop's posture: greedy, the fast rung only, no nominations
+        (their reserve changes the step's free input outside the fused
+        staging), no explain recorder, no armed shortlist cross-check
+        (its attribution is per batch; the index cross-check is allowed
+        while the index is live: it certifies a fused indexed serve as a
+        solo one), no fail-closed verdict, no hard-spread arbitration,
+        and the shared per-pod walk (_ring_safe_pods), which also keeps
+        the spread fetch away. Other batches dispatch solo inside
+        prepare."""
+        if (self.config.assignment != "greedy" or self.config.explain
+                or self.recorder is not None):
+            return False
+        if (self._sup.level != 0 or self._nominations or fail_closed
+                or hard_spread or self.config.shortlist_check_every
+                or (self.config.index_check_every
+                    and self._index is None)):
+            return False
+        return self._ring_safe_pods(batch)
+
     def _maybe_run_tranche(self, batch: List[QueuedPodInfo], *,
                            checked: bool = False) -> bool:
         """Run ``batch`` and up to depth-1 further ready batches as one
@@ -2240,7 +2287,12 @@ class Scheduler:
             host = {f: getattr(nf, f) for f in nf._fields
                     if f not in dynamic}
             leaves = {f: to_torch(a, self.device) for f, a in host.items()}
-            self._nf_static_device = cached = (key, leaves)
+            # A tenant engine hashes the host arrays it uploads (the
+            # mux's grouping token): never the device tensors, whose read
+            # would make every round wait for the card.
+            token = (static_token(host) if self._tenant_mux is not None
+                     else None)
+            self._nf_static_device = cached = (key, leaves, token)
             self._count_h2d(sum(a.nbytes for a in host.values()))
         return nf._replace(**cached[1])
 
@@ -2398,8 +2450,14 @@ class Scheduler:
             self._prep_window = (b.t_enc0, None)
         # Encode pods FIRST: constraints may register new topology keys,
         # which the node snapshot's domain tables must reflect.
-        b.vol_memo, b.fail_closed, eb = self._encode_batch(
-            batch, pods, step_bucket(len(pods), cfg.pod_bucket_min))
+        p_req = step_bucket(len(pods), cfg.pod_bucket_min)
+        if self._tenant_mux is not None:
+            # Ragged tenant batches pad to the fusion round's common pod
+            # pad (the fused lanes share one P) with invalid rows, which
+            # change no real row's decision.
+            p_req = max(p_req, self._tenant_mux.round_pods)
+        b.vol_memo, b.fail_closed, eb = self._encode_batch(batch, pods,
+                                                           p_req)
         if self._index is not None:
             # Drain the index listener BEFORE the snapshot a refresh
             # evaluates against: a mutation landing after the drain is
@@ -2446,15 +2504,38 @@ class Scheduler:
         # Fault gate: step dispatch (err → supervised retry down the
         # ladder; stall → lands in the watchdog's step window).
         FAULTS.hit("step")
+        # Fused multi-tenant arbitration: with the coordinator's mux
+        # armed, a fusable batch SUBMITS its staged inputs instead of
+        # dispatching; the mux's one fused dispatch per group fills its
+        # decision before the coordinator resolves it. Checked before
+        # the index seam: the fused full step decides as the indexed
+        # serve does (I3), and the index listener drained above keeps
+        # its protocol for batches that fall back.
+        fuse_lane = (self._tenant_mux is not None and b.sample_k is None
+                     and self._tenant_fusable(batch, hard_spread,
+                                              b.fail_closed))
+        idx_payload = None
+        if fuse_lane and self._index is not None:
+            # The fused indexed lane: stage this engine's own repaired
+            # (C,N) slab for the mux's indexed dispatch. A repair that
+            # needs a rebuild ejects the lane for this round (counted):
+            # it rebuilds through the solo indexed dispatch below.
+            idx_payload = self._tenant_index_stage(b, batch, eb, nf, af)
+            if idx_payload == "eject":
+                fuse_lane = False
+                idx_payload = None
         # Maintained index: serve the batch from the device-resident
         # class rows, repaired from this prepare's drained deltas, in
         # place of the full (P,N) pass. Speculative: resolve settles it
         # and re-runs the full step with the same key on an unassigned
         # live row.
         d = None
-        if not (self._index is not None and b.sample_k is None
-                and self._index_dispatch(b, batch, eb, eb_dev, nf, af,
-                                         key)):
+        if fuse_lane:
+            b.tenant_ticket = self._tenant_mux.submit(
+                self, b, eb_dev, nf, af, key, index=idx_payload)
+        elif not (self._index is not None and b.sample_k is None
+                  and self._index_dispatch(b, batch, eb, eb_dev, nf, af,
+                                           key)):
             with span("step.dispatch"):
                 # The host flags spare the step its reads of the card: a
                 # gang-free batch skips the gang admission's, a batch
@@ -2961,10 +3042,13 @@ class Scheduler:
 
     def _index_repair_slab(self, idx: _ArbIndex, b: _Batch, class_pf, nf,
                            af, refresh_fn, append_fn, c_pad: int,
-                           n_pad: int) -> None:
+                           n_pad: int, *, fused: bool = False) -> None:
         """Bring a live (C,N) slab to this snapshot without a rebuild:
         rescore exactly the drained node columns in place, then write in
-        any fresh class rows still inside the class-pad bucket."""
+        any fresh class rows still inside the class-pad bucket. Shared by
+        the solo indexed dispatch and the fused lane's staging, which
+        journals ``index.slab_repair`` (the repair lands in the owning
+        tenant's slab)."""
         if idx.pending:
             rows = np.fromiter(idx.pending, dtype=np.int64,
                                count=len(idx.pending))
@@ -2979,9 +3063,9 @@ class Scheduler:
                     idx.state = refresh_fn(idx.state, class_pf, nf, af,
                                            rows_pad)
                 self._sup_count("index_repair_rows", int(rows.size))
-                jnote("index.repair", profile=self.profile,
-                      replica=self.replica, rows=int(rows.size),
-                      batch=self._batch_seq)
+                jnote("index.slab_repair" if fused else "index.repair",
+                      profile=self.profile, replica=self.replica,
+                      rows=int(rows.size), batch=self._batch_seq)
                 b.scored_rows += c_pad * rb
         if idx.fresh_rows:
             # The per-class add: only the fresh rows over the full node
@@ -3001,6 +3085,63 @@ class Scheduler:
                   replica=self.replica, rows=n_fresh, batch=self._batch_seq)
             b.scored_rows += rb * n_pad
 
+    def _tenant_index_stage(self, b: _Batch, batch, eb, nf, af):
+        """Stage this fused lane's indexed serve: bring the engine's own
+        (C,N) slab to this snapshot (column repairs and in-bucket fresh
+        classes, in place of the owning slab) and hand the mux the slab
+        and this batch's class rows, so the lane rides one fused indexed
+        dispatch (ops/pipeline.build_tenant_index_step) instead of the
+        fused full pass. Three outcomes: ``(score_slab, cls on the
+        device, k_eff)`` (serve fused-indexed); None (ride fused-full:
+        no live or a cooling index, a counted race, a full class
+        registry; never a stale serve); or ``"eject"``: a repair no slab
+        patch can express (a widening invalidation, a cold or
+        invalidated state, node-pad growth, a class-pad crossing) takes
+        the lane out of the fused group this round, counted and
+        journaled, and it rebuilds through its own solo indexed
+        dispatch."""
+        idx = self._index
+        if idx is None or self._index_cooldown > 0:
+            return None
+        if (self.cache.version != idx.drain_version
+                or idx.listener.inval != idx.pending_inval):
+            self._sup_count("index_races")
+            return None
+        cls = idx.classify(eb.pf, len(batch))
+        if cls is None:
+            # A full class registry: a counted fallback, never an error.
+            self._sup_count("index_fallbacks")
+            return None
+        n_pad = int(nf.valid.shape[0])
+        rebuild = (idx.state is None or idx.needs_rebuild
+                   or idx.pending_inval != idx.inval_seen
+                   or idx.n_built != n_pad)
+        _build_fn, refresh_fn, append_fn, _assign_fn = build_index_ops(
+            self.plugin_set, idx.k_eff)
+        class_pf = idx.class_pf(eb.pf, self.device)
+        c_pad = int(class_pf.valid.shape[0])
+        if (not rebuild and idx.fresh_rows
+                and c_pad != int(idx.state.score.shape[0])):
+            rebuild = True
+        if rebuild:
+            # The solo dispatch's cause precedence; the rebuild happens
+            # there (this lane leaves the fused group).
+            cause = ("widening-invalidation"
+                     if idx.pending_inval != idx.inval_seen
+                     else "cold" if idx.n_built == -1
+                     else "invalidated" if idx.state is None
+                     else "node-pad" if idx.n_built != n_pad
+                     else "class-pad")
+            self._sup_count("index_lane_ejects")
+            jnote("index.lane_eject", profile=self.profile,
+                  replica=self.replica, cause=cause, batch=self._batch_seq)
+            return "eject"
+        self._index_repair_slab(idx, b, class_pf, nf, af, refresh_fn,
+                                append_fn, c_pad, n_pad, fused=True)
+        cls_pad = np.zeros((int(eb.pf.valid.shape[0]),), dtype=np.int32)
+        cls_pad[:len(batch)] = cls
+        return (idx.state.score, to_torch(cls_pad, self.device), idx.k_eff)
+
     def _settle_index(self, b: _Batch) -> None:
         """Settle an index-dispatched batch (resolve, before anything
         consumes a decision): read the [chosen | assigned | repaired]
@@ -3013,11 +3154,16 @@ class Scheduler:
         engine's in every case (I3)."""
         idx = self._index
         p_pad = int(b.eb.pf.valid.shape[0])
+        # A fused indexed lane arrives with its row of the mux's one
+        # stacked fetch already on the host (counted once at the mux).
+        fused = isinstance(b.index_packed_dev, np.ndarray)
         with span("fetch.index"):
-            buf = np.array(b.index_packed_dev.cpu().numpy())
+            buf = np.array(b.index_packed_dev if fused
+                           else b.index_packed_dev.cpu().numpy())
         b.index_packed_dev = None
-        self._count_fetch(buf.nbytes)
-        self._sup_count("decision_fetches")
+        if not fused:
+            self._count_fetch(buf.nbytes)
+            self._sup_count("decision_fetches")
         chosen, assigned, repaired = unpack_index_decision(buf, p_pad)
         L = len(b.batch)
         if bool(assigned[:L].all()):
@@ -3032,10 +3178,14 @@ class Scheduler:
                 np.ones((p_pad,), dtype=np.int32),
                 np.zeros((n_f, p_pad), dtype=np.int32),
                 repaired)
-            b.index_mode = "hit"
+            b.index_mode = "fused-hit" if fused else "hit"
             if idx is not None:
                 idx.rebuild_streak = 0
             self._sup_count("index_hits")
+            if fused:
+                self._sup_count("index_fused_hits")
+                jnote("index.fused_serve", profile=self.profile,
+                      replica=self.replica, pods=L, batch=b.seq)
             self._sup_count("index_uncertified", int(repaired[:L].sum()))
             self._check_index(b, chosen, assigned)
             return
@@ -3251,6 +3401,13 @@ class Scheduler:
         # batch's gather sits between dispatch and here; the fetch-start
         # stamp keeps it out of the step window.
         b.t_fetch_start = time.perf_counter()
+        if b.tenant_ticket is not None:
+            # A fused tenant lane must be dispatched by the mux before the
+            # coordinator resolves it: an armed ticket here is a
+            # sequencing defect of the coordinator.
+            raise EngineDesync(
+                "fused tenant lane reached resolve with its ticket still "
+                "armed (mux.dispatch did not run)")
         if b.index_packed_dev is not None:
             # Settle the speculative indexed scan: serve it (an index
             # hit: no full pass ran) or discard it and run the full step

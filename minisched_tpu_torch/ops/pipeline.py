@@ -23,7 +23,11 @@ scorer's raw and normalized matrix (the result store's input). Above a
 size threshold the filters and scorers run over pod chunks, so only one
 chunk's temporaries are live at a time. ``build_loop_step`` runs the
 step over the device loop's ring slots, carrying ``free`` on the device
-from slot to slot into one stacked decision buffer.
+from slot to slot into one stacked decision buffer. ``build_tenant_step``
+and ``build_tenant_index_step`` serve T tenants' batches of one shape
+(the fused tenant round): each lane's scores land in one (T,P,N) buffer
+that one selection launch and one scan launch assign, and every lane's
+decision lands in one stacked buffer.
 """
 from __future__ import annotations
 
@@ -133,11 +137,16 @@ def cycle_state(plugin_set: PluginSet, eb, nf, af) -> dict:
     return ctx
 
 
-def _evaluate(plugin_set: PluginSet, pf, nf, ctx, explain: bool = False):
+def _evaluate(plugin_set: PluginSet, pf, nf, ctx, explain: bool = False,
+              w_vec=None):
     """Filters and scores of one batch: ``(masked_total, feasible (P,N)
     bool, feasible_counts, reject_counts, (masks, raws, norms))``; the
     three lists hold each filter's mask and each scorer's raw and
-    normalized matrix under ``explain``, and are empty otherwise."""
+    normalized matrix under ``explain``, and are empty otherwise.
+    ``w_vec`` (S,) float32 on the host, one weight per scorer, replaces
+    the profile's weights (a tenant lane's own); multiplying by equal
+    float32 values gives equal bits, so a profile's own weights give the
+    same totals either way."""
     P = pf.valid.shape[0]
     valid_pair = pf.valid[:, None] & nf.valid[None, :]
     # One pass over filters: each (P,N) mask contributes its reject count
@@ -161,10 +170,11 @@ def _evaluate(plugin_set: PluginSet, pf, nf, ctx, explain: bool = False):
 
     total = torch.zeros(feasible.shape, dtype=torch.float32,
                         device=feasible.device)
-    for p in plugin_set.score_plugins:
+    for i, p in enumerate(plugin_set.score_plugins):
         raw = p.score(pf, nf, ctx).to(torch.float32)
         norm = p.normalize(raw, feasible).to(torch.float32)
-        total = total + plugin_set.weight_of(p) * norm
+        w = plugin_set.weight_of(p) if w_vec is None else float(w_vec[i])
+        total = total + w * norm
         if explain:
             raws.append(raw)
             norms.append(norm)
@@ -191,6 +201,35 @@ def _pod_rows(pf, start: int, stop: int):
     with P)."""
     return pf._replace(**{f: getattr(pf, f)[start:stop]
                           for f in pf._fields})
+
+
+def _evaluate_chunks(plugin_set: PluginSet, pf, nf, ctx, w_vec,
+                     out: torch.Tensor, C: int, static_counts=None):
+    """Filters and scores of pods ``pf`` in chunks of C rows, each
+    chunk's masked total written into its rows of ``out`` (P,N): the
+    step's evaluation past ``_CHUNK_WHEN_BYTES`` and each tenant lane's.
+    ``static_counts(feasible, pf_rows)``, when given, fills the third
+    result. Returns (feasible_counts (P,), reject_counts (F,P),
+    feasible_static (P,) or None)."""
+    P = out.shape[0]
+    dev = out.device
+    feasible_counts = torch.empty((P,), dtype=torch.int32, device=dev)
+    reject_counts = torch.empty((len(plugin_set.filter_plugins), P),
+                                dtype=torch.int32, device=dev)
+    feasible_static = (None if static_counts is None else
+                       torch.empty((P,), dtype=torch.int32, device=dev))
+    for start in range(0, P, C):
+        rows = slice(start, start + C)
+        pf_c = pf if C >= P else _pod_rows(pf, start, start + C)
+        mt, feasible, fc, rc, _ = _evaluate(plugin_set, pf_c, nf, ctx,
+                                            w_vec=w_vec)
+        out[rows] = mt
+        feasible_counts[rows] = fc
+        reject_counts[:, rows] = rc
+        if feasible_static is not None:
+            feasible_static[rows] = static_counts(feasible, pf_c)
+        del mt, feasible, fc, rc
+    return feasible_counts, reject_counts, feasible_static
 
 
 def evaluate(plugin_set: PluginSet, eb, nf, af):
@@ -256,10 +295,12 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                sample_nodes: Optional[int] = None,
                assignment: str = "greedy", explain: bool = False):
     """The scheduling step for a plugin profile:
-    ``step(eb, nf, af, key, has_gang=None, hard_spread=None) -> Decision``
-    where ``eb`` is an EncodedBatch, ``nf`` the NodeFeatures and ``af``
-    the AssignedPodFeatures, all as tensors on one device
-    (encode.to_torch), and ``key`` the batch's PRNG key (ops/prng).
+    ``step(eb, nf, af, key, has_gang=None, hard_spread=None, w_vec=None)
+    -> Decision`` where ``eb`` is an EncodedBatch, ``nf`` the
+    NodeFeatures and ``af`` the AssignedPodFeatures, all as tensors on
+    one device (encode.to_torch), and ``key`` the batch's PRNG key
+    (ops/prng). ``w_vec`` (S,) float32 on the host replaces the scorers'
+    weights (ops/pipeline._evaluate); None keeps the profile's.
 
     ``shortlist=K`` (K >= 1) assigns with the shortlist-compressed scan
     (select.greedy_assign_shortlist, K clamped to the node pad); None or
@@ -329,7 +370,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                           if f.name == "PodTopologySpread"), None)
 
     def step(eb, nf, af, key, has_gang: Optional[bool] = None,
-             hard_spread: Optional[bool] = None) -> Decision:
+             hard_spread: Optional[bool] = None, w_vec=None) -> Decision:
         n = nf.valid.shape[0]
         ctx = cycle_state(plugin_set, eb, nf, af)
         sample_idx = None
@@ -385,31 +426,17 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
         if C is None:
             (masked_total, feasible, feasible_counts, reject_counts,
              (masks, raws, norms)) = _evaluate(plugin_set, pf, nf, ctx,
-                                               explain)
+                                               explain, w_vec)
             feasible_static = static_counts(feasible, pf)
             del feasible
         else:
-            dev = pf.valid.device
             masked_total = torch.empty((P, N), dtype=torch.float32,
-                                       device=dev)
-            feasible_counts = torch.empty((P,), dtype=torch.int32,
-                                          device=dev)
-            reject_counts = torch.empty(
-                (len(plugin_set.filter_plugins), P), dtype=torch.int32,
-                device=dev)
-            feasible_static = (None if ctx_static is None else
-                               torch.empty((P,), dtype=torch.int32,
-                                           device=dev))
-            for start in range(0, P, C):
-                rows = slice(start, start + C)
-                pf_c = _pod_rows(pf, start, start + C)
-                mt, feasible, fc, rc, _ = _evaluate(plugin_set, pf_c, nf, ctx)
-                masked_total[rows] = mt
-                feasible_counts[rows] = fc
-                reject_counts[:, rows] = rc
-                if feasible_static is not None:
-                    feasible_static[rows] = static_counts(feasible, pf_c)
-                del mt, feasible, fc, rc
+                                       device=pf.valid.device)
+            feasible_counts, reject_counts, feasible_static = (
+                _evaluate_chunks(plugin_set, pf, nf, ctx, w_vec,
+                                 masked_total, C,
+                                 None if ctx_static is None
+                                 else static_counts))
             masks, raws, norms = [], [], []
         if feasible_static is None:
             feasible_static = feasible_counts
@@ -555,3 +582,144 @@ def build_loop_step(plugin_set: PluginSet, *, assignment: str = "greedy",
         return out, free
 
     return loop
+
+
+_TENANT_CACHE: dict = {}
+
+
+def build_tenant_step(plugin_set: PluginSet, *,
+                      shortlist: Optional[int] = None):
+    """The fused multi-tenant step: ``tenant_step(ebs, nfs, afs, keys,
+    w_stack) -> (packed_stack, free_stack)`` serves T tenants' batches
+    (lanes) of one shape in one call.
+
+    ``ebs`` / ``afs`` are the T lanes' EncodedBatch and
+    AssignedPodFeatures on one device, all at one pod pad; ``nfs`` their
+    NodeFeatures, of which only lane 0's static leaves are read (the
+    mux groups only lanes whose static node encodings are equal, so they
+    are broadcast) and every lane's own dynamic ``free`` / ``used_ports``;
+    ``keys`` the lanes' PRNG keys and ``w_stack`` the (T,S) float32
+    host matrix of their scorer weights (the ``w_vec`` seam: lanes whose
+    weights differ share this one step, memoized without weights).
+
+    Each lane's filters and scores are evaluated in turn into one
+    (T,P,N) buffer; then one selection launch and one scan launch assign
+    every lane (select.greedy_assign_shortlist_lanes; with the shortlist
+    off, the greedy kernel once per lane). Each lane's decision is
+    packed with ``pack_decision_i32`` into row t of one (T,6+F,P) int32
+    buffer, so the host reads the group back in one copy; ``free_stack``
+    is the (T,N,R) free after every lane. Lane t's outputs equal the
+    per-batch step's on lane t's inputs and key, bit for bit (the JAX
+    package's ``jax.vmap`` of its raw step).
+
+    Greedy only, no explain and no node sampling, as in the JAX package;
+    and the lanes are ring-safe batches (the engine submits no gang, no
+    spread constraint, no host port), so the gang admission and the
+    domain caps have nothing to do: ``gang_rejected`` is all False and
+    ``feasible_static`` equals ``feasible_counts``."""
+    if shortlist is not None and shortlist < 1:
+        shortlist = None
+    cache_key = (tuple(p.trace_key() for p in plugin_set.filter_plugins),
+                 tuple(p.trace_key() for p in plugin_set.score_plugins),
+                 shortlist)
+    cached = _TENANT_CACHE.get(cache_key)
+    if cached is not None:
+        return cached
+    from .residency import pack_decision_i32
+    from .select import greedy_assign_shortlist_lanes
+
+    n_filters = len(plugin_set.filter_plugins)
+
+    def tenant_step(ebs, nfs, afs, keys, w_stack):
+        T = len(ebs)
+        nf0 = nfs[0]
+        P = ebs[0].pf.valid.shape[0]
+        N = nf0.valid.shape[0]
+        dev = nf0.valid.device
+        scores = torch.empty((T, P, N), dtype=torch.float32, device=dev)
+        planes = []
+        for t in range(T):
+            nf_t = nf0._replace(free=nfs[t].free,
+                                used_ports=nfs[t].used_ports)
+            ctx = cycle_state(plugin_set, ebs[t], nf_t, afs[t])
+            planes.append(_evaluate_chunks(
+                plugin_set, ebs[t].pf, nf_t, ctx, w_stack[t], scores[t],
+                _chunk_pods(P, N) or P)[:2])
+        requests = torch.stack([eb.pf.requests for eb in ebs])
+        free0 = torch.stack([nf.free for nf in nfs])
+        seeds = [prng.bits(key) for key in keys]
+        if shortlist is not None:
+            r = greedy_assign_shortlist_lanes(scores, requests, free0,
+                                              seeds, k=shortlist)
+            chosen, assigned, free_after, repaired = r
+        else:
+            rs = [greedy_assign(scores[t], requests[t], free0[t], seeds[t])
+                  for t in range(T)]
+            chosen = torch.stack([r.chosen for r in rs])
+            assigned = torch.stack([r.assigned for r in rs])
+            free_after = torch.stack([r.free_after for r in rs])
+            repaired = torch.zeros_like(assigned)
+        del scores
+        packed = torch.empty((T, 6 + n_filters, P), dtype=torch.int32,
+                             device=dev)
+        no_gang = torch.zeros((P,), dtype=torch.bool, device=dev)
+        for t, (counts, rejects) in enumerate(planes):
+            packed[t] = pack_decision_i32(chosen[t], assigned[t], no_gang,
+                                          counts, counts, rejects,
+                                          repaired[t])
+        return packed, free_after
+
+    _TENANT_CACHE[cache_key] = tenant_step
+    return tenant_step
+
+
+_TENANT_INDEX_CACHE: dict = {}
+
+
+def build_tenant_index_step(k_eff: int):
+    """The fused indexed tenant step: ``tenant_index_step(slabs, cls,
+    valid, requests, free0, keys) -> (packed_stack, free_after_stack)``
+    serves T index-eligible lanes from their maintained index slabs with
+    no plugin evaluation.
+
+    ``slabs`` are the lanes' (C,N) ``IndexState.score`` matrices (one C
+    and N across a group: the mux's group key pins them), ``cls`` the
+    lanes' (P,) class rows on the device, and ``valid`` / ``requests`` /
+    ``free0`` / ``keys`` the per-lane inputs the solo ``ops/index``
+    assign takes. Each lane's class rows, masked by ``valid``, are
+    gathered straight into one (T,P,N) buffer (no slab is copied whole);
+    then one selection launch and one scan launch at ``k = min(k_eff,
+    N)`` assign every lane. Row t of the (T, 4P + 2*ceil(P/8)) uint8
+    ``packed_stack`` is exactly the solo assign's buffer [chosen i32 × P
+    | assigned bits | repaired bits], so ``ops/index.unpack_index_decision``
+    reads a stacked fetch row by row. Memoized on ``k_eff`` alone."""
+    if k_eff < 1:
+        raise ValueError(f"index scan width {k_eff} must be >= 1")
+    cached = _TENANT_INDEX_CACHE.get(k_eff)
+    if cached is not None:
+        return cached
+    from .residency import _bytes_of, _packbits
+    from .select import greedy_assign_shortlist_lanes
+
+    def tenant_index_step(slabs, cls, valid, requests, free0, keys):
+        T = len(slabs)
+        P = valid[0].shape[0]
+        N = slabs[0].shape[1]
+        dev = slabs[0].device
+        scores = torch.empty((T, P, N), dtype=torch.float32, device=dev)
+        for t in range(T):
+            torch.index_select(slabs[t], 0, cls[t].long(), out=scores[t])
+            scores[t].masked_fill_(~valid[t][:, None], NEG)
+        free0 = torch.stack(list(free0))
+        r = greedy_assign_shortlist_lanes(
+            scores, torch.stack(list(requests)), free0,
+            [prng.bits(key) for key in keys], k=min(k_eff, N))
+        del scores
+        packed = torch.stack([
+            torch.cat([_bytes_of(r.chosen[t].to(torch.int32)),
+                       _packbits(r.assigned[t]), _packbits(r.repaired[t])])
+            for t in range(T)])
+        return packed, r.free_after
+
+    _TENANT_INDEX_CACHE[k_eff] = tenant_index_step
+    return tenant_index_step

@@ -13,7 +13,10 @@ JAX package's, bit for bit, so both packages pick the same node.
 dispatch on the device of their inputs: CPU tensors take the plain
 PyTorch versions below, CUDA tensors the hand-written kernels
 (ops/greedy_kernel.py, ops/select_kernel.py, ops/shortlist_kernel.py),
-which raise rather than fall back.
+which raise rather than fall back. ``greedy_assign_shortlist_lanes`` is
+the lane form the fused tenant step runs: T independent batches of one
+shape, each with its own seed, in one selection launch and one scan
+launch (the JAX package's ``jax.vmap`` of the selection and the scan).
 """
 from __future__ import annotations
 
@@ -323,3 +326,66 @@ def greedy_assign_shortlist(scores: torch.Tensor, requests: torch.Tensor,
     cand, kth, kth_noise, cand_scores = shortlist_select_cuda(scores, seed, k)
     return shortlist_scan_cuda(scores, cand, kth, kth_noise, requests,
                                free0, seed, cand_scores=cand_scores)
+
+
+def lane_seeds(seeds, device) -> torch.Tensor:
+    """The lanes' u32 seeds as a (T,) int32 tensor on ``device`` (the bit
+    patterns), for the lane kernels. On a card the copy leaves pinned
+    host memory without waiting for the card."""
+    host = torch.tensor([(int(s) & _M32) - ((int(s) & 0x80000000) << 1)
+                         for s in seeds], dtype=torch.int32)
+    if torch.device(device).type == "cpu":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def shortlist_select_lanes_plain(scores: torch.Tensor, seeds, k: int):
+    """The plain version of the selection kernel's lane form:
+    ``shortlist_select_plain`` over each lane of ``scores`` (T,P,N) with
+    its seed, stacked: (cand (T,P,K), kth (T,P), kth_noise (T,P))."""
+    outs = [shortlist_select_plain(scores[t], int(sd), k)
+            for t, sd in enumerate(seeds)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def greedy_assign_shortlist_lanes_plain(scores, requests, free0, seeds,
+                                        cand, kth, kth_noise
+                                        ) -> ShortlistAssignResult:
+    """The plain version of the scan kernel's lane form:
+    ``greedy_assign_shortlist_plain`` over each lane (every input with a
+    leading T axis), stacked."""
+    outs = [greedy_assign_shortlist_plain(scores[t], requests[t], free0[t],
+                                          int(sd), cand[t], kth[t],
+                                          kth_noise[t])
+            for t, sd in enumerate(seeds)]
+    return ShortlistAssignResult(*(torch.stack(parts)
+                                   for parts in zip(*outs)))
+
+
+def greedy_assign_shortlist_lanes(scores: torch.Tensor,
+                                  requests: torch.Tensor,
+                                  free0: torch.Tensor, seeds,
+                                  k: int = 128) -> ShortlistAssignResult:
+    """``greedy_assign_shortlist`` over T lanes at once: ``scores``
+    (T,P,N), ``requests`` (T,P,R), ``free0`` (T,N,R) and ``seeds`` the T
+    lanes' u32 seeds (host ints). Lane t's outputs equal
+    ``greedy_assign_shortlist(scores[t], requests[t], free0[t],
+    seeds[t], k)``, with a leading T axis. CPU tensors loop the plain
+    versions over the lanes; CUDA tensors make one selection launch and
+    one scan launch for every lane (ops/select_kernel.py,
+    ops/shortlist_kernel.py), which raise rather than fall back."""
+    T, P, N = scores.shape
+    k = min(max(int(k), 1), N)
+    if scores.device.type == "cpu":
+        cand, kth, kth_noise = shortlist_select_lanes_plain(scores, seeds, k)
+        return greedy_assign_shortlist_lanes_plain(
+            scores, requests, free0, seeds, cand, kth, kth_noise)
+    from .select_kernel import shortlist_select_lanes_cuda
+    from .shortlist_kernel import shortlist_scan_lanes_cuda
+
+    seeds_dev = lane_seeds(seeds, scores.device)
+    cand, kth, kth_noise, cand_scores = shortlist_select_lanes_cuda(
+        scores, seeds_dev, k)
+    return shortlist_scan_lanes_cuda(scores, cand, kth, kth_noise, requests,
+                                     free0, seeds_dev,
+                                     cand_scores=cand_scores)

@@ -6,16 +6,26 @@ start informers + go Run) and ShutdownScheduler (:82-87), for one
 profile and one engine. With ``SchedulerConfig.explain`` the service
 also runs the result store (``result_store``), which publishes every
 pod's per-plugin verdicts and scores as annotations.
+
+Fused multi-tenant arbitration: ``TenantFusionCoordinator`` serves T
+virtual clusters (``Tenant``: a store each) from one serve thread, one
+fused dispatch per compatible group of tenants a round
+(``MINISCHED_TENANTS_FUSE``, ``tenants_fuse_from_env``).
 """
 from __future__ import annotations
 
 import logging
-from typing import Optional
+import os
+import threading
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
 
 from ..config import SchedulerConfig
 from ..engine.clusterstate import SharedClusterState
+from ..engine.queue import bucket_major_quotas
 from ..engine.scheduler import Scheduler
 from ..explain import ResultStore
+from ..faults import FaultWorkerDeath
 from ..state.informer import ResourceEventHandlers
 from .defaultconfig import Profile, default_scheduler_profile
 
@@ -81,3 +91,252 @@ class SchedulerService:
         if self._shared_state is not None:
             self._shared_state.shutdown()
             self._shared_state = None
+
+
+# ---- fused multi-tenant arbitration ----------------------------------------
+
+
+def tenants_fuse_from_env() -> int:
+    """``MINISCHED_TENANTS_FUSE``: the fused-tranche width cap (how many
+    tenants one fused dispatch may serve). 0, 1, unset or unparsable:
+    fusion off; the coordinator then steps each tenant in turn, the
+    baseline the fused mode must equal."""
+    try:
+        return int(os.environ.get("MINISCHED_TENANTS_FUSE", "0") or 0)
+    except ValueError:
+        return 0
+
+
+@dataclass
+class Tenant:
+    """One virtual cluster of a fused multi-tenant group: its OWN
+    ClusterStore (tenants share no objects), its fair-share weight in
+    the round's batch-slot gather, and an optional plugin profile."""
+
+    name: str
+    store: object
+    weight: float = 1.0
+    profile: Optional[Profile] = None
+
+
+class TenantFusionCoordinator:
+    """Serve T virtual clusters from ONE arbitration dispatch per round.
+
+    Each tenant has a private engine (its own store, cluster state and
+    feature cache, so its sparse deltas reach its own slabs; its own
+    queue; its own overload controller, named for the tenant, so
+    per-profile shed budgets hold per tenant) but no run thread: the
+    coordinator drives every engine's prepare, resolve and commit from
+    one serve thread, with a ``TenantCacheMux`` (encode/cache.py)
+    installed at the dispatch seam when fusion is on. The engines run on
+    the device ``SchedulerConfig.platform`` names, ``cuda:0`` by
+    default (which raises without a card).
+
+    One round (``serve_round``):
+
+      1. Tenants group by the pod-pad bucket of their pending demand,
+         and ``max_batch_size`` slots split by tenant weight inside each
+         group (engine/queue.bucket_major_quotas): a hot tenant cannot
+         starve its group's fused slot, and a small tenant never pads to
+         a large one's bucket.
+      2. Each tenant pops its quota; ``mux.round_pods`` is set per group
+         to the group's common pod bucket, so its ragged batches pad to
+         one shape with invalid rows.
+      3. Each engine's prepare runs: a fusable batch SUBMITS its staged
+         inputs to the mux (an index-armed engine its repaired (C,N)
+         slab beside them); any other batch (gangs, nominations, a
+         degraded rung, sampling, explain, spread) dispatches solo
+         inside prepare.
+      4. ``mux.dispatch()`` runs one fused step per group and hands each
+         lane its decision.
+      5. Resolve and commit per tenant, in tenant order, each through
+         its engine's own machinery; a lane's resolve fault engages only
+         that engine's supervised retry.
+
+    With ``fuse < 2`` no mux is installed and the same loop runs each
+    tenant's batch through its own full dispatch: the sequential
+    baseline. Decisions are equal in the two modes; only the dispatch
+    and fetch counts differ.
+    """
+
+    def __init__(self, tenants: Sequence[Tenant],
+                 config: Optional[SchedulerConfig] = None,
+                 fuse: Optional[int] = None):
+        from ..encode.cache import TenantCacheMux
+
+        if fuse is None:
+            fuse = tenants_fuse_from_env()
+        self.fuse = max(0, int(fuse))
+        self.fused = self.fuse >= 2
+        names = [t.name for t in tenants]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate tenant names: {names}")
+        if not tenants:
+            raise ValueError("at least one tenant required")
+        self._tenants = list(tenants)
+        self._config = config or SchedulerConfig()
+        self._weights = [float(t.weight) for t in self._tenants]
+        self.mux = TenantCacheMux() if self.fused else None
+        if self.mux is not None:
+            self.mux.max_lanes = self.fuse
+        self._engines: Dict[str, Scheduler] = {}
+        for t in self._tenants:
+            pset = (t.profile or default_scheduler_profile()).build()
+            eng = Scheduler(t.store, pset, self._config, profile=t.name)
+            if self.mux is not None:
+                eng._tenant_mux = self.mux
+            self._engines[t.name] = eng
+        self._rounds = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def engines(self) -> Dict[str, Scheduler]:
+        return dict(self._engines)
+
+    def engine(self, name: str) -> Scheduler:
+        return self._engines[name]
+
+    def store(self, name: str):
+        for t in self._tenants:
+            if t.name == name:
+                return t.store
+        raise KeyError(name)
+
+    # ---- lifecycle ------------------------------------------------------
+
+    def start(self) -> None:
+        """Sync every tenant's informers, then start ONE serve thread.
+        No engine gets its own run loop (``Scheduler.start`` is not
+        called): the coordinator sequences the phases, which is what lets
+        a round's prepares meet at the mux."""
+        for eng in self._engines.values():
+            eng._shared.ensure_started()
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="tenant-coordinator")
+        self._thread.start()
+        log.info("tenant coordinator started (%d tenants, fuse=%d)",
+                 len(self._tenants), self.fuse)
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        for eng in self._engines.values():
+            eng.shutdown()
+
+    def _serve(self) -> None:
+        while not self._stop.is_set():
+            try:
+                served = self.serve_round()
+            except Exception:
+                log.exception("tenant round failed")
+                served = False
+            if not served:
+                self._stop.wait(0.01)
+
+    # ---- one fused round ------------------------------------------------
+
+    def serve_round(self) -> bool:
+        """Drive one coordinated round across every tenant; False when no
+        tenant had work to pop. Public so that a caller can step rounds
+        without the serve thread (tests and the chip check do, with
+        every pod in the stores first, so that each round's batches do
+        not depend on timing).
+
+        Tenants group by the pod bucket their demand serves at, and the
+        slots split per group (engine/queue.bucket_major_quotas); each
+        group's prepares run at the group's common pad
+        (``mux.round_pods``), then ONE ``mux.dispatch()`` fires every
+        group's fused tranche. The sequential coordinator walks the same
+        groups and quotas, so both modes pop the same pods a round."""
+        from ..encode.cache import step_bucket
+
+        engines = [self._engines[t.name] for t in self._tenants]
+        demands = [eng.queue.pending_count() for eng in engines]
+        if not any(demands):
+            return False
+        cap = self._config.max_batch_size
+        buckets = [step_bucket(min(d, cap), self._config.pod_bucket_min)
+                   if d else 0 for d in demands]
+        lanes = []
+        for _bucket, idxs, quotas in bucket_major_quotas(
+                demands, self._weights, cap, buckets):
+            work = []
+            for i, quota in zip(idxs, quotas):
+                if quota <= 0:
+                    continue
+                batch = engines[i].queue.pop_batch(quota, timeout=0.05)
+                if batch:
+                    work.append((engines[i], batch))
+            if not work:
+                continue
+            if self.mux is not None:
+                # The group's common pod pad, so its stacked lanes are
+                # rectangular; another group's pad differs, and its lanes
+                # group apart at the mux by shape.
+                self.mux.round_pods = step_bucket(
+                    max(len(b) for _eng, b in work),
+                    self._config.pod_bucket_min)
+            for eng, batch in work:
+                lanes.append((eng, eng._prepare_batch(batch)))
+        if not lanes:
+            return False
+        if self.mux is not None:
+            self.mux.dispatch()
+        for eng, b in lanes:
+            try:
+                eng._resolve_batch(b)
+            except Exception:
+                # Per-lane containment, the engine's own idiom: a resolve
+                # fault (e.g. the index cross-check's EngineDesync on a
+                # scribbled fused slab) engages THAT engine's supervised
+                # retry while the round's other tenants settle.
+                log.exception("tenant lane resolve failed; engaging "
+                              "that engine's supervisor")
+                eng._supervised_retry(b.batch, b)
+                continue
+            try:
+                eng._commit_batch(b)
+            except FaultWorkerDeath:
+                # As the engine's synchronous cycle: requeue the flush
+                # tranche and keep the coordinator alive.
+                for qpi, _plugins, _msg, _retry in b.failures:
+                    eng.queue.requeue_backoff(qpi)
+        self._rounds += 1
+        return True
+
+    # ---- observability --------------------------------------------------
+
+    def metrics(self) -> Dict[str, float]:
+        """Tenant-prefixed engine metrics, the mux's fusion ledger, and
+        the cross-tenant dispatch and fetch totals the fused and the
+        sequential modes are compared by."""
+        out: Dict[str, float] = {}
+        total_disp = 0.0
+        total_fetch = 0.0
+        for name, eng in self._engines.items():
+            m = eng.metrics()
+            for k, v in m.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    out[f"{name}_{k}"] = v
+            total_disp += m.get("steps_dispatched", 0)
+            total_fetch += m.get("decision_fetches", 0)
+        if self.mux is not None:
+            out.update(self.mux.counters)
+            total_disp += self.mux.counters["tenant_dispatches"]
+            total_fetch += self.mux.counters["tenant_fetches"]
+        out["steps_dispatched_total"] = total_disp
+        out["decision_fetches_total"] = total_fetch
+        out["tenant_rounds_served"] = self._rounds
+        return out
+
+    def provenance(self, pod_key: str):
+        """The first tenant engine holding a record answers (tenants
+        share no pods)."""
+        for eng in self._engines.values():
+            rec = eng.provenance(pod_key)
+            if rec is not None:
+                return rec
+        return None

@@ -16,6 +16,8 @@ import torch
 import minisched_tpu_torch
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
+from minisched_tpu_torch.ops.select_kernel import shortlist_select_lanes_cuda
+from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_lanes_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(ROOT, "minisched_tpu_torch")
@@ -76,6 +78,13 @@ def test_whole_port_imports_with_jax_blocked():
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from minisched_tpu_torch.service.service import (\n"
+            "    Tenant, TenantFusionCoordinator, tenants_fuse_from_env)\n"
+            "from minisched_tpu_torch.encode.cache import TenantCacheMux\n"
+            "from minisched_tpu_torch.ops.pipeline import (\n"
+            "    build_tenant_step, build_tenant_index_step)\n"
+            "from minisched_tpu_torch.ops.select import (\n"
+            "    greedy_assign_shortlist_lanes)\n"
             "import chip_smoke\n"
             "assert not any(k == 'jax' or k.startswith('jax.')\n"
             "               for k, v in sys.modules.items() if v)\n"
@@ -102,3 +111,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         greedy_assign_cuda(scores, torch.zeros((2, 4)), torch.zeros((3, 4)),
                            0)
+
+
+def test_lane_kernel_wrappers_refuse_cpu_tensors():
+    """The tenant-lane forms of the selection and scan kernels launch or
+    raise: CPU tensors are refused, never run through the plain
+    versions."""
+    T, P, N, K, R = 2, 3, 5, 2, 2
+    seeds = torch.zeros((T,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        shortlist_select_lanes_cuda(torch.zeros((T, P, N)), seeds, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        shortlist_scan_lanes_cuda(
+            torch.zeros((T, P, N)), torch.zeros((T, P, K), dtype=torch.int32),
+            torch.zeros((T, P)), torch.zeros((T, P)), torch.zeros((T, P, R)),
+            torch.zeros((T, N, R)), seeds)

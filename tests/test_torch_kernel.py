@@ -1,6 +1,7 @@
 """The CUDA kernels (greedy assignment, shortlist selection, shortlist
 scan, port insertion, caps scan, the dense auction and the bid-shortlist
-auction) against their plain PyTorch versions,
+auction; the selection and scan also in their tenant-lane form) against
+their plain PyTorch versions,
 the step's host syncs, and the preemption op (PyTorch ops) cuda = cpu
 on the card.
 
@@ -25,8 +26,10 @@ from minisched_tpu_torch.ops.bid_select import (
     auction_assign_shortlist, auction_assign_shortlist_plain)
 from minisched_tpu_torch.ops.greedy_kernel import greedy_assign_cuda
 from minisched_tpu_torch.ops.ports_kernel import insert_ports_cuda
-from minisched_tpu_torch.ops.select_kernel import shortlist_select_cuda
-from minisched_tpu_torch.ops.shortlist_kernel import shortlist_scan_cuda
+from minisched_tpu_torch.ops.select_kernel import (
+    shortlist_select_cuda, shortlist_select_lanes_cuda)
+from minisched_tpu_torch.ops.shortlist_kernel import (
+    shortlist_scan_cuda, shortlist_scan_lanes_cuda)
 from minisched_tpu_torch.ops.caps_kernel import caps_scan_cuda
 from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES, CAPS_KINDS,
                           GREEDY_SHAPES, NEG, PORTS_DESIGN_KINDS,
@@ -814,3 +817,76 @@ def test_bid_auction_layout_on_card():
     assert not bid_auction_layout(1024, 65536)["cache_keys"]
     lay = bid_auction_layout(1_300_000, 53248)
     assert lay["cache_keys"] and not lay["shared_pods"], lay
+
+
+# ---- the tenant-lane form of the selection and scan kernels -------------
+
+
+def _lane_case(T, P, N, R, contend_every=2):
+    """T lanes of one shape: every second lane starved (its scan
+    repairs), the others roomy; lane t's live rows end at P - 29t (the
+    padding rows NEG everywhere, as the engine's masked totals are)."""
+    parts = [shortlist_case(P, N, R, 100 + t, contend=(t % contend_every
+                                                      == 1))
+             for t in range(T)]
+    scores, req, free = (np.stack(x) for x in zip(*parts))
+    for t in range(T):
+        scores[t, max(P - 29 * t, 0):] = NEG
+    return scores, req, free
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("T", [1, 3, 8])
+@pytest.mark.parametrize("k", [16, 128, 256])
+def test_lane_kernels_match_plain_and_solo_on_card(T, k):
+    """One selection launch and one scan launch serve T lanes: every
+    output equals the lane-looped plain versions bitwise and each lane
+    equals its own solo launch; K = 256 runs past the scan's ring
+    (kRingK); the starved lanes repair."""
+    _need_card()
+    P, N, R = 256, 3000, 4
+    scores, req, free = _lane_case(T, P, N, R)
+    seeds = [prng.bits(prng.fold_in(prng.PRNGKey(9), t)) for t in range(T)]
+    cpu = [torch.from_numpy(a) for a in (scores, req, free)]
+    cand, kth, kthn = S.shortlist_select_lanes_plain(cpu[0], seeds, k)
+    plain = S.greedy_assign_shortlist_lanes_plain(*cpu, seeds, cand, kth,
+                                                  kthn)
+    dev = [a.cuda() for a in cpu]
+    n0 = dict(LAUNCHES)
+    got = S.greedy_assign_shortlist_lanes(*dev, seeds, k=k)
+    torch.cuda.synchronize()
+    for name in ("shortlist_select", "shortlist_scan"):
+        assert LAUNCHES[name] == n0[name] + 1, name
+    for field in ("chosen", "assigned", "free_after", "repaired"):
+        assert bits_equal(getattr(plain, field).numpy(),
+                          getattr(got, field).cpu().numpy()), field
+    sel = shortlist_select_lanes_cuda(dev[0], S.lane_seeds(seeds, "cuda"), k)
+    for a, b in zip(sel, (cand, kth, kthn)):
+        assert bits_equal(a.cpu().numpy(), b.numpy())
+    for t in range(T):
+        solo = S.greedy_assign_shortlist(dev[0][t], dev[1][t], dev[2][t],
+                                         seeds[t], k=k)
+        for field in ("chosen", "assigned", "free_after", "repaired"):
+            assert bits_equal(getattr(solo, field).cpu().numpy(),
+                              getattr(got, field)[t].cpu().numpy()), (t,
+                                                                      field)
+    if T > 1:
+        assert bool(plain.repaired[1].any())
+
+
+@pytest.mark.card
+def test_lane_wrappers_reject_bad_inputs_on_card():
+    _need_card()
+    s = torch.zeros((2, 3, 5), device="cuda")
+    seeds = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="seeds"):
+        shortlist_select_lanes_cuda(s, seeds[:1], 2)
+    with pytest.raises(ValueError, match="seeds"):
+        shortlist_select_lanes_cuda(s, seeds.long(), 2)
+    cand, kth, kthn, cs = shortlist_select_lanes_cuda(s, seeds, 2)
+    req = torch.zeros((2, 3, 2), device="cuda")
+    free = torch.zeros((2, 5, 2), device="cuda")
+    with pytest.raises(ValueError, match="free0"):
+        shortlist_scan_lanes_cuda(s, cand, kth, kthn, req, free[:1], seeds)
+    with pytest.raises(ValueError, match="seeds"):
+        shortlist_scan_lanes_cuda(s, cand, kth, kthn, req, free, seeds[:1])

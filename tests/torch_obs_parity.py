@@ -44,11 +44,10 @@ PORT = SimpleNamespace(
     slo=tslo, overload=toverload, bundle=tbundle, scheduler=tscheduler)
 
 # The JAX engine's metrics() keys the port does not report yet: they
-# belong to modules of later slices (tenant fusion, the persistent
-# compile cache, the fleet and the apiserver's outage ride-through). A
-# slice that ports one of those modules removes its keys here.
+# belong to modules of later slices (the persistent compile cache, the
+# fleet and the apiserver's outage ride-through). A slice that ports one
+# of those modules removes its keys here.
 LATER_SLICE_KEYS = frozenset({
-    "tenant_fused_lanes", "tenant_races", "tenant_solo_fallbacks",
     "compile_cache_on", "stale_owner_binds", "store_reconciles",
 })
 

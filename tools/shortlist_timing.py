@@ -211,6 +211,26 @@ def edit(src: str, pairs) -> str:
     return src
 
 
+def _bind_solo_scan(lib: ctypes.CDLL) -> None:
+    """The scan's C interface before the lane axis (PR 14 and earlier)."""
+    fn = lib.shortlist_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_uint32]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+
+
+def _bind_solo_select(lib: ctypes.CDLL) -> None:
+    """The selection's C interface before the lane axis."""
+    fn = lib.shortlist_select_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_uint32] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5)
+
+
+# A source without the lane axis binds its own, older interface.
+_SOLO_BINDS = {_bind: _bind_solo_scan, bind_select: _bind_solo_select}
+
+
 def build(name: str, src: str, bind=_bind) -> ctypes.CDLL:
     digest = hashlib.sha256(src.encode()).hexdigest()[:12]
     os.makedirs(BUILD, exist_ok=True)
@@ -224,7 +244,8 @@ def build(name: str, src: str, bind=_bind) -> ctypes.CDLL:
         if p.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{p.stderr}")
     lib = ctypes.CDLL(so)
-    bind(lib)
+    lib.lanes = "const uint32_t* seeds" in src
+    (bind if lib.lanes else _SOLO_BINDS.get(bind, bind))(lib)
     return lib
 
 
@@ -251,8 +272,10 @@ def select_launch(lib, scores, seed, k):
     out = (torch.empty((P, k), dtype=torch.int32, device=dev),
            torch.empty((P,), device=dev), torch.empty((P,), device=dev),
            torch.empty((P, k), device=dev))
+    lanes = (None, seed & 0xFFFFFFFF, 1) if lib.lanes else (
+        seed & 0xFFFFFFFF,)
     checked(lib.shortlist_select_launch(
-        scores.data_ptr(), seed & 0xFFFFFFFF, P, N, k,
+        scores.data_ptr(), *lanes, P, N, k,
         *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream))
     return out
 
@@ -345,7 +368,8 @@ def launch(lib, scores, sel, cand_scores, req, free, seed):
     err = lib.shortlist_scan_launch(
         scores.data_ptr(), sel[0].data_ptr(), cand_scores.data_ptr(),
         sel[1].data_ptr(), sel[2].data_ptr(), req.data_ptr(),
-        free.data_ptr(), seed, P, N, K, R, out.chosen.data_ptr(),
+        free.data_ptr(), *((None, seed, 1) if lib.lanes else (seed,)),
+        P, N, K, R, out.chosen.data_ptr(),
         out.assigned.data_ptr(), out.free_after.data_ptr(),
         out.repaired.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
