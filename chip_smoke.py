@@ -251,6 +251,29 @@ them, and on any mismatch. Phases, each printing its own lines:
      (index_check_every=1); then tenant_index:corrupt@2: the gate fires
      once, one lane desyncs and runs its supervised retry, the others
      settle, every pod on its fault-free node.
+ I1. the engine as a pure network client of the port's API server at
+     bench-50k: WIRE_PODS bench pods and the 50,000 nodes in a served
+     ClusterStore first (APIServer with a bearer token and
+     max_inflight=256, as bench.py serves its wire cell), the
+     SchedulerService on a RemoteStore with SchedulerConfig() and the
+     bench profile: every pod bound once, none over-committed, one
+     selection and one scan launch per batch, placements equal to the
+     same stored workload in process (drive(..., pods_first=True)), the
+     client's store_breaker_* keys in the engine's metrics with the
+     breaker closed; the sync time, both create-to-bound times and the
+     engine's prepare / step / resolve / bind split;
+ I2. the remote scenario (scenario/remote.py): the server subprocess's
+     co-located engine on the card, then --client-engine with the
+     engine in this process on the card: pod1 pends on
+     NodeUnschedulable, binds to node10, the watch replays from cursor
+     0;
+ I3. two profiles of one SchedulerConfiguration over 1,200 bench nodes
+     and 512 pods (half naming each) with the service's checkpoint: the
+     first profile's pods bound, shutdown (the final checkpoint),
+     open_or_restore, the second profile's pods, restart; on the card
+     and on the CPU: placements equal, no pod bound twice, none
+     over-committed; a co-located API server's /metrics with both
+     profiles' prefixed keys.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -261,7 +284,8 @@ kernels' launches are the full-profile burst's, with each path's beside
 them; the bid-shortlist kernel's the auction bench burst's, the dense
 auction's the cross-check run's; the preemption op, PyTorch ops and no
 kernel, under "stages"; the explain burst's numbers under "explain";
-the native clone's status under "native_clone"); the last line is
+the native clone's status under "native_clone"; phase I's under
+"wire"); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -273,12 +297,14 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from minisched_tpu_torch import faults, native, obs
+from minisched_tpu_torch.apiserver import APIServer, RemoteStore
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
@@ -314,11 +340,15 @@ from minisched_tpu_torch.ops.select_kernel import (
 from minisched_tpu_torch.ops.shortlist_kernel import (
     shortlist_scan_cuda, shortlist_scan_lanes_cuda)
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
-from minisched_tpu_torch.scenario import demo
+from minisched_tpu_torch.scenario import demo, remote
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
+from minisched_tpu_torch.service.config import SchedulerConfiguration
 from minisched_tpu_torch.service.defaultconfig import (Profile,
                                                        full_scheduler_profile)
+from minisched_tpu_torch.service.service import SchedulerService
+from minisched_tpu_torch.state.persistence import open_or_restore
+from minisched_tpu_torch.state.store import ClusterStore
 from minisched_tpu_torch.state import objects as O
 
 # The tests' numpy case builders (tests/torch_parity.py imports numpy only).
@@ -3424,6 +3454,237 @@ def tenant_phase(smi):
                    "lanes": lanes2}}
 
 
+# I. The process surface: the engine over the API server's wire, the
+# remote scenario, two profiles with a checkpoint.
+# I1's depth: the main path's 10,000 pods (PERF.md §4).
+WIRE_PODS = N_PODS
+WIRE_TOKEN = "chip-smoke"
+PROFILES_NODES, PROFILES_PODS = 1_200, 512
+TWO_PROFILES = ("prof-a", "prof-b")
+
+
+def placement_check(label, nodes, pods, placed) -> None:
+    """Every pod of ``pods`` bound in ``placed`` ({key: node}), no node
+    over its allocatable cpu, memory or pod count, none cordoned."""
+    by_name = {n.metadata.name: n for n in nodes}
+    used: dict = {}
+    for p in pods:
+        node = placed.get(p.key, "")
+        check(bool(node), f"{label}: {p.key} not bound")
+        u = used.setdefault(node, [0.0, 0.0, 0])
+        u[0] += p.spec.requests["cpu"]
+        u[1] += p.spec.requests.get("memory", 0.0)
+        u[2] += 1
+    for name, u in used.items():
+        n = by_name[name]
+        alloc = n.status.allocatable
+        check(not n.spec.unschedulable and u[0] <= alloc["cpu"]
+              and u[1] <= alloc["memory"] and u[2] <= alloc["pods"],
+              f"{label}: node {name} over-committed or cordoned: {u}")
+
+
+def wire_phase(smi):
+    """I1. bench-50k with WIRE_PODS pods stored first, the engine a pure
+    network client of the API server, against the same stored workload
+    in process. Returns the numbers for the kernels line."""
+    times = {}
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, WIRE_PODS)
+    m0, l0, c2b0, pp0, placed0 = drive(
+        SchedulerConfig(), nodes, pods, "I1 in process", pods_first=True,
+        with_pv_controller=False)
+    times["in process"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, WIRE_PODS)
+    store = ClusterStore()
+    store.create_many(nodes)
+    store.create_many(pods)
+    times["served store"] = time.perf_counter() - t
+    t = time.perf_counter()
+    api = APIServer(store, token=WIRE_TOKEN, max_inflight=256).start()
+    svc = SchedulerService(RemoteStore(api.address, token=WIRE_TOKEN))
+    try:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        sched = svc.start_scheduler(BENCH_PROFILE, SchedulerConfig())
+        check(wait_until(lambda: sched.cache.node_count() == N_NODES,
+                         timeout=180, interval=0.01),
+              "I1: the informers did not sync the nodes over the wire")
+        sync_s = time.perf_counter() - t0
+
+        def settled() -> bool:
+            # The binds can land before the last batch is folded into
+            # the metrics (pods_assigned and batches fold together).
+            m = sched.metrics()
+            return m["batch_faults"] > 0 or (
+                m["pods_bound"] >= len(pods)
+                and m["pods_assigned"] >= len(pods) and m["kernel_launches"]
+                == sum(LAUNCHES.values()))
+
+        wait_until(settled, timeout=300, interval=0.05)
+        launches = dict(LAUNCHES)
+        m = sched.metrics()
+    finally:
+        svc.shutdown_scheduler()
+        api.shutdown()
+    times["wire"] = time.perf_counter() - t
+    check(m["batch_faults"] == 0, "I1: a scheduling cycle failed")
+    check(m["pods_bound"] == len(pods) and m["bind_conflicts"] == 0,
+          f"I1: {m['pods_bound']} binds for {len(pods)} pods, "
+          f"{m['bind_conflicts']} conflicts")
+    placed_pods = store.list("Pod")
+    placed = {p.key: p.spec.node_name for p in placed_pods}
+    placement_check("I1", nodes, pods, placed)
+    b = m["batches"]
+    check(launches["shortlist_select"] == b == launches["shortlist_scan"],
+          f"I1: {b} batches, launches {launches}")
+    check(placed == placed0, "I1: placements over the wire != in process")
+    check("store_breaker_state" in m and m["store_breaker_state"] == 0
+          and m["store_breaker_opens_total"] == 0 and m["store_outages"] == 0,
+          "I1: the client's breaker is not closed or not in the metrics")
+    created = np.array([p.metadata.creation_timestamp for p in placed_pods])
+    bound_at = np.array([p.status.scheduled_time for p in placed_pods])
+    c2b = float(bound_at.max() - created.min())
+    print(path_line(f"I1 in process, pods first ({N_NODES} x {WIRE_PODS})",
+                    m0, {k: v for k, v in l0.items() if v}, c2b0,
+                    pp0, len(pods), smi))
+    print(path_line(f"I1 over the wire (RemoteStore -> APIServer, "
+                    f"{N_NODES} x {WIRE_PODS})", m,
+                    {k: v for k, v in launches.items() if v}, c2b,
+                    bound_at - created, len(pods), smi))
+    print(f"I1: sync over the wire {sync_s:.3f} s (start until "
+          f"{N_NODES} nodes cached); create-to-bound {c2b:.3f} s over the "
+          f"wire against {c2b0:.3f} s in process; placements bitwise "
+          f"equal; every pod bound once; breaker closed "
+          f"(store_breaker_state 0, {m['store_breaker_probes_total']} "
+          f"probes) ({smi})")
+    print("phase I1 by part: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in times.items()))
+    return {"launches": launches, "sync_s": sync_s, "burst_s": c2b,
+            "in_process_burst_s": c2b0, "pods": WIRE_PODS,
+            "batches": b, "split_s": {k: m[f"{k}_s_total"] for k in (
+                "prepare", "step", "resolve", "bind")}}
+
+
+def remote_scenario_phase():
+    """I2. scenario/remote.py's README scenario over the wire: the server
+    subprocess's co-located engine on the card, then --client-engine,
+    the engine in this process on the card. Returns the client engine's
+    launches."""
+    import contextlib
+    import io
+
+    for flags, label in (([], "co-located engine"),
+                         (["--client-engine"], "client engine")):
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            remote.main(flags)
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"I2 {label}: {line}")
+        check(any(ln.startswith("pod1 pending as expected over the wire "
+                                "(unschedulable_plugins=['NodeUnschedulable']")
+                  for ln in lines)
+              and "pod1 is bound to node10 over the wire" in lines
+              and any(ln.startswith("watch replayed ") for ln in lines)
+              and "remote scenario OK" in lines,
+              f"I2 {label}: the scenario's lines are missing")
+    check("client-engine scenario OK (engine attached over the wire)"
+          in lines, "I2: the client engine did not finish")
+    launches = dict(LAUNCHES)
+    check(launches["shortlist_select"] >= 1
+          and launches["shortlist_scan"] >= 1,
+          f"I2 client engine: no kernel launched in this process "
+          f"({launches})")
+    return launches
+
+
+def profiles_run(platform: str, scratch: str, scrape: bool = False):
+    """I3 on one device: prof-a's pods bound, shutdown (the final
+    checkpoint), restore, prof-b's pods stored, restart, all bound.
+    Returns (placements, metrics of each start, the scrape's text)."""
+    nodes, pods = bench_workload(PROFILES_NODES, PROFILES_PODS, seed=5)
+    for i, p in enumerate(pods):
+        p.spec.scheduler_name = TWO_PROFILES[i % 2]
+    half = {n: [p for p in pods if p.spec.scheduler_name == n]
+            for n in TWO_PROFILES}
+    conf = SchedulerConfiguration(profiles=[
+        Profile(name=n, plugins=list(BENCH_PROFILE.plugins),
+                plugin_args=dict(BENCH_PROFILE.plugin_args))
+        for n in TWO_PROFILES])
+    cfg = SchedulerConfig(platform=platform)
+    path = os.path.join(scratch, f"profiles-{platform or 'cuda'}.json")
+    label = f"I3 on {platform or 'cuda'}"
+    ms, text = [], ""
+    for start, pending in enumerate((half["prof-a"], half["prof-b"])):
+        c = Cluster(persist_path=path)
+        try:
+            if start == 0:
+                c.create_objects(nodes)
+            else:
+                check(c.store.count("Node") == len(nodes)
+                      and all(c.get_pod(p.metadata.name, "bench")
+                              .spec.node_name for p in half["prof-a"]),
+                      f"{label}: the restored store lost a node or a bind")
+            c.create_objects(pending)
+            c.start(conf, cfg, with_pv_controller=False)
+            check(wait_until(lambda: all(
+                c.store.get("Pod", p.key).spec.node_name for p in pending),
+                timeout=120, interval=0.02), f"{label}: pods left unbound")
+            check(wait_until(lambda: sum(
+                c.service.metrics()[f"{n}_pods_bound"]
+                for n in TWO_PROFILES) >= len(pending), timeout=30),
+                f"{label}: binds not counted")
+            if scrape:
+                api = APIServer(c.store).start()
+                try:
+                    remote.wire_service(api, c.service)
+                    with urllib.request.urlopen(f"{api.address}/metrics",
+                                                timeout=30) as r:
+                        text = r.read().decode()
+                finally:
+                    api.shutdown()
+            ms.append(c.service.metrics())
+        finally:
+            c.shutdown()
+    restored = open_or_restore(path)
+    placed = {p.key: p.spec.node_name for p in restored.list("Pod")}
+    placement_check(label, nodes, pods, placed)
+    for start, name in enumerate(TWO_PROFILES):
+        other = TWO_PROFILES[1 - start]
+        check(ms[start][f"{name}_pods_bound"] == len(half[name])
+              and ms[start][f"{other}_pods_bound"] == 0
+              and ms[start][f"{name}_bind_conflicts"] == 0,
+              f"{label}: start {start + 1} bound "
+              f"{ms[start][f'{name}_pods_bound']} of {name}'s pods and "
+              f"{ms[start][f'{other}_pods_bound']} of {other}'s")
+    return placed, ms, text
+
+
+def profiles_phase(smi):
+    """I3. Two profiles of one SchedulerConfiguration, with the service's
+    checkpoint across a restart, on the card and on the CPU."""
+    with tempfile.TemporaryDirectory() as scratch:
+        placed, ms, text = profiles_run("", scratch, scrape=True)
+        placed_cpu, _ms_cpu, _ = profiles_run("cpu", scratch)
+    check(placed == placed_cpu, "I3: placements cuda != cpu")
+    for n in TWO_PROFILES:
+        key = n.replace("-", "_")
+        check(f"minisched_engine_{key}_pods_bound " in text
+              and f"minisched_engine_{key}_pod_create_to_bound_s_bucket"
+              in text, f"I3: /metrics lacks {n}'s prefixed keys")
+    print(f"I3 two profiles ({', '.join(TWO_PROFILES)}) over "
+          f"{PROFILES_NODES} nodes x {PROFILES_PODS} pods, a checkpoint "
+          f"and a restart between them: placements equal on the card and "
+          f"on the CPU, no pod bound twice, none over-committed; batches "
+          + ", ".join(f"{n} {ms[i][f'{n}_batches']:.0f}"
+                      for i, n in enumerate(TWO_PROFILES))
+          + f"; /metrics carries both profiles' prefixed keys ({smi})")
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -4146,6 +4407,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     ten = tenant_phase(smi)
     print(f"phase H in {time.perf_counter() - t_phase:.1f} s")
+    # I. the process surface: the engine over the wire, the remote
+    # scenario, two profiles with a checkpoint
+    t_phase = time.perf_counter()
+    t_sub = {}
+    wire = wire_phase(smi)
+    t_sub["I1"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    wire["client_engine_launches"] = remote_scenario_phase()
+    t_sub["I2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    profiles_phase(smi)
+    t_sub["I3"] = time.perf_counter() - t
+    print("phase I by part: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in t_sub.items()))
+    print(f"phase I in {time.perf_counter() - t_phase:.1f} s")
     for h in ("h1", "h2"):
         for name in ("shortlist_select", "shortlist_scan"):
             err[name] = max(err[name], ten[h]["lanes"]["err"][name])
@@ -4181,7 +4457,8 @@ def main() -> int:
             "loop bench unsampled": loop_launches["shortlist_select"],
             "index bench unsampled": index_launches["shortlist_select"],
             "tenants fused (H1)": ten["h1"]["launches"]["shortlist_select"],
-            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_select"]},
+            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_select"],
+            "wire bench (I1)": wire["launches"]["shortlist_select"]},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -4222,7 +4499,8 @@ def main() -> int:
             "loop bench unsampled": loop_launches["shortlist_scan"],
             "index bench unsampled": index_launches["shortlist_scan"],
             "tenants fused (H1)": ten["h1"]["launches"]["shortlist_scan"],
-            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_scan"]},
+            "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_scan"],
+            "wire bench (I1)": wire["launches"]["shortlist_scan"]},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
@@ -4359,7 +4637,8 @@ def main() -> int:
                         if k not in ("lanes", "launches")},
             "index_lanes_ms": {"select": ten["h2"]["lanes"]["select_ms"],
                                "scan": ten["h2"]["lanes"]["scan_ms"]}},
-        "native_clone": native.status()}))
+        "native_clone": native.status(),
+        "wire": {k: v for k, v in wire.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

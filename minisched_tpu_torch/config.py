@@ -1,13 +1,26 @@
 """Engine configuration.
 
-Only the knobs this package implements, with the JAX package's names and
-defaults; a knob joins together with its code.
+Two tiers, as the reference has them (its config/config.go reads every
+process setting from the environment, with typed errors):
+
+  1. ``SchedulerConfig``: the engine knobs this package implements, with
+     the JAX package's names and defaults (a knob joins together with
+     its code), and ``config_from_env``, which reads them from the same
+     ``MINISCHED_*`` variables.
+  2. Scheduler profiles live in service/defaultconfig.py and
+     service/config.py.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
+
+
+class EmptyEnvError(ValueError):
+    """A ``MINISCHED_*`` variable that is set but empty (reference
+    config.ErrEmptyEnv, config/config.go:18)."""
 
 
 @dataclass
@@ -179,3 +192,59 @@ class SchedulerConfig:
                 "device and none is available; pass platform='cpu' to run "
                 "on the CPU")
         return dev
+
+
+def config_from_env() -> SchedulerConfig:
+    """``SchedulerConfig`` from the ``MINISCHED_*`` variables (the
+    reference reads all its config from the environment,
+    config/config.go:22-44). An unset variable takes the field's
+    default; a set but empty one raises ``EmptyEnvError``.
+    ``MINISCHED_PLATFORM`` names the device: unset or "" means
+    ``cuda:0``, which raises at start without a card. The knobs of
+    modules this package does not have yet (``MINISCHED_MESH_DEVICES``
+    other than 0, a ``MINISCHED_COMPILE_CACHE`` directory) raise a
+    ``ValueError`` rather than run without them."""
+
+    def _req(name: str, default: str) -> str:
+        v = os.environ.get(name, default)
+        if v == "":
+            raise EmptyEnvError(f"env {name} is empty")
+        return v
+
+    if int(os.environ.get("MINISCHED_MESH_DEVICES", "0")):
+        raise ValueError(
+            "MINISCHED_MESH_DEVICES: this package has no multi-device "
+            "step yet; unset it or set it to 0")
+    if os.environ.get("MINISCHED_COMPILE_CACHE", ""):
+        raise ValueError(
+            "MINISCHED_COMPILE_CACHE: this package has no persistent "
+            "step cache yet; unset it")
+    return SchedulerConfig(
+        max_batch_size=int(_req("MINISCHED_MAX_BATCH", "1024")),
+        batch_window_s=float(_req("MINISCHED_BATCH_WINDOW", "0.0")),
+        batch_idle_s=float(_req("MINISCHED_BATCH_IDLE", "0.0")),
+        explain=_req("MINISCHED_EXPLAIN", "0") == "1",
+        assignment=_req("MINISCHED_ASSIGNMENT", "greedy"),
+        seed=int(_req("MINISCHED_SEED", "0")),
+        backoff_initial_s=float(_req("MINISCHED_BACKOFF_INITIAL", "1.0")),
+        backoff_max_s=float(_req("MINISCHED_BACKOFF_MAX", "10.0")),
+        platform=os.environ.get("MINISCHED_PLATFORM", ""),
+        percentage_of_nodes_to_score=int(
+            _req("MINISCHED_PCT_NODES_TO_SCORE", "0")),
+        pipeline=_req("MINISCHED_PIPELINE", "1") != "0",
+        device_resident=_req("MINISCHED_DEVICE_RESIDENT", "1") != "0",
+        shortlist=_req("MINISCHED_SHORTLIST", "1") != "0",
+        shortlist_k=int(_req("MINISCHED_SHORTLIST_K", "128")),
+        shortlist_check_every=int(
+            _req("MINISCHED_SHORTLIST_CHECK_EVERY", "0")),
+        device_loop=_req("MINISCHED_DEVICE_LOOP", "0") == "1",
+        loop_depth=int(_req("MINISCHED_LOOP_DEPTH", "8")),
+        index=_req("MINISCHED_INDEX", "0") == "1",
+        index_k=int(_req("MINISCHED_INDEX_K", "128")),
+        index_classes=int(_req("MINISCHED_INDEX_CLASSES", "64")),
+        index_check_every=int(_req("MINISCHED_INDEX_CHECK_EVERY", "0")),
+        watchdog_s=float(_req("MINISCHED_WATCHDOG", "0.0")),
+        probation_batches=int(_req("MINISCHED_PROBATION_BATCHES", "8")),
+        resident_check_every=int(
+            _req("MINISCHED_RESIDENT_CHECK_EVERY", "0")),
+    )

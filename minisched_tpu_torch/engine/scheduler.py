@@ -1039,7 +1039,7 @@ def arbitrate_spread(batch: List[QueuedPodInfo], assigned, pf, gf,
 class Scheduler:
     def __init__(self, store, plugin_set: PluginSet,
                  config: Optional[SchedulerConfig] = None,
-                 recorder=None,
+                 recorder=None, scheduler_names: Optional[Set[str]] = None,
                  shared: Optional[SharedClusterState] = None,
                  profile: Optional[str] = None,
                  replica: Optional[str] = None):
@@ -1049,10 +1049,17 @@ class Scheduler:
         # Explainability hook (explain/resultstore.ResultStore): every
         # batch's step output goes to record_batch when set.
         self.recorder = recorder
+        # Multi-profile routing: when set, only pods whose
+        # spec.scheduler_name is in this set are queued here (reference
+        # KubeSchedulerProfile.SchedulerName selection); None accepts
+        # every pod (a single-profile service).
+        self.scheduler_names = scheduler_names
         # Serving-profile label: journal events, timeline rows and
         # provenance records carry it, and it names the overload
-        # controller (per-profile shed budgets resolve against it).
-        self.profile = profile or "default"
+        # controller (per-profile shed budgets resolve against it). A
+        # directly built engine derives it from its routing set.
+        self.profile = profile or (sorted(scheduler_names)[0]
+                                   if scheduler_names else "default")
         # Replica id tagged beside the profile ("" = a solo engine).
         self.replica = replica or ""
         if self.config.assignment not in ("greedy", "auction"):
@@ -1355,6 +1362,9 @@ class Scheduler:
             # Batches whose carried free input had a nomination reserve
             # subtracted (and added back before free_after was adopted).
             "residency_nomination_carries": 0,
+            # Post-outage reconciles of the queue against store truth
+            # (reconcile_store, run on a RemoteStore's reattach).
+            "store_reconciles": 0,
             "last_batch_size": 0,
         }
         # Rolling ring of metrics() snapshots (obs/timeseries.py). Always
@@ -1384,9 +1394,34 @@ class Scheduler:
     # ---- lifecycle -----------------------------------------------------
 
     def wants_pod(self, pod) -> bool:
-        """Does this scheduler handle the pod? One engine per service
-        handles every pod (the JAX package's single-profile mode)."""
-        return True
+        """Does this scheduler handle the pod? Profile routing by
+        ``spec.scheduler_name``; an engine without a routing set takes
+        every pod."""
+        return (self.scheduler_names is None
+                or pod.spec.scheduler_name in self.scheduler_names)
+
+    def reconcile_store(self, *, reason: str = "") -> Dict[str, int]:
+        """Reconcile the queue against store truth after a store outage:
+        drop every QUEUED pod the store already shows bound (a bind that
+        committed before the outage is not tried again), then re-gather
+        every unbound pod this engine routes (the queue's keyed dedupe
+        skips pods already queued or in flight). Both halves come from
+        the store, never from the engine's memory of before the outage.
+        Returns the counts dropped and requeued."""
+        pods = self.store.list("Pod")
+        bound = {p.key for p in pods if p.spec.node_name}
+        dropped = self.queue.release_unwanted(
+            lambda p: p.key not in bound and self.wants_pod(p))
+        requeue = [p for p in pods
+                   if not p.spec.node_name and self.wants_pod(p)]
+        if requeue:
+            self.queue.add_many(requeue)
+        with self._metrics_lock:
+            self._metrics["store_reconciles"] += 1
+        jnote("engine.reconcile", profile=self.profile,
+              replica=self.replica, dropped=len(dropped),
+              requeued=len(requeue), reason=reason)
+        return {"dropped": len(dropped), "requeued": len(requeue)}
 
     def start(self) -> None:
         """Start the informers + this engine's scheduling loop
@@ -4075,8 +4110,15 @@ class Scheduler:
                                  p.metadata.labels))):
                     counts[i] += 1
 
-        # A read-only visitor: list() would deep-copy every pod.
-        self.store.for_each("Pod", visit)
+        # A read-only visitor: list() would deep-copy every pod. A
+        # RemoteStore has no visitor; its list() objects are already
+        # private decoded copies.
+        for_each = getattr(self.store, "for_each", None)
+        if for_each is not None:
+            for_each("Pod", visit)
+        else:
+            for p in self.store.list("Pod"):
+                visit(p)
         return [[bud.metadata.namespace, bud.spec.selector,
                  c - int(bud.spec.min_available)]
                 for bud, c in zip(pdbs, counts)]
@@ -4360,15 +4402,31 @@ class Scheduler:
                 m["last_scored_rows"] = int(b.scored_rows)
 
     def _flush_failures(self, items: List[tuple]) -> None:
-        """Apply a cycle's deferred failure verdicts in bulk. Pods deleted
-        mid-flight are forgotten."""
+        """Apply a cycle's deferred failure verdicts in bulk: one store
+        transaction for the status writes where the store has the bulk
+        verb, else (a RemoteStore) a get and an update per pod. Pods
+        deleted mid-flight are forgotten."""
         FAULTS.hit("commit")  # fault gate: commit-worker failure flush
         self.broadcaster.failed_scheduling_many(
             [(qpi.pod.key, qpi.pod.metadata.namespace, msg)
              for qpi, _plugins, msg, _retry in items])
-        missing = set(self.store.fail_pods(
-            [(qpi.pod.key, plugins, msg)
-             for qpi, plugins, msg, _retry in items]))
+        fail_bulk = getattr(self.store, "fail_pods", None)
+        missing: Set[str] = set()
+        if fail_bulk is not None:
+            missing = set(fail_bulk(
+                [(qpi.pod.key, plugins, msg)
+                 for qpi, plugins, msg, _retry in items]))
+        else:
+            for qpi, plugins, msg, _retry in items:
+                try:
+                    fresh = self.store.get("Pod", qpi.pod.key)
+                    if not fresh.spec.node_name:
+                        fresh.status.unschedulable_plugins = sorted(plugins)
+                        fresh.status.message = msg
+                        self.store.update(fresh)
+                        qpi.pod = fresh
+                except NotFoundError:
+                    missing.add(qpi.pod.key)
         retryable: List[QueuedPodInfo] = []
         unsched: List[tuple] = []
         for qpi, plugins, _msg, retry in items:
@@ -4425,6 +4483,15 @@ class Scheduler:
         out["overload_window_s"] = self._overload.effective_window(
             self.config.batch_window_s)
         out["overload_shortlist_k"] = int(self._shortlist_k or 0)
+        # A RemoteStore's circuit breaker (utils/breaker.py: state,
+        # opens, fast-fails, probes) and its outage ride-through counters
+        # (outages, reattaches, last outage length), when the engine
+        # runs as a network client of the API server.
+        for stats in ("breaker_stats", "reattach_stats"):
+            fn = getattr(self.store, stats, None)
+            if callable(fn):
+                for k, v in fn().items():
+                    out[f"store_{k}"] = v
         # Result-store retention (explain/resultstore.py), with a
         # recorder only.
         if self.recorder is not None:

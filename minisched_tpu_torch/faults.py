@@ -26,12 +26,22 @@ on purpose. Named gates sit at the seams; this package wires these:
     journal     journal event write          (obs/journal.py)
     auction_mirror
                 the auction's residency replay (engine/scheduler.py)
+    index       the maintained index's dispatch (engine/scheduler.py) —
+                ``corrupt`` scribbles the served score slab
+    tenant_index
+                the fused-indexed tenant dispatch (encode/cache.py) —
+                ``corrupt`` scribbles one tenant's slice of the slab
+    http        every RemoteStore call       (apiserver/client.py) —
+                ``err`` models the wire eating the request; the
+                client's retry deadline absorbs it
+    checkpoint  checkpoint write, before any disk touch
+                                             (state/persistence.py)
 
 ``GATES`` keeps the JAX package's whole catalog, in its order, so a spec
 parses alike in both packages and every gate's PRNG stream (seeded by
-its catalog index) is the same. The other gates (http, checkpoint,
-lifecycle, index, lease, proc, election, tenant_index) parse and count,
-but no seam of this package calls them yet.
+its catalog index) is the same. The other gates (lifecycle, lease,
+proc, election) parse and count, but no seam of this package calls
+them yet.
 
 Configured once per process from ``MINISCHED_FAULTS`` (tests reconfigure
 via :func:`configure`), a comma-separated list of ``gate:action@trigger``

@@ -15,8 +15,7 @@ from typing import Callable, List, Optional
 
 from ..config import SchedulerConfig
 from ..pvcontroller.controller import PVController
-from ..service.defaultconfig import Profile
-from ..service.service import SchedulerService
+from ..service.service import ProfileSpec, SchedulerService
 from ..state import objects as obj
 from ..state.store import ClusterStore
 
@@ -35,14 +34,37 @@ class Cluster:
     """Scenario-facing cluster client (the reference passes a client-go
     clientset; the verbs the scenario needs are mirrored 1:1)."""
 
-    def __init__(self, store: Optional[ClusterStore] = None):
-        self.store = store if store is not None else ClusterStore()
-        self.service = SchedulerService(self.store)
+    def __init__(self, store: Optional[ClusterStore] = None,
+                 persist_path: Optional[str] = None,
+                 persist_interval_s: float = 30.0):
+        """``persist_path``: boot from the last snapshot at that path (if
+        any) and checkpoint on an interval and at shutdown, the
+        reference's restart-against-the-same-etcd durability
+        (docker-compose.yml:20-21) for the in-process deployment."""
+        if store is not None and persist_path:
+            # A pre-built store would skip the restore yet still
+            # checkpoint over the snapshot at that path, destroying the
+            # state from before the restart.
+            raise ValueError(
+                "pass either store= or persist_path=, not both: a "
+                "pre-built store would clobber the snapshot it never "
+                "restored")
+        if store is None:
+            if persist_path:
+                from ..state.persistence import open_or_restore
+
+                store = open_or_restore(persist_path)
+            else:
+                store = ClusterStore()
+        self.store = store
+        self.service = SchedulerService(
+            self.store, checkpoint_path=persist_path,
+            checkpoint_interval_s=persist_interval_s)
         self.pv_controller: Optional[PVController] = None
 
     # ---- boot (reference sched.go:30-68) -------------------------------
 
-    def start(self, profile: Optional[Profile] = None,
+    def start(self, profile: ProfileSpec = None,
               config: Optional[SchedulerConfig] = None,
               with_pv_controller: bool = True) -> "Cluster":
         """Boot the scheduler (on the card unless ``config.platform``
@@ -244,7 +266,7 @@ class Cluster:
 
 
 def run_scenario(scenario: Callable[[Cluster], None],
-                 profile: Optional[Profile] = None,
+                 profile: ProfileSpec = None,
                  config: Optional[SchedulerConfig] = None) -> None:
     """Boot everything, run the scenario, tear down (reference main →
     start() → scenario(client), teardown deferred in reverse sched.go:40-60)."""

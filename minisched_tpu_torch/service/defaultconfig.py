@@ -7,9 +7,8 @@ holds the plugins this package implements.
 """
 from __future__ import annotations
 
-import json
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Union
+from typing import Callable, Dict, List
 
 from ..plugins.base import BatchedPlugin, PluginSet
 from ..plugins.imagelocality import ImageLocality
@@ -80,20 +79,15 @@ def make_plugin(name: str, **args) -> BatchedPlugin:
     return factory(**args)
 
 
-def _resolve_args(v: Union[dict, str, None]) -> dict:
-    """Plugin args as factory kwargs: a dict, a JSON string, or None."""
-    if v is None:
-        return {}
-    if isinstance(v, str):
-        return json.loads(v)
-    return dict(v)
-
-
 @dataclass
 class Profile:
     """One scheduling profile: enabled plugins, weights, per-plugin args.
-    ``score_disabled``/``filter_disabled`` disable ONE extension point of
-    a multi-point plugin; ``disabled`` removes the plugin entirely."""
+    ``name`` is also the scheduler name pods select with
+    ``spec.scheduler_name`` in a multi-profile service (reference
+    KubeSchedulerProfile.SchedulerName). ``score_disabled``/
+    ``filter_disabled`` disable ONE extension point of a multi-point
+    plugin; ``disabled`` removes the plugin entirely. Args may be a dict,
+    a JSON string or a ``service.config.PluginArgs``."""
 
     name: str = "default-scheduler"
     plugins: List[str] = field(
@@ -105,11 +99,13 @@ class Profile:
     filter_disabled: List[str] = field(default_factory=list)
 
     def build(self) -> PluginSet:
+        from .config import resolve_args
+
         instances = []
         for n in self.plugins:
             if n in self.disabled:
                 continue
-            inst = make_plugin(n, **_resolve_args(self.plugin_args.get(n)))
+            inst = make_plugin(n, **resolve_args(self.plugin_args.get(n)))
             if n in self.score_disabled:
                 inst.score_active = False
             if n in self.filter_disabled:

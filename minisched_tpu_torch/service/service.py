@@ -2,10 +2,18 @@
 
 Rebuild of reference scheduler/scheduler.go: NewSchedulerService (:36),
 StartScheduler (:50-80: informers + event broadcaster + the scheduler +
-start informers + go Run) and ShutdownScheduler (:82-87), for one
-profile and one engine. With ``SchedulerConfig.explain`` the service
+start informers + go Run), RestartScheduler (:40-47: shutdown + start
+with the retained config), ShutdownScheduler (:82-87) and
+GetSchedulerConfig (:89). With ``SchedulerConfig.explain`` the service
 also runs the result store (``result_store``), which publishes every
 pod's per-plugin verdicts and scores as annotations.
+
+Multi-profile: ``start_scheduler`` also takes a
+``SchedulerConfiguration`` or a list of Profiles. Each profile gets its
+own engine, and pods select one with ``spec.scheduler_name`` (reference
+KubeSchedulerProfile semantics, scheduler.go:97-142). Every engine shares
+one cluster state over the one store, so capacity accounting stays
+consistent across profiles.
 
 Fused multi-tenant arbitration: ``TenantFusionCoordinator`` serves T
 virtual clusters (``Tenant``: a store each) from one serve thread, one
@@ -14,11 +22,12 @@ fused dispatch per compatible group of tenants a round
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 from ..config import SchedulerConfig
 from ..engine.clusterstate import SharedClusterState
@@ -27,44 +36,207 @@ from ..engine.scheduler import Scheduler
 from ..explain import ResultStore
 from ..faults import FaultWorkerDeath
 from ..state.informer import ResourceEventHandlers
+from .config import SchedulerConfiguration
 from .defaultconfig import Profile, default_scheduler_profile
 
 log = logging.getLogger(__name__)
 
+ProfileSpec = Union[Profile, Sequence[Profile], SchedulerConfiguration, None]
+
+
+def _replicas_from_env(name: str) -> int:
+    """A replica count from the environment: unset, empty or unparsable
+    reads 0 (off), as the JAX package's fleet knobs do."""
+    try:
+        return int(os.environ.get(name, "") or 0)
+    except ValueError:
+        return 0
+
 
 class SchedulerService:
-    def __init__(self, store):
+    def __init__(self, store, *, checkpoint_path: Optional[str] = None,
+                 checkpoint_interval_s: float = 30.0):
+        """``checkpoint_path`` wires the etcd-durability analog into the
+        service lifecycle (reference: state persists in etcd,
+        k8sapiserver/k8sapiserver.go:93-105): the store is checkpointed on
+        an interval while the scheduler runs and once more on shutdown;
+        boot the store with state.persistence.open_or_restore to resume
+        after a restart. In-process stores only: a RemoteStore's
+        durability belongs to its server."""
         self._store = store
-        self._sched: Optional[Scheduler] = None
+        self._scheds: Dict[str, Scheduler] = {}
         self._shared_state: Optional[SharedClusterState] = None
-        # The explain-mode result store of the running engine, else None.
+        self._profiles: List[Profile] = []
+        self._multi = False
+        self._config: Optional[SchedulerConfig] = None
+        # The explain-mode result store of the running engines, else None.
         self.result_store: Optional[ResultStore] = None
+        # RemoteStore has a snapshot() too (the /snapshot verb), so the
+        # check is the checkpointer's whole surface: resource_version()
+        # is the store-local half a RemoteStore lacks.
+        if checkpoint_path and not (hasattr(store, "snapshot")
+                                    and hasattr(store, "resource_version")):
+            raise ValueError(
+                "checkpoint_path requires an in-process ClusterStore; "
+                "remote stores persist on the serving side")
+        self._checkpoint_path = checkpoint_path
+        self._checkpoint_interval_s = checkpoint_interval_s
+        self._checkpointer = None
 
     @property
     def scheduler(self) -> Optional[Scheduler]:
-        """The running engine, or None."""
-        return self._sched
+        """The first (or only) running engine, or None."""
+        return next(iter(self._scheds.values()), None)
 
-    def start_scheduler(self, profile: Optional[Profile] = None,
-                        config: Optional[SchedulerConfig] = None
-                        ) -> Scheduler:
-        if self._sched is not None:
+    @property
+    def schedulers(self) -> Dict[str, Scheduler]:
+        """Profile name to engine."""
+        return dict(self._scheds)
+
+    def metrics(self) -> Dict[str, float]:
+        """Engine cycle metrics across every profile, flat for one
+        /metrics scrape (``APIServer.metrics_providers``): a
+        single-profile service exposes the engine's keys unprefixed; a
+        MULTI-profile configuration prefixes each key with the profile
+        name. The prefix follows the configuration's style (the bit that
+        also decides pod routing), not the engine count, so a one-profile
+        multi-config keeps its names when a second profile joins. The
+        engine's non-numeric diagnostics (batch_sizes, last_shapes,
+        histograms) stay on ``Scheduler.metrics()``."""
+
+        def numeric(m: Dict) -> Dict[str, float]:
+            return {k: v for k, v in m.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+        scheds = self.schedulers
+        if not scheds:
+            return {}
+        if not self._multi:
+            return numeric(next(iter(scheds.values())).metrics())
+        out: Dict[str, float] = {}
+        for name, engine in scheds.items():
+            for k, v in numeric(engine.metrics()).items():
+                out[f"{name}_{k}"] = v
+        return out
+
+    def metrics_histograms(self) -> Dict[str, dict]:
+        """Per-pod lifecycle histogram snapshots (bounds/counts/sum/count)
+        across every profile, keyed as :meth:`metrics` keys them: the
+        ``APIServer.histogram_providers`` feed for the native Prometheus
+        histogram exposition."""
+        scheds = self.schedulers
+        if not scheds:
+            return {}
+        if not self._multi:
+            m = next(iter(scheds.values())).metrics()
+            return dict(m.get("histograms", {}))
+        out: Dict[str, dict] = {}
+        for name, engine in scheds.items():
+            for k, v in engine.metrics().get("histograms", {}).items():
+                out[f"{name}_{k}"] = v
+        return out
+
+    def admission_reject_reason(self) -> Optional[str]:
+        """The API server's overload admission provider
+        (``APIServer.admission_providers``): the first engine whose
+        overload controller is at or past its HTTP-reject rung gives the
+        typed 429 reason; None admits."""
+        for engine in self.schedulers.values():
+            reason = engine.overload_reject_reason()
+            if reason:
+                return reason
+        return None
+
+    def timeline(self, since: int = 0) -> Dict[str, dict]:
+        """Per-profile timeline documents (the ``GET /timeline``
+        payload): profile name to ``Scheduler.timeline(since)``. Always
+        keyed by profile name; each profile's row cursor is its own, so a
+        multi-profile scraper polls one profile per request
+        (``?profile=<name>&since=<seq>``)."""
+        return {name: engine.timeline(since)
+                for name, engine in self.schedulers.items()}
+
+    def journal(self, since: int = 0) -> Dict:
+        """The ``GET /journal`` payload: the process-wide decision
+        journal, one causal log for every profile engine, each event
+        tagged with its profile. Empty but valid with MINISCHED_JOURNAL
+        unset."""
+        from ..obs.journal import JOURNAL
+
+        return JOURNAL.to_doc(since)
+
+    def provenance(self, pod_key: str):
+        """The ``GET /provenance/<pod>`` record: the first profile engine
+        holding a decision-provenance record for the pod answers
+        (profiles share no pods); None when none does."""
+        for engine in self.schedulers.values():
+            rec = engine.provenance(pod_key)
+            if rec is not None:
+                return rec
+        return None
+
+    def start_scheduler(self, profile: ProfileSpec = None,
+                        config: Optional[SchedulerConfig] = None,
+                        fleet: Optional[int] = None,
+                        fleet_proc: Optional[int] = None
+                        ) -> Optional[Scheduler]:
+        """Start one engine per profile (one profile, a list, or a
+        ``SchedulerConfiguration``, whose non-default
+        ``percentage_of_nodes_to_score`` carries into the config). The
+        replicated fleets (``fleet`` / ``fleet_proc``, or
+        ``MINISCHED_FLEET`` / ``MINISCHED_FLEET_PROC``, at 2 or more) are
+        not part of this package yet and raise; nothing runs one engine
+        in their place. Returns the first engine."""
+        if self._scheds:
             raise RuntimeError("scheduler already running")
-        profile = profile or default_scheduler_profile()
-        # Build the plugin set before anything starts, so a bad profile
-        # (unknown plugin, bad args) leaves nothing half-started.
-        plugin_set = profile.build()
-        shared = SharedClusterState(self._store)
+        for knob, arg, env in (("fleet_proc", fleet_proc,
+                                "MINISCHED_FLEET_PROC"),
+                               ("fleet", fleet, "MINISCHED_FLEET")):
+            n = int(arg) if arg is not None else _replicas_from_env(env)
+            if n >= 2:
+                raise ValueError(
+                    f"{knob}={n} ({env}): replicated scheduler fleets are "
+                    "not part of this package yet; run one engine a "
+                    "profile (leave it unset, 0 or 1)")
+        if isinstance(profile, SchedulerConfiguration):
+            profiles, self._multi = list(profile.profiles), True
+            pct = profile.percentage_of_nodes_to_score
+            if (config is not None
+                    and pct != type(profile)().percentage_of_nodes_to_score):
+                config = dataclasses.replace(
+                    config, percentage_of_nodes_to_score=pct)
+            elif config is None and pct:
+                config = SchedulerConfig(percentage_of_nodes_to_score=pct)
+        elif isinstance(profile, (list, tuple)):
+            profiles, self._multi = list(profile), True
+        else:
+            profiles = [profile or default_scheduler_profile()]
+            self._multi = False
+        if not profiles:
+            profiles = [default_scheduler_profile()]
+        names = [p.name for p in profiles]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate profile names: {names}")
+        self._profiles = profiles
+        self._config = config or SchedulerConfig()
+        # Build every plugin set before any engine starts, so a bad later
+        # profile (unknown plugin, bad args) leaves nothing half-started.
+        built = [(p, p.build()) for p in profiles]
+        # ONE cluster state (feature cache + informer set) for every
+        # profile engine (reference: one scheduler, many profiles):
+        # per-profile caches would multiply the node state and let two
+        # profiles jointly over-commit a node. Every engine registers
+        # before the first start() syncs the informers.
+        shared = self._shared_state = SharedClusterState(self._store)
         recorder = None
-        if config is not None and config.explain:
+        if self._config.explain:
             # Annotations flush on the store's worker, off the scheduling
             # thread (the reference flushes on informer events).
             self.result_store = recorder = ResultStore(self._store,
                                                        async_flush=True)
             # Pod updates re-drive a flush that ran out of CAS retries
             # (results land on the pod's next update); a deleted pod's
-            # records are evicted. Registered before the engine starts
-            # the informers.
+            # records are evicted.
             shared.informer_factory.add_handlers(
                 "Pod", ResourceEventHandlers(
                     on_update=lambda old, new: recorder.on_pod_event(
@@ -72,25 +244,66 @@ class SchedulerService:
                     on_update_many=lambda pairs: recorder.on_pod_events(
                         [new.key for _old, new in pairs]),
                     on_delete=lambda pod: recorder.delete_data(pod.key)))
-        sched = Scheduler(self._store, plugin_set, config, recorder=recorder,
-                          shared=shared, profile=profile.name)
-        self._shared_state, self._sched = shared, sched
-        sched.start()
+        try:
+            for p, plugin_set in built:
+                # A multi-profile engine takes only the pods naming its
+                # profile; a single profile takes every pod.
+                self._scheds[p.name] = Scheduler(
+                    self._store, plugin_set, self._config,
+                    recorder=recorder,
+                    scheduler_names={p.name} if self._multi else None,
+                    shared=shared, profile=p.name)
+            for sched in self._scheds.values():
+                sched.start()
+        except BaseException:
+            self.shutdown_scheduler()
+            raise
+        if self._checkpoint_path:
+            from ..state.persistence import Checkpointer
+
+            self._checkpointer = Checkpointer(
+                self._store, self._checkpoint_path,
+                interval_s=self._checkpoint_interval_s)
+        sched = self.scheduler
         cfg = sched.config
-        log.info("scheduler started (profile=%s, device=%s, pipeline=%s, "
-                 "device_resident=%s, shortlist=%s k=%d)", profile.name,
+        log.info("scheduler started (profiles=%s, device=%s, pipeline=%s, "
+                 "device_resident=%s, shortlist=%s k=%d)", names,
                  sched.device, cfg.pipeline, cfg.device_resident,
                  cfg.shortlist, cfg.shortlist_k)
         return sched
 
     def shutdown_scheduler(self) -> None:
-        if self._sched is not None:
-            self._sched.shutdown()
-            self._sched = None
-            log.info("scheduler shut down")
+        for name, sched in list(self._scheds.items()):
+            sched.shutdown()
+            log.info("scheduler %s shut down", name)
+        self._scheds.clear()
         if self._shared_state is not None:
             self._shared_state.shutdown()
             self._shared_state = None
+        if self._checkpointer is not None:
+            # Final checkpoint AFTER the engines stop: every in-flight
+            # bind has committed, so the snapshot is the state a restart
+            # resumes from.
+            self._checkpointer.close()
+            self._checkpointer = None
+
+    def restart_scheduler(self) -> Optional[Scheduler]:
+        """Shutdown, then start with the retained profiles and config
+        (reference RestartScheduler, scheduler.go:40-47). Queue and cache
+        state is rebuilt from the store, as in the reference."""
+        profiles, config, multi = self._profiles, self._config, self._multi
+        self.shutdown_scheduler()
+        self._profiles, self._config = [], None
+        spec: ProfileSpec = profiles if multi else (profiles[0] if profiles
+                                                    else None)
+        return self.start_scheduler(spec, config)
+
+    def get_scheduler_profile(self) -> Optional[Profile]:
+        """reference GetSchedulerConfig (scheduler.go:89-91)."""
+        return self._profiles[0] if self._profiles else None
+
+    def get_scheduler_profiles(self) -> List[Profile]:
+        return list(self._profiles)
 
 
 # ---- fused multi-tenant arbitration ----------------------------------------

@@ -12,8 +12,10 @@ Capabilities mirrored:
   * Versioned watch streams: every mutation is appended to a global event log
     with a monotonically increasing resource version; watchers can replay
     from any version (etcd watch semantics).
-  * A JSON snapshot of every object (``snapshot`` / ``save``). Restoring
-    from one is not part of this package yet.
+  * Durable snapshot/restore (the etcd-persistence capability: reference
+    docker-compose.yml mounts an etcd volume; restart against the same etcd
+    and state survives): ``snapshot`` / ``save``, ``restore`` / ``load``,
+    and state/persistence.py's checkpointer.
 """
 from __future__ import annotations
 
@@ -469,3 +471,29 @@ class ClusterStore:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.snapshot(), f)
+
+    @classmethod
+    def restore(cls, snap: Dict[str, Any]) -> "ClusterStore":
+        """A store holding ``snap``'s objects at its resource version. The
+        uid counter moves past every restored ``uid-N``, so objects made
+        after a restart never reuse a uid from before it."""
+        from . import serde
+
+        store = cls()
+        store._rv = snap["resource_version"]
+        store._log_base = store._rv
+        max_uid = 0
+        for kind, col in snap["objects"].items():
+            for key, d in col.items():
+                o = serde.from_dict(kind, d)
+                uid = o.metadata.uid
+                if uid.startswith("uid-") and uid[4:].isdigit():
+                    max_uid = max(max_uid, int(uid[4:]))
+                store._objects[kind][key] = o
+        obj.bump_uid_counter(max_uid)
+        return store
+
+    @classmethod
+    def load(cls, path: str) -> "ClusterStore":
+        with open(path) as f:
+            return cls.restore(json.load(f))

@@ -66,11 +66,26 @@ def test_whole_port_imports_with_jax_blocked():
             "minisched_tpu_torch.native",
             "minisched_tpu_torch.utils",
             "minisched_tpu_torch.utils.retry",
-            "minisched_tpu_torch.scenario.demo"} <= set(mods)
+            "minisched_tpu_torch.utils.breaker",
+            "minisched_tpu_torch.scenario.demo",
+            "minisched_tpu_torch.scenario.remote",
+            "minisched_tpu_torch.apiserver",
+            "minisched_tpu_torch.apiserver.server",
+            "minisched_tpu_torch.apiserver.client",
+            "minisched_tpu_torch.state.persistence",
+            "minisched_tpu_torch.state.serde",
+            "minisched_tpu_torch.service.config"} <= set(mods)
     for path in ("minisched_tpu_torch/explain/resultstore.py",
                  "minisched_tpu_torch/native/__init__.py",
                  "minisched_tpu_torch/utils/retry.py",
-                 "minisched_tpu_torch/scenario/demo.py"):
+                 "minisched_tpu_torch/utils/breaker.py",
+                 "minisched_tpu_torch/scenario/demo.py",
+                 "minisched_tpu_torch/scenario/remote.py",
+                 "minisched_tpu_torch/apiserver/server.py",
+                 "minisched_tpu_torch/apiserver/client.py",
+                 "minisched_tpu_torch/state/persistence.py",
+                 "minisched_tpu_torch/state/serde.py",
+                 "minisched_tpu_torch/service/config.py"):
         assert path in PORT_FILES
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"

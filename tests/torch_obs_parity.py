@@ -44,11 +44,10 @@ PORT = SimpleNamespace(
     slo=tslo, overload=toverload, bundle=tbundle, scheduler=tscheduler)
 
 # The JAX engine's metrics() keys the port does not report yet: they
-# belong to modules of later slices (the persistent compile cache, the
-# fleet and the apiserver's outage ride-through). A slice that ports one
-# of those modules removes its keys here.
+# belong to modules of later slices (the persistent compile cache and the
+# fleet). A slice that ports one of those modules removes its keys here.
 LATER_SLICE_KEYS = frozenset({
-    "compile_cache_on", "stale_owner_binds", "store_reconciles",
+    "compile_cache_on", "stale_owner_binds",
 })
 
 
