@@ -274,6 +274,29 @@ them, and on any mismatch. Phases, each printing its own lines:
      and on the CPU: placements equal, no pod bound twice, none
      over-committed; a co-located API server's /metrics with both
      profiles' prefixed keys.
+ J1. the in-process replicated fleet at bench-50k (SchedulerConfig(),
+     default lease TTL): the first FLEET_PODS of bench_workload's pods
+     whose key falls in shard 0 of 2, stored first, on a single engine
+     and then on Cluster.start(fleet=2): placements bitwise equal, r1
+     launches no kernel (its own kernel_launches_<name>), r0 one
+     selection and one scan per batch, the replicas' launches summing to
+     the process-wide counts, stale_owner_binds and bind_conflicts 0;
+ J2. a crash failover at bench-50k (tools/bench_fleet.py's failover
+     round on the headline cluster): fleet=2, the first half of
+     FAILOVER_PODS bench pods created, r1 killed with crash=True once
+     the fleet has bound FAILOVER_KILL_AT, the second half created:
+     every pod bound exactly once (no pod seen on two nodes), none
+     over-committed, a takeover journaled from r1, every lease held by
+     r0 at the end; the takeover latency, create-to-bound, the
+     fleet-merged p99, the lease counters and stale_owner_binds;
+ J3. the lifecycle oracle on the card, every default invariant after
+     every step: bench.py's clean churn_bench composition (16 base
+     nodes, diurnal arrivals, the tenant mix, the autoscaler,
+     reclamation waves and a rolling upgrade under one
+     max_unavailable=2 budget, CHURN_S seconds), then
+     tests/test_fleet.py's kill and restart soak on fleet=2 with a
+     0.4 s lease TTL: zero violations, settled, every engine resident,
+     a takeover.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -285,7 +308,7 @@ them; the bid-shortlist kernel's the auction bench burst's, the dense
 auction's the cross-check run's; the preemption op, PyTorch ops and no
 kernel, under "stages"; the explain burst's numbers under "explain";
 the native clone's status under "native_clone"; phase I's under
-"wire"); the last line is
+"wire", phase J's under "fleet"); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -303,11 +326,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from minisched_tpu_torch import faults, native, obs
+from minisched_tpu_torch import faults, lifecycle, native, obs
 from minisched_tpu_torch.apiserver import APIServer, RemoteStore
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
+from minisched_tpu_torch.fleet.shardmap import shard_of
 from minisched_tpu_torch.engine import overload
 from minisched_tpu_torch.explain import FILTER_RESULT_KEY, ResultStore
 from minisched_tpu_torch.engine import scheduler as engine_scheduler
@@ -3685,6 +3709,376 @@ def profiles_phase(smi):
           + f"; /metrics carries both profiles' prefixed keys ({smi})")
 
 
+# ---- the replicated fleet and the lifecycle oracle (phase J) ---------------
+
+FLEET_PODS = 4_096          # J1: shard-0 pods, stored first
+FAILOVER_PODS = N_PODS      # J2: over both shards
+FAILOVER_KILL_AT = 2_000    # J2: r1 dies once this many are bound
+CHURN_S = 6.0               # J3: bench.py's churn_bench duration
+SOAK_TTL_S = "0.4"          # J3: tests/test_fleet.py's soak lease TTL
+FLEET_KERNELS = ("shortlist_select", "shortlist_scan")
+
+
+def replica_launches(m) -> dict:
+    """One engine's own launches by kernel, from its metrics (the
+    process-wide LAUNCHES is shared by every replica)."""
+    return {k: int(m[f"kernel_launches_{k}"]) for k in _cuda_build.KERNELS
+            if m[f"kernel_launches_{k}"]}
+
+
+def store_owners(fleet, want, timeout: float = 10.0) -> list:
+    """The shards' owners in store truth, read until they are ``want``
+    or ``timeout`` passes. A lease reads expired ("") while its live
+    holder's heartbeat waits out a pause of the whole interpreter (a
+    full garbage collection at 50,000 nodes can last as long as the
+    default TTL); the holder's next renewal restores it, a claim by a
+    peer does not."""
+    def read():
+        return [fleet.owner_of(s) for s in range(fleet.n_shards)]
+
+    wait_until(lambda: read() == want, timeout=timeout, interval=0.05)
+    return read()
+
+
+def fleet_placement_phase(smi):
+    """J1. One replica owns every pod at full width: the fleet places
+    the shard-0 pods as the single engine does, bitwise."""
+    times = {}
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, N_PODS)
+    shard0 = [p for p in pods if shard_of(p.key, 2) == 0][:FLEET_PODS]
+    check(len(shard0) == FLEET_PODS, f"J1: {len(shard0)} shard-0 pods")
+    _m, l0, c2b0, _pp, solo = drive(
+        SchedulerConfig(), nodes, shard0, "J1 single engine",
+        pods_first=True, with_pv_controller=False)
+    times["single engine"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, N_PODS)
+    shard0 = [p for p in pods if shard_of(p.key, 2) == 0][:FLEET_PODS]
+    c = Cluster()
+    try:
+        c.create_objects(nodes)
+        c.create_objects(shard0)
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        c.start(BENCH_PROFILE, SchedulerConfig(), with_pv_controller=False,
+                fleet=2)
+        start_s = time.perf_counter() - t0
+        fleet = c.service.fleet
+        engines = fleet.engines()
+        check(sorted(engines) == ["r0", "r1"], f"J1: replicas {engines}")
+
+        def settled() -> bool:
+            ms = [e.metrics() for e in engines.values()]
+            return any(m["batch_faults"] for m in ms) or (
+                sum(m["pods_bound"] for m in ms) >= len(shard0)
+                and sum(m["pods_assigned"] for m in ms) >= len(shard0)
+                and sum(m["kernel_launches"] for m in ms)
+                == sum(LAUNCHES.values()))
+
+        check(wait_until(settled, timeout=300, interval=0.05),
+              "J1: the fleet did not bind every pod")
+        per = {rid: e.metrics() for rid, e in engines.items()}
+        fm = c.service.metrics()
+        launches = dict(LAUNCHES)
+        placed_pods = c.list_pods()
+        placed = {p.key: p.spec.node_name for p in placed_pods}
+        converged = fleet.wait_converged(10.0)
+        owners = store_owners(fleet, ["r0", "r1"])
+    finally:
+        c.shutdown()
+    times["fleet"] = time.perf_counter() - t
+    r0, r1 = per["r0"], per["r1"]
+    check(all(m["batch_faults"] == 0 for m in per.values()),
+          "J1: a scheduling cycle failed")
+    placement_check("J1", nodes, shard0, placed)
+    check(placed == solo, "J1: fleet placements != the single engine's")
+    check(r1["kernel_launches"] == 0 and r1["batches"] == 0
+          and r1["pods_seen"] == 0,
+          f"J1: r1 saw {r1['pods_seen']} pods, launched "
+          f"{replica_launches(r1)}")
+    b = r0["batches"]
+    check(all(r0[f"kernel_launches_{k}"] == b for k in FLEET_KERNELS),
+          f"J1: r0 {b} batches, launches {replica_launches(r0)}")
+    check(all(r0[f"kernel_launches_{k}"] + r1[f"kernel_launches_{k}"]
+              == launches[k] for k in _cuda_build.KERNELS),
+          f"J1: replicas' launches {replica_launches(r0)} + "
+          f"{replica_launches(r1)} != process-wide {launches}")
+    check(fm["stale_owner_binds"] == 0 and fm["bind_conflicts"] == 0,
+          f"J1: stale_owner_binds {fm['stale_owner_binds']}, "
+          f"bind_conflicts {fm['bind_conflicts']}")
+    check(converged and owners == ["r0", "r1"],
+          f"J1: lease owners {owners} at the end")
+    created = np.array([p.metadata.creation_timestamp for p in placed_pods])
+    bound_at = np.array([p.status.scheduled_time for p in placed_pods])
+    c2b = float(bound_at.max() - created.min())
+    lease = {k: int(v) for k, v in fm.items() if k.startswith("lease_")}
+    print(f"J1 fleet=2 at {N_NODES} nodes x {FLEET_PODS} shard-0 pods "
+          f"(stored first, SchedulerConfig(), lease TTL "
+          f"{fleet.lease_ttl_s} s): placements bitwise equal to the single "
+          f"engine's; r0 {b} batches, launches {replica_launches(r0)}; r1 "
+          f"0 batches, no launch; stale_owner_binds 0, bind_conflicts 0; "
+          f"start (two informer syncs) {start_s:.3f} s, create-to-bound "
+          f"{c2b:.3f} s against {c2b0:.3f} s single; {lease} ({smi})")
+    print("phase J1 by part: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in times.items()))
+    return {"launches": {"r0": replica_launches(r0),
+                         "r1": replica_launches(r1)},
+            "solo_launches": {k: v for k, v in l0.items() if v},
+            "batches": b, "pods": FLEET_PODS, "burst_s": c2b,
+            "single_burst_s": c2b0, "start_s": start_s, "lease": lease}
+
+
+def failover_phase(smi):
+    """J2. A crash failover at full width: r1 abandoned mid-burst, its
+    shard taken over by r0 through the expired lease."""
+    times = {}
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, FAILOVER_PODS, seed=7)
+    half = FAILOVER_PODS // 2
+    c = Cluster()
+    journal.configure("1")
+    try:
+        c.create_objects(nodes)
+        times["store"] = time.perf_counter() - t
+        t = time.perf_counter()
+        c.start(BENCH_PROFILE, SchedulerConfig(), with_pv_controller=False,
+                fleet=2)
+        fleet = c.service.fleet
+        engines = fleet.engines()
+        check(fleet.wait_converged(30.0), "J2: the fleet never converged")
+        times["start"] = time.perf_counter() - t
+        t = time.perf_counter()
+        seen: dict = {}
+        rebinds = []
+
+        def bound_now() -> int:
+            """The exactly-once oracle from store truth: once a pod
+            incarnation is seen bound, its node never changes. A pass
+            copies every pod, so it runs every half second: polled
+            faster it would take the interpreter from the engines."""
+            n = 0
+            for p in c.list_pods():
+                if not p.spec.node_name:
+                    continue
+                n += 1
+                prev = seen.setdefault(p.metadata.uid, p.spec.node_name)
+                if prev != p.spec.node_name:
+                    rebinds.append(p.key)
+            return n
+
+        def engines_bound() -> int:
+            return sum(e.metrics()["pods_bound"] for e in engines.values())
+
+        c.create_objects(pods[:half])
+        check(wait_until(lambda: engines_bound() >= FAILOVER_KILL_AT,
+                         timeout=120, interval=0.01),
+              f"J2: {FAILOVER_KILL_AT} pods never bound before the kill")
+        bound_at_kill = bound_now()
+        check(fleet.kill("r1", crash=True), "J2: r1 was not killed")
+        c.create_objects(pods[half:])
+        check(wait_until(lambda: bound_now() >= FAILOVER_PODS,
+                         timeout=300, interval=0.5),
+              f"J2: {bound_now()} of {FAILOVER_PODS} pods bound")
+        times["burst"] = time.perf_counter() - t
+        converged = fleet.wait_converged(30.0)
+        owners = store_owners(fleet, ["r0", "r0"])
+        fm = fleet.metrics()
+        hist = fleet.histograms()["pod_create_to_bound_s"]
+        r0 = engines["r0"].metrics()
+        r1 = engines["r1"].metrics()
+        evs = journal.JOURNAL.entries()
+        placed_pods = c.list_pods()
+    finally:
+        c.shutdown()
+        journal.configure("")
+    check(not rebinds, f"J2: pods seen on two nodes: {rebinds[:5]}")
+    placed = {p.key: p.spec.node_name for p in placed_pods}
+    check(len(placed_pods) == FAILOVER_PODS,
+          f"J2: {len(placed_pods)} pods in the store")
+    placement_check("J2", nodes, pods, placed)
+    check(r0["batch_faults"] == 0, "J2: a scheduling cycle of r0 failed")
+    kills = [e for e in evs if e["kind"] == "fleet.kill"]
+    takes = [e for e in evs if e["kind"] == "lease.takeover"]
+    check(len(kills) == 1 and kills[0]["replica"] == "r1"
+          and kills[0]["crash"] is True, f"J2: kill notes {kills}")
+    check(any(e["frm"] == "r1" and e["replica"] == "r0" for e in takes),
+          f"J2: no lease.takeover from r1 ({takes})")
+    check(fm["fleet_takeovers"] >= 1 and fm["fleet_replicas_live"] == 1,
+          f"J2: fleet_takeovers {fm['fleet_takeovers']}, live "
+          f"{fm['fleet_replicas_live']}")
+    check(converged and set(owners) == {"r0"},
+          f"J2: lease owners {owners} at the end")
+    take = next(e for e in takes if e["frm"] == "r1")
+    latency = take["t"] - kills[0]["t"]
+    created = np.array([p.metadata.creation_timestamp for p in placed_pods])
+    bound_at = np.array([p.status.scheduled_time for p in placed_pods])
+    c2b = float(bound_at.max() - created.min())
+    p99 = obs.hist_quantile(hist, 0.99)
+    p99_pods = float(np.percentile(bound_at - created, 99))
+    lease = {k: int(v) for k, v in fm.items() if k.startswith("lease_")}
+    b0 = r0["batches"]
+    check(all(r0[f"kernel_launches_{k}"] == b0 for k in FLEET_KERNELS),
+          f"J2: r0 {b0} batches, launches {replica_launches(r0)}")
+    print(f"J2 crash failover at {N_NODES} nodes x {FAILOVER_PODS} pods "
+          f"(fleet=2, SchedulerConfig(), lease TTL {fleet.lease_ttl_s} s): "
+          f"r1 (shards {kills[0]['shards']}) killed with crash=True at "
+          f"{bound_at_kill} bound; every pod bound exactly once, none "
+          f"over-committed; takeover of shard {take['shard']} by r0 at "
+          f"epoch {take['epoch']} ({take['pods']} pending pods drained), "
+          f"latency {latency:.3f} s (fleet.kill to lease.takeover); "
+          f"create-to-bound {c2b:.3f} s, p99 {p99:.3f} s from the "
+          f"fleet-merged histogram (r0's, its bucket interpolated), "
+          f"{p99_pods:.3f} s from the pods' stamps; "
+          f"fleet_takeovers {fm['fleet_takeovers']}, stale_owner_binds "
+          f"{fm['stale_owner_binds']} (r1's own "
+          f"{r1['stale_owner_binds']}), bind_conflicts "
+          f"{fm['bind_conflicts']}; {lease}; r0 {b0} batches, launches "
+          f"{replica_launches(r0)}, r1 {r1['batches']} batches, launches "
+          f"{replica_launches(r1)} ({smi})")
+    print("phase J2 by part: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in times.items()))
+    return {"launches": {"r0": replica_launches(r0),
+                         "r1": replica_launches(r1)},
+            "pods": FAILOVER_PODS, "bound_at_kill": bound_at_kill,
+            "takeover_latency_s": latency, "burst_s": c2b,
+            "p99_create_to_bound_s": p99,
+            "p99_create_to_bound_s_stamps": p99_pods, "lease": lease,
+            "stale_owner_binds": int(fm["stale_owner_binds"]),
+            "r1_stale_owner_binds": int(r1["stale_owner_binds"]),
+            "bind_conflicts": int(fm["bind_conflicts"]),
+            "takeover_pods": take["pods"]}
+
+
+CHURN_PROFILE = Profile(name="churn", plugins=[
+    "NodeUnschedulable", "NodeResourcesFit", "NodeResourcesLeastAllocated",
+    "DefaultPreemption"])
+SOAK_PROFILE = Profile(plugins=["NodeUnschedulable", "NodeResourcesFit",
+                                "NodeResourcesLeastAllocated"])
+
+
+def oracle_run(label, c, driver, until_s=None):
+    """Run ``driver`` (every invariant after every step), then settle
+    and the final pass; an InvariantViolation fails the phase."""
+    try:
+        driver.run(until_s=until_s)
+        settled = driver.settle(timeout=60)
+        driver.check_invariants()
+    except lifecycle.InvariantViolation as e:
+        check(False, f"{label}: {e}")
+    check(settled, f"{label}: the cluster never settled")
+    states = {rid: e.metrics()["degradation_state"]
+              for rid, e in c.service.schedulers.items()}
+    check(all(s == "resident" for s in states.values()),
+          f"{label}: degradation states {states}")
+
+
+def oracle_phase(smi):
+    """J3. The lifecycle oracle on the card: the clean churn composition
+    on one engine, then the kill and restart soak on a fleet."""
+    out = {}
+    t = time.perf_counter()
+    c = Cluster()
+    c.start(CHURN_PROFILE, SchedulerConfig(
+        backoff_initial_s=0.05, backoff_max_s=0.2, max_batch_size=128,
+        probation_batches=2), with_pv_controller=False)
+    try:
+        d = lifecycle.LifecycleDriver(c, seed=0, pace=1.0, settle_s=8.0)
+        budget = d.budget("base", max_unavailable=2)
+        for _ in range(16):
+            d.view.create_pool_node("base", cpu=4000)
+        d.add(lifecycle.PoissonArrivals(
+            "arrivals", rate_pps=40, duration_s=CHURN_S, amplitude=0.6,
+            period_s=CHURN_S / 2, cpu=100, prefix="ch"))
+        d.add(lifecycle.TenantMix("tenants", rate_pps=20,
+                                  duration_s=CHURN_S, cpu=150))
+        d.add(lifecycle.AutoscalerLoop(
+            "autoscaler", pool="as", interval_s=0.4, min_nodes=2,
+            max_nodes=8, scale_up_pending=12, idle_rounds=2, cpu=4000,
+            drain_grace_s=0.3))
+        d.add(lifecycle.ReclamationWave(
+            "reclaim", pool="base", interval_s=CHURN_S / 3, wave_frac=0.2,
+            grace_s=0.4, waves=max(1, int(CHURN_S // 2)), budget=budget))
+        d.add(lifecycle.RollingUpgrade(
+            "upgrade", pool="base", budget=budget, grace_s=0.3,
+            retry_s=0.25, start_after_s=0.5))
+        d.install_default_invariants()
+        oracle_run("J3 churn", c, d, until_s=CHURN_S)
+        m = c.service.scheduler.metrics()
+        check(m["pods_bound"] > 0 and budget.high_water <= 2,
+              f"J3 churn: {m['pods_bound']} bound, budget high water "
+              f"{budget.high_water}")
+        p99 = obs.hist_quantile(m["histograms"]["pod_create_to_bound_s"],
+                                0.99)
+        churn = {"events": len(d.events), "steps": d.steps,
+                 "invariant_checks": d.invariant_checks,
+                 "pods_bound": int(m["pods_bound"]),
+                 "batches": int(m["batches"]),
+                 "budget_denials": budget.denials,
+                 "p99_create_to_bound_s": p99,
+                 "launches": replica_launches(m)}
+    finally:
+        c.shutdown()
+    out["churn_s"] = time.perf_counter() - t
+    print(f"J3 churn ({CHURN_S} s, 16 base nodes, seed 0): "
+          f"{churn['events']} events, {churn['steps']} steps, "
+          f"{churn['invariant_checks']} invariant passes, 0 violations, "
+          f"settled, resident; {churn['pods_bound']} pods bound in "
+          f"{churn['batches']} batches, budget denials "
+          f"{churn['budget_denials']}, create-to-bound p99 {p99:.3f} s, "
+          f"launches {churn['launches']} ({smi})")
+    t = time.perf_counter()
+    old_ttl = os.environ.get("MINISCHED_LEASE_TTL")
+    os.environ["MINISCHED_LEASE_TTL"] = SOAK_TTL_S
+    c = Cluster()
+    try:
+        for i in range(8):
+            c.create_node(f"n{i}", cpu=32000)
+        c.start(SOAK_PROFILE, SchedulerConfig(
+            max_batch_size=16, batch_window_s=0.05, batch_idle_s=0.02,
+            backoff_initial_s=0.05, backoff_max_s=0.2),
+            with_pv_controller=False, fleet=2)
+        fleet = c.service.fleet
+        check(fleet.wait_converged(10.0), "J3 soak: never converged")
+        d = lifecycle.LifecycleDriver(c, seed=7, pace=1.0, settle_s=10.0)
+        d.add(lifecycle.PoissonArrivals("load", rate_pps=40,
+                                        duration_s=2.5, cpu=200,
+                                        prefix="fo"))
+        d.add(lifecycle.RestartScheduler("chaos", replica="r1",
+                                         after_s=0.8, downtime_s=1.0))
+        d.install_default_invariants()
+        oracle_run("J3 soak", c, d)
+        fm = fleet.metrics()
+        check(d.view.counters.get("scheduler_kills") == 1
+              and d.view.counters.get("scheduler_restarts") == 1
+              and fm["fleet_takeovers"] >= 1,
+              f"J3 soak: counters {d.view.counters}, takeovers "
+              f"{fm['fleet_takeovers']}")
+        soak = {"events": len(d.events), "steps": d.steps,
+                "invariant_checks": d.invariant_checks,
+                "pods_bound": len([p for p in c.list_pods()
+                                   if p.spec.node_name]),
+                "takeovers": int(fm["fleet_takeovers"]),
+                "launches": {rid: replica_launches(e.metrics())
+                             for rid, e in fleet.engines().items()}}
+    finally:
+        c.shutdown()
+        if old_ttl is None:
+            os.environ.pop("MINISCHED_LEASE_TTL", None)
+        else:
+            os.environ["MINISCHED_LEASE_TTL"] = old_ttl
+    out["soak_s"] = time.perf_counter() - t
+    print(f"J3 kill and restart soak (fleet=2, lease TTL {SOAK_TTL_S} s, "
+          f"seed 7): {soak['events']} events, {soak['invariant_checks']} "
+          f"invariant passes, 0 violations, settled, resident; "
+          f"{soak['pods_bound']} pods bound, takeovers {soak['takeovers']},"
+          f" launches of the live replicas {soak['launches']} ({smi})")
+    print(f"phase J3 by part: churn {out['churn_s']:.1f} s, soak "
+          f"{out['soak_s']:.1f} s")
+    return {"churn": churn, "soak": soak}
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -3702,6 +4096,7 @@ def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
         return 2
@@ -4422,6 +4817,23 @@ def main() -> int:
     print("phase I by part: " + ", ".join(f"{k} {v:.1f} s"
                                           for k, v in t_sub.items()))
     print(f"phase I in {time.perf_counter() - t_phase:.1f} s")
+    # J. the in-process replicated fleet and the lifecycle oracle
+    t_phase = time.perf_counter()
+    t_sub = {}
+    fleet = {"J1": fleet_placement_phase(smi)}
+    t_sub["J1"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    fleet["J2"] = failover_phase(smi)
+    t_sub["J2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fleet["J3"] = oracle_phase(smi)
+    t_sub["J3"] = time.perf_counter() - t
+    print("phase J by part: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in t_sub.items()))
+    fleet["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase J in {fleet['phase_s']:.1f} s")
+    fleet["script_s"] = time.perf_counter() - t_script
+    print(f"script until phase J's end: {fleet['script_s']:.1f} s ({smi})")
     for h in ("h1", "h2"):
         for name in ("shortlist_select", "shortlist_scan"):
             err[name] = max(err[name], ten[h]["lanes"]["err"][name])
@@ -4458,7 +4870,17 @@ def main() -> int:
             "index bench unsampled": index_launches["shortlist_select"],
             "tenants fused (H1)": ten["h1"]["launches"]["shortlist_select"],
             "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_select"],
-            "wire bench (I1)": wire["launches"]["shortlist_select"]},
+            "wire bench (I1)": wire["launches"]["shortlist_select"],
+            "fleet shard 0, r0 (J1)": fleet["J1"]["launches"]["r0"].get(
+                "shortlist_select", 0),
+            "fleet shard 0, r1 (J1)": fleet["J1"]["launches"]["r1"].get(
+                "shortlist_select", 0),
+            "fleet failover, r0 (J2)": fleet["J2"]["launches"]["r0"].get(
+                "shortlist_select", 0),
+            "fleet failover, r1 (J2)": fleet["J2"]["launches"]["r1"].get(
+                "shortlist_select", 0),
+            "lifecycle churn (J3)": fleet["J3"]["churn"]["launches"].get(
+                "shortlist_select", 0)},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -4500,7 +4922,17 @@ def main() -> int:
             "index bench unsampled": index_launches["shortlist_scan"],
             "tenants fused (H1)": ten["h1"]["launches"]["shortlist_scan"],
             "tenants fused indexed (H2)": ten["h2"]["launches"]["shortlist_scan"],
-            "wire bench (I1)": wire["launches"]["shortlist_scan"]},
+            "wire bench (I1)": wire["launches"]["shortlist_scan"],
+            "fleet shard 0, r0 (J1)": fleet["J1"]["launches"]["r0"].get(
+                "shortlist_scan", 0),
+            "fleet shard 0, r1 (J1)": fleet["J1"]["launches"]["r1"].get(
+                "shortlist_scan", 0),
+            "fleet failover, r0 (J2)": fleet["J2"]["launches"]["r0"].get(
+                "shortlist_scan", 0),
+            "fleet failover, r1 (J2)": fleet["J2"]["launches"]["r1"].get(
+                "shortlist_scan", 0),
+            "lifecycle churn (J3)": fleet["J3"]["churn"]["launches"].get(
+                "shortlist_scan", 0)},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,
@@ -4638,7 +5070,8 @@ def main() -> int:
             "index_lanes_ms": {"select": ten["h2"]["lanes"]["select_ms"],
                                "scan": ten["h2"]["lanes"]["scan_ms"]}},
         "native_clone": native.status(),
-        "wire": {k: v for k, v in wire.items() if k != "launches"}}))
+        "wire": {k: v for k, v in wire.items() if k != "launches"},
+        "fleet": fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

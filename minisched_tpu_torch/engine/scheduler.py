@@ -75,6 +75,7 @@ from ..encode.cache import bucket_for, static_token, step_bucket
 from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
 from ..faults import FAULTS, FaultWorkerDeath
+from ..fleet.shardmap import shard_of
 from ..obs import Histogram, instant, span
 from ..obs import bundle as bundle_mod
 from ..obs import slo as slo_mod
@@ -82,7 +83,7 @@ from ..obs.journal import JOURNAL, ProvenanceStore
 from ..obs.journal import note as jnote
 from ..obs.timeseries import TIMELINE, TimelineTracker
 from ..ops import prng
-from ..ops._cuda_build import KERNELS, LAUNCHES
+from ..ops._cuda_build import KERNELS, thread_launches
 from ..ops.index import (build_index_ops, corrupt_slab, index_eligible,
                          unpack_index_decision)
 from ..ops.pipeline import Decision, build_loop_step, build_step
@@ -317,12 +318,13 @@ class _Batch:
 
 
 def _count_launches(b: _Batch, fn, *args, **kwargs):
-    """Run ``fn`` and book the kernel launches it made into ``b``. Only
-    the scheduling thread launches kernels, so the deltas are this
-    batch's."""
-    before = dict(LAUNCHES)
+    """Run ``fn`` and book the kernel launches it made into ``b``: the
+    calling thread's deltas, which are this call's alone even while
+    another engine of the process launches."""
+    counts = thread_launches()
+    before = dict(counts)
     out = fn(*args, **kwargs)
-    for name, n in LAUNCHES.items():
+    for name, n in counts.items():
         if n != before[name]:
             b.launches[name] = b.launches.get(name, 0) + n - before[name]
     return out
@@ -1062,6 +1064,18 @@ class Scheduler:
                                    if scheduler_names else "default")
         # Replica id tagged beside the profile ("" = a solo engine).
         self.replica = replica or ""
+        # Fleet shard ownership (fleet/supervisor.py): (n_shards, owned
+        # frozenset, epoch), read as ONE tuple on the wants_pod hot path
+        # and only ever replaced whole, so an informer thread never sees
+        # a half-updated pair. n_shards == 0 (the solo default) owns
+        # every pod.
+        self._shard_view = (0, frozenset(), 0)
+        # Fleet bind fence: callable(pod_key) -> bool installed by the
+        # supervisor. False at commit time means this replica lost the
+        # pod's shard: the bind is withheld and the pod handed back (the
+        # new owner's takeover re-gathers it from the store). None: no
+        # fence (a solo engine).
+        self._bind_guard = None
         if self.config.assignment not in ("greedy", "auction"):
             raise ValueError(f"unknown assignment strategy "
                              f"{self.config.assignment!r}; expected "
@@ -1265,6 +1279,9 @@ class Scheduler:
         self._metrics: Dict[str, float] = {
             "batches": 0, "pods_seen": 0, "pods_assigned": 0,
             "pods_failed": 0, "pods_bound": 0, "bind_conflicts": 0,
+            # Fleet bind fence: commits withheld because this replica
+            # lost the pod's shard lease between decision and commit.
+            "stale_owner_binds": 0,
             # Supervisor: detected batch faults and the inline degraded
             # retries they triggered, watchdog deadline trips, ladder
             # transitions, batches requeued at the quarantine rung,
@@ -1395,10 +1412,70 @@ class Scheduler:
 
     def wants_pod(self, pod) -> bool:
         """Does this scheduler handle the pod? Profile routing by
-        ``spec.scheduler_name``; an engine without a routing set takes
-        every pod."""
-        return (self.scheduler_names is None
-                or pod.spec.scheduler_name in self.scheduler_names)
+        ``spec.scheduler_name`` (an engine without a routing set takes
+        every pod), then, in a fleet, the shard filter: the pod's hash
+        shard (fleet/shardmap.py) must be one this replica owns. The
+        shard view is one tuple load: no lock, no store round trip."""
+        if not (self.scheduler_names is None
+                or pod.spec.scheduler_name in self.scheduler_names):
+            return False
+        n_shards, owned, _epoch = self._shard_view
+        if n_shards:
+            return shard_of(pod.key, n_shards) in owned
+        return True
+
+    # ---- fleet shard ownership (fleet/supervisor.py) -------------------
+
+    @property
+    def shard_view(self):
+        """(n_shards, owned frozenset, epoch): the fleet ownership view;
+        (0, frozenset(), 0) when sharding is off."""
+        return self._shard_view
+
+    def set_shards(self, owned, n_shards: int, *, epoch: int = 0) -> None:
+        """Replace this replica's owned shards in one store of the tuple.
+        The supervisor calls it BEFORE start() for the first deal (the
+        informer's first sync consults wants_pod as it delivers); later
+        calls come through adopt_shards / release_shards."""
+        self._shard_view = (int(n_shards), frozenset(owned), int(epoch))
+
+    def set_bind_guard(self, fn) -> None:
+        """Install the fleet bind fence: ``fn(pod_key) -> bool`` (False:
+        this replica lost the pod's shard; withhold the commit)."""
+        self._bind_guard = fn
+
+    def adopt_shards(self, shards, *, epoch: int = 0,
+                     reason: str = "") -> int:
+        """The takeover: extend the owned shards and drain the dead
+        owner's pending work. Every unbound store pod that now routes
+        here is gathered into the active queue (its keyed dedupe skips
+        pods already queued or in flight), including the pods of ring
+        slots an abandoned owner staged and never committed. Returns the
+        number of pods adopted."""
+        n_shards, owned, _ = self._shard_view
+        self.set_shards(owned | set(shards), n_shards, epoch=epoch)
+        adopted = [p for p in self.store.list("Pod")
+                   if not p.spec.node_name and self.wants_pod(p)]
+        if adopted:
+            self.queue.add_many(adopted)
+        jnote("fleet.adopt", profile=self.profile, replica=self.replica,
+              shards=",".join(str(s) for s in sorted(shards)),
+              epoch=epoch, pods=len(adopted), reason=reason)
+        return len(adopted)
+
+    def release_shards(self, shards, *, epoch: int = 0,
+                       reason: str = "") -> int:
+        """Shard handoff on lease loss: shrink the owned shards and drop
+        every QUEUED pod this replica no longer owns (pods in flight
+        resolve through the bind fence and the store's CAS). Returns the
+        number of pods released."""
+        n_shards, owned, _ = self._shard_view
+        self.set_shards(owned - set(shards), n_shards, epoch=epoch)
+        released = self.queue.release_unwanted(self.wants_pod)
+        jnote("fleet.release", profile=self.profile, replica=self.replica,
+              shards=",".join(str(s) for s in sorted(shards)),
+              epoch=epoch, pods=len(released), reason=reason)
+        return len(released)
 
     def reconcile_store(self, *, reason: str = "") -> Dict[str, int]:
         """Reconcile the queue against store truth after a store outage:
@@ -2026,7 +2103,7 @@ class Scheduler:
                                   assignment=cfg.assignment,
                                   shortlist=self._shortlist_k,
                                   slim=self._slim)
-        before = dict(LAUNCHES)
+        before = dict(thread_launches())
         t_disp0 = time.perf_counter()
         with span("loop.dispatch", slots=n_slots):
             packed_dev, free_final = loop_fn(
@@ -2194,12 +2271,12 @@ class Scheduler:
         return b
 
     def _fold_launches(self, before: Dict[str, int]) -> None:
-        """Book the kernel launches made since ``before`` (a LAUNCHES
-        copy) straight into the metrics: a tranche's launches belong to
-        no single slot."""
+        """Book the kernel launches this thread made since ``before`` (a
+        ``thread_launches()`` copy) straight into the metrics: a
+        tranche's launches belong to no single slot."""
         with self._metrics_lock:
             m = self._metrics
-            for name, n in LAUNCHES.items():
+            for name, n in thread_launches().items():
                 d = n - before[name]
                 if d:
                     m["kernel_launches"] += d
@@ -4809,7 +4886,43 @@ class Scheduler:
             return
         self._bind(qpi, wp.node_name)
 
+    def _dispose_stale_owner(self, items: List[tuple]) -> None:
+        """The fleet bind fence tripped: this replica lost the pod's
+        shard lease between decision and commit. Withhold the bind:
+        unassume (the capacity must not leak) and forget, WITHOUT a
+        requeue, since the pod belongs to the shard's new owner, whose
+        takeover re-gathers it from the store. A true epoch race (both
+        replicas believe they hold) is safe without the fence too: the
+        store's bind CAS lets exactly one commit win."""
+        for qpi, _node in items:
+            self._unassume(qpi)
+            self.queue.forget(qpi.pod.key)
+        with self._metrics_lock:
+            self._metrics["stale_owner_binds"] += len(items)
+        jnote("fleet.stale_bind", profile=self.profile,
+              replica=self.replica, pods=len(items))
+
+    def _fence_binds(self, items: List[tuple]) -> List[tuple]:
+        """Partition a bind tranche through the fleet bind guard (a no-op
+        without one): stale-owner placements are disposed of, the rest go
+        on to the store commit."""
+        guard = self._bind_guard
+        if guard is None:
+            return items
+        live, stale = [], []
+        for it in items:
+            try:
+                ok = guard(it[0].pod.key)
+            except Exception:
+                ok = True  # a broken fence must not drop commits
+            (live if ok else stale).append(it)
+        if stale:
+            self._dispose_stale_owner(stale)
+        return live
+
     def _bind(self, qpi: QueuedPodInfo, node_name: str) -> None:
+        if not self._fence_binds([(qpi, node_name)]):
+            return
         t0 = time.perf_counter()
         pod = qpi.pod
         try:
@@ -4869,14 +4982,17 @@ class Scheduler:
         """Bulk binding commit with failure containment: an unhandled
         exception on the binder pool would lose the whole tranche, so any
         failure reconciles per pod against store truth instead."""
+        live = items
         try:
-            FAULTS.hit("bind")  # fault gate: bulk binding task
-            with span("bind.bulk", pods=len(items)):
-                self._bind_many_impl(items)
+            live = self._fence_binds(items)
+            if live:
+                FAULTS.hit("bind")  # fault gate: bulk binding task
+                with span("bind.bulk", pods=len(live)):
+                    self._bind_many_impl(live)
         except Exception:
             log.exception("bulk bind task failed; reconciling %d "
-                          "placement(s) against store truth", len(items))
-            self._reconcile_bind_failure(items)
+                          "placement(s) against store truth", len(live))
+            self._reconcile_bind_failure(live)
         finally:
             # The bulk commit concluded for every pod (bound, requeued or
             # forgotten): release the supervised-retry exclusions.

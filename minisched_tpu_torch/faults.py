@@ -36,12 +36,20 @@ on purpose. Named gates sit at the seams; this package wires these:
                 client's retry deadline absorbs it
     checkpoint  checkpoint write, before any disk touch
                                              (state/persistence.py)
+    lifecycle   every lifecycle driver step  (lifecycle/driver.py) —
+                ``err``/``die`` skip the step and retry it 50 ms of
+                virtual time later; ``corrupt`` burns one draw of the
+                generator's PRNG stream
+    lease       a fleet replica's lease heartbeat (fleet/lease.py) —
+                ``err`` drops the renewal; ``corrupt`` sends it with a
+                rewound resource_version, which the store's CAS rejects
 
 ``GATES`` keeps the JAX package's whole catalog, in its order, so a spec
 parses alike in both packages and every gate's PRNG stream (seeded by
-its catalog index) is the same. The other gates (lifecycle, lease,
-proc, election) parse and count, but no seam of this package calls
-them yet.
+its catalog index) is the same. The two other gates (proc, election)
+belong to the process fleet and its steward election, which are not
+part of this package yet: they parse and count, but no seam of this
+package calls them.
 
 Configured once per process from ``MINISCHED_FAULTS`` (tests reconfigure
 via :func:`configure`), a comma-separated list of ``gate:action@trigger``

@@ -12,6 +12,9 @@ reset: the main path's evidence that it ran through the kernels. Only a
 kernel's wrapper increments its entry, right after a launch that the
 CUDA runtime accepted. A launcher that had no work (an empty batch)
 launches nothing and returns ``NO_LAUNCH``, which is not counted.
+``thread_launches()`` counts the same launches per host thread: an
+engine books the launches of its own scheduling thread from it, so two
+engines of one process (a fleet's replicas) never book each other's.
 """
 from __future__ import annotations
 
@@ -36,6 +39,27 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Not _lock: that one is held through a build, which takes seconds.
+_count_lock = threading.Lock()
+_tls = threading.local()
+
+
+def thread_launches() -> Dict[str, int]:
+    """The calling thread's launches by kernel (its live counter: copy
+    it to take a "before"). Wrappers launch on the calling thread, so
+    the delta around a call is exactly that call's launches."""
+    counts = getattr(_tls, "counts", None)
+    if counts is None:
+        counts = _tls.counts = {name: 0 for name in KERNELS}
+    return counts
+
+
+def note_launch(prefix: str) -> None:
+    """Count one launch of kernel ``prefix`` process-wide and on the
+    calling thread."""
+    with _count_lock:
+        LAUNCHES[prefix] += 1
+    thread_launches()[prefix] += 1
 
 
 def source(name: str) -> str:
@@ -110,4 +134,4 @@ def check_launch(lib: ctypes.CDLL, prefix: str, err: int, where: str
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{prefix} kernel launch failed: cudaError {err} "
                            f"({fn(err).decode()}) at {where}")
-    LAUNCHES[prefix] += 1
+    note_launch(prefix)

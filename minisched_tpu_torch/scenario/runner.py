@@ -66,14 +66,18 @@ class Cluster:
 
     def start(self, profile: ProfileSpec = None,
               config: Optional[SchedulerConfig] = None,
-              with_pv_controller: bool = True) -> "Cluster":
+              with_pv_controller: bool = True,
+              fleet: Optional[int] = None) -> "Cluster":
         """Boot the scheduler (on the card unless ``config.platform``
-        says otherwise) and, by default, the PV controller."""
+        says otherwise) and, by default, the PV controller. ``fleet`` at
+        2 or more boots a replicated scheduler fleet (shard leases and
+        takeover, ``SchedulerService._start_fleet``) instead of one
+        engine; None defers to ``MINISCHED_FLEET``."""
         if with_pv_controller:
             self.pv_controller = PVController(self.store)
             self.pv_controller.start()
         try:
-            self.service.start_scheduler(profile, config)
+            self.service.start_scheduler(profile, config, fleet=fleet)
         except BaseException:
             self.shutdown()
             raise

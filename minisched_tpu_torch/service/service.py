@@ -15,6 +15,11 @@ KubeSchedulerProfile semantics, scheduler.go:97-142). Every engine shares
 one cluster state over the one store, so capacity accounting stays
 consistent across profiles.
 
+Replicated fleet: ``start_scheduler(fleet=N)`` (or ``MINISCHED_FLEET``)
+runs N engine replicas of one profile in this process, each with its own
+cluster state, pods partitioned by shard leases and failed over by the
+``fleet.supervisor.FleetSupervisor``.
+
 Fused multi-tenant arbitration: ``TenantFusionCoordinator`` serves T
 virtual clusters (``Tenant``: a store each) from one serve thread, one
 fused dispatch per compatible group of tenants a round
@@ -35,6 +40,9 @@ from ..engine.queue import bucket_major_quotas
 from ..engine.scheduler import Scheduler
 from ..explain import ResultStore
 from ..faults import FaultWorkerDeath
+from ..fleet.shardmap import (fleet_from_env, fleet_proc_from_env,
+                              shards_from_env)
+from ..fleet.supervisor import FleetSupervisor
 from ..state.informer import ResourceEventHandlers
 from .config import SchedulerConfiguration
 from .defaultconfig import Profile, default_scheduler_profile
@@ -42,15 +50,6 @@ from .defaultconfig import Profile, default_scheduler_profile
 log = logging.getLogger(__name__)
 
 ProfileSpec = Union[Profile, Sequence[Profile], SchedulerConfiguration, None]
-
-
-def _replicas_from_env(name: str) -> int:
-    """A replica count from the environment: unset, empty or unparsable
-    reads 0 (off), as the JAX package's fleet knobs do."""
-    try:
-        return int(os.environ.get(name, "") or 0)
-    except ValueError:
-        return 0
 
 
 class SchedulerService:
@@ -71,6 +70,10 @@ class SchedulerService:
         self._config: Optional[SchedulerConfig] = None
         # The explain-mode result store of the running engines, else None.
         self.result_store: Optional[ResultStore] = None
+        # The replicated fleet (fleet/supervisor.py) in place of the
+        # profile engines, else None; single-profile only.
+        self._fleet = None
+        self._fleet_n = 0
         # RemoteStore has a snapshot() too (the /snapshot verb), so the
         # check is the checkpointer's whole surface: resource_version()
         # is the store-local half a RemoteStore lacks.
@@ -85,13 +88,25 @@ class SchedulerService:
 
     @property
     def scheduler(self) -> Optional[Scheduler]:
-        """The first (or only) running engine, or None."""
+        """The first (or only) running engine, or None; in a fleet, the
+        first live replica's engine."""
+        if self._fleet is not None:
+            return self._fleet.scheduler
         return next(iter(self._scheds.values()), None)
 
     @property
     def schedulers(self) -> Dict[str, Scheduler]:
-        """Profile name to engine."""
+        """Profile name to engine; in a fleet, replica id to engine for
+        the live replicas."""
+        if self._fleet is not None:
+            return self._fleet.engines()
         return dict(self._scheds)
+
+    @property
+    def fleet(self):
+        """The FleetSupervisor when a fleet runs, else None (the
+        lifecycle kill and restart generators reach the fleet here)."""
+        return self._fleet
 
     def metrics(self) -> Dict[str, float]:
         """Engine cycle metrics across every profile, flat for one
@@ -108,6 +123,10 @@ class SchedulerService:
             return {k: v for k, v in m.items()
                     if isinstance(v, (int, float)) and not isinstance(v, bool)}
 
+        if self._fleet is not None:
+            # The counters summed over the live replicas, with the lease
+            # counters and the fleet gauges.
+            return self._fleet.metrics()
         scheds = self.schedulers
         if not scheds:
             return {}
@@ -123,7 +142,9 @@ class SchedulerService:
         """Per-pod lifecycle histogram snapshots (bounds/counts/sum/count)
         across every profile, keyed as :meth:`metrics` keys them: the
         ``APIServer.histogram_providers`` feed for the native Prometheus
-        histogram exposition."""
+        histogram exposition. A fleet merges its live replicas'."""
+        if self._fleet is not None:
+            return self._fleet.histograms()
         scheds = self.schedulers
         if not scheds:
             return {}
@@ -168,7 +189,10 @@ class SchedulerService:
     def provenance(self, pod_key: str):
         """The ``GET /provenance/<pod>`` record: the first profile engine
         holding a decision-provenance record for the pod answers
-        (profiles share no pods); None when none does."""
+        (profiles share no pods, replicas no shards); None when none
+        does."""
+        if self._fleet is not None:
+            return self._fleet.provenance(pod_key)
         for engine in self.schedulers.values():
             rec = engine.provenance(pod_key)
             if rec is not None:
@@ -182,22 +206,24 @@ class SchedulerService:
                         ) -> Optional[Scheduler]:
         """Start one engine per profile (one profile, a list, or a
         ``SchedulerConfiguration``, whose non-default
-        ``percentage_of_nodes_to_score`` carries into the config). The
-        replicated fleets (``fleet`` / ``fleet_proc``, or
-        ``MINISCHED_FLEET`` / ``MINISCHED_FLEET_PROC``, at 2 or more) are
-        not part of this package yet and raise; nothing runs one engine
-        in their place. Returns the first engine."""
-        if self._scheds:
+        ``percentage_of_nodes_to_score`` carries into the config).
+        ``fleet`` at 2 or more (None reads ``MINISCHED_FLEET``; 0 and 1
+        are off) runs that many replicated engines of one profile with
+        shard leases instead (fleet/supervisor.py). The process fleet
+        (``fleet_proc`` / ``MINISCHED_FLEET_PROC`` at 2 or more: replica
+        processes over RemoteStore) is not part of this package yet and
+        raises; nothing runs in its place. Returns the first engine."""
+        if self._scheds or self._fleet is not None:
             raise RuntimeError("scheduler already running")
-        for knob, arg, env in (("fleet_proc", fleet_proc,
-                                "MINISCHED_FLEET_PROC"),
-                               ("fleet", fleet, "MINISCHED_FLEET")):
-            n = int(arg) if arg is not None else _replicas_from_env(env)
-            if n >= 2:
-                raise ValueError(
-                    f"{knob}={n} ({env}): replicated scheduler fleets are "
-                    "not part of this package yet; run one engine a "
-                    "profile (leave it unset, 0 or 1)")
+        n_proc = (int(fleet_proc) if fleet_proc is not None
+                  else fleet_proc_from_env())
+        if n_proc >= 2:
+            raise ValueError(
+                f"fleet_proc={n_proc} (MINISCHED_FLEET_PROC): the process "
+                "fleet (replica processes over RemoteStore) is the next "
+                "slice of this package; run the in-process fleet "
+                "(fleet=N) or leave it unset, 0 or 1")
+        n_fleet = int(fleet) if fleet is not None else fleet_from_env()
         if isinstance(profile, SchedulerConfiguration):
             profiles, self._multi = list(profile.profiles), True
             pct = profile.percentage_of_nodes_to_score
@@ -217,8 +243,16 @@ class SchedulerService:
         names = [p.name for p in profiles]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate profile names: {names}")
+        if n_fleet >= 2 and self._multi:
+            raise ValueError(
+                "fleet mode is single-profile: profiles partition pods by "
+                "scheduler_name, fleet shards by pod-key hash; one routing "
+                "scheme at a time")
         self._profiles = profiles
         self._config = config or SchedulerConfig()
+        if n_fleet >= 2:
+            return self._start_fleet(profiles[0], n_fleet)
+        self._fleet_n = 0
         # Build every plugin set before any engine starts, so a bad later
         # profile (unknown plugin, bad args) leaves nothing half-started.
         built = [(p, p.build()) for p in profiles]
@@ -272,7 +306,48 @@ class SchedulerService:
                  cfg.shortlist, cfg.shortlist_k)
         return sched
 
+    def _start_fleet(self, p: Profile, n: int) -> Optional[Scheduler]:
+        """N replicated engines, each with its OWN cluster state
+        (informers and feature cache) over the one store: independent
+        optimistic views whose capacity races resolve at the store's bind
+        CAS, under a FleetSupervisor driving the shard leases. The
+        checkpointer (when configured) comes first, so a takeover can
+        persist the new ownership at once. In explain mode the replicas
+        share one result store."""
+        if self._checkpoint_path:
+            from ..state.persistence import Checkpointer
+
+            self._checkpointer = Checkpointer(
+                self._store, self._checkpoint_path,
+                interval_s=self._checkpoint_interval_s)
+        recorder = None
+        if self._config.explain:
+            self.result_store = recorder = ResultStore(self._store,
+                                                       async_flush=True)
+
+        def factory(rid: str) -> Scheduler:
+            return Scheduler(self._store, p.build(), self._config,
+                             recorder=recorder, profile=p.name, replica=rid)
+
+        self._fleet = FleetSupervisor(
+            self._store, engine_factory=factory, replicas=n,
+            n_shards=shards_from_env(n), checkpointer=self._checkpointer)
+        self._fleet_n = n
+        try:
+            self._fleet.start()
+        except BaseException:
+            self.shutdown_scheduler()
+            raise
+        log.info("scheduler fleet started (%d replicas, profile=%s, "
+                 "%d shards, device=%s)", n, p.name, self._fleet.n_shards,
+                 self.scheduler.device)
+        return self.scheduler
+
     def shutdown_scheduler(self) -> None:
+        if self._fleet is not None:
+            self._fleet.shutdown()
+            self._fleet = None
+            log.info("scheduler fleet shut down")
         for name, sched in list(self._scheds.items()):
             sched.shutdown()
             log.info("scheduler %s shut down", name)
@@ -292,11 +367,12 @@ class SchedulerService:
         (reference RestartScheduler, scheduler.go:40-47). Queue and cache
         state is rebuilt from the store, as in the reference."""
         profiles, config, multi = self._profiles, self._config, self._multi
+        fleet_n = self._fleet_n
         self.shutdown_scheduler()
         self._profiles, self._config = [], None
         spec: ProfileSpec = profiles if multi else (profiles[0] if profiles
                                                     else None)
-        return self.start_scheduler(spec, config)
+        return self.start_scheduler(spec, config, fleet=fleet_n or None)
 
     def get_scheduler_profile(self) -> Optional[Profile]:
         """reference GetSchedulerConfig (scheduler.go:89-91)."""

@@ -5,7 +5,8 @@ grammar and the registry's triggers, the supervisor ladder unit, then
 one engine burst per containment path (inline ladder retry, the fetch
 sanity detector, the residency carry desync detector, the shortlist
 cross-check, the bind reconcile, the commit worker's death and restart,
-the quarantine rung). Each burst runs the JAX test's recipe on the port:
+the quarantine rung), then the lifecycle driver's gate and the fleet
+lease manager's. Each burst runs the JAX test's recipe on the port:
 recovered placements equal the port's fault-free run, which equals the
 JAX engine's, and the fire counts and the ladder's end state are the
 JAX engine's. Two specs requeue pods and so re-form later batches: the
@@ -448,3 +449,112 @@ def test_tracer_and_journal_record_the_ladder():
             "supervisor.escalate", "supervisor.recover"} <= names
     assert {"fault.step", "supervisor.escalate", "supervisor.retry",
             "supervisor.recover"} <= kinds
+
+
+# ---- lifecycle gate: the scenario driver's step -------------------------
+
+
+def test_lifecycle_gate_skips_steps_but_loses_nothing(registry):
+    """An err at the driver's step seam skips the tick (counted) and
+    retries it shortly after: the generator still completes and the
+    ledger stays whole, as in the JAX package, step for step."""
+    from minisched_tpu import lifecycle as jlc
+    from minisched_tpu_torch.lifecycle import (LifecycleDriver,
+                                               PoissonArrivals)
+
+    def run(cluster_cls, driver_cls, arrivals_cls, reg):
+        d = driver_cls(cluster_cls(), seed=3)
+        d.add(arrivals_cls("arrivals", rate_pps=40, duration_s=1.0,
+                           prefix="flt"))
+        d.install_default_invariants()
+        reg.configure("lifecycle:err@2,lifecycle:err@5")
+        d.run()
+        fired = reg.FAULTS.counts()["lifecycle"]
+        reg.configure("")
+        return d, fired
+
+    d, fired = run(Cluster, LifecycleDriver, PoissonArrivals, faults)
+    assert fired == 2
+    assert d.faulted_steps == 2
+    assert d.view.counters.get("pods_created", 0) > 5
+    d.check_invariants()
+    jd, jfired = run(JCluster, jlc.LifecycleDriver, jlc.PoissonArrivals,
+                     jfaults)
+    assert (fired, d.event_lines()) == (jfired, jd.event_lines())
+
+
+# ---- lease gate (fleet/lease.py) -----------------------------------------
+
+
+def test_lease_gate_err_drops_heartbeat(registry):
+    """``lease:err`` drops the renewal before it reaches the store:
+    counted, the store's ``renewed_at`` unmoved, the shard still held."""
+    from minisched_tpu_torch.fleet.lease import LeaseManager
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    clk = [0.0]
+    mgr = LeaseManager(store, "rA", ttl_s=10.0, clock=lambda: clk[0])
+    assert mgr.try_acquire(0)
+    stamp = store.get("Lease", "shard-0").renewed_at
+    faults.configure("lease:err@1")
+    clk[0] = 1.0
+    assert mgr.renew(0) is False
+    assert mgr.counters["heartbeats_dropped"] == 1
+    assert FAULTS.counts()["lease"] == 1
+    assert store.get("Lease", "shard-0").renewed_at == stamp
+    assert mgr.holds(0)
+    assert mgr.renew(0) is True
+    assert store.get("Lease", "shard-0").renewed_at == 1.0
+
+
+def test_lease_gate_corrupt_stale_heartbeat_loses_cas(registry):
+    """``lease:corrupt`` sends the heartbeat with a rewound
+    resource_version: the store's CAS rejects it, the rejection is
+    counted and store truth stays as the last honest write left it."""
+    from minisched_tpu_torch.fleet.lease import LeaseManager
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    clk = [0.0]
+    mgr = LeaseManager(store, "rA", ttl_s=10.0, clock=lambda: clk[0])
+    assert mgr.try_acquire(0)
+    before = store.get("Lease", "shard-0")
+    faults.configure("lease:corrupt@1")
+    clk[0] = 1.0
+    assert mgr.renew(0) is False
+    assert mgr.counters["stale_heartbeats_rejected"] == 1
+    after = store.get("Lease", "shard-0")
+    assert (after.holder, after.epoch, after.renewed_at) == \
+        ("rA", before.epoch, before.renewed_at)
+    assert mgr.renew(0) is True
+    assert store.get("Lease", "shard-0").renewed_at == 1.0
+
+
+def test_corrupted_lease_cannot_mint_two_owners(registry):
+    """A zombie holder whose every heartbeat is corrupt cannot keep its
+    shard against a live peer, and store truth never names two owners
+    or moves an epoch without a CAS win."""
+    from minisched_tpu_torch.fleet.lease import LeaseManager
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    clk = [0.0]
+    zombie = LeaseManager(store, "rZ", ttl_s=1.0, clock=lambda: clk[0])
+    peer = LeaseManager(store, "rP", ttl_s=1.0, clock=lambda: clk[0])
+    assert zombie.try_acquire(0)
+    faults.configure("lease:corrupt@1,lease:corrupt@2,lease:corrupt@3")
+    clk[0] = 0.5
+    assert zombie.renew(0) is False
+    assert store.get("Lease", "shard-0").renewed_at == 0.0
+    clk[0] = 1.5
+    assert peer.try_acquire(0)
+    truth = store.get("Lease", "shard-0")
+    assert (truth.holder, truth.epoch) == ("rP", 2)
+    assert zombie.holds(0) and peer.holds(0)
+    assert zombie.renew(0) is False
+    assert not zombie.holds(0)
+    assert zombie.counters["losses"] == 1
+    truth = store.get("Lease", "shard-0")
+    assert (truth.holder, truth.epoch) == ("rP", 2)
+    assert peer.epoch_of(0) == 2 and zombie.epoch_of(0) == 0

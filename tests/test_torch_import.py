@@ -74,7 +74,15 @@ def test_whole_port_imports_with_jax_blocked():
             "minisched_tpu_torch.apiserver.client",
             "minisched_tpu_torch.state.persistence",
             "minisched_tpu_torch.state.serde",
-            "minisched_tpu_torch.service.config"} <= set(mods)
+            "minisched_tpu_torch.service.config",
+            "minisched_tpu_torch.fleet",
+            "minisched_tpu_torch.fleet.shardmap",
+            "minisched_tpu_torch.fleet.lease",
+            "minisched_tpu_torch.fleet.supervisor",
+            "minisched_tpu_torch.lifecycle",
+            "minisched_tpu_torch.lifecycle.driver",
+            "minisched_tpu_torch.lifecycle.generators",
+            "minisched_tpu_torch.lifecycle.invariants"} <= set(mods)
     for path in ("minisched_tpu_torch/explain/resultstore.py",
                  "minisched_tpu_torch/native/__init__.py",
                  "minisched_tpu_torch/utils/retry.py",
@@ -85,7 +93,13 @@ def test_whole_port_imports_with_jax_blocked():
                  "minisched_tpu_torch/apiserver/client.py",
                  "minisched_tpu_torch/state/persistence.py",
                  "minisched_tpu_torch/state/serde.py",
-                 "minisched_tpu_torch/service/config.py"):
+                 "minisched_tpu_torch/service/config.py",
+                 "minisched_tpu_torch/fleet/shardmap.py",
+                 "minisched_tpu_torch/fleet/lease.py",
+                 "minisched_tpu_torch/fleet/supervisor.py",
+                 "minisched_tpu_torch/lifecycle/driver.py",
+                 "minisched_tpu_torch/lifecycle/generators.py",
+                 "minisched_tpu_torch/lifecycle/invariants.py"):
         assert path in PORT_FILES
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
@@ -100,6 +114,10 @@ def test_whole_port_imports_with_jax_blocked():
             "    build_tenant_step, build_tenant_index_step)\n"
             "from minisched_tpu_torch.ops.select import (\n"
             "    greedy_assign_shortlist_lanes)\n"
+            "from minisched_tpu_torch.fleet.supervisor import (\n"
+            "    FleetSupervisor)\n"
+            "from minisched_tpu_torch.lifecycle import (\n"
+            "    LifecycleDriver, default_invariants)\n"
             "import chip_smoke\n"
             "assert not any(k == 'jax' or k.startswith('jax.')\n"
             "               for k, v in sys.modules.items() if v)\n"

@@ -174,23 +174,39 @@ def test_scheduler_metrics_accumulate():
 
 
 def test_fleet_knobs_raise_instead_of_running_one_engine(monkeypatch):
-    """The replicated fleets are a later slice: asking for 2 or more
-    replicas raises and starts nothing; 0 and 1 run the one engine."""
+    """The process fleet is a later slice: asking for 2 or more replica
+    processes raises and starts nothing, even beside an in-process fleet.
+    The in-process fleet (``fleet`` or ``MINISCHED_FLEET`` at 2 or more)
+    starts its replicas, and 0 and 1 run the one engine."""
     svc = SchedulerService(ClusterStore())
-    for kw, env in (({"fleet": 2}, None), ({"fleet_proc": 3}, None),
-                    ({}, ("MINISCHED_FLEET", "2")),
+    for kw, env in (({"fleet_proc": 3}, None),
+                    ({"fleet": 2, "fleet_proc": 2}, None),
                     ({}, ("MINISCHED_FLEET_PROC", "4"))):
         if env is not None:
             monkeypatch.setenv(*env)
-        with pytest.raises(ValueError, match="fleet"):
+        with pytest.raises(ValueError, match="process fleet"):
             svc.start_scheduler(config=SchedulerConfig(**CPU), **kw)
-        assert svc.scheduler is None
+        assert svc.scheduler is None and svc.fleet is None
+        if env is not None:
+            monkeypatch.delenv(env[0])
+    for kw, env in (({"fleet": 2}, None), ({}, ("MINISCHED_FLEET", "3"))):
+        if env is not None:
+            monkeypatch.setenv(*env)
+        svc.start_scheduler(config=SchedulerConfig(**CPU), **kw)
+        try:
+            n = 2 if env is None else 3
+            assert svc.fleet is not None and svc.fleet.n_replicas == n
+            assert sorted(svc.schedulers) == [f"r{i}" for i in range(n)]
+            assert svc.metrics()["fleet_replicas_live"] == n
+        finally:
+            svc.shutdown_scheduler()
+        assert svc.scheduler is None and svc.fleet is None
         if env is not None:
             monkeypatch.delenv(env[0])
     monkeypatch.setenv("MINISCHED_FLEET", "1")
     svc.start_scheduler(config=SchedulerConfig(**CPU), fleet_proc=0)
     try:
-        assert len(svc.schedulers) == 1
+        assert len(svc.schedulers) == 1 and svc.fleet is None
     finally:
         svc.shutdown_scheduler()
 

@@ -257,11 +257,14 @@ def test_burning_slo_warns_the_supervisor_and_keeps_placements():
     """An objective every window breaches (create-to-bound p99 over
     1 µs): the sentinel alerts once on its rising edge, the supervisor
     counts an early warning and pre-arms the watchdog, and placements
-    stay the disarmed engine's."""
+    stay the disarmed engine's. The default queue_wait_p95 objective
+    (2 s) is pinned out of reach, so that on a loaded host only the
+    configured objective can burn and the counts stay exact."""
     kw = dict(max_batch_size=16, seed=4)
     base, _ = bench_burst(PORT, kw, n_pods=200)
     PORT.timeseries.configure(True, every="1", capacity=512)
-    PORT.slo.configure("create_bound_p99=0.000001,short=60,long=120")
+    PORT.slo.configure("create_bound_p99=0.000001,queue_wait_p95=1000,"
+                       "short=60,long=120")
     seen = {}
 
     def probe(sched):
