@@ -297,6 +297,36 @@ them, and on any mismatch. Phases, each printing its own lines:
      tests/test_fleet.py's kill and restart soak on fleet=2 with a
      0.4 s lease TTL: zero violations, settled, every engine resident,
      a takeover.
+ K1. the process fleet at bench-50k: the port's API server serves the
+     50,000 bench nodes to a ProcFleetSupervisor of two replica
+     processes (SchedulerConfig(), the bench profile, prewarm on, the
+     default lease TTL; the kernels built once before the spawn); once
+     both are ready the first half of FLEET_PROC_PODS bench pods is
+     stored, p1 is SIGKILLed once FLEET_PROC_KILL_AT are bound, and the
+     second half is stored (so the dead shard has pods left to adopt:
+     4,096 pods stored at once were all bound before a 50 ms poll saw
+     half of them): every pod bound exactly once, none
+     over-committed, the takeover in the merged journal, p0 holding
+     every lease at the end, p1 respawned at incarnation 1 and ready,
+     each replica's own selection and scan launches in its sidecar
+     metrics, both replicas holding the card (a /dev/nvidia<n> file
+     open, nvidia-smi's compute processes up by two) and no launch in
+     this process; each replica's sync and prewarm
+     times, the takeover latency, time_to_first_slo_s (SIGKILL to the
+     adopter's first bind of a pod of the dead shard), create-to-bound
+     and p99;
+ K2. the self-governing fleet on the card: an ElectFleet of three
+     detached replicas over ELECT_NODES bench nodes and ELECT_PODS pods;
+     the steward SIGKILLed: one new steward at a higher epoch, the dead
+     replica respawned exactly once (incarnation 1), every pod bound
+     once, every pid the fleet showed reaped at the end;
+ K3. a replica with platform="cpu" spawned on the card's machine binds
+     its pods, reports that it never initialized CUDA, holds no
+     /dev/nvidia* file, and never shows among nvidia-smi's compute
+     processes (neither its pid nor one more context: the platform
+     guard).
+     The replicas' standard error goes to smoke_out/phase_k_stderr.log
+     (its last lines are printed if phase K fails).
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -308,11 +338,13 @@ them; the bid-shortlist kernel's the auction bench burst's, the dense
 auction's the cross-check run's; the preemption op, PyTorch ops and no
 kernel, under "stages"; the explain burst's numbers under "explain";
 the native clone's status under "native_clone"; phase I's under
-"wire", phase J's under "fleet"); the last line is
+"wire", phase J's under "fleet", phase K's under "fleet"."proc"); the
+last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -331,6 +363,8 @@ from minisched_tpu_torch.apiserver import APIServer, RemoteStore
 from minisched_tpu_torch.config import SchedulerConfig
 from minisched_tpu_torch.encode import NodeFeatureCache, encode_pods, to_torch
 from minisched_tpu_torch.encode.cache import step_bucket
+from minisched_tpu_torch.fleet.election import ElectFleet, _pid_dead
+from minisched_tpu_torch.fleet.procfleet import ProcFleetSupervisor
 from minisched_tpu_torch.fleet.shardmap import shard_of
 from minisched_tpu_torch.engine import overload
 from minisched_tpu_torch.explain import FILTER_RESULT_KEY, ResultStore
@@ -3721,7 +3755,8 @@ FLEET_KERNELS = ("shortlist_select", "shortlist_scan")
 
 def replica_launches(m) -> dict:
     """One engine's own launches by kernel, from its metrics (the
-    process-wide LAUNCHES is shared by every replica)."""
+    process-wide LAUNCHES is shared by every replica) or from a replica
+    process's sidecar metrics."""
     return {k: int(m[f"kernel_launches_{k}"]) for k in _cuda_build.KERNELS
             if m[f"kernel_launches_{k}"]}
 
@@ -4077,6 +4112,420 @@ def oracle_phase(smi):
     print(f"phase J3 by part: churn {out['churn_s']:.1f} s, soak "
           f"{out['soak_s']:.1f} s")
     return {"churn": churn, "soak": soak}
+
+
+# ---- the process fleet and the steward election (phase K) -----------------
+
+FLEET_PROC_PODS = 4_096     # K1: bench pods over both shards
+FLEET_PROC_KILL_AT = 1_024  # K1: p1 dies once this many are bound
+ELECT_NODES, ELECT_PODS = 1_200, 512  # K2
+CPU_REPLICA_NODES, CPU_REPLICA_PODS = 64, 64  # K3
+PHASE_K_STDERR = os.path.join("smoke_out", "phase_k_stderr.log")
+
+
+class replica_stderr:
+    """The standard error of every process started inside the block
+    (the replicas inherit it) goes to ``PHASE_K_STDERR``: the replicas'
+    warnings would otherwise crowd out the run's own output. If the
+    block fails, the log's last lines are printed."""
+
+    def __enter__(self):
+        os.makedirs(os.path.dirname(PHASE_K_STDERR), exist_ok=True)
+        sys.stderr.flush()
+        self.saved = os.dup(2)
+        self.log = open(PHASE_K_STDERR, "a")
+        os.dup2(self.log.fileno(), 2)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        sys.stderr.flush()
+        os.dup2(self.saved, 2)
+        os.close(self.saved)
+        self.log.close()
+        if exc_type is not None:
+            with open(PHASE_K_STDERR) as f:
+                tail = f.read().splitlines()[-40:]
+            print("replicas' stderr, last lines:\n" + "\n".join(tail))
+        return False
+
+
+def sidecar_metrics(address: str) -> dict:
+    """A replica's own metrics from its sidecar's ``/metrics``."""
+    import re
+
+    with urllib.request.urlopen(f"{address}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^minisched_engine_(\w+) (\S+)$", text, re.M)}
+
+
+def compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them, one
+    (pid, used memory) pair a context. In a container whose pid
+    namespace the NVIDIA driver cannot map, the pids are not this
+    namespace's (one such machine listed pid 1 for every context): the
+    count of contexts is then what holds."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return [tuple(x.strip() for x in ln.split(",", 1))
+            for ln in out.splitlines() if ln.strip()]
+
+
+def card_fds(pid: int) -> list:
+    """The NVIDIA device files process ``pid`` holds open: a process
+    with a CUDA context holds ``/dev/nvidia<n>``; one that never
+    initialized CUDA holds none (not even ``/dev/nvidiactl``)."""
+    out = []
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def holds_card(pid: int) -> bool:
+    import re
+
+    return any(re.fullmatch(r"/dev/nvidia\d+", f) for f in card_fds(pid))
+
+
+def reap(pids) -> list:
+    """SIGKILL every pid of ``pids`` still alive; the ones left."""
+    for pid in pids:
+        if pid > 0 and not _pid_dead(pid):
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+    wait_until(lambda: all(_pid_dead(p) for p in pids if p > 0),
+               timeout=10, interval=0.05)
+    return [p for p in pids if p > 0 and not _pid_dead(p)]
+
+
+def proc_fleet_phase(smi):
+    """K1. Two replica processes at bench-50k, one SIGKILLed mid-burst."""
+    times = {}
+    t = time.perf_counter()
+    nodes, pods = bench_workload(N_NODES, FLEET_PROC_PODS, seed=11)
+    store = ClusterStore()
+    store.create_many(nodes)
+    api = APIServer(store, max_inflight=256).start()
+    times["store"] = time.perf_counter() - t
+    journal.configure("1")
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    sup = ProcFleetSupervisor(
+        store, api.address, replicas=2,
+        config_overrides=dataclasses.asdict(SchedulerConfig()),
+        profile=BENCH_PROFILE, prewarm=True)
+    pids: set = set()
+    apps0 = len(compute_apps())
+    try:
+        t = time.perf_counter()
+        sup.start()
+        pids.update(p.popen.pid for p in sup._procs.values())
+        check(sup.wait_ready(180), "K1: the replicas never came ready")
+        check(sup.wait_converged(60), "K1: the shards were never claimed")
+        times["start"] = time.perf_counter() - t
+        apps = compute_apps()
+        fds = {pid: card_fds(pid) for pid in pids}
+        check(all(holds_card(pid) for pid in pids)
+              and len(apps) >= apps0 + 2,
+              f"K1: replicas' device files {fds}, the card's compute "
+              f"processes {apps} (before the spawn: {apps0})")
+        boot = {rid: sidecar_metrics(sup._procs[rid].address)
+                for rid in ("p0", "p1")}
+        t = time.perf_counter()
+        seen: dict = {}
+        rebinds = []
+        shard1 = {p.key for p in pods if shard_of(p.key, 2) == 1}
+
+        def bound_now() -> int:
+            n = 0
+            for p in store.list("Pod"):
+                if not p.spec.node_name:
+                    continue
+                n += 1
+                if seen.setdefault(p.metadata.uid,
+                                   p.spec.node_name) != p.spec.node_name:
+                    rebinds.append(p.key)
+            return n
+
+        def kill_due() -> bool:
+            # Both replicas have bound a batch (each binds its shard).
+            bound = {p.key in shard1 for p in store.list("Pod")
+                     if p.spec.node_name}
+            return bound == {False, True} \
+                and bound_now() >= FLEET_PROC_KILL_AT
+
+        half = FLEET_PROC_PODS // 2
+        store.create_many(pods[:half])
+        check(wait_until(kill_due, timeout=120, interval=0.05),
+              f"K1: {bound_now()} pods bound before the kill")
+        before_kill = {rid: sidecar_metrics(sup._procs[rid].address)
+                       for rid in ("p0", "p1")}
+        kill_unix = time.time()
+        bound_at_kill = bound_now()
+        check(sup.kill("p1"), "K1: p1 was not killed")
+        store.create_many(pods[half:])
+        check(wait_until(lambda: bound_now() >= FLEET_PROC_PODS,
+                         timeout=180, interval=0.5),
+              f"K1: {bound_now()} of {FLEET_PROC_PODS} pods bound")
+        times["burst"] = time.perf_counter() - t
+        t = time.perf_counter()
+
+        def takeovers():
+            return [e for e in sup.journal()["entries"]
+                    if e["kind"] == "lease.takeover"
+                    and e.get("frm") == "p1"]
+
+        check(wait_until(lambda: bool(takeovers()), timeout=30,
+                         interval=0.2), "K1: no lease.takeover from p1")
+        check(wait_until(lambda: sup.census().get("p1") is not None
+                         and sup.census()["p1"].incarnation == 1,
+                         timeout=120, interval=0.2),
+              "K1: p1 never came back ready at incarnation 1")
+        pids.update(p.popen.pid for p in sup._procs.values())
+        check(wait_until(lambda: sup.lease_holders() == {0: "p0",
+                                                         1: "p0"},
+                         timeout=10, interval=0.05),
+              f"K1: lease holders {sup.lease_holders()} at the end")
+        times["respawn"] = time.perf_counter() - t
+        after = {rid: sidecar_metrics(sup._procs[rid].address)
+                 for rid in ("p0", "p1")}
+        doc = sup.journal()
+        fm = sup.metrics()
+        placed_pods = store.list("Pod")
+    finally:
+        sup.shutdown()
+        api.shutdown()
+        journal.configure("")
+        left = reap(pids)
+    check(not left, f"K1: replica pids {left} outlived the phase")
+    check(not rebinds, f"K1: pods seen on two nodes: {rebinds[:5]}")
+    check(len(placed_pods) == FLEET_PROC_PODS,
+          f"K1: {len(placed_pods)} pods in the store")
+    placement_check("K1", nodes, pods,
+                    {p.key: p.spec.node_name for p in placed_pods})
+    take = [e for e in doc["entries"]
+            if e["kind"] == "lease.takeover" and e.get("frm") == "p1"]
+    check(take[0]["source"] == "p0", f"K1: takeover notes {take}")
+    deaths = [e for e in doc["entries"] if e["kind"] == "proc.death"]
+    check(len(deaths) == 1 and deaths[0]["exit_code"] == -9
+          and fm["proc_exit_-9"] == 1 and fm["proc_respawns"] == 1,
+          f"K1: deaths {deaths}, census {fm}")
+    check(sum(LAUNCHES.values()) == 0,
+          f"K1: this process launched {dict(LAUNCHES)}")
+    for rid, m in before_kill.items():
+        b = int(m["batches"])
+        check(b > 0 and all(int(m[f"kernel_launches_{k}"]) == b
+                            for k in FLEET_KERNELS)
+              and m["proc_cuda_initialized"] == 1.0
+              and m["batch_faults"] == 0,
+              f"K1: {rid} {b} batches, launches {replica_launches(m)}, "
+              f"faults {m['batch_faults']}")
+    p0 = after["p0"]
+    check(all(p0[f"kernel_launches_{k}"] == p0["batches"]
+              for k in FLEET_KERNELS) and p0["batch_faults"] == 0,
+          f"K1: p0 after the burst {replica_launches(p0)}")
+    created = np.array([p.metadata.creation_timestamp
+                        for p in placed_pods])
+    bound_at = np.array([p.status.scheduled_time for p in placed_pods])
+    adopted = [p.status.scheduled_time for p in placed_pods
+               if p.key in shard1 and p.status.scheduled_time > kill_unix]
+    first_slo = (min(adopted) - kill_unix) if adopted else None
+    latency = take[0]["unix"] - kill_unix
+    c2b = float(bound_at.max() - created.min())
+    p99 = float(np.percentile(bound_at - created, 99))
+    lease = {k: int(v) for k, v in after["p0"].items()
+             if k.startswith("lease_")}
+    out = {"pods": FLEET_PROC_PODS, "bound_at_kill": bound_at_kill,
+           "sync_s": {rid: m["proc_sync_s"] for rid, m in boot.items()},
+           "prewarm_s": {rid: m["proc_warm_s"] for rid, m in boot.items()},
+           "respawn_sync_s": after["p1"]["proc_sync_s"],
+           "respawn_prewarm_s": after["p1"]["proc_warm_s"],
+           "takeover_latency_s": latency,
+           "time_to_first_slo_s": first_slo, "burst_s": c2b,
+           "p99_create_to_bound_s": p99, "lease_p0": lease,
+           "lease_losses_p0": lease.get("lease_losses", 0),
+           "launches": {"p0": replica_launches(p0),
+                        "p1": replica_launches(before_kill["p1"])},
+           "adopted_pods": take[0]["pods"]}
+    check(first_slo is not None and take[0]["pods"] > 0,
+          f"K1: nothing of the dead shard adopted ({take[0]['pods']} "
+          f"drained, first bind {first_slo})")
+    print(f"K1 process fleet at {N_NODES} nodes x {FLEET_PROC_PODS} pods "
+          f"(2 replica processes, SchedulerConfig(), lease TTL "
+          f"{sup.lease_ttl_s} s, prewarm on): p1 SIGKILLed at "
+          f"{bound_at_kill} bound, then the second {half} stored; every pod bound exactly once, none "
+          f"over-committed; takeover of shard {take[0]['shard']} by p0 at "
+          f"epoch {take[0]['epoch']} ({take[0]['pods']} pods drained) "
+          f"{latency:.3f} s after the kill, first bind of the dead "
+          f"shard {first_slo:.3f} s after it; p1 respawned at incarnation 1; sync "
+          f"{out['sync_s']} s, prewarm {out['prewarm_s']} s (respawn: sync "
+          f"{out['respawn_sync_s']:.3f} s, prewarm "
+          f"{out['respawn_prewarm_s']:.3f} s); create-to-bound {c2b:.3f} s,"
+          f" p99 {p99:.3f} s (pods' stamps); launches in p0 "
+          f"{out['launches']['p0']}, in p1 before the kill "
+          f"{out['launches']['p1']}, in this process none; p0 {lease} "
+          f"({smi})")
+    print("phase K1 by part: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in times.items()))
+    return out
+
+
+def elect_phase(smi):
+    """K2. Three detached replicas elect a steward; the steward dies."""
+    nodes, pods = bench_workload(ELECT_NODES, ELECT_PODS, seed=12)
+    store = ClusterStore()
+    store.create_many(nodes)
+    api = APIServer(store).start()
+    rs = RemoteStore(api.address)
+    fleet = ElectFleet(rs, api.address, replicas=3,
+                       spec={"config": dataclasses.asdict(
+                           SchedulerConfig()),
+                             "profile": dataclasses.asdict(BENCH_PROFILE)})
+    pids: set = set()
+
+    def look() -> bool:
+        pids.update(p for p in fleet.pids().values() if p > 0)
+        return True
+
+    t0 = time.perf_counter()
+    try:
+        launched = fleet.launch()
+        pids.update(launched)
+        check(fleet.wait_ready(120), "K2: the fleet never came ready")
+        steward = fleet.wait_steward(30)
+        check(bool(steward) and fleet.wait_converged(60),
+              f"K2: steward {steward!r}, leases {fleet.lease_holders()}")
+        ready_s = time.perf_counter() - t0
+        epoch0 = fleet.steward_epoch()
+        look()
+        store.create_many(pods)
+        check(wait_until(lambda: sum(1 for p in store.list("Pod")
+                                     if p.spec.node_name) >= 64,
+                         timeout=60, interval=0.05),
+              "K2: no pod bound before the kill")
+        t_kill = time.perf_counter()
+        check(fleet.kill(steward), f"K2: steward {steward} not killed")
+        successor = fleet.wait_steward(30, exclude=steward)
+        succession_s = time.perf_counter() - t_kill
+        check(bool(successor) and fleet.steward_epoch() > epoch0,
+              f"K2: successor {successor!r} at epoch "
+              f"{fleet.steward_epoch()} (was {epoch0})")
+        check(wait_until(lambda: look() and (lambda r: r is not None
+                         and r.state == "alive" and r.deaths == 1
+                         and r.respawns == 1 and r.incarnation == 1)(
+                         fleet.incarnations().get(steward)),
+                         timeout=120, interval=0.2),
+              f"K2: census {fleet.incarnations().get(steward)}")
+        respawn_s = time.perf_counter() - t_kill
+        others = [r for rid, r in fleet.incarnations().items()
+                  if rid != steward]
+        check(all(r.deaths == 0 and r.respawns == 0 for r in others),
+              f"K2: other records {others}")
+        check(wait_until(lambda: all(p.spec.node_name
+                                     for p in store.list("Pod")),
+                         timeout=120, interval=0.2),
+              "K2: not every pod bound")
+        check(fleet.wait_converged(60), "K2: the fleet never reconverged")
+        look()
+        placed_pods = store.list("Pod")
+        elect_epoch = fleet.steward_epoch()
+    finally:
+        try:
+            look()
+        except Exception:
+            pass
+        fleet.shutdown()
+        api.shutdown()
+        left = reap(pids)
+    check(not left, f"K2: pids {left} outlived the phase")
+    check(len(pids) == 4, f"K2: {len(pids)} pids (3 launched, 1 respawn)")
+    check(len(placed_pods) == ELECT_PODS
+          and len({p.key for p in placed_pods}) == ELECT_PODS,
+          f"K2: {len(placed_pods)} pods")
+    placement_check("K2", nodes, pods,
+                    {p.key: p.spec.node_name for p in placed_pods})
+    print(f"K2 election fleet of 3 detached replicas at {ELECT_NODES} "
+          f"nodes x {ELECT_PODS} pods (SchedulerConfig(), lease TTL "
+          f"{fleet.ttl_s} s): ready and converged in {ready_s:.3f} s; "
+          f"steward {steward} SIGKILLed, {successor} steward at epoch "
+          f"{elect_epoch} (was {epoch0}) {succession_s:.3f} s later; "
+          f"{steward} respawned once (incarnation 1, alive) "
+          f"{respawn_s:.3f} s after the kill; every pod bound once, none "
+          f"over-committed; all {len(pids)} pids reaped ({smi})")
+    return {"ready_s": ready_s, "succession_s": succession_s,
+            "respawn_s": respawn_s, "epochs": [epoch0, elect_epoch],
+            "pids": len(pids)}
+
+
+def cpu_replica_phase(smi):
+    """K3. A replica on platform="cpu" beside the card never touches it."""
+    nodes, pods = bench_workload(CPU_REPLICA_NODES, CPU_REPLICA_PODS,
+                                 seed=13)
+    store = ClusterStore()
+    store.create_many(nodes)
+    api = APIServer(store).start()
+    sup = ProcFleetSupervisor(
+        store, api.address, replicas=1,
+        config_overrides=dataclasses.asdict(SchedulerConfig(
+            platform="cpu")), profile=BENCH_PROFILE, prewarm=True)
+    pids: set = set()
+    sightings = []
+    apps0 = compute_apps()
+
+    def sight(pid) -> None:
+        apps = compute_apps()
+        sightings.append({"pid listed": str(pid) in {a[0] for a in apps},
+                          "contexts": len(apps),
+                          "device files": card_fds(pid)})
+
+    try:
+        sup.start()
+        pid = sup._procs["p0"].popen.pid
+        pids.add(pid)
+        check(sup.wait_ready(120) and sup.wait_converged(30),
+              "K3: the CPU replica never came ready")
+        sight(pid)
+        store.create_many(pods)
+        check(wait_until(lambda: all(p.spec.node_name
+                                     for p in store.list("Pod")),
+                         timeout=60, interval=0.05),
+              "K3: the CPU replica did not bind its pods")
+        sight(pid)
+        m = sidecar_metrics(sup._procs["p0"].address)
+        sight(pid)
+        placed_pods = store.list("Pod")
+    finally:
+        sup.shutdown()
+        api.shutdown()
+        left = reap(pids)
+    check(not left, f"K3: pid {left} outlived the phase")
+    check(all(not x["pid listed"] and x["contexts"] == len(apps0)
+              and not x["device files"] for x in sightings),
+          f"K3: the CPU replica on the card: {sightings} (contexts before "
+          f"its spawn: {apps0})")
+    check(m["proc_cuda_initialized"] == 0.0 and not replica_launches(m)
+          and m["pods_bound"] == CPU_REPLICA_PODS,
+          f"K3: cuda_initialized {m['proc_cuda_initialized']}, launches "
+          f"{replica_launches(m)}, bound {m['pods_bound']}")
+    placement_check("K3", nodes, pods,
+                    {p.key: p.spec.node_name for p in placed_pods})
+    print(f"K3 a platform=\"cpu\" replica on the card's machine: "
+          f"{CPU_REPLICA_PODS} pods bound over {CPU_REPLICA_NODES} nodes, "
+          f"{int(m['batches'])} batches, no kernel launch, CUDA never "
+          f"initialized; at {len(sightings)} readings its pid absent from "
+          f"nvidia-smi's compute processes, their count {len(apps0)} as "
+          f"before its spawn, and no /dev/nvidia* file open in it ({smi})")
+    return {"pods": CPU_REPLICA_PODS, "cuda_initialized": False}
 
 
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
@@ -4834,6 +5283,28 @@ def main() -> int:
     print(f"phase J in {fleet['phase_s']:.1f} s")
     fleet["script_s"] = time.perf_counter() - t_script
     print(f"script until phase J's end: {fleet['script_s']:.1f} s ({smi})")
+    # K. the process fleet and the steward election: replica processes
+    # on the card, and a CPU replica beside it
+    t_phase = time.perf_counter()
+    t_sub = {}
+    proc = {}
+    with replica_stderr():
+        proc["K1"] = proc_fleet_phase(smi)
+        t_sub["K1"] = time.perf_counter() - t_phase
+        t = time.perf_counter()
+        proc["K2"] = elect_phase(smi)
+        t_sub["K2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        proc["K3"] = cpu_replica_phase(smi)
+        t_sub["K3"] = time.perf_counter() - t
+    print("phase K by part: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in t_sub.items()))
+    proc["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase K in {proc['phase_s']:.1f} s")
+    fleet["proc"] = proc
+    fleet["script_s_k"] = time.perf_counter() - t_script
+    print(f"script until phase K's end: {fleet['script_s_k']:.1f} s "
+          f"({smi})")
     for h in ("h1", "h2"):
         for name in ("shortlist_select", "shortlist_scan"):
             err[name] = max(err[name], ten[h]["lanes"]["err"][name])
@@ -4880,7 +5351,11 @@ def main() -> int:
             "fleet failover, r1 (J2)": fleet["J2"]["launches"]["r1"].get(
                 "shortlist_select", 0),
             "lifecycle churn (J3)": fleet["J3"]["churn"]["launches"].get(
-                "shortlist_select", 0)},
+                "shortlist_select", 0),
+            "process fleet, p0 process (K1)": proc["K1"]["launches"][
+                "p0"].get("shortlist_select", 0),
+            "process fleet, p1 process before its kill (K1)": proc["K1"][
+                "launches"]["p1"].get("shortlist_select", 0)},
         "max_abs_err": err["shortlist_select"],
         "ms": s_select_ms,
         "plain_ms": s_select_plain_ms,
@@ -4932,7 +5407,11 @@ def main() -> int:
             "fleet failover, r1 (J2)": fleet["J2"]["launches"]["r1"].get(
                 "shortlist_scan", 0),
             "lifecycle churn (J3)": fleet["J3"]["churn"]["launches"].get(
-                "shortlist_scan", 0)},
+                "shortlist_scan", 0),
+            "process fleet, p0 process (K1)": proc["K1"]["launches"][
+                "p0"].get("shortlist_scan", 0),
+            "process fleet, p1 process before its kill (K1)": proc["K1"][
+                "launches"]["p1"].get("shortlist_scan", 0)},
         "max_abs_err": err["shortlist_scan"],
         "ms": s_scan_ms,
         "plain_ms": s_scan_plain_ms,

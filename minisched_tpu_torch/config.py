@@ -151,6 +151,13 @@ class SchedulerConfig:
     # Work-ring depth: the most batches one tranche runs. The overload
     # tuner halves the effective depth per tune step.
     loop_depth: int = 8
+    # Persistent kernel build directory (MINISCHED_COMPILE_CACHE;
+    # ops/_cuda_build.enable_compile_cache): the port has no XLA cache,
+    # so the knob names the directory the CUDA kernels are built into and
+    # loaded from, in place of the package's ``_build/``. Every process
+    # that names it (a process fleet's replicas, a restarted scheduler)
+    # shares one set of built libraries, keyed by source hash. "" = off.
+    compile_cache: str = ""
     # Maintained arbitration index (ops/index.py +
     # engine/scheduler._ArbIndex): per-pod-class score rows stay on the
     # device across batches in a (C,N) matrix that the cache's sparse
@@ -200,10 +207,11 @@ def config_from_env() -> SchedulerConfig:
     config/config.go:22-44). An unset variable takes the field's
     default; a set but empty one raises ``EmptyEnvError``.
     ``MINISCHED_PLATFORM`` names the device: unset or "" means
-    ``cuda:0``, which raises at start without a card. The knobs of
-    modules this package does not have yet (``MINISCHED_MESH_DEVICES``
-    other than 0, a ``MINISCHED_COMPILE_CACHE`` directory) raise a
-    ``ValueError`` rather than run without them."""
+    ``cuda:0``, which raises at start without a card.
+    ``MINISCHED_COMPILE_CACHE`` names the kernel build directory. The
+    knob of the module this package does not have yet
+    (``MINISCHED_MESH_DEVICES`` other than 0) raises a ``ValueError``
+    rather than run without it."""
 
     def _req(name: str, default: str) -> str:
         v = os.environ.get(name, default)
@@ -215,10 +223,6 @@ def config_from_env() -> SchedulerConfig:
         raise ValueError(
             "MINISCHED_MESH_DEVICES: this package has no multi-device "
             "step yet; unset it or set it to 0")
-    if os.environ.get("MINISCHED_COMPILE_CACHE", ""):
-        raise ValueError(
-            "MINISCHED_COMPILE_CACHE: this package has no persistent "
-            "step cache yet; unset it")
     return SchedulerConfig(
         max_batch_size=int(_req("MINISCHED_MAX_BATCH", "1024")),
         batch_window_s=float(_req("MINISCHED_BATCH_WINDOW", "0.0")),
@@ -239,6 +243,7 @@ def config_from_env() -> SchedulerConfig:
             _req("MINISCHED_SHORTLIST_CHECK_EVERY", "0")),
         device_loop=_req("MINISCHED_DEVICE_LOOP", "0") == "1",
         loop_depth=int(_req("MINISCHED_LOOP_DEPTH", "8")),
+        compile_cache=os.environ.get("MINISCHED_COMPILE_CACHE", ""),
         index=_req("MINISCHED_INDEX", "0") == "1",
         index_k=int(_req("MINISCHED_INDEX_K", "128")),
         index_classes=int(_req("MINISCHED_INDEX_CLASSES", "64")),

@@ -83,7 +83,8 @@ from ..obs.journal import JOURNAL, ProvenanceStore
 from ..obs.journal import note as jnote
 from ..obs.timeseries import TIMELINE, TimelineTracker
 from ..ops import prng
-from ..ops._cuda_build import KERNELS, thread_launches
+from ..ops._cuda_build import (KERNELS, enable_compile_cache,
+                               thread_launches)
 from ..ops.index import (build_index_ops, corrupt_slab, index_eligible,
                          unpack_index_decision)
 from ..ops.pipeline import Decision, build_loop_step, build_step
@@ -1205,6 +1206,12 @@ class Scheduler:
         # dispatch per group fills the batch's decision before resolve.
         # None: a solo engine (every other path, unchanged).
         self._tenant_mux = None
+        # The kernel build directory (MINISCHED_COMPILE_CACHE): set
+        # before the first launch builds a kernel, so restarts and the
+        # replicas of a process fleet load one set of libraries.
+        # Process-wide; a directory that cannot be made leaves it off.
+        self._compile_cache_on = enable_compile_cache(
+            self.config.compile_cache)
         # Slim decision readback rides the residency knob, as in the JAX
         # package: device_resident=False restores the all-i32 fetch.
         self._slim = bool(self.config.device_resident)
@@ -4548,6 +4555,7 @@ class Scheduler:
         out["index_classes_registered"] = (len(idx.rows) if idx is not None
                                            else 0)
         out["index_cooldown_left"] = int(self._index_cooldown)
+        out["compile_cache_on"] = int(self._compile_cache_on)
         out["degradation_level"] = self._sup.level
         out["degradation_state"] = DEGRADATION_LADDER[self._sup.level]
         # Overload controller: its rung, counters and the live effective

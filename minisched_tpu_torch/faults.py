@@ -43,13 +43,25 @@ on purpose. Named gates sit at the seams; this package wires these:
     lease       a fleet replica's lease heartbeat (fleet/lease.py) —
                 ``err`` drops the renewal; ``corrupt`` sends it with a
                 rewound resource_version, which the store's CAS rejects
+    proc        the process fleet's lifecycle (fleet/procfleet.py):
+                a replica SPAWN (``err`` fails it, counted and respawned
+                under the capped backoff) and the ReplicaStatus
+                heartbeat (``err`` drops it; ``corrupt`` sends it with a
+                rewound resource_version, which the store's CAS
+                rejects); ``die`` is a real SIGKILL of the consulting
+                replica process, and outside one raises like any
+                worker death
+    election    the steward election (fleet/election.py): the CAS
+                claim/renew call (``err`` drops the attempt; ``die``
+                kills the would-be steward, a real SIGKILL inside a
+                replica process) and the burn-signal publication
+                (``corrupt`` scribbles the level, which the
+                rebalancer's plausibility clamp discards)
 
 ``GATES`` keeps the JAX package's whole catalog, in its order, so a spec
 parses alike in both packages and every gate's PRNG stream (seeded by
-its catalog index) is the same. The two other gates (proc, election)
-belong to the process fleet and its steward election, which are not
-part of this package yet: they parse and count, but no seam of this
-package calls them.
+its catalog index) is the same. Every gate of the catalog has its seam
+in this package.
 
 Configured once per process from ``MINISCHED_FAULTS`` (tests reconfigure
 via :func:`configure`), a comma-separated list of ``gate:action@trigger``

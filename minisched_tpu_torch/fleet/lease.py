@@ -59,9 +59,8 @@ class LeaseManager:
         self.ttl_s = float(ttl_s) if ttl_s is not None \
             else lease_ttl_from_env()
         self._clock = clock
-        #: Injectable name map: a steward election reuses this manager
-        #: verbatim against its ONE named lease (the JAX package's
-        #: fleet/election.py; not part of this package yet).
+        #: Injectable name map: the steward election (fleet/election.py)
+        #: reuses this manager verbatim against its ONE named lease.
         self._lease_name = lease_name_fn
         #: Burn publication (a self-governing fleet): ``() -> (level,
         #: "obj1,obj2")`` stamped onto every renewal heartbeat so the

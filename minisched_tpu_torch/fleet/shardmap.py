@@ -21,13 +21,12 @@ import zlib
 FLEET_ENV = "MINISCHED_FLEET"
 SHARDS_ENV = "MINISCHED_SHARDS"
 LEASE_TTL_ENV = "MINISCHED_LEASE_TTL"
-#: Out-of-process fleet (the JAX package's fleet/procfleet.py; this
-#: package raises on it): N replica PROCESSES over RemoteStore instead
-#: of N in-process engine threads.
+#: Out-of-process fleet (fleet/procfleet.py): N replica PROCESSES over
+#: RemoteStore instead of N in-process engine threads.
 FLEET_PROC_ENV = "MINISCHED_FLEET_PROC"
 #: Elastic shard handoff spec (the process fleet's ShardRebalancer).
 REBALANCE_ENV = "MINISCHED_REBALANCE"
-#: Self-governing fleet (the JAX package's fleet/election.py): replicas
+#: Self-governing fleet (fleet/election.py): replicas
 #: CAS-compete for an epoch-fenced steward lease instead of being
 #: parented by a supervisor process — the steward runs
 #: census/respawn/rebalance.

@@ -38,12 +38,12 @@ Catalog (the trace-study staples):
     (no_pod_lost, stable_bindings, lease_integrity) then certify the
     takeover end-to-end.
   * :class:`KillSteward` / :class:`RestartApiserver` — the
-    self-governing fleet drills (the JAX package's fleet/election.py;
-    the process fleet and its election are not part of this package
-    yet): decapitate whichever replica currently holds the steward
-    lease, read from the store alone, and kill/revive the apiserver on
-    the same port so every client rides the outage out through the
-    reattach path.
+    self-governing fleet drills (``MINISCHED_FLEET_ELECT=1``,
+    fleet/election.py): decapitate whichever replica currently holds
+    the steward lease (a peer must claim the crown within one TTL and
+    adopt the census exactly-once), and kill/revive the apiserver on
+    the same port so every replica rides the outage out through the
+    reattach + fresh-epoch re-claim path.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ into a shared library with a plain C interface, at first use, into
 ``_build/`` beside the package sources, and loaded with ``ctypes``. The
 library's file name carries a hash of the source and of the shared
 headers (``csrc/*.cuh``), so an edited source is rebuilt. Nothing is
-compiled when this module is imported.
+compiled when this module is imported. ``enable_compile_cache`` (the
+``SchedulerConfig.compile_cache`` knob) moves the build directory, so
+that every process naming one directory shares one set of libraries.
 
 ``LAUNCHES`` counts the launches of every kernel by name since the last
 reset: the main path's evidence that it ran through the kernels. Only a
@@ -24,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +39,10 @@ KERNELS = ("greedy_assign", "shortlist_select", "shortlist_scan",
            "insert_ports", "caps_scan", "auction", "bid_auction")
 NO_LAUNCH = -1  # a launcher's return when it had no work to launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+#: Builds and launches that failed in this process (a process fleet's
+#: replica exits on either: no kernel failure is ever served around).
+FAILURES: Dict[str, int] = {"build": 0, "launch": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -78,26 +85,56 @@ def _nvcc() -> str:
                        "build the package's kernels")
 
 
-def library_path(name: str) -> str:
+def enable_compile_cache(path: str) -> bool:
+    """Build into and load from ``path`` instead of the package's
+    ``_build/`` (the counterpart of the JAX package's persistent
+    compilation cache; the port has no XLA cache). Process-wide and
+    idempotent. Returns True when the directory is in use, False for an
+    empty path or a directory that cannot be made (logged; the kernels
+    then build where they did)."""
+    global BUILD_DIR
+    if not path:
+        return False
+    path = os.path.abspath(path)
+    if BUILD_DIR == path:
+        return True
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "MINISCHED_COMPILE_CACHE=%s: the directory cannot be made; "
+            "kernels build in %s", path, BUILD_DIR, exc_info=True)
+        return False
+    BUILD_DIR = path
+    return True
+
+
+def library_path(name: str, directory: str = "") -> str:
+    """The library of kernel ``name`` in ``directory`` (default: the
+    build directory in use)."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for path in [source(name)] + [os.path.join(CSRC_DIR, f)
                                   for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    return os.path.join(directory or BUILD_DIR,
+                        f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build(name: str) -> str:
+def build(name: str, directory: str = "") -> str:
     """Compile kernel ``name`` unless this source's build exists. Returns
     the library path; raises with nvcc's output on failure. The ptxas
     report (registers, shared memory, spills) lands beside the library
     as ``<library>.log``. Safe to call from several threads at once:
-    each writes its own temporary file and renames it into place."""
-    out = library_path(name)
+    each writes its own temporary file and renames it into place.
+    ``directory`` defaults to the build directory in use."""
+    out = library_path(name, directory)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, source(name)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -110,13 +147,29 @@ def build(name: str) -> str:
     return out
 
 
+def build_all(directory: str = "") -> Dict[str, str]:
+    """Build every kernel at once, one ``nvcc`` a source, into
+    ``directory`` (default: the build directory in use). A process fleet
+    calls it before spawning replicas that share the directory, so no
+    replica pays the builds (or races them) while it should be renewing
+    its leases. Raises on the first failed build."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(lambda n: build(n, directory),
+                                          KERNELS)))
+
+
 def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The kernel's library, built and loaded at first use; ``bind``
     sets the C functions' argument and result types once."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            try:
+                path = build(name)
+            except Exception:
+                FAILURES["build"] += 1
+                raise
+            lib = ctypes.CDLL(path)
             bind(lib)
             _libs[name] = lib
         return lib
@@ -129,6 +182,7 @@ def check_launch(lib: ctypes.CDLL, prefix: str, err: int, where: str
     if err == NO_LAUNCH:
         return
     if err != 0:
+        FAILURES["launch"] += 1
         fn = getattr(lib, f"{prefix}_error_string")
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]

@@ -134,7 +134,12 @@ def main(platform: str = "") -> None:
 
 
 if __name__ == "__main__":
+    from ..utils.platform_guard import enforce_cpu_only
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--platform", default="",
                     help='"" (the first CUDA device, the default) or "cpu"')
-    main(ap.parse_args().platform)
+    platform = ap.parse_args().platform
+    # The process's entry point: a CPU run never initializes CUDA.
+    enforce_cpu_only(platform)
+    main(platform)

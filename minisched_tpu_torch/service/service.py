@@ -18,7 +18,11 @@ consistent across profiles.
 Replicated fleet: ``start_scheduler(fleet=N)`` (or ``MINISCHED_FLEET``)
 runs N engine replicas of one profile in this process, each with its own
 cluster state, pods partitioned by shard leases and failed over by the
-``fleet.supervisor.FleetSupervisor``.
+``fleet.supervisor.FleetSupervisor``. ``start_scheduler(fleet_proc=N)``
+(or ``MINISCHED_FLEET_PROC``) runs N replica PROCESSES instead, each an
+engine of the port over ``RemoteStore`` on the device the config names,
+under ``fleet.procfleet.ProcFleetSupervisor``; the service serves an
+in-process store to them over its own API server.
 
 Fused multi-tenant arbitration: ``TenantFusionCoordinator`` serves T
 virtual clusters (``Tenant``: a store each) from one serve thread, one
@@ -74,6 +78,11 @@ class SchedulerService:
         # profile engines, else None; single-profile only.
         self._fleet = None
         self._fleet_n = 0
+        # The process fleet (fleet/procfleet.py): N replica PROCESSES
+        # over RemoteStore; the service owns the API server they dial
+        # when its store is in-process.
+        self._fleet_proc_n = 0
+        self._proc_api = None
         # RemoteStore has a snapshot() too (the /snapshot verb), so the
         # check is the checkpointer's whole surface: resource_version()
         # is the store-local half a RemoteStore lacks.
@@ -181,7 +190,12 @@ class SchedulerService:
         """The ``GET /journal`` payload: the process-wide decision
         journal, one causal log for every profile engine, each event
         tagged with its profile. Empty but valid with MINISCHED_JOURNAL
-        unset."""
+        unset. Under a process fleet the supervisor's merged stream of
+        every replica process answers instead (source-tagged,
+        re-sequenced), so one ``GET /journal`` narrates the whole
+        fleet."""
+        if self._fleet is not None and hasattr(self._fleet, "journal"):
+            return self._fleet.journal(since)
         from ..obs.journal import JOURNAL
 
         return JOURNAL.to_doc(since)
@@ -190,7 +204,8 @@ class SchedulerService:
         """The ``GET /provenance/<pod>`` record: the first profile engine
         holding a decision-provenance record for the pod answers
         (profiles share no pods, replicas no shards); None when none
-        does."""
+        does. A process fleet fans the lookup out to the replicas'
+        sidecars and names the one that served it."""
         if self._fleet is not None:
             return self._fleet.provenance(pod_key)
         for engine in self.schedulers.values():
@@ -209,20 +224,16 @@ class SchedulerService:
         ``percentage_of_nodes_to_score`` carries into the config).
         ``fleet`` at 2 or more (None reads ``MINISCHED_FLEET``; 0 and 1
         are off) runs that many replicated engines of one profile with
-        shard leases instead (fleet/supervisor.py). The process fleet
-        (``fleet_proc`` / ``MINISCHED_FLEET_PROC`` at 2 or more: replica
-        processes over RemoteStore) is not part of this package yet and
-        raises; nothing runs in its place. Returns the first engine."""
+        shard leases instead (fleet/supervisor.py). ``fleet_proc`` at 2
+        or more (None reads ``MINISCHED_FLEET_PROC``) runs that many
+        replica PROCESSES of one profile over RemoteStore instead
+        (fleet/procfleet.py) and wins over ``fleet``: there is then no
+        engine in this process, and this returns None (the fleet's
+        surfaces are on :attr:`fleet`). Returns the first engine."""
         if self._scheds or self._fleet is not None:
             raise RuntimeError("scheduler already running")
         n_proc = (int(fleet_proc) if fleet_proc is not None
                   else fleet_proc_from_env())
-        if n_proc >= 2:
-            raise ValueError(
-                f"fleet_proc={n_proc} (MINISCHED_FLEET_PROC): the process "
-                "fleet (replica processes over RemoteStore) is the next "
-                "slice of this package; run the in-process fleet "
-                "(fleet=N) or leave it unset, 0 or 1")
         n_fleet = int(fleet) if fleet is not None else fleet_from_env()
         if isinstance(profile, SchedulerConfiguration):
             profiles, self._multi = list(profile.profiles), True
@@ -243,13 +254,15 @@ class SchedulerService:
         names = [p.name for p in profiles]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate profile names: {names}")
-        if n_fleet >= 2 and self._multi:
+        if max(n_fleet, n_proc) >= 2 and self._multi:
             raise ValueError(
                 "fleet mode is single-profile: profiles partition pods by "
                 "scheduler_name, fleet shards by pod-key hash; one routing "
                 "scheme at a time")
         self._profiles = profiles
         self._config = config or SchedulerConfig()
+        if n_proc >= 2:
+            return self._start_proc_fleet(profiles[0], n_proc)
         if n_fleet >= 2:
             return self._start_fleet(profiles[0], n_fleet)
         self._fleet_n = 0
@@ -343,11 +356,50 @@ class SchedulerService:
                  self.scheduler.device)
         return self.scheduler
 
+    def _start_proc_fleet(self, p: Profile, n: int) -> None:
+        """N replica processes, each an engine of this package over
+        RemoteStore on the device the config names. With an in-process
+        store the service serves it over its own API server, which the
+        replicas dial; a RemoteStore's address is dialed directly (its
+        serving side already exists). On a CUDA config the supervisor
+        builds the kernels once before it spawns."""
+        from ..apiserver.server import APIServer
+        from ..fleet.procfleet import ProcFleetSupervisor, rebalance_from_env
+
+        if self._checkpoint_path:
+            from ..state.persistence import Checkpointer
+
+            self._checkpointer = Checkpointer(
+                self._store, self._checkpoint_path,
+                interval_s=self._checkpoint_interval_s)
+        addr = getattr(self._store, "address", None)
+        if addr is None or hasattr(self._store, "resource_version"):
+            self._proc_api = APIServer(self._store).start()
+            addr = self._proc_api.address
+        self._fleet = ProcFleetSupervisor(
+            self._store, addr, replicas=n, n_shards=shards_from_env(n),
+            config_overrides=dataclasses.asdict(self._config), profile=p,
+            rebalance=rebalance_from_env())
+        self._fleet_proc_n = n
+        try:
+            self._fleet.start()
+        except BaseException:
+            self.shutdown_scheduler()
+            raise
+        log.info("process fleet started (%d replica processes, profile=%s, "
+                 "%d shards, device=%s, apiserver=%s)", n, p.name,
+                 self._fleet.n_shards, self._config.platform or "cuda:0",
+                 addr)
+        return None
+
     def shutdown_scheduler(self) -> None:
         if self._fleet is not None:
             self._fleet.shutdown()
             self._fleet = None
             log.info("scheduler fleet shut down")
+        if self._proc_api is not None:
+            self._proc_api.shutdown()
+            self._proc_api = None
         for name, sched in list(self._scheds.items()):
             sched.shutdown()
             log.info("scheduler %s shut down", name)
@@ -367,12 +419,14 @@ class SchedulerService:
         (reference RestartScheduler, scheduler.go:40-47). Queue and cache
         state is rebuilt from the store, as in the reference."""
         profiles, config, multi = self._profiles, self._config, self._multi
-        fleet_n = self._fleet_n
+        fleet_n, proc_n = self._fleet_n, self._fleet_proc_n
         self.shutdown_scheduler()
         self._profiles, self._config = [], None
+        self._fleet_proc_n = 0
         spec: ProfileSpec = profiles if multi else (profiles[0] if profiles
                                                     else None)
-        return self.start_scheduler(spec, config, fleet=fleet_n or None)
+        return self.start_scheduler(spec, config, fleet=fleet_n or None,
+                                    fleet_proc=proc_n or None)
 
     def get_scheduler_profile(self) -> Optional[Profile]:
         """reference GetSchedulerConfig (scheduler.go:89-91)."""

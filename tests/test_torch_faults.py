@@ -5,8 +5,10 @@ grammar and the registry's triggers, the supervisor ladder unit, then
 one engine burst per containment path (inline ladder retry, the fetch
 sanity detector, the residency carry desync detector, the shortlist
 cross-check, the bind reconcile, the commit worker's death and restart,
-the quarantine rung), then the lifecycle driver's gate and the fleet
-lease manager's. Each burst runs the JAX test's recipe on the port:
+the quarantine rung), then the lifecycle driver's gate, the fleet
+lease manager's, and the process fleet's and steward election's gates
+(proc: spawn, heartbeat, die outside a replica; election: the CAS
+call, die outside a replica, the burn-signal scribble). Each burst runs the JAX test's recipe on the port:
 recovered placements equal the port's fault-free run, which equals the
 JAX engine's, and the fire counts and the ladder's end state are the
 JAX engine's. Two specs requeue pods and so re-form later batches: the
@@ -558,3 +560,178 @@ def test_corrupted_lease_cannot_mint_two_owners(registry):
     truth = store.get("Lease", "shard-0")
     assert (truth.holder, truth.epoch) == ("rP", 2)
     assert peer.epoch_of(0) == 2 and zombie.epoch_of(0) == 0
+
+
+# ---- proc gate (fleet/procfleet.py) --------------------------------------
+
+
+def _spawn_failures(procfleet, store_cls, registry):
+    """Three ``proc:err`` fires at the spawn seam of a supervisor that
+    never forks: the counters and the capped backoff it leaves."""
+    sup = procfleet.ProcFleetSupervisor(
+        store_cls(), "http://127.0.0.1:1", replicas=1, respawn=False,
+        prewarm=False, backoff0_s=0.25, backoff_cap_s=1.0)
+    sup._procs["p0"] = procfleet._Proc(rid="p0")
+    registry.configure("proc:err@1,proc:err@2,proc:err@3")
+    spawned = [sup._spawn("p0") for _ in range(3)]
+    p = sup._procs["p0"]
+    return (spawned, dict(sup.counters), p.popen, p.alive, p.backoff_s,
+            registry.FAULTS.counts()["proc"])
+
+
+def test_proc_gate_err_fails_spawn_with_capped_backoff(registry):
+    """``proc:err`` fails a replica-process SPAWN before fork: counted,
+    and the respawn backoff doubles up to its cap (the crashloop
+    guard). No OS process is ever created; the JAX supervisor ends in
+    the same state."""
+    from minisched_tpu.fleet import procfleet as jprocfleet
+    from minisched_tpu.state.store import ClusterStore as JStore
+    from minisched_tpu_torch.fleet import procfleet
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    mine = _spawn_failures(procfleet, ClusterStore, faults)
+    spawned, counters, popen, alive, backoff, fired = mine
+    assert spawned == [False] * 3 and fired == 3
+    assert counters["spawn_failures"] == 3 and counters["spawns"] == 0
+    assert popen is None and not alive
+    assert backoff == 1.0  # 0.25 -> 0.5 -> 1.0 (capped)
+    assert mine == _spawn_failures(jprocfleet, JStore, jfaults)
+
+
+def test_proc_gate_err_drops_heartbeat(registry):
+    """``proc:err`` on the heartbeat seam: the CAS write never leaves
+    the replica — counted, census object untouched; the next heartbeat
+    lands."""
+    from minisched_tpu_torch.fleet.procfleet import push_heartbeat
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    counters = {}
+    assert push_heartbeat(store, "pX", {"ready": True, "renewed_at": 1.0},
+                          counters=counters)
+    faults.configure("proc:err@1")
+    assert push_heartbeat(store, "pX", {"renewed_at": 2.0},
+                          counters=counters) is False
+    assert counters["heartbeats_dropped"] == 1
+    assert FAULTS.counts()["proc"] == 1
+    assert store.get("ReplicaStatus", "replica-pX").renewed_at == 1.0
+    assert push_heartbeat(store, "pX", {"renewed_at": 2.0},
+                          counters=counters)
+    assert store.get("ReplicaStatus", "replica-pX").renewed_at == 2.0
+
+
+def test_proc_gate_corrupt_heartbeat_loses_cas(registry):
+    """``proc:corrupt`` sends the heartbeat with a REWOUND
+    resource_version: the store's CAS rejects it, so the census can be
+    starved by corruption, never poisoned."""
+    from minisched_tpu_torch.fleet.procfleet import push_heartbeat
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    counters = {}
+    assert push_heartbeat(store, "pY", {"ready": True, "renewed_at": 1.0,
+                                        "queue_depth": 2},
+                          counters=counters)
+    faults.configure("proc:corrupt@1")
+    assert push_heartbeat(store, "pY", {"renewed_at": 9.0,
+                                        "queue_depth": 99},
+                          counters=counters) is False
+    assert counters["stale_heartbeats_rejected"] == 1
+    st = store.get("ReplicaStatus", "replica-pY")
+    assert (st.renewed_at, st.queue_depth) == (1.0, 2)
+    assert push_heartbeat(store, "pY", {"renewed_at": 9.0},
+                          counters=counters)
+    assert store.get("ReplicaStatus", "replica-pY").renewed_at == 9.0
+
+
+def test_proc_gate_die_outside_replica_is_distinguishable(registry,
+                                                          monkeypatch):
+    """``proc:die`` consulted OUTSIDE a replica process propagates as
+    FaultWorkerDeath (never a SIGKILL of the test runner)."""
+    from minisched_tpu_torch.fleet.procfleet import proc_gate
+
+    monkeypatch.delenv("MINISCHED_PROC_REPLICA", raising=False)
+    faults.configure("proc:die@once")
+    with pytest.raises(FaultWorkerDeath):
+        proc_gate()
+    assert FAULTS.counts()["proc"] == 1
+
+
+# ---- election gate (fleet/election.py) -----------------------------------
+
+
+def test_election_gate_err_drops_cas_election_call(registry):
+    """``election:err`` drops the would-be steward's CAS attempt: the
+    tick is counted and skipped, the store is never touched, and the
+    next clean tick claims normally."""
+    from minisched_tpu_torch.fleet.election import StewardElection
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    store = ClusterStore()
+    elect = StewardElection(store, "pe", ttl_s=5.0, clock=lambda: 100.0)
+    faults.configure("election:err@1")
+    assert elect.tick() is False
+    assert elect.counters["elections_dropped"] == 1
+    with pytest.raises(Exception):
+        store.get("Lease", "steward")  # no lease was ever written
+    faults.configure("")
+    assert elect.tick() is True
+
+
+def test_election_gate_die_outside_replica_is_distinguishable(
+        registry, monkeypatch):
+    """``election:die`` consulted OUTSIDE a replica process propagates
+    as FaultWorkerDeath (never a SIGKILL of the test runner)."""
+    from minisched_tpu_torch.fleet.election import election_gate
+
+    monkeypatch.delenv("MINISCHED_PROC_REPLICA", raising=False)
+    faults.configure("election:die@once")
+    with pytest.raises(FaultWorkerDeath):
+        election_gate()
+    assert FAULTS.counts()["election"] == 1
+
+
+def test_election_gate_corrupt_scribbles_burn_signal(registry):
+    """``election:corrupt`` scribbles the published burn signal with an
+    implausible level; the rebalancer's plausibility clamp discards it,
+    as the JAX package's does."""
+    import time as _time
+
+    from minisched_tpu.fleet import election as jelection
+    from minisched_tpu.fleet import procfleet as jprocfleet
+    from minisched_tpu.state.store import ClusterStore as JStore
+    from minisched_tpu_torch.fleet import election, procfleet
+    from minisched_tpu_torch.state.store import ClusterStore
+
+    class _Eng:
+        def burn_signal(self):
+            return 2, "slo-p99"
+
+    def run(el, pf, reg, O, Store):
+        counters = {}
+        reg.configure("election:corrupt@1")
+        hb = el.burn_fields(_Eng(), counters=counters)
+        assert hb["overload_level"] > pf.MAX_PLAUSIBLE_BURN
+        assert hb["burning"] == "scribbled"
+        assert counters["burn_scribbles"] == 1
+        reg.configure("")
+        assert el.burn_fields(_Eng()) == {"overload_level": 2,
+                                          "burning": "slo-p99"}
+        reb = pf.ShardRebalancer(Store(), pf.RebalanceSpec(skew=1e9,
+                                                           hold=1))
+        sts = {
+            "pa": O.ReplicaStatus(
+                metadata=O.ObjectMeta(name="replica-pa"), ready=True,
+                renewed_at=_time.time(),
+                overload_level=hb["overload_level"],
+                burning=hb["burning"]),
+            "pb": O.ReplicaStatus(
+                metadata=O.ObjectMeta(name="replica-pb"), ready=True,
+                renewed_at=_time.time()),
+        }
+        assert reb.observe(sts, {0: "pa", 1: "pb"}) is None
+        assert reb.counters["burn_scribbles_ignored"] == 1
+        return hb, counters, reb.counters
+
+    assert run(election, procfleet, faults, TO, ClusterStore) \
+        == run(jelection, jprocfleet, jfaults, JO, JStore)

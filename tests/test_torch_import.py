@@ -5,6 +5,7 @@ kernel wrapper refuses CPU tensors instead of quietly running the plain
 version.
 """
 import ast
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -79,6 +80,9 @@ def test_whole_port_imports_with_jax_blocked():
             "minisched_tpu_torch.fleet.shardmap",
             "minisched_tpu_torch.fleet.lease",
             "minisched_tpu_torch.fleet.supervisor",
+            "minisched_tpu_torch.fleet.procfleet",
+            "minisched_tpu_torch.fleet.election",
+            "minisched_tpu_torch.utils.platform_guard",
             "minisched_tpu_torch.lifecycle",
             "minisched_tpu_torch.lifecycle.driver",
             "minisched_tpu_torch.lifecycle.generators",
@@ -97,6 +101,9 @@ def test_whole_port_imports_with_jax_blocked():
                  "minisched_tpu_torch/fleet/shardmap.py",
                  "minisched_tpu_torch/fleet/lease.py",
                  "minisched_tpu_torch/fleet/supervisor.py",
+                 "minisched_tpu_torch/fleet/procfleet.py",
+                 "minisched_tpu_torch/fleet/election.py",
+                 "minisched_tpu_torch/utils/platform_guard.py",
                  "minisched_tpu_torch/lifecycle/driver.py",
                  "minisched_tpu_torch/lifecycle/generators.py",
                  "minisched_tpu_torch/lifecycle/invariants.py"):
@@ -116,6 +123,10 @@ def test_whole_port_imports_with_jax_blocked():
             "    greedy_assign_shortlist_lanes)\n"
             "from minisched_tpu_torch.fleet.supervisor import (\n"
             "    FleetSupervisor)\n"
+            "from minisched_tpu_torch.fleet.procfleet import (\n"
+            "    ProcFleetSupervisor, replica_main)\n"
+            "from minisched_tpu_torch.fleet.election import (\n"
+            "    ElectFleet, launch_fleet, spawn_replica)\n"
             "from minisched_tpu_torch.lifecycle import (\n"
             "    LifecycleDriver, default_invariants)\n"
             "import chip_smoke\n"
@@ -127,6 +138,41 @@ def test_whole_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", ["minisched_tpu_torch.fleet.procfleet",
+                                    "minisched_tpu_torch.fleet.election"])
+def test_fleet_entry_points_run_with_jax_blocked(module):
+    """The process fleet's entry points (the replica every supervisor and
+    steward spawns, and the detached launcher) run as ``__main__`` with
+    jax and the JAX package unimportable, and every spawn names the
+    port's replica module."""
+    from minisched_tpu.fleet import procfleet as jprocfleet
+    from minisched_tpu_torch.fleet import election, procfleet
+
+    assert procfleet.REPLICA_MODULE == "minisched_tpu_torch.fleet.procfleet"
+    assert procfleet.REPLICA_MODULE != jprocfleet.__name__
+    for fn in (procfleet.ProcFleetSupervisor._spawn,
+               election.StewardDuties._spawn_process,
+               election.spawn_replica):
+        src = inspect.getsource(fn)
+        assert "REPLICA_MODULE" in src and "minisched_tpu." not in src
+    code = ("import runpy, sys\n"
+            "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"sys.argv = [{module!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert not any(k == 'jax' or k.startswith('jax.')\n"
+            "               for k, v in sys.modules.items() if v)\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_default_platform_is_the_card():

@@ -11,6 +11,7 @@ profiles, environment and store content: converted profiles, config
 fields and placements must be equal.
 """
 import dataclasses
+import os
 import time
 
 import pytest
@@ -174,18 +175,26 @@ def test_scheduler_metrics_accumulate():
 
 
 def test_fleet_knobs_raise_instead_of_running_one_engine(monkeypatch):
-    """The process fleet is a later slice: asking for 2 or more replica
-    processes raises and starts nothing, even beside an in-process fleet.
-    The in-process fleet (``fleet`` or ``MINISCHED_FLEET`` at 2 or more)
+    """Both fleets are single-profile: asking a multi-profile service for
+    2 or more replicas (threads or processes, by argument or by
+    environment) raises and starts nothing, in both packages alike. The
+    in-process fleet (``fleet`` or ``MINISCHED_FLEET`` at 2 or more)
     starts its replicas, and 0 and 1 run the one engine."""
     svc = SchedulerService(ClusterStore())
+    jsvc = JService(JStore())
+    two = [Profile(name="a"), Profile(name="b")]
+    jtwo = [jdc.Profile(name="a"), jdc.Profile(name="b")]
     for kw, env in (({"fleet_proc": 3}, None),
                     ({"fleet": 2, "fleet_proc": 2}, None),
+                    ({"fleet": 2}, None),
                     ({}, ("MINISCHED_FLEET_PROC", "4"))):
         if env is not None:
             monkeypatch.setenv(*env)
-        with pytest.raises(ValueError, match="process fleet"):
-            svc.start_scheduler(config=SchedulerConfig(**CPU), **kw)
+        with pytest.raises(ValueError, match="single-profile"):
+            svc.start_scheduler(two, config=SchedulerConfig(**CPU), **kw)
+        with pytest.raises(ValueError, match="single-profile"):
+            jsvc.start_scheduler(jtwo, config=jconfig.SchedulerConfig(),
+                                 **kw)
         assert svc.scheduler is None and svc.fleet is None
         if env is not None:
             monkeypatch.delenv(env[0])
@@ -209,6 +218,75 @@ def test_fleet_knobs_raise_instead_of_running_one_engine(monkeypatch):
         assert len(svc.schedulers) == 1 and svc.fleet is None
     finally:
         svc.shutdown_scheduler()
+
+
+def test_fleet_proc_starts_replica_processes_of_the_port(monkeypatch):
+    """``fleet_proc=2`` (and ``MINISCHED_FLEET_PROC=2``) start two replica
+    processes of the port over the service's own API server, on the
+    config's CPU: no engine in this process, the pods bound by the
+    replicas, ``journal()`` the merged stream of every process,
+    ``provenance()`` answered by the replica that placed the pod, and
+    ``restart_scheduler`` brings the process fleet back. Every replica
+    process is gone after shutdown."""
+    from minisched_tpu_torch.fleet.election import _pid_dead
+    from minisched_tpu_torch.fleet.procfleet import ProcFleetSupervisor
+    from minisched_tpu_torch.obs import journal as journal_mod
+
+    store = ClusterStore()
+    for i in range(4):
+        store.create(TO.Node(metadata=TO.ObjectMeta(name=f"pf-n{i}"),
+                             status=TO.NodeStatus(allocatable={
+                                 "cpu": 64000, "memory": 64 << 30,
+                                 "pods": 110})))
+    svc = SchedulerService(store)
+    cfg = SchedulerConfig(**CPU, **FAST, max_batch_size=16,
+                          batch_window_s=0.05, batch_idle_s=0.02)
+    pids = []
+    journal_mod.configure("1")
+    try:
+        for how, start, env in (
+                ("argument", lambda: svc.start_scheduler(
+                    config=cfg, fleet_proc=2), None),
+                ("restart", svc.restart_scheduler, None),
+                ("environment", lambda: svc.start_scheduler(config=cfg),
+                 ("MINISCHED_FLEET_PROC", "2"))):
+            if env is not None:
+                monkeypatch.setenv(*env)
+            assert start() is None  # no engine in this process
+            fleet = svc.fleet
+            assert isinstance(fleet, ProcFleetSupervisor)
+            assert fleet.n_replicas == 2 and fleet.platform == "cpu"
+            assert svc.scheduler is None and svc.schedulers == {}
+            pids += [p.popen.pid for p in fleet._procs.values()]
+            assert fleet.wait_ready(30) and fleet.wait_converged(10)
+            tag = len(pids)
+            for i in range(12):
+                store.create(TO.Pod(
+                    metadata=TO.ObjectMeta(name=f"pf{tag}-{i}",
+                                           namespace="default"),
+                    spec=TO.PodSpec(requests={"cpu": 100})))
+            assert wait_until(lambda: all(p.spec.node_name
+                                          for p in store.list("Pod")),
+                              timeout=30)
+            m = svc.metrics()
+            assert m["fleet_replicas_live"] == 2 and m["proc_spawns"] == 2
+            doc = svc.journal()
+            assert {"p0", "p1", "supervisor"} <= set(doc["sources"])
+            key = f"default/pf{tag}-0"
+            assert wait_until(lambda: svc.provenance(key) is not None,
+                              timeout=10)
+            assert svc.provenance(key)["served_by"] in ("p0", "p1")
+            if how == "argument":
+                continue  # restarted next, without a shutdown
+            svc.shutdown_scheduler()
+            assert svc.fleet is None
+    finally:
+        svc.shutdown_scheduler()
+        journal_mod.configure("")
+        for pid in pids:
+            if not _pid_dead(pid):
+                os.kill(pid, 9)
+    assert len(pids) == 6 and all(_pid_dead(pid) for pid in pids)
 
 
 def test_trace_next_batch_writes_profile(tmp_path):
@@ -264,7 +342,9 @@ def _clear_env(monkeypatch):
 
 def _shared_fields(port_cfg, jax_cfg):
     names = [f.name for f in dataclasses.fields(port_cfg)]
-    assert len(names) == 29
+    assert len(names) == 30  # every JAX field but ``mesh``
+    assert set(names) == {f.name for f in dataclasses.fields(jax_cfg)
+                          } - {"mesh"}
     return ({n: getattr(port_cfg, n) for n in names},
             {n: getattr(jax_cfg, n) for n in names})
 
@@ -311,8 +391,7 @@ def test_config_from_env_empty_is_typed_error(monkeypatch, var):
     assert issubclass(EmptyEnvError, ValueError)
 
 
-@pytest.mark.parametrize("var,value", [("MINISCHED_MESH_DEVICES", "2"),
-                                       ("MINISCHED_COMPILE_CACHE", "cc")])
+@pytest.mark.parametrize("var,value", [("MINISCHED_MESH_DEVICES", "2")])
 def test_config_from_env_refuses_later_slice_knobs(monkeypatch, var,
                                                    value):
     """Knobs of modules the port lacks raise and are never ignored; their
@@ -323,6 +402,53 @@ def test_config_from_env_refuses_later_slice_knobs(monkeypatch, var,
         config_from_env()
     monkeypatch.setenv(var, "0" if var == "MINISCHED_MESH_DEVICES" else "")
     assert config_from_env() == SchedulerConfig()
+
+
+@pytest.mark.parametrize("value", ["", "cc"])
+def test_config_from_env_reads_compile_cache(monkeypatch, value):
+    """``MINISCHED_COMPILE_CACHE`` is read as the JAX package reads it:
+    any string, empty meaning off (never the typed empty error)."""
+    _clear_env(monkeypatch)
+    monkeypatch.setenv("MINISCHED_COMPILE_CACHE", value)
+    cfg = config_from_env()
+    assert cfg.compile_cache == value
+    port, jax = _shared_fields(cfg, jconfig.config_from_env())
+    assert port == jax
+    assert cfg == SchedulerConfig(compile_cache=value)
+
+
+def test_compile_cache_moves_the_kernel_build_directory(monkeypatch,
+                                                        tmp_path):
+    """The port's compile cache is its kernel build directory: an engine
+    on a config naming one builds into and loads from it
+    (``compile_cache_on`` 1, as the JAX engine reports an armed cache);
+    the default config keeps the package's ``_build/`` (0)."""
+    from minisched_tpu_torch.ops import _cuda_build
+
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", _cuda_build.BUILD_DIR)
+    default_dir = _cuda_build.BUILD_DIR
+    svc = SchedulerService(ClusterStore())
+    svc.start_scheduler(config=SchedulerConfig(**CPU))
+    try:
+        assert svc.metrics()["compile_cache_on"] == 0
+    finally:
+        svc.shutdown_scheduler()
+    assert _cuda_build.BUILD_DIR == default_dir
+    cache = tmp_path / "kernels"
+    svc.start_scheduler(config=SchedulerConfig(**CPU,
+                                               compile_cache=str(cache)))
+    try:
+        assert svc.metrics()["compile_cache_on"] == 1
+    finally:
+        svc.shutdown_scheduler()
+    assert _cuda_build.BUILD_DIR == str(cache) and cache.is_dir()
+    assert os.path.dirname(_cuda_build.library_path("shortlist_scan")) \
+        == str(cache)
+    # A directory that cannot be made leaves the cache off.
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    assert not _cuda_build.enable_compile_cache(str(blocker / "sub"))
+    assert _cuda_build.BUILD_DIR == str(cache)
 
 
 def test_platform_from_env_cpu_runs_the_engine(monkeypatch):

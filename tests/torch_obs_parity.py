@@ -44,11 +44,9 @@ PORT = SimpleNamespace(
     slo=tslo, overload=toverload, bundle=tbundle, scheduler=tscheduler)
 
 # The JAX engine's metrics() keys the port does not report yet: they
-# belong to modules of later slices (the persistent compile cache). A
-# slice that ports one of those modules removes its keys here.
-LATER_SLICE_KEYS = frozenset({
-    "compile_cache_on",
-})
+# belong to modules of later slices. A slice that ports one of those
+# modules removes its keys here. The port reports every key.
+LATER_SLICE_KEYS = frozenset()
 
 
 def engine_modes():
