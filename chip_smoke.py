@@ -327,6 +327,26 @@ them, and on any mismatch. Phases, each printing its own lines:
      guard).
      The replicas' standard error goes to smoke_out/phase_k_stderr.log
      (its last lines are printed if phase K fails).
+ L1. the sharded step at full width: bench-50k's first 1,024-pod batch
+     against the 53,248-row pad (the bench profile) on a (2,4) virtual
+     mesh over cuda:0 and on a (1,1) mesh, greedy and auction: every
+     Decision field equals the single-device step's (unsampled, no
+     shortlist) bitwise; the greedy scan launches the greedy kernel once
+     per chunk (8 chunks of 128 rows), each launch equal to
+     greedy_assign_plain on the same chunk, the auction the dense
+     auction kernel; the sharded and single-device steps' ms;
+ L2. the engine on the (2,4) mesh at bench-50k, MESH_PODS pods stored
+     before it starts: the placements equal the single-device engine's
+     with percentage_of_nodes_to_score=100 and the same seed, every pod
+     bound, none over-committed; its decision reads (count and bytes)
+     equal the single-device engine's (one packed read a batch);
+     create-to-bound and the greedy launches booked;
+ L3. the multi-process dryrun (parallel/dcn_dryrun.py) with both gloo
+     workers on cuda:0: DCN-OK from each, the decision equal to the
+     single-device recompute, each worker holding the card (a
+     /dev/nvidia<n> file open, nvidia-smi's compute processes up by
+     two), the gloo operations staged through host buffers named, and no
+     launch in this process.
 
 Phase 6 also runs the bench step, sampled and unsampled, under torch's
 sync debug mode "error" with the engine's host flags (no gang, no
@@ -338,8 +358,9 @@ them; the bid-shortlist kernel's the auction bench burst's, the dense
 auction's the cross-check run's; the preemption op, PyTorch ops and no
 kernel, under "stages"; the explain burst's numbers under "explain";
 the native clone's status under "native_clone"; phase I's under
-"wire", phase J's under "fleet", phase K's under "fleet"."proc"); the
-last line is
+"wire", phase J's under "fleet", phase K's under "fleet"."proc", phase
+L's under "mesh", and the mesh path's launches and errors of the greedy
+and auction kernels under their own "mesh" keys); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -398,6 +419,9 @@ from minisched_tpu_torch.ops.select_kernel import (
 from minisched_tpu_torch.ops.shortlist_kernel import (
     shortlist_scan_cuda, shortlist_scan_lanes_cuda)
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
+from minisched_tpu_torch.parallel import build_sharded_step, make_mesh
+from minisched_tpu_torch.parallel.dcn_dryrun import run_dcn_dryrun
+from minisched_tpu_torch.parallel.sharded_assign import _chunk_size
 from minisched_tpu_torch.scenario import demo, remote
 from minisched_tpu_torch.scenario.runner import (Cluster, default_scenario,
                                                  run_scenario, wait_until)
@@ -4528,6 +4552,197 @@ def cpu_replica_phase(smi):
     return {"pods": CPU_REPLICA_PODS, "cuda_initialized": False}
 
 
+MESH_DEVICE = "cuda:0"
+MESH_SHAPES = ((2, 4), (1, 1))  # L1: a virtual (2,4) mesh and (1,1)
+MESH_PODS = EARLIER_PODS        # L2: the earlier path's cut (PERF.md §4)
+
+
+def mesh_step_phase(smi, eb_d, nf_d, af_d, key):
+    """L1. The sharded step at full width against the single-device
+    step, each chunk launch of the greedy scan against its plain
+    version."""
+    ps = BENCH_PROFILE.build()
+    dev = torch.device(MESH_DEVICE)
+    P = eb_d.pf.valid.shape[0]
+    out = {"launches": {}, "ms": {}, "single_ms": {},
+           "err": {"greedy_assign": 0.0, "auction": 0.0}}
+    for assignment in ("greedy", "auction"):
+        kernel = "greedy_assign" if assignment == "greedy" else "auction"
+        single = build_step(ps, assignment=assignment)
+
+        def run_single():
+            return single(eb_d, nf_d, af_d, key, has_gang=False,
+                          hard_spread=False)
+
+        want = run_single()
+        out["single_ms"][assignment] = cuda_ms(run_single, reps=3)
+        for shape in MESH_SHAPES:
+            label = f"L1 {shape[0]}x{shape[1]} {assignment}"
+            mesh = make_mesh([dev] * (shape[0] * shape[1]),
+                             pod_axis_size=shape[0])
+            check(mesh.devices.shape == shape, f"{label}: mesh shape")
+            chunks = []
+            step = build_sharded_step(
+                ps, mesh, eb_d, nf_d, af_d, assignment=assignment,
+                observe=lambda *a: chunks.append(a))
+            before = dict(LAUNCHES)
+            got = step(eb_d, nf_d, af_d, key, has_gang=False)
+            torch.cuda.synchronize()
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                        if LAUNCHES[k] != before[k]}
+            for f in want._fields:
+                check(torch.equal(bits(getattr(want, f)),
+                                  bits(getattr(got, f))),
+                      f"{label}: {f} differs from the single-device step")
+            if assignment == "greedy":
+                n_chunks = P // _chunk_size(P // shape[0])
+                check(launched == {kernel: n_chunks} == {
+                    kernel: len(chunks)},
+                      f"{label}: launches {launched}, {len(chunks)} chunks"
+                      f" (want one greedy launch per chunk, {n_chunks})")
+                if shape == MESH_SHAPES[0]:
+                    for c, blk, req, free, seed_c, r in chunks:
+                        p = greedy_assign_plain(blk.cpu(), req.cpu(),
+                                                free.cpu(), seed_c)
+                        out["err"][kernel] = max(out["err"][kernel],
+                                                 compare(r, p))
+            else:
+                check(set(launched) == {kernel} and launched[kernel] >= 1,
+                      f"{label}: launches {launched} (want the dense "
+                      "auction only)")
+                out["err"][kernel] = max(out["err"][kernel], compare(
+                    got, want, ("chosen", "assigned", "free_after")))
+            del chunks
+            timed = build_sharded_step(ps, mesh, eb_d, nf_d, af_d,
+                                       assignment=assignment)
+            ms = cuda_ms(lambda: timed(eb_d, nf_d, af_d, key,
+                                       has_gang=False), reps=3)
+            out["launches"][label] = launched[kernel]
+            out["ms"][label] = ms
+            print(f"{label}: every Decision field = single-device, "
+                  f"{int(got.assigned.sum())} assigned, {kernel} launches "
+                  f"{launched[kernel]}"
+                  + (" (each chunk = greedy_assign_plain bitwise)"
+                     if assignment == "greedy" and shape == MESH_SHAPES[0]
+                     else "")
+                  + f"; sharded step {ms:.3f} ms, single-device "
+                  f"{out['single_ms'][assignment]:.3f} ms ({smi})")
+    return out
+
+
+def mesh_engine_phase(smi):
+    """L2. The engine on the (2,4) mesh at bench-50k against the
+    single-device engine, unsampled, same seed, pods stored first."""
+    mesh = make_mesh([torch.device(MESH_DEVICE)] * 8)
+    runs = {}
+    for label, cfg in (("L2 mesh (2,4)", SchedulerConfig(mesh=mesh)),
+                       ("L2 single-device", SchedulerConfig(
+                           percentage_of_nodes_to_score=100))):
+        nodes, pods = bench_workload(N_NODES, MESH_PODS)
+        runs[label] = drive(cfg, nodes, pods, label, pods_first=True,
+                            with_pv_controller=False)
+        m, launches, c2b, per_pod, _placed = runs[label]
+        print(path_line(label, m, launches, c2b, per_pod, MESH_PODS, smi))
+    (m, launches, c2b, _pp, placed), (m1, _l1, c2b1, _pp1, placed1) = (
+        runs["L2 mesh (2,4)"], runs["L2 single-device"])
+    check(placed == placed1, "L2: the mesh engine's placements differ "
+          "from the single-device engine's on "
+          f"{sum(placed[k] != placed1.get(k) for k in placed)} pods")
+    check(m["shortlist_width"] == 0 and m["sampled_batches"] == 0,
+          "L2: the mesh engine ran the shortlist or sampled")
+    # The mesh's Decision is whole on one device: one packed read a
+    # batch, the single-device engine's.
+    check((m["decision_fetches"], m["fetch_bytes_total"])
+          == (m1["decision_fetches"], m1["fetch_bytes_total"]),
+          f"L2: the mesh engine read {m['fetch_bytes_total']} B in "
+          f"{m['decision_fetches']} fetches, the single-device engine "
+          f"{m1['fetch_bytes_total']} B in {m1['decision_fetches']}")
+    n_chunks = BATCH // _chunk_size(BATCH // 2)
+    check(launches.get("greedy_assign", 0) >= m["batches"] * n_chunks
+          and set(launches) >= {"greedy_assign"},
+          f"L2: greedy launches {launches} for {m['batches']} batches")
+    print(f"L2: placements = single-device on all {MESH_PODS} pods; "
+          f"greedy launches booked {launches.get('greedy_assign', 0)} "
+          f"({m['batches']} batches); decision reads "
+          f"{m['decision_fetches']}, {m['fetch_bytes_total']} B, as "
+          f"single-device; create-to-bound {c2b:.3f} s, "
+          f"single-device {c2b1:.3f} s ({smi})")
+    return {"launches": launches, "burst_s": c2b, "single_burst_s": c2b1,
+            "batches": m["batches"]}
+
+
+def _child_pids(marker: str) -> list:
+    """This process's children whose command line holds ``marker``."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == me and marker.encode() in cmd:
+            out.append(int(d))
+    return out
+
+
+def mesh_dcn_phase(smi):
+    """L3. The two-process dryrun on the card, its workers watched while
+    they run."""
+    before = dict(LAUNCHES)
+    apps0 = len(compute_apps())
+    result = {}
+
+    def run():
+        try:
+            result["out"] = run_dcn_dryrun(nprocs=2, timeout_s=240.0)
+        except BaseException as e:  # re-raised below, on this thread
+            result["error"] = e
+
+    t = time.perf_counter()
+    th = threading.Thread(target=run, name="dcn-dryrun")
+    th.start()
+    seen, held, contexts = set(), set(), 0
+    while th.is_alive():
+        pids = _child_pids("dcn_dryrun")
+        seen.update(pids)
+        for pid in pids:
+            try:
+                if holds_card(pid):
+                    held.add(pid)
+            except OSError:
+                pass
+        if len(held) >= 2:
+            contexts = max(contexts, len(compute_apps()) - apps0)
+        th.join(0.05)
+    wall = time.perf_counter() - t
+    if "error" in result:
+        raise result["error"]
+    lines = [ln for ln in result["out"].splitlines()
+             if ln.startswith("DCN-OK")]
+    check(sorted(ln.split(":")[0] for ln in lines) == ["DCN-OK 0",
+                                                       "DCN-OK 1"],
+          f"L3: DCN-OK lines {lines}")
+    check(all("DCN == single-device" in ln and "16/16 scheduled" in ln
+              for ln in lines), f"L3: {lines}")
+    check(len(seen) == 2, f"L3: {len(seen)} worker processes seen")
+    check(len(held) == 2, f"L3: {len(held)} worker(s) seen holding the card")
+    check(contexts >= 2, f"L3: nvidia-smi's compute processes rose by "
+          f"{contexts}, not two")
+    check(dict(LAUNCHES) == before, "L3: this process booked a launch")
+    staged = sorted({ln.split("staged through host: ")[1].split(";")[0]
+                     for ln in lines})
+    for ln in lines:
+        print(f"L3 {ln}")
+    print(f"L3: two gloo workers on {MESH_DEVICE} in {wall:.1f} s, both "
+          f"holding the card (+{contexts} contexts), gloo ops staged "
+          f"through host: {staged}; no launch here ({smi})")
+    return {"s": wall, "staged": staged, "contexts": contexts}
+
+
 def path_line(label, m, launches, c2b, per_pod, n_pods, smi) -> str:
     b = m["batches"]
     return (f"{label}: all {n_pods} bound, none over-committed, {b} "
@@ -5305,6 +5520,32 @@ def main() -> int:
     fleet["script_s_k"] = time.perf_counter() - t_script
     print(f"script until phase K's end: {fleet['script_s_k']:.1f} s "
           f"({smi})")
+    # L. the mesh: the sharded step, the engine on a virtual mesh, the
+    # multi-process dryrun, on the card
+    t_phase = time.perf_counter()
+    t_sub = {}
+    mesh = {"L1": mesh_step_phase(
+        smi, *(to_torch(x, MESH_DEVICE) for x in (eb, nf, af)), key)}
+    t_sub["L1"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    mesh["L2"] = mesh_engine_phase(smi)
+    t_sub["L2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh["L3"] = mesh_dcn_phase(smi)
+    t_sub["L3"] = time.perf_counter() - t
+    print("phase L by part: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in t_sub.items()))
+    mesh["phase_s"] = time.perf_counter() - t_phase
+    mesh["script_s"] = time.perf_counter() - t_script
+    print(f"phase L in {mesh['phase_s']:.1f} s; script until phase L's "
+          f"end: {mesh['script_s']:.1f} s ({smi})")
+    mesh_launches = {
+        name: {**{k: v for k, v in mesh["L1"]["launches"].items()
+                  if k.endswith(assignment)},
+               "L2 engine (2,4), greedy": (
+                   mesh["L2"]["launches"].get(name, 0))}
+        for name, assignment in (("greedy_assign", "greedy"),
+                                 ("auction", "auction"))}
     for h in ("h1", "h2"):
         for name in ("shortlist_select", "shortlist_scan"):
             err[name] = max(err[name], ten[h]["lanes"]["err"][name])
@@ -5326,6 +5567,8 @@ def main() -> int:
         "plain_ms": s_greedy_plain_ms,
         "bound_ms": s_greedy_bound_s * 1e3,
         "bound_by": s_greedy_bound_by,
+        "mesh": {"launches": mesh_launches["greedy_assign"],
+                 "max_abs_err": mesh["L1"]["err"]["greedy_assign"]},
         "library_ms": None,
     }, {
         "name": "shortlist_select",
@@ -5488,6 +5731,8 @@ def main() -> int:
         "ms_full_width_3_bands": au[("full width, 3 bands", None)]["ms"],
         "ms_contention": au[("contention", None)]["ms"],
         "rounds_contention": au[("contention", None)]["rounds"],
+        "mesh": {"launches": mesh_launches["auction"],
+                 "max_abs_err": mesh["L1"]["err"]["auction"]},
         "library_ms": None,
     }, {
         "name": "bid_auction",
@@ -5550,7 +5795,12 @@ def main() -> int:
                                "scan": ten["h2"]["lanes"]["scan_ms"]}},
         "native_clone": native.status(),
         "wire": {k: v for k, v in wire.items() if k != "launches"},
-        "fleet": fleet}))
+        "fleet": fleet,
+        "mesh": {"L1": {k: v for k, v in mesh["L1"].items()
+                        if k != "err"},
+                 "L2": mesh["L2"], "L3": mesh["L3"],
+                 "phase_s": mesh["phase_s"],
+                 "script_s": mesh["script_s"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

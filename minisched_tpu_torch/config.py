@@ -98,6 +98,19 @@ class SchedulerConfig:
     # minFeasibleNodesToFind), and only sample at all when the cluster
     # is at least twice this size.
     min_sample_nodes: int = 256
+    # The mesh: a single-process parallel.mesh.Mesh (parallel.mesh.
+    # make_mesh) to run the scheduling step over. The (P,N) plugin
+    # matrices are cut over its ("pod", "node") axes and the cross-shard
+    # reductions go through parallel/collectives.py (parallel/
+    # sharded.py); ``assignment`` picks the sharded stage: "greedy" (the
+    # default) is the chunked-gather scan, whose placements equal the
+    # single-device engine's unsampled ones, "auction" the gathered
+    # dense auction. A mesh may name one device more than once (a
+    # virtual mesh on one card). None = one device. Node sampling, the
+    # shortlist, the device loop and the index are off on a mesh (the
+    # sharded step keeps full (P,N) rows), and a hybrid multi-process
+    # mesh is refused: the store and its informers are one process's.
+    mesh: object = None
     # In-cycle repair of topology-revoked pods (engine/scheduler.py
     # _repair_spread): after the host arbitration revokes placements that
     # would breach hard skew or required anti-affinity within the batch,
@@ -208,10 +221,12 @@ def config_from_env() -> SchedulerConfig:
     default; a set but empty one raises ``EmptyEnvError``.
     ``MINISCHED_PLATFORM`` names the device: unset or "" means
     ``cuda:0``, which raises at start without a card.
-    ``MINISCHED_COMPILE_CACHE`` names the kernel build directory. The
-    knob of the module this package does not have yet
-    (``MINISCHED_MESH_DEVICES`` other than 0) raises a ``ValueError``
-    rather than run without it."""
+    ``MINISCHED_COMPILE_CACHE`` names the kernel build directory.
+    ``MINISCHED_MESH_DEVICES=n`` (n > 0) builds a mesh over the first n
+    distinct devices of the platform (``make_mesh``'s default layout) and
+    raises, naming both counts, when fewer are visible: one CPU, or the
+    CUDA devices; one card gives n = 1. A virtual mesh is built in code
+    (``make_mesh([device] * 8)``)."""
 
     def _req(name: str, default: str) -> str:
         v = os.environ.get(name, default)
@@ -219,10 +234,19 @@ def config_from_env() -> SchedulerConfig:
             raise EmptyEnvError(f"env {name} is empty")
         return v
 
-    if int(os.environ.get("MINISCHED_MESH_DEVICES", "0")):
-        raise ValueError(
-            "MINISCHED_MESH_DEVICES: this package has no multi-device "
-            "step yet; unset it or set it to 0")
+    platform = os.environ.get("MINISCHED_PLATFORM", "")
+    mesh = None
+    mesh_devices = int(os.environ.get("MINISCHED_MESH_DEVICES", "0"))
+    if mesh_devices:
+        from .parallel.mesh import make_mesh
+
+        devs = _platform_devices(platform)
+        if len(devs) < mesh_devices:
+            # Truncating would run a smaller layout than was asked for.
+            raise ValueError(
+                f"MINISCHED_MESH_DEVICES={mesh_devices} but only "
+                f"{len(devs)} devices are visible")
+        mesh = make_mesh(devs[:mesh_devices])
     return SchedulerConfig(
         max_batch_size=int(_req("MINISCHED_MAX_BATCH", "1024")),
         batch_window_s=float(_req("MINISCHED_BATCH_WINDOW", "0.0")),
@@ -232,7 +256,8 @@ def config_from_env() -> SchedulerConfig:
         seed=int(_req("MINISCHED_SEED", "0")),
         backoff_initial_s=float(_req("MINISCHED_BACKOFF_INITIAL", "1.0")),
         backoff_max_s=float(_req("MINISCHED_BACKOFF_MAX", "10.0")),
-        platform=os.environ.get("MINISCHED_PLATFORM", ""),
+        platform=platform,
+        mesh=mesh,
         percentage_of_nodes_to_score=int(
             _req("MINISCHED_PCT_NODES_TO_SCORE", "0")),
         pipeline=_req("MINISCHED_PIPELINE", "1") != "0",
@@ -253,3 +278,15 @@ def config_from_env() -> SchedulerConfig:
         resident_check_every=int(
             _req("MINISCHED_RESIDENT_CHECK_EVERY", "0")),
     )
+
+
+def _platform_devices(platform: str):
+    """The distinct devices of ``platform`` (``SchedulerConfig.platform``'s
+    spelling): the CPU, or every visible CUDA device (none without a
+    card)."""
+    if torch.device(platform or "cuda:0").type == "cpu":
+        return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device(f"cuda:{k}")
+            for k in range(torch.cuda.device_count())]

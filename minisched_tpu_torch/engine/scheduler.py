@@ -1084,6 +1084,32 @@ class Scheduler:
         # Resolved (and checked) at construction: a missing card fails
         # start_scheduler, not every later cycle.
         self.device = self.config.device()
+        # The mesh (SchedulerConfig.mesh): the step runs over the ("pod",
+        # "node") device grid through parallel/sharded.py. Checked here,
+        # so a bad mesh fails start_scheduler rather than every cycle.
+        # The engine's tensors live whole on the mesh's first device;
+        # the sharded step cuts them (a virtual mesh's blocks are views).
+        self._mesh = self.config.mesh
+        if self._mesh is not None:
+            from ..parallel.mesh import NODE_AXIS, POD_AXIS, Mesh
+
+            if (not isinstance(self._mesh, Mesh)
+                    or set(self._mesh.axis_names) != {POD_AXIS, NODE_AXIS}):
+                raise ValueError(
+                    "SchedulerConfig.mesh must be a parallel.mesh.Mesh "
+                    "with ('pod', 'node') axes (parallel.mesh.make_mesh); "
+                    f"got {self._mesh!r}")
+            if self._mesh.group is not None:
+                raise ValueError(
+                    "SchedulerConfig.mesh must be a single-process mesh: a "
+                    "hybrid mesh's decision is whole in every process, but "
+                    "the store and its informers are one process's")
+            if self._mesh.device.type != self.device.type:
+                raise ValueError(
+                    f"SchedulerConfig.mesh is on {self._mesh.device.type} "
+                    f"but platform={self.config.platform!r} names "
+                    f"{self.device.type}")
+            self.device = self._mesh.device
         self._shared = shared or SharedClusterState(store)
         self._owns_shared = shared is None
         self.cache = self._shared.cache
@@ -1107,12 +1133,26 @@ class Scheduler:
             backoff_max=self.config.backoff_max_s)
 
         # Shortlist-compressed arbitration: None = the full greedy kernel
-        # (or, under the auction, the dense bidding rounds).
+        # (or, under the auction, the dense bidding rounds). Off on a
+        # mesh: the sharded assignment keeps full (P,N) rows, so the
+        # decisions are the knob's either way.
         self._shortlist_k = (self.config.shortlist_k
-                             if self.config.shortlist else None)
-        self._step = build_step(plugin_set, shortlist=self._shortlist_k,
-                                assignment=self.config.assignment,
-                                explain=self.config.explain)
+                             if self.config.shortlist and self._mesh is None
+                             else None)
+        if self._mesh is not None:
+            # The sharded step (parallel/sharded.py): no input templates
+            # needed, so it is built here; "greedy" is the chunked-gather
+            # scan, "auction" the gathered dense auction. Node sampling
+            # is off on a mesh (_sampled_step), so every batch takes it.
+            from ..parallel.sharded import build_sharded_step
+
+            self._step = build_sharded_step(
+                plugin_set, self._mesh, explain=self.config.explain,
+                assignment=self.config.assignment)
+        else:
+            self._step = build_step(plugin_set, shortlist=self._shortlist_k,
+                                    assignment=self.config.assignment,
+                                    explain=self.config.explain)
         self._key = prng.PRNGKey(self.config.seed)
         self._step_counter = 0
         # Supervisor replay anchor: the step counter the batch in prepare
@@ -1231,6 +1271,7 @@ class Scheduler:
         # rung: a tranche fault closes the ring for probation_batches
         # resolved batches.
         self._loop_enabled = (self.config.device_loop
+                              and self._mesh is None
                               and not self.config.explain)
         self._loop_listener = (self.cache.register_dyn_listener()
                                if self._loop_enabled else None)
@@ -1241,7 +1282,7 @@ class Scheduler:
         # greedy assignment, not explain mode, an index-eligible profile.
         self._index: Optional[_ArbIndex] = None
         if (self.config.index and self.config.assignment == "greedy"
-                and not self.config.explain):
+                and self._mesh is None and not self.config.explain):
             if index_eligible(plugin_set):
                 self._index = _ArbIndex(
                     self.cache.register_index_listener(),
@@ -1942,8 +1983,8 @@ class Scheduler:
         and the shared per-pod walk (_ring_safe_pods), which also keeps
         the spread fetch away. Other batches dispatch solo inside
         prepare."""
-        if (self.config.assignment != "greedy" or self.config.explain
-                or self.recorder is not None):
+        if (self.config.assignment != "greedy" or self._mesh is not None
+                or self.config.explain or self.recorder is not None):
             return False
         if (self._sup.level != 0 or self._nominations or fail_closed
                 or hard_spread or self.config.shortlist_check_every
@@ -2509,7 +2550,7 @@ class Scheduler:
         bucket of max(min_sample_nodes, n × pct / 100, 2 × batch), pct 0
         meaning upstream's max(5, 50 - n / 125)."""
         cfg = self.config
-        if cfg.explain or full_axis:
+        if cfg.explain or full_axis or self._mesh is not None:
             return None, None
         # Brownout (overload level 3) pulls the dial down to
         # ``brownout_pct``; otherwise the configured percentage.
@@ -2866,7 +2907,8 @@ class Scheduler:
 
     def _pack(self, d: Decision):
         """One device buffer for the whole decision: the slim layout with
-        residency, else the all-i32 stack."""
+        residency, else the all-i32 stack. A mesh step's Decision is
+        whole on the mesh's first device, so it packs the same way."""
         pack = pack_decision_slim if self._slim else pack_decision_i32
         return pack(d.chosen, d.assigned, d.gang_rejected,
                     d.feasible_counts, d.feasible_static, d.reject_counts,
@@ -3025,7 +3067,7 @@ class Scheduler:
         shortlist_desync, permanently reverts the engine to the full
         width, and aborts the batch into the supervised retry, which
         replays it bit-identically on the reverted path."""
-        if not self.config.shortlist_check_every:
+        if not self.config.shortlist_check_every or self._mesh is not None:
             return
         self._sl_check_tick += 1
         if self._sl_check_tick % self.config.shortlist_check_every:
@@ -4650,6 +4692,8 @@ class Scheduler:
         """Rebuild the main step at shortlist width ``k`` (any K is
         exact: repairs absorb a narrow one; None = the full-width
         assignment); sampled steps read ``_shortlist_k`` per batch."""
+        if self._mesh is not None:
+            return  # no shortlist on a mesh: the sharded step stays
         self._shortlist_k = k
         self._step = build_step(self.plugin_set, shortlist=k,
                                 assignment=self.config.assignment,

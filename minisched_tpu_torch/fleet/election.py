@@ -280,7 +280,12 @@ class StewardDuties:
     fresh heartbeat is an ORPHANED incarnation (its steward died between
     CAS and spawn, or the spawn produced nothing) — the current steward
     re-adopts it through the same spawn-claim CAS, which is what makes
-    a steward's death survivable mid-respawn."""
+    a steward's death survivable mid-respawn. The steward's OWN child
+    for the record is left to boot until ``boot_s`` = 6 × ``grace_s``
+    (a replica on a card can outlast the grace: its CUDA start, sync
+    and prewarm); past it the child is a hung boot, SIGKILLed and
+    reaped before the record is re-adopted, so one process runs per
+    replica."""
 
     def __init__(self, store, rid: str, election: StewardElection, *,
                  tick_s: float, ttl_s: float,
@@ -302,6 +307,8 @@ class StewardDuties:
         self.horizon_s = 3 * self.tick_s + self.ttl_s
         self.grace_s = (float(grace_s) if grace_s is not None
                         else max(4 * self.ttl_s, 6 * self.tick_s, 10.0))
+        #: The boot deadline of this steward's own spawn.
+        self.boot_s = 6 * self.grace_s
         self.rebalancer = rebalancer
         self._clock = clock
         self._spawn_fn = spawn_fn or self._spawn_process
@@ -402,6 +409,27 @@ class StewardDuties:
                 return
             if now - rec.updated_at <= self.grace_s:
                 return  # in flight (booting / pre-spawn); give it time
+            child = self._children.get(rec.pid)
+            if child is not None and child.poll() is None:
+                if now - rec.updated_at <= self.boot_s:
+                    # Our own spawn, still booting past the grace: a
+                    # second spawn would run two processes for one
+                    # replica.
+                    return
+                # Past the boot deadline with no heartbeat: a hung boot.
+                # Kill and reap it, then re-adopt below.
+                child.kill()
+                try:
+                    child.wait(timeout=10.0)
+                except subprocess.TimeoutExpired:
+                    log.error("steward %s: hung boot of %s (pid %d) "
+                              "outlived its SIGKILL", self.rid,
+                              rec.replica, rec.pid)
+                log.warning("steward %s: killed the hung boot of %s "
+                            "(pid %d)", self.rid, rec.replica, rec.pid)
+                jnote("steward.boot_kill", replica=self.rid,
+                      target=rec.replica, pid=rec.pid,
+                      boot_s=round(now - rec.updated_at, 3))
             # Orphaned incarnation: whoever claimed this respawn died
             # (or the spawn silently failed) — re-adopt WITHOUT bumping
             # the incarnation: the death was already censused once.
@@ -529,7 +557,12 @@ class StewardDuties:
         for k, v in fields.items():
             setattr(rec, k, v)
         try:
-            self.store.update(rec, check_version=True)
+            out = self.store.update(rec, check_version=True)
+            # A remote store returns the stored revision and leaves
+            # ``rec`` as sent: carry its version, so that a second CAS on
+            # ``rec`` (the spawn's pid after its claim) does not conflict
+            # with our own first.
+            rec.metadata.resource_version = out.metadata.resource_version
             return True
         except (ConflictError, NotFoundError):
             self.counters["census_conflicts"] += 1

@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from ._cuda_build import check_launch, load
-from .select import AssignResult
+from .select import GOLDEN, AssignResult
 
 _MAX_BLOCKS = 256  # grid-size cap; the scratch holds 2 slots per block
 _MAX_R = 32
@@ -29,6 +29,17 @@ def _bind(lib: ctypes.CDLL) -> None:
                    ctypes.c_void_p]
     lib.greedy_assign_slot_bytes.restype = ctypes.c_int
     lib.greedy_assign_slot_bytes.argtypes = []
+
+
+def chunk_seed(seed: int, row0: int) -> int:
+    """The seed under which a launch over rows [row0, row0 + C) of a
+    batch draws the batch's own tie noise. The kernel (and
+    select.greedy_assign_plain) hashes ``seed + row * GOLDEN`` with the
+    launch's local row, so a seed advanced by ``row0 * GOLDEN`` (mod
+    2**32) makes local row r draw global row row0 + r: the sharded
+    greedy scan (parallel/sharded_assign.py) launches the kernel once
+    per chunk with it, and no launch gains an argument."""
+    return (int(seed) + int(row0) * GOLDEN) & 0xFFFFFFFF
 
 
 def greedy_assign_cuda(scores: torch.Tensor, requests: torch.Tensor,

@@ -77,7 +77,8 @@ def index_eligible(plugin_set: PluginSet) -> bool:
         if not getattr(p, "column_local", False):
             return False
     for p in plugin_set.score_plugins:
-        if (type(p).normalize is not BatchedPlugin.normalize
+        if ((type(p).normalize is not BatchedPlugin.normalize
+             or type(p).rescale is not BatchedPlugin.rescale)
                 and not getattr(p, "normalize_row_local", False)):
             return False
     return True

@@ -37,7 +37,7 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from ..encode.features import DEFAULT_ENCODING
-from ..plugins.base import PluginSet
+from ..plugins.base import PluginSet, row_stats
 from . import prng
 from .auction import auction_assign
 from .bid_select import auction_assign_shortlist
@@ -107,7 +107,13 @@ def max_normalize_100(scores: torch.Tensor,
     """Standard k8s NormalizeScore: scale so the best feasible node gets
     100. Rows with an all-zero max pass through unchanged."""
     masked = torch.where(feasible, scores, 0.0)
-    row_max = masked.max(dim=1, keepdim=True).values
+    return max_rescale_100(masked, row_stats(masked, ("max",))[0])
+
+
+def max_rescale_100(masked: torch.Tensor,
+                    row_max: torch.Tensor) -> torch.Tensor:
+    """``max_normalize_100`` of the scores ``masked`` to 0.0 where
+    infeasible, given each row's max of them (plugins/base.row_stats)."""
     # A tensor numerator: ``100.0 / t`` would compute 100 * (1/t), which
     # rounds differently from the true quotient.
     hundred = torch.full_like(row_max, 100.0)
@@ -147,39 +153,96 @@ def _evaluate(plugin_set: PluginSet, pf, nf, ctx, explain: bool = False,
     the profile's weights (a tenant lane's own); multiplying by equal
     float32 values gives equal bits, so a profile's own weights give the
     same totals either way."""
-    P = pf.valid.shape[0]
-    valid_pair = pf.valid[:, None] & nf.valid[None, :]
+    (totals, feas, feasible_counts, reject_counts,
+     (masks, raws, norms)) = evaluate_shards(plugin_set, [pf], [nf], [ctx],
+                                             explain, w_vec)
+    return (totals[0], feas[0], feasible_counts, reject_counts,
+            ([m[0] for m in masks], [r[0] for r in raws],
+             [n[0] for n in norms]))
+
+
+def evaluate_shards(plugin_set: PluginSet, pfs, nfs, ctxs,
+                    explain: bool = False, w_vec=None, collectives=None):
+    """Filters and scores of one pod row against J node shards:
+    ``pfs[j]``, ``nfs[j]`` and ``ctxs[j]`` are shard j's inputs, on its
+    device. Returns ``(masked totals [J], feasible [J], feasible_counts
+    (P,), reject_counts (F,P), (masks, raws, norms))``, the counts
+    summed over the shards on shard 0's device and each explain list
+    holding one per-shard list per plugin.
+
+    With J > 1 the node-axis reductions go through ``collectives``
+    (parallel/collectives.py): the counts' psum, and each scorer's row
+    statistics' pmax / pmin (``_normalize_shards``). One shard is the
+    single-device evaluation."""
+    J = len(nfs)
+    dev0 = pfs[0].valid.device
+
+    def node_sum(parts):
+        return parts[0] if J == 1 else collectives.node_sum(parts, dev0)
+
+    valid_pair = [pfs[j].valid[:, None] & nfs[j].valid[None, :]
+                  for j in range(J)]
     # One pass over filters: each (P,N) mask contributes its reject count
     # and the running AND, then dies (outside explain mode no list holds
     # all F masks at once).
-    feasible = valid_pair
+    feasible = list(valid_pair)
     rc: List[torch.Tensor] = []
-    masks: List[torch.Tensor] = []
-    raws: List[torch.Tensor] = []
-    norms: List[torch.Tensor] = []
+    masks: List[List[torch.Tensor]] = []
+    raws: List[List[torch.Tensor]] = []
+    norms: List[List[torch.Tensor]] = []
     for p in plugin_set.filter_plugins:
-        m = p.filter(pf, nf, ctx)
-        rc.append((valid_pair & ~m).sum(dim=1).to(torch.int32))
-        feasible = feasible & m
+        ms = [p.filter(pfs[j], nfs[j], ctxs[j]) for j in range(J)]
+        rc.append(node_sum([(valid_pair[j] & ~ms[j]).sum(dim=1)
+                            for j in range(J)]).to(torch.int32))
+        feasible = [feasible[j] & ms[j] for j in range(J)]
         if explain:
-            masks.append(m)
-    feasible_counts = feasible.sum(dim=1).to(torch.int32)
+            masks.append(ms)
+        del ms
+    feasible_counts = node_sum([f.sum(dim=1) for f in feasible]).to(
+        torch.int32)
+    P = pfs[0].valid.shape[0]
     reject_counts = (torch.stack(rc) if rc else torch.zeros(
-        (0, P), dtype=torch.int32, device=feasible.device))
+        (0, P), dtype=torch.int32, device=dev0))
     del valid_pair
 
-    total = torch.zeros(feasible.shape, dtype=torch.float32,
-                        device=feasible.device)
+    totals = [torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+              for f in feasible]
     for i, p in enumerate(plugin_set.score_plugins):
-        raw = p.score(pf, nf, ctx).to(torch.float32)
-        norm = p.normalize(raw, feasible).to(torch.float32)
+        raw = [p.score(pfs[j], nfs[j], ctxs[j]).to(torch.float32)
+               for j in range(J)]
+        norm = _normalize_shards(p, raw, feasible, collectives)
         w = plugin_set.weight_of(p) if w_vec is None else float(w_vec[i])
-        total = total + w * norm
+        totals = [totals[j] + w * norm[j] for j in range(J)]
         if explain:
             raws.append(raw)
             norms.append(norm)
-    return (torch.where(feasible, total, NEG), feasible, feasible_counts,
-            reject_counts, (masks, raws, norms))
+        del raw, norm
+    return ([torch.where(feasible[j], totals[j], NEG) for j in range(J)],
+            feasible, feasible_counts, reject_counts, (masks, raws, norms))
+
+
+def _normalize_shards(p, raws, feasible, collectives):
+    """Scorer ``p``'s normalize on each node shard of a pod row. One
+    shard is ``p.normalize``. Across J shards each shard takes its row
+    statistics (``p.row_stats``) over its own columns, the node axis
+    combines them (pmax / pmin, exact), and each shard rescales with
+    the combined values."""
+    J = len(raws)
+    if J == 1:
+        return [p.normalize(raws[0], feasible[0]).to(torch.float32)]
+    if not p.row_stats:
+        return [p.rescale(raws[j], None, []).to(torch.float32)
+                for j in range(J)]
+    masked = [torch.where(feasible[j], raws[j], 0.0) for j in range(J)]
+    local = [row_stats(m, p.row_stats) for m in masked]
+    dev0 = raws[0].device
+    combined = [(collectives.node_max if op == "max" else
+                 collectives.node_min)([local[j][k] for j in range(J)], dev0)
+                for k, op in enumerate(p.row_stats)]
+    del local
+    return [p.rescale(raws[j], masked[j],
+                      [c.to(raws[j].device) for c in combined]
+                      ).to(torch.float32) for j in range(J)]
 
 
 def _chunk_pods(P: int, N: int) -> Optional[int]:
@@ -293,7 +356,8 @@ def _gather_nodes(nf, idx: torch.Tensor):
 
 def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                sample_nodes: Optional[int] = None,
-               assignment: str = "greedy", explain: bool = False):
+               assignment: str = "greedy", explain: bool = False,
+               assign_fn=None, evaluate_fn=None):
     """The scheduling step for a plugin profile:
     ``step(eb, nf, af, key, has_gang=None, hard_spread=None, w_vec=None)
     -> Decision`` where ``eb`` is an EncodedBatch, ``nf`` the
@@ -353,14 +417,38 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
     pod chunks (``_chunk_pods``); each chunk's rows are written into
     preallocated (P,N), (P,) and (F,P) outputs, and the undeferred
     spread pass of ``feasible_static`` runs per chunk. Every plugin op
-    is row-wise, so the result equals the unchunked one."""
+    is row-wise, so the result equals the unchunked one.
+
+    ``assign_fn(masked_total, requests, free0, group_ids, group_min,
+    key, has_gang=None, priority=None) -> GangResult`` replaces the
+    whole assignment stage (``build_sharded_step``'s chunked-gather scan,
+    parallel/sharded_assign.py, or its gathered auction). A custom
+    stage keeps full (P,N) rows, so it
+    takes no node sampling, no shortlist and no in-scan caps (the
+    host arbitration alone enforces hard spread), and the batch is
+    evaluated whole. ``evaluate_fn(eb, nf, af, explain, w_vec) -> (ctx,
+    masked_total, feasible_counts, reject_counts, (masks, raws,
+    norms))`` replaces the evaluation: ``build_sharded_step``'s per-shard
+    filters and scores (parallel/sharded.py), whose ``masked_total`` is
+    a ``ShardedTensor`` the ``assign_fn`` reads block by block and
+    whose ``ctx`` holds the whole node axis' topology tables."""
     if assignment not in ("greedy", "auction"):
         raise ValueError(f"unknown assignment strategy {assignment!r}; "
                          "expected 'greedy' or 'auction'")
-    if sample_nodes is not None and explain:
-        raise ValueError("sample_nodes is incompatible with explain mode")
+    if sample_nodes is not None and (explain or assign_fn is not None):
+        raise ValueError(
+            "sample_nodes is incompatible with explain mode / assign_fn")
     if shortlist is not None and shortlist < 1:
         shortlist = None
+    if shortlist is not None and assign_fn is not None:
+        # A custom stage keeps full (P,N) rows: a silently ignored knob
+        # would let a config claim shortlist numbers it never ran.
+        raise ValueError(
+            "shortlist compression applies to the built-in assignments "
+            "only (a custom assign_fn keeps full rows)")
+    if evaluate_fn is not None and assign_fn is None:
+        raise ValueError("evaluate_fn needs an assign_fn that reads its "
+                         "masked_total")
     base_fn = greedy_assign
     if shortlist is not None:
         base_fn = functools.partial(greedy_assign_shortlist, k=shortlist)
@@ -371,6 +459,9 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
 
     def step(eb, nf, af, key, has_gang: Optional[bool] = None,
              hard_spread: Optional[bool] = None, w_vec=None) -> Decision:
+        if evaluate_fn is not None:
+            return _finish(*evaluate_fn(eb, nf, af, explain, w_vec),
+                           eb=eb, nf=nf, key=key, has_gang=has_gang)
         n = nf.valid.shape[0]
         ctx = cycle_state(plugin_set, eb, nf, af)
         sample_idx = None
@@ -399,7 +490,8 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
         # alone, while the filter's global-min check stands down).
         caps, enforced = None, False
         if (needs_topology and sample_idx is None and assignment == "greedy"
-                and hard_spread is not False and not explain):
+                and assign_fn is None and hard_spread is not False
+                and not explain):
             from .spreadcap import build_domain_caps
 
             caps = build_domain_caps(pf, eb.gf, nf, ctx["counts_dom"],
@@ -422,7 +514,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             return (feasible & m_static).sum(dim=1).to(torch.int32)
 
         P = pf.valid.shape[0]
-        C = None if explain else _chunk_pods(P, N)
+        C = None if explain or assign_fn is not None else _chunk_pods(P, N)
         if C is None:
             (masked_total, feasible, feasible_counts, reject_counts,
              (masks, raws, norms)) = _evaluate(plugin_set, pf, nf, ctx,
@@ -440,6 +532,10 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             masks, raws, norms = [], [], []
         if feasible_static is None:
             feasible_static = feasible_counts
+        if assign_fn is not None:
+            return _finish(ctx, masked_total, feasible_counts,
+                           reject_counts, (masks, raws, norms), eb=eb,
+                           nf=nf, key=key, has_gang=has_gang)
         if assignment == "auction":
             greedy_fn = (functools.partial(auction_assign,
                                            priority=pf.priority)
@@ -456,13 +552,40 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
                              prng.bits(key), greedy_fn=greedy_fn,
                              has_gang=has_gang)
 
+        chosen, free_after = assign.chosen, assign.free_after
+        if sample_idx is not None:
+            safe = torch.clamp(chosen, 0, sample_nodes - 1).long()
+            chosen = torch.where(assign.assigned,
+                                 sample_idx[safe].to(torch.int32), chosen)
+            free_after = free_full.index_copy(0, sample_idx, free_after)
+        return _decision(ctx, assign, chosen, free_after, eb, nf,
+                         masked_total, feasible_counts, feasible_static,
+                         reject_counts, (masks, raws, norms),
+                         caps.scan_groups if enforced else None)
+
+    def _finish(ctx, masked_total, feasible_counts, reject_counts,
+                stacks, *, eb, nf, key, has_gang):
+        """The step after a custom evaluation or assignment stage:
+        ``assign_fn`` on the masked totals, then the decision (no caps,
+        no sample: every table is the whole node axis')."""
+        pf = eb.pf
+        assign = assign_fn(masked_total, pf.requests, nf.free,
+                           eb.gang.group, eb.gang.min_count, key,
+                           has_gang=has_gang, priority=pf.priority)
+        return _decision(ctx, assign, assign.chosen, assign.free_after, eb,
+                         nf, masked_total, feasible_counts, feasible_counts,
+                         reject_counts, stacks, None)
+
+    def _decision(ctx, assign, chosen, free_after, eb, nf, masked_total,
+                  feasible_counts, feasible_static, reject_counts, stacks,
+                  scan_groups) -> Decision:
         # Spread-arbitration inputs, per (pod, group) at the chosen node.
         gf = eb.gf
         G = gf.valid.shape[0]
+        P = eb.pf.valid.shape[0]
+        N = assign.free_after.shape[0]
         dev = assign.chosen.device
-        if enforced:
-            scan_groups = caps.scan_groups
-        else:
+        if scan_groups is None:
             scan_groups = torch.zeros((G,), dtype=torch.bool, device=dev)
         if needs_topology:
             safe_row = torch.clamp(assign.chosen, 0, N - 1).long()
@@ -487,23 +610,19 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
 
         # The explain stacks (the lists are empty outside explain mode:
         # zero-size placeholders, as in JAX).
+        masks, raws, norms = stacks
+
         def stack(parts, dtype):
             return (torch.stack(parts) if parts else
                     torch.zeros((0, P, N), dtype=dtype, device=dev))
 
-        filter_stack = stack(masks, torch.bool)
-        raw_stack = stack(raws, torch.float32)
-        norm_stack = stack(norms, torch.float32)
-        total_scores = (masked_total if explain else torch.zeros(
-            (0, N), dtype=torch.float32, device=dev))
-        del masks, raws, norms
-
-        chosen, free_after = assign.chosen, assign.free_after
-        if sample_idx is not None:
-            safe = torch.clamp(chosen, 0, sample_nodes - 1).long()
-            chosen = torch.where(assign.assigned,
-                                 sample_idx[safe].to(torch.int32), chosen)
-            free_after = free_full.index_copy(0, sample_idx, free_after)
+        if not explain:
+            total_scores = torch.zeros((0, N), dtype=torch.float32,
+                                       device=dev)
+        elif isinstance(masked_total, torch.Tensor):
+            total_scores = masked_total
+        else:
+            total_scores = masked_total.full()
         return Decision(
             chosen=chosen,
             assigned=assign.assigned,
@@ -520,9 +639,9 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             spread_dexist=spread_dexist,
             scan_groups=scan_groups,
             shortlist_repaired=assign.repaired,
-            filter_masks=filter_stack,
-            raw_scores=raw_stack,
-            norm_scores=norm_stack,
+            filter_masks=stack(masks, torch.bool),
+            raw_scores=stack(raws, torch.float32),
+            norm_scores=stack(norms, torch.float32),
         )
 
     return step

@@ -52,15 +52,33 @@ def group_topology_state(nf, af, gf, num_domains: int
       counts_dom  (G,D) float32 — matching count per domain
       dom_exists  (G,D) bool — the domain exists on some node
     """
-    G = gf.valid.shape[0]
-    N = nf.valid.shape[0]
-    D = num_domains
-    match = group_assigned_match(gf, af).to(torch.float32)  # (G,A)
+    part = topology_partials(nf, af, gf, num_domains,
+                             group_assigned_match(gf, af).to(torch.float32),
+                             row0=0, n_total=nf.valid.shape[0])
+    return topology_tables(part, part["counts_dom"], part["dom_count"] > 0,
+                           part["has_match"])
 
-    node_dom = nf.topo_domains.index_select(0, gf.key_idx.long())  # (G,N)
+
+def topology_partials(nf, af, gf, num_domains: int, match: torch.Tensor,
+                      row0: int, n_total: int) -> Dict[str, torch.Tensor]:
+    """The per-domain tables as one node shard sees them: ``nf`` holds
+    the node rows [row0, row0 + n) of an ``n_total``-row axis, and only
+    the assigned pods bound to those rows count here. ``match`` is
+    ``group_assigned_match(gf, af)`` as float32. Summed over the node
+    shards, ``counts_dom`` and ``dom_count`` are the whole axis' tables
+    (0/1 values: the sums are exact in any order), and ``has_match``
+    ORs; ``topology_tables`` finishes them. One shard of the whole axis
+    (row0 = 0) is the single-device state."""
+    G = gf.valid.shape[0]
+    n = nf.valid.shape[0]
+    D = num_domains
+    node_dom = nf.topo_domains.index_select(0, gf.key_idx.long())  # (G,n)
     dom_valid = (node_dom >= 0) & nf.valid[None, :] & gf.valid[:, None]
-    rows = torch.clamp(af.node_row.long(), 0, N - 1)
-    a_dom = node_dom.index_select(1, rows)                   # (G,A)
+    rows = torch.clamp(af.node_row.long(), 0, n_total - 1)
+    mine = (rows >= row0) & (rows < row0 + n)
+    local = torch.clamp(rows - row0, 0, n - 1)
+    a_dom = torch.where(mine[None, :], node_dom.index_select(1, local),
+                        -1)                                  # (G,A)
     a_ok = (a_dom >= 0) & af.valid[None, :]
     a_ids = torch.clamp(a_dom, 0, D - 1).long()
 
@@ -68,10 +86,21 @@ def group_topology_state(nf, af, gf, num_domains: int
     counts_dom = torch.zeros((G, D), dtype=torch.float32,
                              device=hit.device).scatter_add_(1, a_ids, hit)
     node_ids = torch.clamp(node_dom, 0, D - 1).long()
-    dom_exists = torch.zeros((G, D), dtype=torch.float32,
-                             device=hit.device).scatter_add_(
-        1, node_ids, dom_valid.to(torch.float32)) > 0
+    dom_count = torch.zeros((G, D), dtype=torch.float32,
+                            device=hit.device).scatter_add_(
+        1, node_ids, dom_valid.to(torch.float32))
+    return {"counts_dom": counts_dom, "dom_count": dom_count,
+            "has_match": (hit != 0).any(dim=1), "dom_valid": dom_valid,
+            "node_ids": node_ids}
 
+
+def topology_tables(part: Dict[str, torch.Tensor], counts_dom: torch.Tensor,
+                    dom_exists: torch.Tensor, has_match: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    """``group_topology_state``'s tables for the node rows of ``part``
+    (``topology_partials``) from the whole axis' ``counts_dom``,
+    ``dom_exists`` and ``has_match``."""
+    dom_valid, node_ids = part["dom_valid"], part["node_ids"]
     counts_node = torch.where(dom_valid, torch.gather(counts_dom, 1, node_ids),
                               0.0)
     big = 3.0e38
@@ -79,7 +108,6 @@ def group_topology_state(nf, af, gf, num_domains: int
         dom_exists.any(dim=1),
         torch.where(dom_exists, counts_dom, big).min(dim=1).values, 0.0)
     max_count = torch.where(dom_exists, counts_dom, 0.0).max(dim=1).values
-    has_match = (hit != 0).any(dim=1)
     return {"counts_node": counts_node, "dom_valid": dom_valid,
             "min_count": min_count, "max_count": max_count,
             "has_match": has_match, "counts_dom": counts_dom,

@@ -29,6 +29,18 @@ import torch
 from ..state.events import ClusterEvent
 
 
+def row_stats(masked: torch.Tensor,
+              ops: Sequence[str]) -> List[torch.Tensor]:
+    """Each row's ``ops`` ("max" or "min", in order) over ``masked``,
+    the scores with 0.0 where infeasible, (P,1) each: the row statistics
+    a scorer's NormalizeScore reads (``row_stats`` on the plugin). On a
+    mesh each node shard reduces its own columns and the node axis
+    combines them by pmax / pmin (parallel/sharded.py), exact in any
+    order, so the statistics have the same bits either way."""
+    return [(masked.max(dim=1, keepdim=True) if op == "max" else
+             masked.min(dim=1, keepdim=True)).values for op in ops]
+
+
 class BatchedPlugin:
     """Base plugin. Subclasses override any subset of the extension points;
     the framework detects overrides to classify filter/score plugins.
@@ -67,7 +79,7 @@ class BatchedPlugin:
     # index-eligible; a cross-row normalize would make one class row's
     # cached value depend on which OTHER classes share the matrix.
     # FAIL-CLOSED like column_local: the flag only matters for plugins
-    # that OVERRIDE normalize (the inherited identity is trivially
+    # that OVERRIDE normalize or rescale (the inherited identity is trivially
     # row-local), and such a plugin must explicitly declare True.
     normalize_row_local: bool = False
 
@@ -83,7 +95,23 @@ class BatchedPlugin:
     def score(self, pf, nf, ctx) -> torch.Tensor:  # pragma: no cover
         raise NotImplementedError
 
-    def normalize(self, scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    # NormalizeScore in two halves, so that a row split over node shards
+    # normalizes as a whole row: ``row_stats`` names the row statistics
+    # it reads (module-level ``row_stats``), ``rescale`` applies them
+    # given the scores, the scores masked to 0.0 where infeasible, and
+    # the statistics. A plugin overrides these two, not ``normalize``.
+    row_stats: Tuple[str, ...] = ()
+
+    def normalize(self, scores: torch.Tensor,
+                  feasible: torch.Tensor) -> torch.Tensor:
+        if not self.row_stats:
+            return self.rescale(scores, None, [])
+        masked = torch.where(feasible, scores, 0.0)
+        return self.rescale(scores, masked,
+                            row_stats(masked, self.row_stats))
+
+    def rescale(self, scores: torch.Tensor, masked: Optional[torch.Tensor],
+                stats: List[torch.Tensor]) -> torch.Tensor:
         return scores
 
     # -- host-side extension points

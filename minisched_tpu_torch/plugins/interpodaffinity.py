@@ -31,6 +31,7 @@ class InterPodAffinity(BatchedPlugin):
     needs_topology = True
     column_local = False  # reads corpus-derived domain counts
     normalize_row_local = True  # per-row min/max shift-and-scale
+    row_stats = ("min", "max")
 
     def events_to_register(self):
         return [ClusterEvent(GVK.POD, ActionType.ALL),
@@ -88,12 +89,10 @@ class InterPodAffinity(BatchedPlugin):
                              * gather_group_rows(ag, ctx["counts_node"]))
         return score
 
-    def normalize(self, scores, feasible):
+    def rescale(self, scores, masked, stats):
         # Scores can be negative (anti-affinity), so shift-and-scale the
         # feasible range into 0..100, in the JAX package's order.
-        masked = torch.where(feasible, scores, 0.0)
-        lo = masked.min(dim=1, keepdim=True).values
-        hi = masked.max(dim=1, keepdim=True).values
+        lo, hi = stats
         span = torch.clamp_min(hi - lo, 1e-30)
         return torch.where(hi > lo, 100.0 * (scores - lo) / span,
                            torch.zeros_like(scores))

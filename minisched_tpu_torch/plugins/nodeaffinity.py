@@ -44,6 +44,7 @@ class NodeAffinity(BatchedPlugin):
     needs_node_affinity = True
     column_local = False  # group-match state + max-normalized score
     normalize_row_local = True  # max_normalize_100 reads its own row
+    row_stats = ("max",)
 
     def events_to_register(self):
         return [ClusterEvent(GVK.NODE,
@@ -56,7 +57,7 @@ class NodeAffinity(BatchedPlugin):
     def score(self, pf, nf, ctx) -> torch.Tensor:
         return gather_group_rows(pf.na_group, ctx["na_pref_score"], fill=0.0)
 
-    def normalize(self, scores, feasible):
-        from ..ops.pipeline import max_normalize_100
+    def rescale(self, scores, masked, stats):
+        from ..ops.pipeline import max_rescale_100
 
-        return max_normalize_100(scores, feasible)
+        return max_rescale_100(masked, stats[0])

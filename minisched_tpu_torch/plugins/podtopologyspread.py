@@ -32,6 +32,7 @@ class PodTopologySpread(BatchedPlugin):
     needs_topology = True
     column_local = False  # reads corpus-derived domain counts
     normalize_row_local = True  # max_normalize_100 reads its own row
+    row_stats = ("max",)
 
     def events_to_register(self):
         return [ClusterEvent(GVK.POD, ActionType.ALL),
@@ -76,7 +77,7 @@ class PodTopologySpread(BatchedPlugin):
                                         spread, 0.0)
         return score
 
-    def normalize(self, scores, feasible):
-        from ..ops.pipeline import max_normalize_100
+    def rescale(self, scores, masked, stats):
+        from ..ops.pipeline import max_rescale_100
 
-        return max_normalize_100(scores, feasible)
+        return max_rescale_100(masked, stats[0])

@@ -16,6 +16,7 @@ class TaintToleration(BatchedPlugin):
     name = "TaintToleration"
     column_local = True
     normalize_row_local = True
+    row_stats = ("min",)
     default_weight = 3.0  # upstream default weight
 
     def events_to_register(self):
@@ -33,9 +34,8 @@ class TaintToleration(BatchedPlugin):
             F.EFFECT_PREFER_NO_SCHEDULE)
         return -intolerable
 
-    def normalize(self, scores, feasible):
+    def rescale(self, scores, masked, stats):
         # Upstream: score = 100 × (1 - count/max_count). With negated
         # counts: shift so the best (0 untolerated) = 100.
-        masked = torch.where(feasible, scores, 0.0)
-        worst = masked.min(dim=1, keepdim=True).values  # most negative
+        (worst,) = stats  # the most negative feasible score
         return torch.where(worst < 0, 100.0 * (1.0 - scores / worst), 100.0)

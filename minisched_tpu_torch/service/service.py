@@ -488,8 +488,8 @@ class TenantFusionCoordinator:
       3. Each engine's prepare runs: a fusable batch SUBMITS its staged
          inputs to the mux (an index-armed engine its repaired (C,N)
          slab beside them); any other batch (gangs, nominations, a
-         degraded rung, sampling, explain, spread) dispatches solo
-         inside prepare.
+         degraded rung, sampling, explain, mesh, spread) dispatches
+         solo inside prepare.
       4. ``mux.dispatch()`` runs one fused step per group and hands each
          lane its decision.
       5. Resolve and commit per tenant, in tenant order, each through

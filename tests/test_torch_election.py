@@ -262,6 +262,146 @@ def test_duties_mourn_and_respawn_exactly_once():
     _both(run)
 
 
+def test_own_booting_spawn_is_not_adopted_as_an_orphan():
+    """A steward's own spawn still running past the grace (a replica on
+    a card may boot longer: its CUDA start, sync and prewarm) is in
+    flight, not an orphan: no second spawn while the child lives, one
+    re-adoption once it is gone. The JAX package's steward re-spawns at
+    the grace whatever its child does (two processes for one replica),
+    so this case is the port's alone."""
+    _own_booting_spawn(remote=False)
+
+
+def test_own_booting_spawn_over_the_wire_is_not_adopted():
+    """The same over a RemoteStore, as a replica process runs the
+    duties: the spawn's two CASes on one record (the claim, then the
+    child's pid) must both land, or the steward cannot tell its own
+    booting child and spawns again."""
+    _own_booting_spawn(remote=True)
+
+
+def _own_booting_spawn(remote):
+    import subprocess
+    import sys
+
+    srv = APIServer(ClusterStore()).start() if remote else None
+    store = RemoteStore(srv.address) if remote else ClusterStore()
+    clock = _Clock()
+    spawns = []
+    telection.ensure_roster(store, ["p0", "p1"], clock=clock)
+    elect, duties = _duties(PORT, store, "p0", clock, spawns,
+                            stable_s=5.0, grace_s=5.0)
+    child = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(60)"])
+    try:
+        def spawn_fn(target, incarnation):
+            spawns.append((target, incarnation))
+            if len(spawns) == 1:
+                duties._children[child.pid] = child
+                return child.pid
+            return 4000 + len(spawns)
+
+        duties._spawn_fn = spawn_fn
+        assert elect.tick()
+        _heartbeat(PORT, store, "p0", clock)
+        _heartbeat(PORT, store, "p1", clock)
+        clock.t += 10.0  # p1 stops heartbeating
+        _heartbeat(PORT, store, "p0", clock)
+        duties.tick(2)
+        clock.t += store.get("Incarnation", "incarnation-p1").backoff_s
+        _heartbeat(PORT, store, "p0", clock)
+        elect.tick()
+        duties.tick(2)
+        assert spawns == [("p1", 1)]
+        assert store.get("Incarnation", "incarnation-p1").pid == child.pid
+        for _ in range(4):  # well past the grace, the child booting
+            clock.t += 5.0
+            _heartbeat(PORT, store, "p0", clock)
+            elect.tick()
+            duties.tick(2)
+        assert spawns == [("p1", 1)]
+        assert duties.counters["orphans_adopted"] == 0
+        child.kill()
+        child.wait(timeout=10)
+        clock.t += 0.5
+        _heartbeat(PORT, store, "p0", clock)
+        elect.tick()
+        duties.tick(2)
+        assert spawns == [("p1", 1), ("p1", 1)]  # re-adopted, no bump
+        rec = store.get("Incarnation", "incarnation-p1")
+        assert (rec.deaths, rec.incarnation, rec.respawns) == (1, 1, 2)
+        assert duties.counters["orphans_adopted"] == 1
+    finally:
+        child.kill()
+        child.wait(timeout=10)
+        if srv is not None:
+            srv.shutdown()
+
+
+def test_own_hung_boot_is_killed_then_adopted_once():
+    """A steward's own spawn that neither heartbeats nor exits (a boot
+    hung in its CUDA start, its sync or its prewarm) is left alone until
+    the boot deadline, then SIGKILLed, reaped and re-adopted once: the
+    replica comes back, with one process for it."""
+    import subprocess
+    import sys
+
+    store = ClusterStore()
+    clock = _Clock()
+    spawns = []
+    telection.ensure_roster(store, ["p0", "p1"], clock=clock)
+    elect, duties = _duties(PORT, store, "p0", clock, spawns,
+                            stable_s=5.0, grace_s=5.0)
+    assert duties.boot_s == 30.0
+    child = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(600)"])
+    try:
+        def spawn_fn(target, incarnation):
+            spawns.append((target, incarnation))
+            if len(spawns) == 1:
+                duties._children[child.pid] = child
+                return child.pid
+            return 4000 + len(spawns)
+
+        duties._spawn_fn = spawn_fn
+        assert elect.tick()
+        _heartbeat(PORT, store, "p0", clock)
+        _heartbeat(PORT, store, "p1", clock)
+        clock.t += 10.0  # p1 stops heartbeating
+        _heartbeat(PORT, store, "p0", clock)
+        duties.tick(2)
+        clock.t += store.get("Incarnation", "incarnation-p1").backoff_s
+        _heartbeat(PORT, store, "p0", clock)
+        elect.tick()
+        duties.tick(2)
+        assert spawns == [("p1", 1)]
+        for _ in range(6):  # past the grace, within the boot deadline
+            clock.t += 4.5
+            _heartbeat(PORT, store, "p0", clock)
+            elect.tick()
+            duties.tick(2)
+        assert spawns == [("p1", 1)] and child.poll() is None
+        clock.t += 4.5  # 31.5 s after the spawn: a hung boot
+        _heartbeat(PORT, store, "p0", clock)
+        elect.tick()
+        duties.tick(2)
+        assert child.poll() is not None  # killed and reaped
+        assert spawns == [("p1", 1), ("p1", 1)]  # re-adopted, no bump
+        rec = store.get("Incarnation", "incarnation-p1")
+        assert (rec.deaths, rec.incarnation, rec.respawns) == (1, 1, 2)
+        assert rec.pid == 4002
+        assert duties.counters["orphans_adopted"] == 1
+        for _ in range(4):  # the new spawn booting: no third spawn
+            clock.t += 1.0
+            _heartbeat(PORT, store, "p0", clock)
+            elect.tick()
+            duties.tick(2)
+        assert len(spawns) == 2
+    finally:
+        child.kill()
+        child.wait(timeout=10)
+
+
 def test_steward_handoff_adopts_ledger_exactly_once():
     """Steward A mourns p2 then dies before spawning; successor B adopts
     the ledger: the death is NOT re-censused and the orphaned

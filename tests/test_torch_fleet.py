@@ -479,6 +479,12 @@ def _shard0_run(pkg, fleet):
         assert wait_until(
             lambda: c.service.metrics()["pods_assigned"] >= len(pods),
             timeout=30)
+        # A bulk bind counts pods_bound after the store transaction that
+        # makes the pods visible as bound: wait for its bookkeeping too.
+        assert wait_until(
+            lambda: sum(e.metrics()["pods_bound"]
+                        for e in c.service.schedulers.values())
+            >= len(pods), timeout=30)
         per = {rid: e.metrics() for rid, e in c.service.schedulers.items()}
         return placements(c), c.service.metrics(), per
     finally:

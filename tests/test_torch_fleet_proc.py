@@ -24,6 +24,7 @@ what it spawned in a ``finally``.
 """
 import os
 import re
+import threading
 import time
 import urllib.request
 from types import SimpleNamespace
@@ -403,24 +404,65 @@ def test_replica_tick_prefer_limits_boot_claims():
 
 def test_fleet_crash_with_staged_ring_tranche_drains_bit_identical(
         monkeypatch):
-    """Crash (abandon) the replica that owns every pod while depth-8
-    ring tranches are staged: staged-unresolved slots never commit, the
+    """Crash (abandon) the replica that owns every pod while a depth-8
+    ring tranche is staged: staged-unresolved slots never commit, the
     adopter re-derives the dead replica's backlog from store truth, and
     the final placements are BIT-IDENTICAL to a fault-free fleet run of
-    the port: zero pods lost, zero doubly bound."""
-    monkeypatch.setenv("MINISCHED_LEASE_TTL", "0.4")
+    the port: zero pods lost, zero doubly bound.
+
+    The premises are stated, not left to timing. Tie-breaks follow each
+    engine's own step counter, so the adopter redoes the baseline's
+    decisions only when the owner committed nothing and every run forms
+    the same batches. So the owner's first pop waits until the whole
+    burst is queued (the adopter receives the backlog in one bulk add:
+    both cut it into the same batches); the crash run holds the owner
+    right after its first tranche's dispatch until the kill lands
+    (residency off, so the ring opens on the first batch: with it on,
+    the first batch runs alone to verify the slim fetch and commits
+    before any tranche). The baseline's lease TTL is one a collector
+    pause cannot expire: the baseline must have no takeover at all."""
     names = [f"d{i}" for i in range(800)
              if shard_of(f"default/d{i}", 2) == 0][:40]
     assert len(names) == 40
     cfg = dict(platform="cpu", device_loop=True, loop_depth=8,
-               max_batch_size=8, batch_window_s=0.3, batch_idle_s=0.1,
+               device_resident=False, max_batch_size=8,
+               batch_window_s=0.3, batch_idle_s=0.1,
                backoff_initial_s=0.05, backoff_max_s=0.2)
     profile = Profile(name="loop",
                       plugins=["NodeUnschedulable", "NodeResourcesFit"],
                       plugin_args={"NodeResourcesFit":
                                    {"score_strategy": None}})
 
+    def hold_owner(eng, staged):
+        """The owner's first pop waits for the whole burst; with
+        ``staged`` its first ring dispatch signals it and waits to be
+        abandoned. Returns an event set once the owner's loop is inside
+        the held pop: the pods are created only then, so no pop begun
+        before the patch can cut the burst."""
+        pop, fold = eng._pop, eng._fold_launches
+        first = [True]
+        armed = threading.Event()
+
+        def held_pop():
+            if first[0]:
+                first[0] = False
+                armed.set()
+                assert _wait(lambda: eng.queue.stats()["active"]
+                             >= len(names), 30, step=0.01)
+            return pop()
+
+        def held_fold(before):
+            fold(before)
+            if staged is not None and not staged.is_set():
+                staged.set()
+                assert _wait(lambda: eng._abandoned, 30, step=0.005)
+
+        eng._pop = held_pop
+        eng._fold_launches = held_fold
+        return armed
+
     def run(crash):
+        monkeypatch.setenv("MINISCHED_LEASE_TTL", "0.4" if crash else "60")
         c = Cluster()
         try:
             for i, cpu in enumerate((64000, 48000, 32000)):
@@ -430,11 +472,18 @@ def test_fleet_crash_with_staged_ring_tranche_drains_bit_identical(
             fleet = c.service.fleet
             assert fleet.wait_converged(10.0)
             victim = fleet.owner_of(0)
+            owner = fleet.engines()[victim]
+            staged = threading.Event() if crash else None
+            assert hold_owner(owner, staged).wait(10), \
+                "the owner's loop never reached the held pop"
             c.create_objects([_pod(n, cpu=100 + 13 * i, priority=1000 - i)
                               for i, n in enumerate(names)])
             if crash:
-                time.sleep(0.1)  # mid-burst: tranches staged/in flight
+                assert staged.wait(30), "the owner staged no tranche"
+                assert not [p for p in c.list_pods() if p.spec.node_name], \
+                    "the owner committed before the crash"
                 assert fleet.kill(victim, crash=True)
+                assert owner.metrics()["loop_abandoned_slots"] >= 1
             deadline = time.monotonic() + 120
             placed = {}
             while time.monotonic() < deadline:
@@ -448,6 +497,12 @@ def test_fleet_crash_with_staged_ring_tranche_drains_bit_identical(
             # exactly-once: one store object per pod, each bound once
             assert sorted(p.metadata.name for p in c.list_pods()) \
                 == sorted(names)
+            m = fleet.metrics()
+            if crash:
+                assert m["fleet_takeovers"] >= 1
+            else:
+                assert m["fleet_takeovers"] == 0
+                assert m["lease_losses"] == 0
             return placed
         finally:
             c.shutdown()

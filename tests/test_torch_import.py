@@ -86,7 +86,13 @@ def test_whole_port_imports_with_jax_blocked():
             "minisched_tpu_torch.lifecycle",
             "minisched_tpu_torch.lifecycle.driver",
             "minisched_tpu_torch.lifecycle.generators",
-            "minisched_tpu_torch.lifecycle.invariants"} <= set(mods)
+            "minisched_tpu_torch.lifecycle.invariants",
+            "minisched_tpu_torch.parallel",
+            "minisched_tpu_torch.parallel.mesh",
+            "minisched_tpu_torch.parallel.collectives",
+            "minisched_tpu_torch.parallel.sharded",
+            "minisched_tpu_torch.parallel.sharded_assign",
+            "minisched_tpu_torch.parallel.dcn_dryrun"} <= set(mods)
     for path in ("minisched_tpu_torch/explain/resultstore.py",
                  "minisched_tpu_torch/native/__init__.py",
                  "minisched_tpu_torch/utils/retry.py",
@@ -106,7 +112,8 @@ def test_whole_port_imports_with_jax_blocked():
                  "minisched_tpu_torch/utils/platform_guard.py",
                  "minisched_tpu_torch/lifecycle/driver.py",
                  "minisched_tpu_torch/lifecycle/generators.py",
-                 "minisched_tpu_torch/lifecycle/invariants.py"):
+                 "minisched_tpu_torch/lifecycle/invariants.py",
+                 "minisched_tpu_torch/parallel/dcn_dryrun.py"):
         assert path in PORT_FILES
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'minisched_tpu'):\n"
@@ -173,6 +180,27 @@ def test_fleet_entry_points_run_with_jax_blocked(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.parametrize("platform", ["", "cpu"])
+def test_dcn_worker_bootstrap_imports_only_the_port(platform):
+    """The multi-process dryrun's worker runs from a ``python -c`` string
+    the module walk above cannot see: parsed as the spawner formats it,
+    it imports no jax and nothing of minisched_tpu, and it starts from
+    the port."""
+    from minisched_tpu_torch.parallel import dcn_dryrun
+
+    src = dcn_dryrun._BOOTSTRAP.format(repo=ROOT, port=1234, nprocs=2,
+                                       proc_id=0, platform=platform)
+    names = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "minisched_tpu_torch.parallel.dcn_dryrun" in names
+    for name in names:
+        assert name.split(".")[0] not in FORBIDDEN, name
 
 
 def test_default_platform_is_the_card():

@@ -108,6 +108,41 @@ def test_kernel_matches_plain_on_card(P, N, cpu_free):
                           getattr(got, field).cpu().numpy()), field
 
 
+@pytest.mark.card
+@pytest.mark.parametrize("P,N,C", [(1024, 4096, 128), (384, 2000, 96)])
+def test_shifted_seed_chunk_launches_match_plain_on_card(P, N, C):
+    """The sharded greedy scan's launches (parallel/sharded_assign.py):
+    one kernel launch per chunk of C rows under the seed shifted to the
+    chunk's first row, ``free`` carried on the card, equals
+    greedy_assign_plain on each chunk, and their concatenation equals
+    one plain run over the whole batch."""
+    from minisched_tpu_torch.ops.greedy_kernel import chunk_seed
+
+    _need_card()
+    rng = np.random.default_rng(P + N + C)
+    scores, req, free0 = (torch.from_numpy(a) for a in greedy_case(
+        rng, P, N, R=10, cpu_free=900.0))
+    seed = prng.bits(prng.fold_in(prng.PRNGKey(19), P))
+    whole = S.greedy_assign_plain(scores, req, free0, seed)
+    free_dev, free_cpu = free0.cuda(), free0
+    chosen = []
+    n0 = LAUNCHES["greedy_assign"]
+    for c in range(P // C):
+        rows = slice(c * C, (c + 1) * C)
+        s_c = chunk_seed(seed, c * C)
+        got = greedy_assign_cuda(scores[rows].cuda(), req[rows].cuda(),
+                                 free_dev, s_c)
+        want = S.greedy_assign_plain(scores[rows], req[rows], free_cpu, s_c)
+        for field in ("chosen", "assigned", "free_after"):
+            assert bits_equal(getattr(want, field).numpy(),
+                              getattr(got, field).cpu().numpy()), (c, field)
+        free_dev, free_cpu = got.free_after, want.free_after
+        chosen.append(got.chosen.cpu())
+    assert LAUNCHES["greedy_assign"] == n0 + P // C
+    assert torch.equal(torch.cat(chosen), whole.chosen)
+    assert bits_equal(free_dev.cpu().numpy(), whole.free_after.numpy())
+
+
 def _multiblock_case(kind, rng):
     """Cases that run up to 132 blocks of the kernel (one per SM of an
     H100), with uneven or empty column slices."""

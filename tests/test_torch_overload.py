@@ -472,6 +472,11 @@ def _ladder_walk(pkg):
             time.sleep(0.05)
         assert ov.level == 3, f"never reached brownout ({ov.level})"
         assert sched.metrics()["brownout_active"] == 1
+        # The level moves first; the actuation (the brownout bundle,
+        # then the stretch) lands after it on the scheduling thread.
+        deadline = time.monotonic() + 10
+        while sched._timeline.stretch != 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert sched._timeline.stretch == 2
         pkg.slo.configure("create_bound_p99=1000,queue_wait_p95=1000,"
                           "short=30,long=60")

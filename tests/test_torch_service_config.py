@@ -5,8 +5,9 @@ Mirrors tests/test_service_config.py (profiles and the registry, the
 service's lifecycle, ``config_from_env``) and tests/test_multiprofile.py
 (the reference's eight conversion cases, the Raw/Object args contract,
 two profiles routed by ``spec.scheduler_name`` over one shared cache,
-the flat metrics scrape), leaving out the mesh case, which waits for the
-port's multi-device step. Each check feeds both packages the same
+the flat metrics scrape), with ``MINISCHED_MESH_DEVICES`` building the
+port's mesh (the mesh engine itself: tests/test_torch_parallel.py).
+Each check feeds both packages the same
 profiles, environment and store content: converted profiles, config
 fields and placements must be equal.
 """
@@ -15,6 +16,7 @@ import os
 import time
 
 import pytest
+import torch
 
 from minisched_tpu import config as jconfig
 from minisched_tpu.service import config as jsc
@@ -342,9 +344,8 @@ def _clear_env(monkeypatch):
 
 def _shared_fields(port_cfg, jax_cfg):
     names = [f.name for f in dataclasses.fields(port_cfg)]
-    assert len(names) == 30  # every JAX field but ``mesh``
-    assert set(names) == {f.name for f in dataclasses.fields(jax_cfg)
-                          } - {"mesh"}
+    assert len(names) == 31  # every JAX field, ``mesh`` included
+    assert set(names) == {f.name for f in dataclasses.fields(jax_cfg)}
     return ({n: getattr(port_cfg, n) for n in names},
             {n: getattr(jax_cfg, n) for n in names})
 
@@ -391,17 +392,29 @@ def test_config_from_env_empty_is_typed_error(monkeypatch, var):
     assert issubclass(EmptyEnvError, ValueError)
 
 
-@pytest.mark.parametrize("var,value", [("MINISCHED_MESH_DEVICES", "2")])
-def test_config_from_env_refuses_later_slice_knobs(monkeypatch, var,
-                                                   value):
-    """Knobs of modules the port lacks raise and are never ignored; their
-    off values read as the defaults."""
+@pytest.mark.parametrize("value", ["1", "2", "0"])
+def test_config_from_env_mesh_devices(monkeypatch, value):
+    """``MINISCHED_MESH_DEVICES=n`` builds a mesh over the platform's
+    first n distinct devices (the CPU is one): 1 gives a (1,1) mesh on
+    the platform's device, a count above the visible devices raises
+    naming both counts (never a smaller layout), 0 gives no mesh."""
     _clear_env(monkeypatch)
-    monkeypatch.setenv(var, value)
-    with pytest.raises(ValueError, match=var):
-        config_from_env()
-    monkeypatch.setenv(var, "0" if var == "MINISCHED_MESH_DEVICES" else "")
-    assert config_from_env() == SchedulerConfig()
+    monkeypatch.setenv("MINISCHED_PLATFORM", "cpu")
+    monkeypatch.setenv("MINISCHED_MESH_DEVICES", value)
+    if value == "2":
+        with pytest.raises(ValueError,
+                           match="MINISCHED_MESH_DEVICES=2 but only 1 "):
+            config_from_env()
+        return
+    cfg = config_from_env()
+    if value == "0":
+        assert cfg.mesh is None
+        assert cfg == SchedulerConfig(platform="cpu")
+        return
+    assert cfg.mesh.devices.shape == (1, 1)
+    assert cfg.mesh.device == torch.device("cpu")
+    assert dataclasses.replace(cfg, mesh=None) == SchedulerConfig(
+        platform="cpu")
 
 
 @pytest.mark.parametrize("value", ["", "cc"])
