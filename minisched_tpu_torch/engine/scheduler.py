@@ -59,6 +59,7 @@ the pod in unschedulableQ keyed by those plugins for event-driven revival.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -76,13 +77,14 @@ from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
 from ..faults import FAULTS, FaultWorkerDeath
 from ..fleet.shardmap import shard_of
-from ..obs import Histogram, instant, span
+from ..obs import GC_WATCH, Histogram, instant, span
 from ..obs import bundle as bundle_mod
 from ..obs import slo as slo_mod
 from ..obs.journal import JOURNAL, ProvenanceStore
 from ..obs.journal import note as jnote
 from ..obs.timeseries import TIMELINE, TimelineTracker
 from ..ops import prng
+from ..ops.hostread import thread_reads
 from ..ops._cuda_build import (KERNELS, enable_compile_cache,
                                thread_launches)
 from ..ops.index import (build_index_ops, corrupt_slab, index_eligible,
@@ -252,7 +254,9 @@ class _Batch:
                  "t_fetched", "t_resolved", "commit_t0", "commit_t1",
                  "gap", "h2d0", "fetch0", "h2d1", "fetch1", "scored_rows",
                  "shapes", "step_share", "loop_slot", "index_mode",
-                 "index_packed_dev", "index_free_after", "tenant_ticket")
+                 "index_packed_dev", "index_free_after", "tenant_ticket",
+                 "c0", "c_encode", "c_fetched", "c_resolved", "syncs",
+                 "sync_s", "step_events", "device_span_s")
 
     def __init__(self):
         # Inter-batch gap components (gather/encode/commit) booked since
@@ -260,6 +264,20 @@ class _Batch:
         self.gap: Dict[str, float] = {}
         self.commit_t0 = self.commit_t1 = 0.0
         self.seq = 0
+        # The scheduling thread's CPU clock (time.thread_time) at t0,
+        # t_encode, t_fetched and t_resolved: the prepare and resolve
+        # windows' own CPU beside their wall time.
+        self.c0 = self.c_encode = self.c_fetched = self.c_resolved = 0.0
+        # Blocking reads the step made inside its ops (ops/hostread: the
+        # gang admission's, the caps' any_enforced) and their seconds.
+        self.syncs = 0
+        self.sync_s = 0.0
+        # The (start, end) CUDA timing events around the solo step's
+        # dispatch and pack, read after the decision fetch into
+        # device_span_s (seconds); None off the card and on every other
+        # path.
+        self.step_events = None
+        self.device_span_s = 0.0
         # Transfer ledger at prepare and after resolve: the per-batch
         # series' byte deltas.
         self.h2d0 = self.fetch0 = self.h2d1 = self.fetch1 = 0.0
@@ -319,15 +337,19 @@ class _Batch:
 
 
 def _count_launches(b: _Batch, fn, *args, **kwargs):
-    """Run ``fn`` and book the kernel launches it made into ``b``: the
-    calling thread's deltas, which are this call's alone even while
-    another engine of the process launches."""
+    """Run ``fn`` and book the kernel launches and the blocking reads of
+    the card it made into ``b``: the calling thread's deltas, which are
+    this call's alone even while another engine of the process runs."""
     counts = thread_launches()
     before = dict(counts)
+    reads = thread_reads()
+    n0, s0 = reads
     out = fn(*args, **kwargs)
     for name, n in counts.items():
         if n != before[name]:
             b.launches[name] = b.launches.get(name, 0) + n - before[name]
+    b.syncs += reads[0] - n0
+    b.sync_s += reads[1] - s0
     return out
 
 
@@ -1159,6 +1181,11 @@ class Scheduler:
         # started from (see _prepare_batch).
         self._prep_step0 = 0
         self._batch_seq = 0
+        # CUDA timing events around the solo step (_step_events): on a
+        # card, single-device only; pairs come back to this pool once
+        # read, so it holds at most the pipeline's depth.
+        self._time_steps = self.device.type == "cuda" and self._mesh is None
+        self._step_event_pool: List[tuple] = []
         # Engine supervisor: the degradation ladder and its detectors.
         # Level state is scheduling-thread-only; counters ride _metrics.
         self._sup = _Supervisor(self)
@@ -1345,6 +1372,22 @@ class Scheduler:
             # device time.
             "prepare_s_total": 0.0, "step_s_total": 0.0,
             "resolve_s_total": 0.0, "bind_s_total": 0.0,
+            # The scheduling thread's CPU seconds (time.thread_time) over
+            # the windows of prepare_s_total and resolve_s_total (the
+            # flush's part: the CPU of the thread that ran it). Wall
+            # minus CPU is time the phase did not run: waiting for the
+            # interpreter lock, on a collection, or blocked.
+            "prepare_cpu_s_total": 0.0, "resolve_cpu_s_total": 0.0,
+            # Blocking reads of the card on a batch's path (every
+            # fetch.* span, the step's reads inside its ops) and their
+            # wall seconds, wherever they fall (most in step_s_total;
+            # fetch.carry in prepare_s_total).
+            "host_syncs_total": 0, "fetch_wait_s_total": 0.0,
+            # The solo step's device span (CUDA events from before its
+            # first launch to after the pack, read after the decision
+            # fetch): 0 off the card, on a mesh, and for batches served
+            # another way (fused tenant lanes, index serves, loop slots).
+            "step_device_span_s_total": 0.0,
             # The JAX engine's clocks: encode (after the gang pull and
             # sort, to the dispatch), the step's dispatch alone, commit
             # (the resolve tail after the fetch plus the flush).
@@ -1551,6 +1594,7 @@ class Scheduler:
     def start(self) -> None:
         """Start the informers + this engine's scheduling loop
         (reference scheduler.go:72-75)."""
+        GC_WATCH.install()
         self._shared.ensure_started()
         jnote("engine.start", profile=self.profile, replica=self.replica,
               mode="pipelined" if self.config.pipeline else "sync",
@@ -2160,7 +2204,7 @@ class Scheduler:
         self._sup_count("steps_dispatched")
         self._sup_count("loop_tranches")
         self._sup_count("loop_iterations", n_slots)
-        with span("fetch.loop", slots=n_slots):
+        with self._host_sync("fetch.loop", slots[0].seq, slots=n_slots):
             stack = np.array(packed_dev.cpu().numpy())
         t_fetched = time.perf_counter()
         self._count_fetch(stack.nbytes)
@@ -2285,6 +2329,7 @@ class Scheduler:
         masks, so its real rows decide as at their own bucket."""
         b = _Batch()
         b.t0 = time.perf_counter()
+        b.c0 = time.thread_time()
         self._prep_step0 = self._step_counter
         self._step_counter += 1
         with self._metrics_lock:
@@ -2312,6 +2357,7 @@ class Scheduler:
         b.shapes = (int(P_ring), int(nf.valid.shape[0]),
                     int(af.valid.shape[0]))
         b.t_encode = b.t_dispatch = time.perf_counter()
+        b.c_encode = time.thread_time()
         self._batch_seq += 1
         b.seq = self._batch_seq
         with self._metrics_lock:
@@ -2424,6 +2470,52 @@ class Scheduler:
         with self._metrics_lock:
             self._metrics["fetch_bytes_total"] += nbytes
 
+    @contextlib.contextmanager
+    def _host_sync(self, name: str, seq: int, blocking: bool = True,
+                   **args):
+        """The one seam of a blocking read of the card on a batch's path:
+        the read's ``fetch.*`` span with the batch's ``seq``, one count in
+        ``host_syncs_total`` and its wall seconds in
+        ``fetch_wait_s_total``. ``blocking=False`` keeps the span and
+        counts nothing (the rows are already on the host)."""
+        t0 = time.perf_counter()
+        try:
+            with span(name, seq=seq, **args):
+                yield
+        finally:
+            if blocking:
+                dt = time.perf_counter() - t0
+                with self._metrics_lock:
+                    self._metrics["host_syncs_total"] += 1
+                    self._metrics["fetch_wait_s_total"] += dt
+
+    def _step_events(self) -> Optional[tuple]:
+        """A (start, end) pair of CUDA timing events, the start recorded
+        on the engine's stream before the solo step's first launch; None
+        off the card and on a mesh."""
+        if not self._time_steps:
+            return None
+        pool = self._step_event_pool
+        ev = pool.pop() if pool else (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))
+        ev[0].record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _read_step_events(self, b: _Batch) -> None:
+        """The solo step's device span into ``b.device_span_s`` (the
+        commit folds it into ``step_device_span_s_total`` beside
+        ``step_s_total``), read after the decision fetch, which already
+        waited on the stream past the end event: no further sync. It
+        includes any time the card waited for the host's launches inside
+        the step. The pair goes back to the pool (at most two: the
+        pipeline's depth)."""
+        ev, b.step_events = b.step_events, None
+        if ev is None or not ev[1].query():
+            return
+        b.device_span_s = 1e-3 * ev[0].elapsed_time(ev[1])
+        if len(self._step_event_pool) < 2:
+            self._step_event_pool.append(ev)
+
     def _sup_count(self, key: str, n: int = 1) -> None:
         with self._metrics_lock:
             self._metrics[key] = self._metrics.get(key, 0) + n
@@ -2528,7 +2620,9 @@ class Scheduler:
         self._res_check_tick += 1
         if self._res_check_tick % self.config.resident_check_every:
             return
-        dev = nf.free.cpu().numpy()
+        # Before the batch's seq is assigned: the id it will get.
+        with self._host_sync("fetch.carry", self._batch_seq + 1):
+            dev = nf.free.cpu().numpy()
         self._count_fetch(dev.nbytes)
         self._sup_count("resident_checks")
         if res.mirror_free is not None and not np.array_equal(
@@ -2573,12 +2667,15 @@ class Scheduler:
                           assignment=cfg.assignment), k
 
     def _prepare_batch(self, batch: List[QueuedPodInfo]) -> _Batch:
-        with span("prepare", pods=len(batch)):
-            return self._prepare_batch_impl(batch)
+        with span("prepare", pods=len(batch)) as sp:
+            b = self._prepare_batch_impl(batch)
+            sp.set(seq=b.seq)
+            return b
 
     def _prepare_batch_impl(self, batch: List[QueuedPodInfo]) -> _Batch:
         b = _Batch()
         b.t0 = time.perf_counter()
+        b.c0 = time.thread_time()
         cfg = self.config
         # Supervisor replay anchor: prepares run one after another on the
         # scheduling thread, so at any batch fault this is the step
@@ -2661,6 +2758,7 @@ class Scheduler:
             nf.free.shape[0], len(batch), has_gang or hard_spread)
         step_fn = step_fn or self._step
         b.t_encode = time.perf_counter()
+        b.c_encode = time.thread_time()
         # Fault gate: step dispatch (err → supervised retry down the
         # ladder; stall → lands in the watchdog's step window).
         FAULTS.hit("step")
@@ -2696,13 +2794,18 @@ class Scheduler:
         elif not (self._index is not None and b.sample_k is None
                   and self._index_dispatch(b, batch, eb, eb_dev, nf, af,
                                            key)):
-            with span("step.dispatch"):
+            # The batch's id as this prepare will assign it below.
+            with span("step.dispatch", seq=self._batch_seq + 1):
+                ev = self._step_events()
                 # The host flags spare the step its reads of the card: a
                 # gang-free batch skips the gang admission's, a batch
                 # with no DoNotSchedule slot the caps' any_enforced.
                 d = _count_launches(b, step_fn, eb_dev, nf, af, key,
                                     has_gang=has_gang, hard_spread=dns)
                 b.packed_dev = self._pack(d)
+                if ev is not None:
+                    ev[1].record(torch.cuda.current_stream(self.device))
+                    b.step_events = ev
                 # The spread/anti arbitration inputs are staged only when
                 # the batch carries something the host must arbitrate: a
                 # hard spread slot or a required anti-affinity term. A
@@ -2914,7 +3017,8 @@ class Scheduler:
                     d.feasible_counts, d.feasible_static, d.reject_counts,
                     d.shortlist_repaired)
 
-    def _fetch_decision(self, packed_dev, p: int, f: int, decision=None):
+    def _fetch_decision(self, packed_dev, p: int, f: int, decision=None, *,
+                        seq: int):
         """Block on the ONE packed decision fetch and unpack it into
         writable host arrays: (chosen, assigned, gang_rejected, feasible,
         feasible_static, rejects (F,P), repaired). A tuple is a device-
@@ -2922,7 +3026,7 @@ class Scheduler:
         back and counted: it passes through. The first slim fetch is
         checked against direct reads of ``decision``'s leaves when it is
         given; a mismatch reverts to the i32 layout for good and fetches
-        this batch again through it."""
+        this batch again through it. ``seq``: the batch's id."""
         if type(packed_dev) is tuple:
             return packed_dev
         # Fault gate: decision fetch. ``corrupt`` scribbles the chosen
@@ -2930,7 +3034,7 @@ class Scheduler:
         # must catch.
         act = FAULTS.hit("fetch")
         self._sup_count("decision_fetches")
-        with span("fetch.decision"):
+        with self._host_sync("fetch.decision", seq):
             buf = np.array(packed_dev.cpu().numpy())
         self._count_fetch(buf.nbytes)
         if not self._slim:
@@ -2939,12 +3043,14 @@ class Scheduler:
             out = unpack_decision_slim(buf, p, f)
             if not self._slim_verified and decision is not None:
                 self._slim_verified = True
-                ok = (np.array_equal(out[0], decision.chosen.cpu().numpy())
-                      and np.array_equal(out[1],
-                                         decision.assigned.cpu().numpy())
-                      and np.array_equal(out[3], np.minimum(
-                          decision.feasible_counts.cpu().numpy(),
-                          I16_SAT)))
+                with self._host_sync("fetch.verify", seq):
+                    ok = (np.array_equal(out[0],
+                                         decision.chosen.cpu().numpy())
+                          and np.array_equal(
+                              out[1], decision.assigned.cpu().numpy())
+                          and np.array_equal(out[3], np.minimum(
+                              decision.feasible_counts.cpu().numpy(),
+                              I16_SAT)))
                 if not ok:
                     log.error("slim decision readback failed its "
                               "first-batch check; reverting to the i32 "
@@ -2957,7 +3063,7 @@ class Scheduler:
                             decision.feasible_counts,
                             decision.feasible_static,
                             decision.reject_counts,
-                            decision.shortlist_repaired), p, f)
+                            decision.shortlist_repaired), p, f, seq=seq)
         if act == "corrupt":
             # After the first-batch check: the scribble must reach the
             # resolve sanity detector, not pass for an odd byte order.
@@ -2982,6 +3088,7 @@ class Scheduler:
             self._track = None
             self._prov_batch = None
             b.t_resolved = time.perf_counter()
+            b.c_resolved = time.thread_time()
         with self._metrics_lock:
             b.h2d1 = self._metrics["h2d_bytes_total"]
             b.fetch1 = self._metrics["fetch_bytes_total"]
@@ -3078,8 +3185,9 @@ class Scheduler:
                                 assignment=self.config.assignment,
                                 explain=self.config.explain)
         d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key)
-        ref_chosen = d.chosen.cpu().numpy()
-        ref_assigned = d.assigned.cpu().numpy()
+        with self._host_sync("fetch.check", b.seq):
+            ref_chosen = d.chosen.cpu().numpy()
+            ref_assigned = d.assigned.cpu().numpy()
         self._count_fetch(ref_chosen.nbytes + ref_assigned.nbytes)
         L = len(b.batch)
         if (np.array_equal(chosen[:L], ref_chosen[:L])
@@ -3318,7 +3426,7 @@ class Scheduler:
         # A fused indexed lane arrives with its row of the mux's one
         # stacked fetch already on the host (counted once at the mux).
         fused = isinstance(b.index_packed_dev, np.ndarray)
-        with span("fetch.index"):
+        with self._host_sync("fetch.index", b.seq, blocking=not fused):
             buf = np.array(b.index_packed_dev if fused
                            else b.index_packed_dev.cpu().numpy())
         b.index_packed_dev = None
@@ -3396,8 +3504,9 @@ class Scheduler:
                                 explain=self.config.explain)
         d = _count_launches(b, check_step, b.eb_dev, b.nf, b.af, b.key,
                             has_gang=False, hard_spread=False)
-        ref_c = d.chosen.cpu().numpy()
-        ref_a = d.assigned.cpu().numpy()
+        with self._host_sync("fetch.check", b.seq):
+            ref_c = d.chosen.cpu().numpy()
+            ref_a = d.assigned.cpu().numpy()
         self._count_fetch(ref_c.nbytes + ref_a.nbytes)
         L = len(b.batch)
         if (np.array_equal(chosen[:L], ref_c[:L])
@@ -3457,14 +3566,15 @@ class Scheduler:
         never sample), where the min and scan rows are advisory."""
         n_res = len(rows)
         eb2, P2 = self._slice_eb(b.eb, rows)
-        free2 = b.decision.free_after.cpu().numpy()
+        with self._host_sync("fetch.free", b.seq):
+            free2 = b.decision.free_after.cpu().numpy()
         self._count_fetch(free2.nbytes)
         nf2 = b.nf._replace(free=to_torch(free2, self.device))
         d2 = _count_launches(b, self._step, to_torch(eb2, self.device), nf2,
                              b.af, prng.fold_in(b.key, 0x5E5),
                              has_gang=False, hard_spread=False)
         ch2, as2, gr2, fc2, fs2, rj2, rep2 = self._fetch_decision(
-            self._pack(d2), P2, rejects.shape[0], d2)
+            self._pack(d2), P2, rejects.shape[0], d2, seq=b.seq)
         b.sl_repairs += int(rep2[:n_res].sum())
         chosen[rows] = ch2[:n_res]
         assigned[rows] = as2[:n_res]
@@ -3473,24 +3583,24 @@ class Scheduler:
         feasible_static[rows] = fs2[:n_res]
         rejects[:, rows] = rj2[:, :n_res]
         if sp is not None:
-            sp2 = self._fetch_spread(_pack_spread(d2))
+            sp2 = self._fetch_spread(_pack_spread(d2), b.seq)
             sp_p = b.decision.spread_pre.shape[0]
             if d2.spread_pre.shape[0]:
                 sp[rows] = sp2[:P2][:n_res]
                 sp[sp_p + rows] = sp2[P2:2 * P2][:n_res]
 
-    def _fetch_spread(self, payload) -> Optional[np.ndarray]:
+    def _fetch_spread(self, payload, seq: int) -> Optional[np.ndarray]:
         """Read back a staged (2P+2, G) spread table (None stays None);
         the ``fetch.spread`` span covers the wait."""
         if payload is None:
             return None
-        with span("fetch.spread"):
+        with self._host_sync("fetch.spread", seq):
             sp = np.array(payload.cpu().numpy())
         self._count_fetch(sp.nbytes)
         return sp
 
     def _arbitrate_packed(self, batch, assigned, eb, decision, sp,
-                          dead: Set[int]) -> Set[int]:
+                          dead: Set[int], seq: int) -> Set[int]:
         """arbitrate_spread over the packed (2P+2, G) spread fetch: the
         one place that decodes _pack_spread's row layout (pre | dom | min
         | scan_groups). The (G,D) exact tables stay on the card until a
@@ -3499,8 +3609,9 @@ class Scheduler:
         sp_p = decision.spread_pre.shape[0]
 
         def exact_tables():
-            cd = decision.spread_cdom.cpu().numpy()
-            de = decision.spread_dexist.cpu().numpy()
+            with self._host_sync("fetch.tables", seq):
+                cd = decision.spread_cdom.cpu().numpy()
+                de = decision.spread_dexist.cpu().numpy()
             self._count_fetch(cd.nbytes + de.nbytes)
             return cd, de
 
@@ -3577,7 +3688,9 @@ class Scheduler:
         (chosen, assigned, gang_rejected, feasible, feasible_static,
          rejects, sl_repaired) = self._fetch_decision(
             b.packed_dev, eb.pf.valid.shape[0], len(self.filter_names),
-            b.decision)
+            b.decision, seq=b.seq)
+        if b.step_events is not None:
+            self._read_step_events(b)
         # Supervisor sanity detector, before the residency replay trusts
         # ``chosen``: a corrupted readback must abort the batch, not
         # poison the carried mirror.
@@ -3598,7 +3711,7 @@ class Scheduler:
                 chosen[j] = (int(chosen[j]) + 1) % len(names)
             self._check_shortlist(b, chosen, assigned)
             b.sl_repairs += int(sl_repaired[:L].sum())
-        sp = self._fetch_spread(b.spread_dev)
+        sp = self._fetch_spread(b.spread_dev, b.seq)
         # Provenance path (journal armed only), before any placement
         # stamp.
         self._prov_batch = self._prov_path(b) if JOURNAL.enabled else None
@@ -3617,6 +3730,7 @@ class Scheduler:
                                    gang_rejected, feasible, rejects,
                                    feasible_static, sp)
         b.t_fetched = time.perf_counter()
+        b.c_fetched = time.thread_time()
         # Lifecycle stamp: the device's verdict exists from here on
         # (decided_at feeds the pod_decide / pod_bind histograms).
         now_mono = time.monotonic()
@@ -3674,7 +3788,8 @@ class Scheduler:
         repair_rows: List[int] = []
         if self._spread_enabled and sp is not None:
             s_revoked = self._arbitrate_packed(batch, assigned, eb,
-                                               b.decision, sp, dead=revoked)
+                                               b.decision, sp, dead=revoked,
+                                               seq=b.seq)
             self._count_revoked(batch, eb, sp, s_revoked)
             for i in sorted(s_revoked):
                 qpi = batch[i]
@@ -3840,7 +3955,8 @@ class Scheduler:
             if sp is not None:
                 re_rev = self._arbitrate_packed(batch, assigned, eb,
                                                 b.decision, sp,
-                                                dead=revoked | g_set)
+                                                dead=revoked | g_set,
+                                                seq=b.seq)
                 self._count_revoked(batch, eb, sp, re_rev)
                 for i in sorted(re_rev):
                     qpi = batch[i]
@@ -3883,7 +3999,7 @@ class Scheduler:
             # as it stands once this batch's survivors and repair
             # placements are debited (free_after would still debit pods
             # the arbitration revoked and miss the repair's placements).
-            won = self._try_preempt(batch, preempt_rows, eb)
+            won = self._try_preempt(batch, preempt_rows, eb, b.seq)
             for i in preempt_rows:
                 if i not in won:
                     self._handle_failure(
@@ -3899,7 +4015,7 @@ class Scheduler:
             # per-pod binding goroutine (minisched.go:96-112).
             for q, _n in to_bind:
                 self._note_detached(q.pod.key)
-            self._binder.submit(self._bind_many, to_bind)
+            self._binder.submit(self._bind_many, to_bind, b.seq)
         b.n_assigned = (int(assigned[:L].sum())
                         - sum(1 for i in revoked if assigned[i])
                         - n_ghost + n_repaired)
@@ -3950,13 +4066,14 @@ class Scheduler:
                 self._hard_spread(eb2, len(rows)))
             (chosen2, assigned2, _gr2, _fc2, _fs2, _rj2, rep2) = (
                 self._fetch_decision(self._pack(d2), eb2.pf.valid.shape[0],
-                                     d2.reject_counts.shape[0], d2))
+                                     d2.reject_counts.shape[0], d2,
+                                     seq=b.seq))
             b.sl_repairs += int(rep2[:len(rows)].sum())
             n_r = len(rows)
             sub = [batch[i] for i in rows]
-            sp2 = self._fetch_spread(_pack_spread(d2))
+            sp2 = self._fetch_spread(_pack_spread(d2), b.seq)
             rev2 = self._arbitrate_packed(sub, assigned2, eb2, d2, sp2,
-                                          dead=set())
+                                          dead=set(), seq=b.seq)
             items, req_rows, next_rows = [], [], []
             iter_incs: List[int] = []
             iter_rows: List[int] = []
@@ -4019,7 +4136,8 @@ class Scheduler:
                 # are unassumed and re-loop.
                 re3 = self._arbitrate_packed(
                     sub, assigned2, eb2, d2, sp2,
-                    dead=rev2 | set(ghost_js)) - rev2 - set(ghost_js)
+                    dead=rev2 | set(ghost_js),
+                    seq=b.seq) - rev2 - set(ghost_js)
                 if re3:
                     pair_keys = ({p[0].pod.key for p in iter_bind}
                                  | {p[0].pod.key for p in out_bind})
@@ -4068,7 +4186,7 @@ class Scheduler:
         eb2, _p2 = self._slice_eb(eb, rows)
         return to_torch(eb2, self.device), nf, af, names
 
-    def _try_preempt(self, batch, rows, eb) -> Set[int]:
+    def _try_preempt(self, batch, rows, eb, seq: int) -> Set[int]:
         """Batched candidate search (ops/preempt.py) on a fresh snapshot,
         then the host-side minimal victim commit, for terminally
         unschedulable pods. Returns the rows queued behind a preemption
@@ -4082,7 +4200,9 @@ class Scheduler:
         eb2, nf, af, names = self._preempt_inputs(eb, rows)
         with span("preempt.op", pods=len(rows)):
             # The op queues its work; the pass reads the card once.
-            chosen, ok, _cnt, spread_evict = fetch_preempt(op(eb2, nf, af))
+            outs = op(eb2, nf, af)
+            with self._host_sync("fetch.preempt", seq):
+                chosen, ok, _cnt, spread_evict = fetch_preempt(outs)
 
         won: Set[int] = set()
         taken: Set[str] = set()  # victims already evicted this cycle
@@ -4436,9 +4556,10 @@ class Scheduler:
         queue lock hold, one event payload) and fold the metrics. Runs on
         the commit worker in pipelined mode when the batch has failures."""
         t_commit = b.commit_t0 = time.perf_counter()
+        c_commit = time.thread_time()
         if b.failures:
             try:
-                with span("commit.flush", pods=len(b.failures)):
+                with span("commit.flush", pods=len(b.failures), seq=b.seq):
                     self._flush_failures(b.failures)
             except FaultWorkerDeath:
                 # A simulated worker death escapes every guard, so the
@@ -4451,6 +4572,7 @@ class Scheduler:
                 for qpi, _plugins, _msg, _retry in b.failures:
                     self.queue.requeue_backoff(qpi)
         t_end = b.commit_t1 = time.perf_counter()
+        c_end = time.thread_time()
         # The step window: dispatch to fetch, less the next batch's
         # gather that ran between them in pipelined mode; that
         # turnaround is the fetch slot of the gap, booked here where the
@@ -4472,10 +4594,16 @@ class Scheduler:
             m["pods_assigned"] += b.n_assigned
             m["pods_failed"] += len(b.batch) - b.n_assigned
             m["prepare_s_total"] += b.t_encode - b.t0
+            m["prepare_cpu_s_total"] += b.c_encode - b.c0
             m["encode_s_total"] += b.t_encode - b.t_enc0
             m["step_s_total"] += step_s
             m["step_dispatch_s_total"] += b.t_dispatch - b.t_encode
             m["resolve_s_total"] += commit_s
+            m["resolve_cpu_s_total"] += ((b.c_resolved - b.c_fetched)
+                                         + (c_end - c_commit))
+            m["host_syncs_total"] += b.syncs
+            m["fetch_wait_s_total"] += b.sync_s
+            m["step_device_span_s_total"] += b.device_span_s
             m["commit_s_total"] += commit_s
             m["gap_s_total"] += gather_gap
             m["gap_fetch_s_total"] += gather_gap
@@ -4648,6 +4776,9 @@ class Scheduler:
         # with MINISCHED_FAULTS unset, proving a run was fault-free).
         for gate, n in FAULTS.counts().items():
             out[f"fault_fires_{gate}"] = n
+        # The interpreter's collections and pause seconds (obs.GC_WATCH):
+        # process-wide, the same numbers in every engine of the process.
+        out.update(GC_WATCH.counters())
         return out
 
     # ---- timeline, SLO sentinel, overload ladder ------------------------
@@ -5030,16 +5161,17 @@ class Scheduler:
                         **rec, "outcome": "bound",
                         "bound_unix": round(now_w, 3)})
 
-    def _bind_many(self, items: List[tuple]) -> None:
+    def _bind_many(self, items: List[tuple], seq: int) -> None:
         """Bulk binding commit with failure containment: an unhandled
         exception on the binder pool would lose the whole tranche, so any
-        failure reconciles per pod against store truth instead."""
+        failure reconciles per pod against store truth instead. ``seq``:
+        the id of the batch whose resolve submitted the tranche."""
         live = items
         try:
             live = self._fence_binds(items)
             if live:
                 FAULTS.hit("bind")  # fault gate: bulk binding task
-                with span("bind.bulk", pods=len(live)):
+                with span("bind.bulk", pods=len(live), seq=seq):
                     self._bind_many_impl(live)
         except Exception:
             log.exception("bulk bind task failed; reconciling %d "

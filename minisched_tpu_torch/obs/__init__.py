@@ -17,23 +17,37 @@ Arming:
                              (default 65536; the ring wraps, keeping the
                              newest events, and reports what it dropped)
 
-Seam catalog (the span names the engine emits):
+Seam catalog (the span names the engine emits; ``seq`` = the batch's
+id, ``engine._batch_seq`` as the batch's prepare assigns it):
 
     queue.pop        batch gather (engine/queue.py; the gather worker's
                      lane in pipelined mode)
-    prepare          encode → snapshot → dispatch (scheduling thread)
+    prepare          encode → snapshot → dispatch (scheduling thread);
+                     ``seq``
     encode.pods      pod-feature encode
     h2d.dyn          residency attach corrections
-    step.dispatch    step dispatch + decision pack
-    resolve          fetch → residual → assume → bind submit
-    fetch.decision / fetch.spread
-                     blocking device readbacks (+ unpack)
+    step.dispatch    step dispatch + decision pack; ``seq``
+    resolve          fetch → residual → assume → bind submit; ``seq``
+    fetch.decision / fetch.spread / fetch.index / fetch.loop /
+    fetch.carry / fetch.free / fetch.tables / fetch.check /
+    fetch.verify / fetch.preempt
+                     blocking device readbacks (+ unpack), each counted
+                     in the engine's ``host_syncs_total`` and timed in
+                     ``fetch_wait_s_total``; ``seq`` (a loop tranche's
+                     first slot's)
     gather.wait      the scheduling thread waiting on the next pop
     commit / commit.flush
-                     metrics fold / bulk failure flush (commit worker)
+                     metrics fold / bulk failure flush (commit worker);
+                     ``seq``
     commit.wait      the scheduling thread waiting on the commit worker
     bind.bulk / bind.pod
-                     binder-pool store commits
+                     binder-pool store commits (``bind.bulk``: ``seq``)
+    gc               a generation-1 or -2 collection of the interpreter's
+                     garbage collector, on the thread that ran it (every
+                     thread stops meanwhile); args ``generation``,
+                     ``collected``. Written by :data:`GC_WATCH`'s
+                     callback straight into that thread's ring; gen-0
+                     collections are only counted
 
 Instants: ``fault.<gate>`` (every fault-gate fire, faults.py),
 ``supervisor.escalate`` / ``supervisor.recover`` /
@@ -43,10 +57,21 @@ Instants: ``fault.<gate>`` (every fault-gate fire, faults.py),
 ``overload.recover`` / ``overload.tune`` — so a faulted or overloaded
 run's timeline shows *where* the ladders moved.
 
-While the tracer is on, every span also enters a
+While the tracer is on, every span (but ``gc``) also enters a
 ``torch.profiler.record_function`` of the same name, so a
 ``torch.profiler`` capture (and, on a card, its NVTX ranges) lines up
-with the engine spans by name.
+with the engine spans by name. By time, too: :meth:`TraceRecorder.
+export_chrome` writes the wall clock read beside the monotonic anchor
+at ``configure`` as ``otherData.wall_t0_ns``, so an event's wall time
+is ``wall_t0_ns + 1000 * ts``, on the clock of a profiler trace's
+``baseTimeNanoseconds``.
+
+Collector watch: :data:`GC_WATCH` (installed once per process by the
+first engine that starts; always on) counts the interpreter's
+collections by generation and their pause seconds, process-wide, for
+the engines' ``metrics()`` (``gc_collections_gen0/1/2``,
+``gc_pause_s_total``); armed, the gen-1 and gen-2 collections are also
+``gc`` spans.
 
 The tracer never touches decisions, PRNG state, or any engine input:
 decisions are bit-identical with the recorder on or off.
@@ -57,6 +82,7 @@ Histograms: :class:`Histogram` is a fixed-bucket latency histogram
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import threading
@@ -66,7 +92,7 @@ from typing import Dict, List, Optional
 
 __all__ = ["TRACE", "TraceRecorder", "Histogram", "LATENCY_BUCKETS",
            "configure", "span", "instant", "traced", "hist_quantile",
-           "ring_tail"]
+           "ring_tail", "GC_WATCH", "GcWatch"]
 
 
 def ring_tail(buf: list, n: int, cap: int) -> list:
@@ -171,11 +197,15 @@ class _Ring:
         self.epoch = epoch
 
     def append(self, ev: tuple) -> None:
-        if self.n < self.cap:
+        # The slot is claimed before it is written: a collection that
+        # starts after the claim (GcWatch's callback appends a ``gc``
+        # span on this thread) takes the next slot, never this one.
+        n = self.n
+        self.n = n + 1
+        if n < self.cap:
             self.buf.append(ev)
         else:
-            self.buf[self.n % self.cap] = ev
-        self.n += 1
+            self.buf[n % self.cap] = ev
 
 
 class TraceRecorder:
@@ -198,8 +228,13 @@ class TraceRecorder:
             self._tid_seq = 0
             self.buf_cap = max(16, int(buf))
             # t0 anchors exported timestamps near zero (Perfetto handles
-            # absolute ns fine; small numbers are just friendlier).
+            # absolute ns fine; small numbers are just friendlier); the
+            # wall clock read beside it places the export on the wall.
             self._t0 = time.monotonic_ns()
+            self.wall_t0_ns = time.time_ns()
+            # gc spans a collection could not record (its thread had no
+            # ring and the registry lock was taken).
+            self._gc_unrecorded = 0
             self._ann = None
             if enabled:
                 # Mirror spans into torch.profiler so a profiler capture
@@ -216,19 +251,37 @@ class TraceRecorder:
 
     # ---- recording ------------------------------------------------------
 
-    def _ring(self) -> _Ring:
+    def _ring(self, block: bool = True) -> Optional[_Ring]:
+        """The calling thread's ring of the current configuration, made
+        on first use. ``block=False`` (a collector callback, which may
+        run while this very thread holds the registry lock) returns None
+        where making it would wait for the lock."""
         r = getattr(self._local, "ring", None)
         if r is None or r.epoch != self._epoch:
-            with self._lock:
+            if not self._lock.acquire(blocking=block):
+                return None
+            try:
                 self._tid_seq += 1
                 r = _Ring(self.buf_cap, self._epoch, self._tid_seq)
                 if r.epoch == self._epoch:
                     self._rings.append(r)
+            finally:
+                self._lock.release()
             self._local.ring = r
         return r
 
     def _append(self, ev: tuple) -> None:
         self._ring().append(ev)
+
+    def _append_gc(self, t0_ns: int, dur_ns: int, args: dict) -> None:
+        """A ``gc`` span from the collector callback: one tuple into the
+        collecting thread's ring, no profiler annotation, and never a
+        wait on the registry lock."""
+        r = self._ring(block=False)
+        if r is None:
+            self._gc_unrecorded += 1
+            return
+        r.append(("X", "gc", t0_ns, dur_ns, args))
 
     def instant(self, name: str, args: Optional[dict] = None) -> None:
         if self.enabled:
@@ -252,17 +305,20 @@ class TraceRecorder:
         return out
 
     def dropped(self) -> int:
-        """Events the rings have overwritten (total appended − retained)."""
+        """Events the rings have overwritten (total appended − retained),
+        and ``gc`` spans that found no ring."""
         with self._lock:
-            return sum(max(0, r.n - len(r.buf)) for r in self._rings)
+            return (sum(max(0, r.n - len(r.buf)) for r in self._rings)
+                    + self._gc_unrecorded)
 
     def export_chrome(self, path: str) -> str:
         """Write the ring contents as Chrome trace-event JSON (the
         ``traceEvents`` object form; loads in Perfetto / chrome://tracing
         / TensorBoard's trace viewer). Returns ``path``. Timestamps are
-        microseconds (the format's unit); thread-name metadata events
-        carry the real thread names so the engine's scheduling-loop /
-        gather / commit / binder lanes are labeled."""
+        microseconds (the format's unit) after the ``configure`` anchor,
+        whose wall clock is ``otherData.wall_t0_ns``; thread-name
+        metadata events carry the real thread names so the engine's
+        scheduling-loop / gather / commit / binder lanes are labeled."""
         pid = os.getpid()
         evs = self.events()
         out = []
@@ -288,7 +344,8 @@ class TraceRecorder:
             out.append(rec)
         doc = {"traceEvents": out, "displayTimeUnit": "ms",
                "otherData": {"producer": "minisched_tpu_torch flight recorder",
-                             "dropped_events": self.dropped()}}
+                             "dropped_events": self.dropped(),
+                             "wall_t0_ns": self.wall_t0_ns}}
         with open(path, "w", encoding="utf-8") as f:
             json.dump(doc, f, separators=(",", ":"))
         return path
@@ -348,6 +405,63 @@ def traced(name: str):
         return wrapper
 
     return deco
+
+
+# ---------------------------------------------------------------------------
+# The interpreter's collector, watched from inside
+# ---------------------------------------------------------------------------
+
+
+class GcWatch:
+    """One ``gc.callbacks`` hook for the whole process: each collection's
+    count by generation and its pause (``time.perf_counter``, from the
+    callback's "start" to its "stop"), and, with the recorder armed, a
+    ``gc`` span for each gen-1 and gen-2 collection. Process-wide: every
+    engine of a process reports the same numbers. Collections never
+    overlap (the interpreter runs one at a time), so the callback keeps
+    its state in plain attributes."""
+
+    def __init__(self):
+        self.collections = [0, 0, 0]
+        self.pause_s = 0.0
+        self._t = 0.0
+        self._t_ns = 0
+        self._lock = threading.Lock()
+
+    def install(self) -> None:
+        """Hook the collector (once; later calls do nothing)."""
+        with self._lock:
+            if self._cb not in gc.callbacks:
+                gc.callbacks.append(self._cb)
+
+    def uninstall(self) -> None:
+        with self._lock:
+            if self._cb in gc.callbacks:
+                gc.callbacks.remove(self._cb)
+
+    def _cb(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t_ns = time.monotonic_ns() if TRACE.enabled else 0
+            self._t = time.perf_counter()
+            return
+        dt = time.perf_counter() - self._t
+        g = info["generation"]
+        self.collections[g] += 1
+        self.pause_s += dt
+        if g and self._t_ns and TRACE.enabled:
+            TRACE._append_gc(self._t_ns, time.monotonic_ns() - self._t_ns,
+                             {"generation": g, "collected": info["collected"]})
+
+    def counters(self) -> Dict[str, float]:
+        """The process's collections by generation and their pause
+        seconds since the hook went in."""
+        c = self.collections
+        return {"gc_collections_gen0": c[0], "gc_collections_gen1": c[1],
+                "gc_collections_gen2": c[2], "gc_pause_s_total": self.pause_s}
+
+
+#: The process-wide collector watch (the engines install it at start).
+GC_WATCH = GcWatch()
 
 
 # ---------------------------------------------------------------------------

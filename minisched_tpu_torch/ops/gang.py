@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .hostread import host_read
 from .select import NEG, AssignResult, greedy_assign
 
 _I32_MAX = 2 ** 31 - 1
@@ -75,7 +76,8 @@ def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
     first attempt with every group admitted, without reading the card:
     with no grouped pod no group can fail, which is what the loop would
     have read. Batches with gangs keep the host loop, which reads the
-    card once per attempt."""
+    card once per attempt (each read through ``hostread.host_read``, so
+    the engine counts it)."""
     P = group_ids.shape[0]
     G = group_min.shape[0]
     device = group_ids.device
@@ -102,23 +104,25 @@ def gang_admission(attempt_fn: Callable[[torch.Tensor], AssignResult],
         include_self=True)
     # Phase 1: evict the lowest-priority failing group until every
     # admitted group meets quorum.
-    while bool(failing.any()):
-        victim = int(torch.argmax(torch.where(failing, first_row, -1)))
+    while host_read(bool, failing.any()):
+        victim = host_read(int, torch.argmax(torch.where(failing, first_row,
+                                                         -1)))
         ok = ok.clone()
         ok[victim] = False
         res, failing = attempt(ok)
 
     # Phase 2: re-admit evicted groups in priority order (stable sort,
     # as jnp.argsort).
-    if not bool(ok.all()):
-        order = torch.sort(first_row, stable=True).indices.tolist()
+    if not host_read(bool, ok.all()):
+        order = host_read(torch.Tensor.tolist,
+                          torch.sort(first_row, stable=True).indices)
         for g in order:
-            if bool(ok[g]):
+            if host_read(bool, ok[g]):
                 continue
             ok2 = ok.clone()
             ok2[g] = True
             res2, failing2 = attempt(ok2)
-            if not bool(failing2.any()):
+            if not host_read(bool, failing2.any()):
                 ok, res = ok2, res2
 
     return _result(res, grouped, gidx, ok)

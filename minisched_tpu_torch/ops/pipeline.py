@@ -42,6 +42,7 @@ from . import prng
 from .auction import auction_assign
 from .bid_select import auction_assign_shortlist
 from .gang import gang_assign
+from .hostread import host_read
 from .select import (NEG, fma_f32, greedy_assign, greedy_assign_shortlist,
                      order_key)
 from .topology import group_topology_state
@@ -496,7 +497,8 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
 
             caps = build_domain_caps(pf, eb.gf, nf, ctx["counts_dom"],
                                      ctx["dom_exists"])
-            enforced = bool(caps.any_enforced)  # the one read of the card
+            # The one read of the card.
+            enforced = host_read(bool, caps.any_enforced)
             if enforced:
                 ctx["spread_scan_groups"] = caps.scan_groups
 

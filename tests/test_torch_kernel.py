@@ -2,8 +2,8 @@
 scan, port insertion, caps scan, the dense auction and the bid-shortlist
 auction; the selection and scan also in their tenant-lane form) against
 their plain PyTorch versions,
-the step's host syncs, and the preemption op (PyTorch ops) cuda = cpu
-on the card.
+the step's host syncs, the engine's step device span from CUDA events,
+and the preemption op (PyTorch ops) cuda = cpu on the card.
 
 This file imports neither jax nor minisched_tpu, so it also runs on a
 machine that has only the port's dependencies. The card tests skip
@@ -566,6 +566,22 @@ def test_step_makes_no_host_sync_on_card(profile, sample):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(d.assigned.sum()) == 1024
+
+
+@pytest.mark.card
+def test_step_device_span_on_card():
+    """A short bench-50k burst through the engine on the card: the CUDA
+    events around each solo step give a device span inside the host's
+    step window, and every batch made at least its decision fetch."""
+    _need_card()
+    import chip_smoke
+    from minisched_tpu_torch.config import SchedulerConfig
+
+    nodes, pods = chip_smoke.bench_workload(50_000, 2048)
+    m = chip_smoke.drive(SchedulerConfig(), nodes, pods, "device span",
+                         with_pv_controller=False)[0]
+    assert 0.0 < m["step_device_span_s_total"] <= m["step_s_total"]
+    assert m["host_syncs_total"] >= m["batches"] > 0
 
 
 @pytest.mark.card

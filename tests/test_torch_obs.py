@@ -12,14 +12,19 @@ provenance (node, batch, step and the path that served it) equal the
 JAX engine's; the ``admission`` gate force-sheds an ingress transaction
 and loses nothing; a quarantine freezes a bundle whose manifest lists
 every file, which tools/postmortem.py accepts; the flight recorder
-holds the engine's spans, and ``trace_next_batch`` writes a
-``torch.profiler`` trace of one batch. Wall-clock fields are checked
-for type and sign only.
+holds the engine's spans, each batch's carrying its id, and the
+collector's pauses, and ``trace_next_batch`` writes a ``torch.profiler``
+trace of one batch; the port-only counters (thread CPU per phase,
+blocking reads, the step's device span, the collector watch) keep
+their relations, and the benchmark's readers of them divide per batch.
+Wall-clock fields are checked for type and sign only.
 """
+import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -35,6 +40,23 @@ HISTS = ("pod_queue_wait_s", "pod_decide_s", "pod_bind_s",
          "pod_create_to_bound_s")
 SPANS = ("queue.pop", "encode.pods", "step.dispatch", "fetch.decision",
          "bind.bulk", "prepare", "resolve", "commit")
+# The spans of one batch, each carrying the batch's id as ``seq``.
+SEQ_SPANS = ("prepare", "step.dispatch", "fetch.decision", "resolve",
+             "commit", "bind.bulk")
+# The port's metrics() keys the JAX engine does not report.
+PORT_ONLY_KEYS = frozenset(
+    ["bind_s_total", "prepare_s_total", "resolve_s_total",
+     "prepare_cpu_s_total", "resolve_cpu_s_total", "host_syncs_total",
+     "fetch_wait_s_total", "step_device_span_s_total",
+     "gc_collections_gen0", "gc_collections_gen1", "gc_collections_gen2",
+     "gc_pause_s_total", "hard_spread_batches", "sampled_batches",
+     "spread_repaired", "spread_revoked", "spread_revoked_enforced",
+     "kernel_launches"]
+    + [f"kernel_launches_{k}" for k in (
+        "auction", "bid_auction", "caps_scan", "greedy_assign",
+        "insert_ports", "shortlist_scan", "shortlist_select")])
+# Two CPU clocks read against two wall clocks: their grains.
+CLOCK_GRAIN_S = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -87,6 +109,7 @@ def test_metrics_surface_gap_partition_and_counters(pipeline):
     assert LATER_SLICE_KEYS <= set(jm)
     assert not LATER_SLICE_KEYS & set(m)
     assert set(jm) - set(m) == LATER_SLICE_KEYS
+    assert set(m) - set(jm) == PORT_ONLY_KEYS
     _check_partition(m)
     _check_partition(jm)
     for k in ("batches", "pods_bound", "steps_dispatched",
@@ -117,6 +140,15 @@ def test_metrics_surface_gap_partition_and_counters(pipeline):
     for k, v in m.items():
         if k.startswith("slo_burning_"):
             assert v == jm[k] == 0, k
+    # Each phase's CPU against its wall time over the same windows; the
+    # blocking reads (every batch fetches its decision) inside the step
+    # window; no CUDA events on the CPU.
+    for phase in ("prepare", "resolve"):
+        cpu, wall = m[f"{phase}_cpu_s_total"], m[f"{phase}_s_total"]
+        assert 0.0 < cpu <= wall + CLOCK_GRAIN_S * m["batches"], phase
+    assert m["host_syncs_total"] >= m["batches"]
+    assert 0.0 < m["fetch_wait_s_total"] <= m["step_s_total"]
+    assert m["step_device_span_s_total"] == 0.0
 
 
 def test_gap_clock_covers_the_commit_wait():
@@ -269,28 +301,174 @@ def test_quarantine_bundle_is_complete_and_postmortem_accepts_it(tmp_path):
     assert "[fault.step]" in r.stdout
 
 
-def test_flight_recorder_spans_and_dump(tmp_path):
-    """The armed recorder holds the engine's spans on the port; an
-    unarmed dump is valid and empty, as on the JAX engine."""
+def test_flight_recorder_spans_and_dump(tmp_path, monkeypatch):
+    """The armed recorder holds the engine's spans on the port, each of
+    a batch's spans with the batch's id (every id from 1 to the batch
+    count, once per span name), a forced collection as a ``gc`` span,
+    and its wall anchor; an unarmed dump with the collector watch off
+    is valid and empty, as on the JAX engine, and the placements are
+    the armed run's."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import trace_view
 
     seen = {}
 
     def dump(sched):
+        gc.collect()
         seen["path"] = sched.dump_trace(str(tmp_path / "trace.json"))
 
     PORT.obs.configure(True)
-    bench_burst(PORT, dict(max_batch_size=64, seed=1), white_box=dump)
+    armed, m = bench_burst(PORT, dict(max_batch_size=64, seed=1),
+                           white_box=dump)
     doc = json.load(open(seen["path"]))
     trace_view.validate(doc)
     names = {e["name"] for e in doc["traceEvents"]}
-    assert set(SPANS) <= names, set(SPANS) - names
+    assert set(SPANS) | {"gc"} <= names, set(SPANS) - names
+    assert any(e["name"] == "gc" and e["args"]["generation"] == 2
+               for e in doc["traceEvents"])
+    assert doc["otherData"]["wall_t0_ns"] > 0
+    for name in SEQ_SPANS:
+        seqs = [e["args"]["seq"] for e in doc["traceEvents"]
+                if e.get("ph") == "X" and e["name"] == name]
+        assert sorted(seqs) == list(range(1, m["batches"] + 1)), name
     PORT.obs.configure(False)
-    bench_burst(PORT, dict(max_batch_size=64, seed=1), white_box=dump)
+    PORT.obs.GC_WATCH.uninstall()
+    monkeypatch.setattr(PORT.obs.GC_WATCH, "install", lambda: None)
+    plain, _ = bench_burst(PORT, dict(max_batch_size=64, seed=1),
+                           white_box=dump)
     doc = json.load(open(seen["path"]))
     trace_view.validate(doc)
     assert not [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    assert plain == armed
+
+
+@pytest.mark.parametrize("armed", [True, False])
+def test_collector_watch_counts_and_traces(armed, tmp_path):
+    """A forced collection raises the gen-2 count and the pause seconds;
+    armed, it is a ``gc`` span of generation 2 on the collecting thread
+    in the recorder's Chrome document; disarmed, the document holds no
+    span."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import trace_view
+
+    watch = PORT.obs.GC_WATCH
+    watch.install()
+    PORT.obs.configure(armed)
+    before = watch.counters()
+    gc.collect()
+    after = watch.counters()
+    assert after["gc_collections_gen2"] == before["gc_collections_gen2"] + 1
+    assert after["gc_pause_s_total"] > before["gc_pause_s_total"]
+    doc = json.load(open(PORT.obs.TRACE.export_chrome(
+        str(tmp_path / "gc.json"))))
+    trace_view.validate(doc)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    if armed:
+        # An automatic gen-1 collection may fall in the window too.
+        full = [e for e in spans if e["name"] == "gc"
+                and e["args"]["generation"] == 2]
+        assert len(full) == 1
+        lanes = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "M"}
+        gc_tid = full[0]["tid"]
+        assert lanes[gc_tid] == threading.current_thread().name
+    else:
+        assert not spans
+
+
+def test_collector_span_never_waits_for_the_registry_lock():
+    """A collection on a thread with no ring while that thread holds the
+    recorder's registry lock (a collection can start inside the
+    recorder): the callback records no span, counts it as dropped, and
+    does not deadlock."""
+    watch = PORT.obs.GC_WATCH
+    watch.install()
+    rec = PORT.obs.configure(True)
+    done = []
+
+    def collect_under_the_lock():
+        with rec._lock:
+            gc.collect()
+        done.append(True)
+
+    t = threading.Thread(target=collect_under_the_lock)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive() and done
+    assert rec.dropped() >= 1
+    assert not [e for e in rec.events() if e["name"] == "gc"]
+
+
+def test_recorder_keeps_every_span_under_collections():
+    """Threads (more than cores) open spans while allocating enough for
+    the collector to run gen-1 and gen-2 collections in their midst,
+    with a short switch interval: every ring holds each span and each
+    ``gc`` span it was handed (no slot lost to a collection's append),
+    and the ``gc`` spans recorded or counted as dropped match the
+    collections the watch saw."""
+    watch = PORT.obs.GC_WATCH
+    watch.install()
+    rec = PORT.obs.configure(True)
+    before = watch.counters()
+    n_threads, n_spans = 2 * (os.cpu_count() or 4), 2000
+    thresholds = gc.get_threshold()
+    interval = sys.getswitchinterval()
+
+    def work():
+        junk = []
+        for i in range(n_spans):
+            with PORT.obs.span("stress", i=i):
+                junk.append([{} for _ in range(8)])
+            if len(junk) > 200:
+                junk.clear()
+
+    gc.set_threshold(50, 2, 2)
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        gc.set_threshold(*thresholds)
+    gc.disable()   # the snapshot below sees no further collection
+    try:
+        after = watch.counters()
+        with rec._lock:
+            rings = [(r.n, list(r.buf)) for r in rec._rings]
+        unrecorded = rec._gc_unrecorded
+    finally:
+        gc.enable()
+    assert all(n == len(buf) for n, buf in rings)
+    evs = [e for _n, buf in rings for e in buf]
+    assert sum(e[1] == "stress" for e in evs) == n_threads * n_spans
+    collected = sum(after[f"gc_collections_gen{g}"]
+                    - before[f"gc_collections_gen{g}"] for g in (1, 2))
+    assert collected > 0
+    assert sum(e[1] == "gc" for e in evs) + unrecorded == collected
+
+
+@pytest.mark.parametrize("metric,counter,per_batch", [
+    ("prepare_cpu_ms.backlog", "prepare_cpu_s_total", 250.0),
+    ("resolve_cpu_ms.backlog", "resolve_cpu_s_total", 250.0),
+    ("fetch_wait_ms.backlog", "fetch_wait_s_total", 250.0),
+    ("host_syncs.backlog", "host_syncs_total", 0.25),
+    ("step_device_span_ms.backlog", "step_device_span_s_total", 250.0),
+    ("gc_pause_ms.backlog", "gc_pause_s_total", 250.0)])
+def test_benchmark_readers_of_the_port_counters(metric, counter, per_batch):
+    """Each reader divides its counter by the window's batches (ms of
+    seconds; host_syncs as a count); None with no batch, and None where
+    the program has no such counter."""
+    from benchmark import spec
+
+    read = spec.load_reader("metrics", metric)
+    assert read({"counters": {"batches": 4.0, counter: 1.0}}) == (
+        pytest.approx(per_batch))
+    assert read({"counters": {"batches": 0.0, counter: 0.0}}) is None
+    assert read({"counters": {"batches": 4.0}}) is None
 
 
 def test_trace_next_batch_writes_a_profiler_trace(tmp_path):
