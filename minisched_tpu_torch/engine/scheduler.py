@@ -4779,6 +4779,11 @@ class Scheduler:
         # The interpreter's collections and pause seconds (obs.GC_WATCH):
         # process-wide, the same numbers in every engine of the process.
         out.update(GC_WATCH.counters())
+        # The objects the store kept off and on the collector's lists
+        # (state/store.snapshot_counts), where the store counts them.
+        counts = getattr(self.store, "snapshot_counts", None)
+        if callable(counts):
+            out.update(counts())
         return out
 
     # ---- timeline, SLO sentinel, overload ladder ------------------------

@@ -4,6 +4,10 @@
 copy-on-read and ingestion isolation (state/objects.py::deepcopy_obj):
 about 300k recursive clone calls per 10k-pod submission, on the
 create-to-bound path. It is the same recursion as the Python walk, in C.
+``clone_snapshot`` (the store's copies) and ``untrack`` (the store's trees
+built in Python, its watch events) also take every container they reach
+off the cycle collector's lists: the store's objects are immutable and
+acyclic, and reference counts free them.
 
 Build: plain CPython C API compiled with the system ``g++``/``cc``/``gcc``
 (``-O2 -shared -fPIC``, about a second) into ``minisched_tpu_torch/_build/``

@@ -661,15 +661,15 @@ _WIRE_TYPES = tuple(
     v for v in list(globals().values())
     if isinstance(v, type) and dataclasses.is_dataclass(v))
 
-_native_clone = None
+_native = None  # (clone, clone_snapshot, untrack), resolved on first use
 _native_lock = threading.Lock()
 
 
-def _try_native_clone():
+def _try_native():
     """Load the C fastclone (minisched_tpu_torch/native, raising when it
     cannot be built) and register every dataclass type of the object
-    tree. Returns its clone callable, or None under
-    ``MINISCHED_NO_NATIVE=1``."""
+    tree. Returns its ``(clone, clone_snapshot, untrack)``, or None
+    under ``MINISCHED_NO_NATIVE=1``."""
     from ..native import load
 
     mod = load()
@@ -677,7 +677,17 @@ def _try_native_clone():
         return None
     for cls in _WIRE_TYPES:
         mod.register(cls)
-    return mod.clone
+    return mod.clone, mod.clone_snapshot, mod.untrack
+
+
+def _resolve():
+    # One resolver at a time: a thread racing the first build must wait
+    # for it, not resolve a second time. The Python walk has no untrack.
+    global _native
+    with _native_lock:
+        if _native is None:
+            _native = _try_native() or (_clone, _clone, None)
+        return _native
 
 
 def deepcopy_obj(obj):
@@ -691,19 +701,39 @@ def deepcopy_obj(obj):
     (minisched_tpu_torch/native, the same recursion in C) takes the
     walk unless ``MINISCHED_NO_NATIVE=1``; a type it was never given
     raises TypeError there, and that object takes the Python walk."""
-    global _native_clone
-    fn = _native_clone
-    if fn is None:
-        # One resolver at a time: a thread racing the first build must
-        # wait for it, not resolve a second time.
-        with _native_lock:
-            if _native_clone is None:
-                _native_clone = _try_native_clone() or _clone
-            fn = _native_clone
+    clone = (_native or _resolve())[0]
     try:
-        return fn(obj)
+        return clone(obj)
     except TypeError:
         return _clone(obj)  # unregistered type: the Python walk handles it
+
+
+def snapshot_obj(obj):
+    """``deepcopy_obj`` for a copy the store keeps: the same copy, taken
+    off the cycle collector's lists as it is built (the native
+    ``clone_snapshot``). A stored object is immutable and acyclic by the
+    store's copy discipline, so the collector has nothing to find in it;
+    its reference count still frees it. The Python walk
+    (``MINISCHED_NO_NATIVE=1``) leaves the copy tracked."""
+    _, snapshot, untrack = _native or _resolve()
+    try:
+        return snapshot(obj)
+    except TypeError:
+        c = _clone(obj)  # unregistered type: the Python walk handles it
+        if untrack is not None:
+            untrack(c)
+        return c
+
+
+def untrack_obj(o) -> None:
+    """Take an object the store keeps, built in Python (an evolved
+    version, a decoded snapshot, a watch event), off the cycle
+    collector's lists, with every still-tracked container below it (the
+    native ``untrack``; objects of unregistered types stay tracked). A
+    no-op on the Python walk."""
+    untrack = (_native or _resolve())[2]
+    if untrack is not None:
+        untrack(o)
 
 
 from .codec import build as _codec_build  # noqa: E402  (after the

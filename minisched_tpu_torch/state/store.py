@@ -19,6 +19,7 @@ Capabilities mirrored:
 """
 from __future__ import annotations
 
+import gc
 import json
 import threading
 import time
@@ -26,7 +27,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 from ..errors import AlreadyExistsError, ConflictError, NotFoundError
 from . import objects as obj
-from .objects import deepcopy_obj, kind_of
+from .objects import deepcopy_obj, kind_of, snapshot_obj, untrack_obj
 
 
 class EventType:
@@ -135,6 +136,10 @@ class ClusterStore:
         self._log: List[WatchEvent] = []
         self._max_log = max_log
         self._log_base = 0  # rv of the oldest retained log entry - 1
+        # Objects stored off the collector's lists / still on them (the
+        # Python walk, MINISCHED_NO_NATIVE=1): counted by _keep.
+        self._untracked = 0
+        self._tracked = 0
 
     # ---- CRUD -----------------------------------------------------------
 
@@ -147,6 +152,20 @@ class ClusterStore:
     # pvcontroller mutate only fresh get() copies). get()/list() still
     # return private deep copies the caller may freely mutate. Mutators
     # return the caller's own (rv-stamped) object, not a third clone.
+    # Being immutable and acyclic, every stored object and every watch
+    # event leaves the cycle collector's lists as it is built, under the
+    # lock and before it is published (objects.snapshot_obj, untrack_obj;
+    # reference counts still free them): a stored object is NEVER mutated,
+    # since nothing would find a cycle made through it.
+
+    def _keep(self, stored: Any) -> Any:
+        """Count an object the store keeps by whether it left the
+        collector's lists."""
+        if gc.is_tracked(stored):
+            self._tracked += 1
+        else:
+            self._untracked += 1
+        return stored
 
     def create(self, o: Any) -> Any:
         kind = kind_of(o)
@@ -158,7 +177,7 @@ class ClusterStore:
             o.metadata.resource_version = self._rv
             if not o.metadata.creation_timestamp:
                 o.metadata.creation_timestamp = time.time()
-            stored = deepcopy_obj(o)
+            stored = self._keep(snapshot_obj(o))
             self._objects[kind][key] = stored
             self._append(WatchEvent(EventType.ADDED, kind, stored,
                                     None, self._rv))
@@ -186,7 +205,7 @@ class ClusterStore:
                 o.metadata.resource_version = self._rv
                 if not o.metadata.creation_timestamp:
                     o.metadata.creation_timestamp = now
-                stored = deepcopy_obj(o)
+                stored = self._keep(snapshot_obj(o))
                 self._objects[kind][o.key] = stored
                 self._append(WatchEvent(EventType.ADDED, kind, stored,
                                         None, self._rv), notify=False)
@@ -211,14 +230,24 @@ class ClusterStore:
     def stats(self) -> Dict[str, Any]:
         """One consistent reading of the store's observable state for
         the apiserver's /metrics endpoint: per-kind object counts, the
-        current resource version, and the watch log's retained depth."""
+        current resource version, the watch log's retained depth, and
+        the objects stored off and on the collector's lists."""
         with self._cond:
             return {
                 "objects": {k: len(v) for k, v in self._objects.items()},
                 "resource_version": self._rv,
                 "watch_log_depth": len(self._log),
                 "watch_log_capacity": self._max_log,
+                **self.snapshot_counts(),
             }
+
+    def snapshot_counts(self) -> Dict[str, int]:
+        """Objects stored since the store was made: off the cycle
+        collector's lists (``snapshots_untracked_total``) and on them
+        (``snapshots_tracked_total``, the Python walk's). Read without
+        the lock: two monotonic counters, for the engine's metrics."""
+        return {"snapshots_untracked_total": self._untracked,
+                "snapshots_tracked_total": self._tracked}
 
     def count(self, kind: str) -> int:
         with self._cond:
@@ -247,7 +276,7 @@ class ClusterStore:
                     f"{o.metadata.resource_version} != {old.metadata.resource_version}")
             self._rv += 1
             o.metadata.resource_version = self._rv
-            stored = deepcopy_obj(o)
+            stored = self._keep(snapshot_obj(o))
             self._objects[kind][key] = stored
             self._append(WatchEvent(EventType.MODIFIED, kind, stored,
                                     old, self._rv))
@@ -295,6 +324,8 @@ class ClusterStore:
         Uses shallow_evolve instead of deep copies — stored objects are
         replacement-only, so structural sharing with superseded versions is
         safe; watch events carry the same immutable-by-convention snapshots.
+        The evolved objects leave the collector's lists (untrack_obj walks
+        only what is new: the shared parts are off them already).
         One watcher wake-up for the whole batch (a per-pod notify_all is
         10k condvar broadcasts under the lock)."""
         evolve = obj.shallow_evolve
@@ -317,7 +348,8 @@ class ClusterStore:
                     status=evolve(pod.status, phase=obj.PodPhase.RUNNING,
                                   unschedulable_plugins=[], message="",
                                   scheduled_time=now))
-                pods_map[pod_key] = new
+                untrack_obj(new)
+                pods_map[pod_key] = self._keep(new)
                 self._append(WatchEvent(EventType.MODIFIED, "Pod", new, pod,
                                         self._rv), notify=False)
                 bound.append(pod_key)
@@ -356,7 +388,8 @@ class ClusterStore:
                     status=evolve(pod.status,
                                   unschedulable_plugins=sorted(plugins),
                                   message=message))
-                pods_map[pod_key] = new
+                untrack_obj(new)
+                pods_map[pod_key] = self._keep(new)
                 self._append(WatchEvent(EventType.MODIFIED, "Pod", new, pod,
                                         self._rv), notify=False)
                 dirty = True
@@ -395,6 +428,7 @@ class ClusterStore:
             return self._rv
 
     def _append(self, ev: WatchEvent, notify: bool = True) -> None:
+        untrack_obj(ev)  # strings, integers and stored snapshots only
         self._log.append(ev)
         if len(self._log) > self._max_log:
             drop = len(self._log) - self._max_log
@@ -489,7 +523,8 @@ class ClusterStore:
                 uid = o.metadata.uid
                 if uid.startswith("uid-") and uid[4:].isdigit():
                     max_uid = max(max_uid, int(uid[4:]))
-                store._objects[kind][key] = o
+                untrack_obj(o)
+                store._objects[kind][key] = store._keep(o)
         obj.bump_uid_counter(max_uid)
         return store
 

@@ -17,6 +17,7 @@ store has no ``fail_pods``).
 """
 import itertools
 import json
+import re
 import socket
 import threading
 import time
@@ -381,6 +382,11 @@ def test_metrics_scrape_covers_live_engine():
         assert "minisched_engine_pods_assigned 1" in text
         assert "minisched_engine_pod_create_to_bound_s_bucket" in text
         assert 'minisched_store_objects{kind="Pod"} 1' in text
+        # The store's objects, all stored off the collector's lists.
+        kept = re.search(r"^minisched_engine_snapshots_untracked_total "
+                         r"(\d+)$", text, re.M)
+        assert kept and int(kept.group(1)) >= 3
+        assert "minisched_engine_snapshots_tracked_total 0" in text
         status, doc = _raw(api.address, "GET", "/timeline")
         assert status == 200 and "default-scheduler" in doc["timelines"]
         status, doc = _raw(api.address, "GET", "/journal")

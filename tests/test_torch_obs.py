@@ -51,7 +51,8 @@ PORT_ONLY_KEYS = frozenset(
      "gc_collections_gen0", "gc_collections_gen1", "gc_collections_gen2",
      "gc_pause_s_total", "hard_spread_batches", "sampled_batches",
      "spread_repaired", "spread_revoked", "spread_revoked_enforced",
-     "kernel_launches"]
+     "kernel_launches", "snapshots_untracked_total",
+     "snapshots_tracked_total"]
     + [f"kernel_launches_{k}" for k in (
         "auction", "bid_auction", "caps_scan", "greedy_assign",
         "insert_ports", "shortlist_scan", "shortlist_select")])
