@@ -10,10 +10,12 @@ step (bucketing avoids per-batch recompilation — SURVEY §7 "dynamic shapes").
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..obs import span
 from ..state import objects as obj_mod
 from ..state.objects import (RESOURCE_INDEX, Node, Pod, claim_keys,
                              gang_key, pod_requests)
@@ -160,6 +162,137 @@ def step_bucket(n: int, minimum: int = 16) -> int:
     return base + step * -(-(n - base) // step)
 
 
+# Upstream InterPodAffinityArgs.hardPodAffinityWeight's default: the
+# weight a bound pod's REQUIRED affinity term gives, in the symmetric
+# direction, to each incoming pod it matches.
+HARD_POD_AFFINITY_WEIGHT = 1.0
+
+
+def _selector_sig(sel) -> Optional[tuple]:
+    if sel is None:
+        return None
+    return (tuple(sorted(sel.match_labels.items())),
+            tuple(sorted((r.key, r.operator, tuple(r.values))
+                         for r in sel.match_expressions)))
+
+
+def _sym_terms_of(pod: Pod) -> List[tuple]:
+    """(topology key, namespace, selector, signed weight) of each term of
+    a bound ``pod`` that scores the pods it matches (upstream
+    processExistingPod): preferred affinity +weight, preferred
+    anti-affinity -weight, required affinity +HARD_POD_AFFINITY_WEIGHT.
+    A term's namespace is the pod's own unless it lists namespaces (one
+    entry per listed namespace). A term with no selector (None) matches
+    no pod, as upstream's nil selector, and is left out."""
+    a = pod.spec.affinity
+    if a is None:
+        return []
+    out: List[tuple] = []
+    own = pod.metadata.namespace
+
+    def add(term, w: float) -> None:
+        if term.label_selector is None:
+            return
+        for ns in (term.namespaces or [own]):
+            out.append((term.topology_key, ns, term.label_selector, w))
+
+    pa, anti = a.pod_affinity, a.pod_anti_affinity
+    if pa is not None:
+        for wt in pa.preferred:
+            add(wt.term, float(wt.weight))
+        for term in pa.required:
+            add(term, HARD_POD_AFFINITY_WEIGHT)
+    if anti is not None:
+        for wt in anti.preferred:
+            add(wt.term, -float(wt.weight))
+    return out
+
+
+class _SymGroup:
+    """The bound pods' terms of one (topology key, namespace, selector):
+    node row → summed signed weight of their owners there."""
+
+    __slots__ = ("key", "ns", "selector", "owners", "rows")
+
+    def __init__(self, key: str, ns: str, selector):
+        self.key, self.ns, self.selector = key, ns, selector
+        self.owners = 0
+        self.rows: Dict[int, float] = {}
+
+
+class SymBatch:
+    """One batch's view of the bound pods' symmetric terms, handed to
+    ``encode_pods(sym_table=...)``: ``slots_for(pod)`` names the table
+    rows of the terms ``pod`` matches (one row per topology key: the
+    matched groups of a key share one row), and ``build()`` sums each
+    row's groups per domain into the batch's ``SymTerms``. Matching is
+    exact on the host (the term's namespace, then its selector against
+    the pod's labels; an empty selector matches every pod), memoized by
+    (namespace, labels), so its cost follows the distinct term groups and
+    label sets, not the bound pods; ``build`` sums each group's node rows
+    per domain once a batch. ``seconds`` is the host time it
+    spent; ``build`` runs in an ``encode.sym_affinity`` span carrying
+    the batch's ``seq``."""
+
+    def __init__(self, cache: "NodeFeatureCache", seq: int = 0):
+        self.cache = cache
+        self.seq = seq
+        with cache._lock:
+            self.groups = [(sig, g.key, g.ns, g.selector)
+                           for sig, g in cache._sym_groups.items()]
+        self._memo: Dict[tuple, List[int]] = {}
+        self._rows: Dict[tuple, int] = {}
+        self.seconds = 0.0
+
+    def slots_for(self, pod: Pod) -> List[int]:
+        if not self.groups:
+            return []
+        t0 = time.perf_counter()
+        labels = pod.metadata.labels
+        mk = (pod.metadata.namespace, tuple(labels.items()))
+        hit = self._memo.get(mk)
+        if hit is None:
+            by_key: Dict[int, List[tuple]] = {}
+            reg, overflow = self.cache.registry, self.cache.overflow
+            for sig, key, ns, sel in self.groups:
+                if ns != pod.metadata.namespace:
+                    continue
+                if not sel.matches(labels):
+                    continue
+                k = reg.index_of(key, overflow)
+                if k >= 0:
+                    by_key.setdefault(k, []).append(sig)
+            hit = [self._rows.setdefault((k, frozenset(by_key[k])),
+                                         len(self._rows))
+                   for k in sorted(by_key)]
+            self._memo[mk] = hit
+        self.seconds += time.perf_counter() - t0
+        return hit
+
+    def build(self) -> Optional[F.SymTerms]:
+        if not self._rows:
+            return None
+        t0 = time.perf_counter()
+        cache = self.cache
+        T = len(self._rows)
+        with span("encode.sym_affinity", seq=self.seq, rows=T,
+                  groups=len(self.groups)), cache._lock:
+            cache._refresh_topology_locked()
+            width = max(cache.cfg.domain_buckets, cache._rows_hw)
+            key_idx = np.empty(T, dtype=np.int32)
+            dom_w = np.zeros((T, width), dtype=np.float32)
+            for (k, sigs), r in self._rows.items():
+                acc = np.zeros(width)
+                for sig in sigs:
+                    g = cache._sym_groups.get(sig)
+                    if g is not None:
+                        acc += cache._sym_dom_locked(g, k, width)
+                key_idx[r] = k
+                dom_w[r] = acc
+        self.seconds += time.perf_counter() - t0
+        return F.SymTerms(key_idx=key_idx, dom_w=dom_w)
+
+
 class NodeFeatureCache:
     """Thread-safe incrementally-maintained node feature arrays."""
 
@@ -218,6 +351,17 @@ class NodeFeatureCache:
         self._anti_terms: Dict[tuple, Dict[int, List[int]]] = {}
         # pod key → (priority, sigs)
         self._pod_anti: Dict[str, Tuple[int, List[tuple]]] = {}
+        # (Anti-)affinity terms of RUNNING pods that score incoming pods
+        # (upstream InterPodAffinity's existing-pod direction): sig =
+        # repr((topology key, namespace, selector)) → _SymGroup (node row
+        # → summed signed weight, and its per-domain sums); pod key →
+        # (node row, sig, weight, sig, weight, ...). Feeds SymBatch →
+        # encode.sym_slot and EncodedBatch.sym. ``sym_s_total``: host
+        # seconds spent keeping it on bind and unbind (SymBatch times the
+        # rest).
+        self._sym_groups: Dict[str, _SymGroup] = {}
+        self._pod_sym: Dict[str, tuple] = {}
+        self.sym_s_total = 0.0
         # Owner-spread pairs in the assigned corpus's label rows
         # (SelectorSpread): OFF unless a profile actually runs the
         # plugin — the pair would otherwise fragment the bulk-rebuild
@@ -573,6 +717,7 @@ class NodeFeatureCache:
                     self._a_free.append(a)
                 self._drop_gang_member(k)
                 self._anti_drop_locked(k, i)
+                self._sym_drop_locked(k)
             # Node removal is NARROWING for the index: the cleared row
             # re-evaluates to statically-infeasible (valid=False → NEG)
             # at the next refresh — an in-place repair, no rebuild.
@@ -704,6 +849,8 @@ class NodeFeatureCache:
                 max_labels = self.cfg.max_labels
                 for (k, i, pod, key), a in zip(fast, a_rows):
                     self._bound[key] = (i, reqs[k], (), [])
+                    if pod.spec.affinity is not None:
+                        self._sym_add_locked(pod, i)
                     self._a_row[key] = a
                     self._a_key[a] = key
                     group = gang_key(pod)
@@ -797,6 +944,7 @@ class NodeFeatureCache:
             self._key_gang[pod.key] = group
             self._gang_bound[group] = self._gang_bound.get(group, 0) + 1
         self._anti_add_locked(pod, i)
+        self._sym_add_locked(pod, i)
 
         a = self._alloc_assigned_row()
         self._a_row[pod.key] = a
@@ -854,6 +1002,7 @@ class NodeFeatureCache:
                 self._a_free.append(a)
             self._drop_gang_member(pod_key)
             self._anti_drop_locked(pod_key, i)
+            self._sym_drop_locked(pod_key)
             self.version += 1
 
     def _drop_gang_member(self, pod_key: str) -> None:
@@ -1189,6 +1338,72 @@ class NodeFeatureCache:
             if not rows:
                 self._anti_terms.pop(sig, None)
 
+    # ---- symmetric affinity terms (scoring) -----------------------------
+
+    def _sym_add_locked(self, pod: Pod, row: int) -> None:
+        terms = _sym_terms_of(pod)
+        if not terms:
+            return
+        t0 = time.perf_counter()
+        entry = [row]
+        for key, ns, sel, w in terms:
+            # The signature as one string: the pod's entry then holds
+            # strings and numbers alone, which the collector untracks at
+            # its first pass, so the index leaves nothing per bound pod
+            # for the older generations to walk.
+            sig = repr((key, ns, _selector_sig(sel)))
+            g = self._sym_groups.get(sig)
+            if g is None:
+                g = self._sym_groups[sig] = _SymGroup(key, ns, sel)
+            g.owners += 1
+            self._sym_move_locked(g, row, w)
+            entry += (sig, w)
+        self._pod_sym[pod.key] = tuple(entry)
+        self.sym_s_total += time.perf_counter() - t0
+
+    def _sym_drop_locked(self, pod_key: str) -> None:
+        got = self._pod_sym.pop(pod_key, None)
+        if got is None:
+            return
+        t0 = time.perf_counter()
+        row = got[0]
+        for sig, w in zip(got[1::2], got[2::2]):
+            g = self._sym_groups.get(sig)
+            if g is None:
+                continue
+            g.owners -= 1
+            if g.owners <= 0:
+                del self._sym_groups[sig]
+                continue
+            self._sym_move_locked(g, row, -w)
+        self.sym_s_total += time.perf_counter() - t0
+
+    @staticmethod
+    def _sym_move_locked(g: "_SymGroup", row: int, w: float) -> None:
+        """Add ``w`` at node ``row`` to group ``g``."""
+        left = g.rows.get(row, 0.0) + w
+        if left:
+            g.rows[row] = left
+        else:
+            g.rows.pop(row, None)
+
+    def _sym_dom_locked(self, g: "_SymGroup", key_idx: int,
+                        width: int) -> np.ndarray:
+        """Group ``g``'s summed weight per domain of key ``key_idx``
+        (float64, ``width`` long: ids past it are none of a node's)."""
+        rows = np.fromiter(g.rows.keys(), dtype=np.int64, count=len(g.rows))
+        w = np.fromiter(g.rows.values(), dtype=np.float64,
+                        count=len(g.rows))
+        d = self._feats.topo_domains[key_idx, rows]
+        ok = (d >= 0) & (d < width)
+        return np.bincount(d[ok], weights=w[ok], minlength=width)
+
+    def sym_stats(self) -> Tuple[float, int]:
+        """(host seconds spent keeping the symmetric terms, live term
+        groups). Read without the cache's lock (a float and a dict's
+        length): ``metrics()`` must not wait behind a bulk bind."""
+        return self.sym_s_total, len(self._sym_groups)
+
     def victims_below(self, node_name: str, priority: int) -> List[tuple]:
         """Bound pods on ``node_name`` with priority STRICTLY below
         ``priority``: (pod_key, accounted request row, priority), sorted
@@ -1438,7 +1653,10 @@ def static_token(leaves: Dict[str, np.ndarray]) -> str:
 
 def _leaf_sig(tree) -> tuple:
     """(shape, dtype) of every array leaf of a nest of NamedTuples, in
-    field order (numpy arrays or tensors)."""
+    field order (numpy arrays or tensors; None for an absent leaf, as
+    EncodedBatch.sym)."""
+    if tree is None:
+        return (None,)
     if isinstance(tree, tuple):
         return tuple(s for x in tree for s in _leaf_sig(x))
     return ((tuple(tree.shape), str(tree.dtype)),)

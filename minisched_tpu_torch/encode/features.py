@@ -343,6 +343,11 @@ class PodFeatures(NamedTuple):
     # owner priority (a preemptor must outrank every owner to evict).
     anti_forbid_row: np.ndarray     # (P,S) i32
     anti_forbid_maxpri: np.ndarray  # (P,S) i32
+    # Symmetric existing-pod terms (upstream InterPodAffinity scoring):
+    # rows of the batch's SymTerms table whose bound pods' terms this pod
+    # matches, one slot per topology key, -1 unused. The width is the
+    # most slots any pod of the batch uses (0 when none matches).
+    sym_slot: np.ndarray            # (P,S') i32
 
 
 class GroupFeatures(NamedTuple):
@@ -385,6 +390,20 @@ class GangFeatures(NamedTuple):
     min_count: np.ndarray  # (GG,) i32 quorum (0 on padding rows)
 
 
+class SymTerms(NamedTuple):
+    """The bound pods' (anti-)affinity terms that a batch's pods match
+    (upstream InterPodAffinity's existing-pod scoring), one row per
+    distinct (topology key, set of matching term groups) among the
+    batch's pods (leading dim T): the summed signed weight of those
+    terms' owners in each domain of the key. A pod's ``sym_slot`` names
+    its rows; the step gathers each row per node (ops/topology.
+    sym_node_rows) into the InterPodAffinity score."""
+
+    key_idx: np.ndarray    # (T,) i32 topology-key registry index
+    dom_w: np.ndarray      # (T,W) f32 weight per domain id (W covers
+    #                        every hostname row and the hashed buckets)
+
+
 class EncodedBatch(NamedTuple):
     """Everything encode_pods produces for one scheduling batch."""
 
@@ -392,6 +411,9 @@ class EncodedBatch(NamedTuple):
     gf: "GroupFeatures"        # topology-constraint selector groups
     naf: "NodeAffinityGroups"  # node-affinity signature groups
     gang: "GangFeatures"       # gang/coscheduling groups
+    # The symmetric term table, None when no pod of the batch matches a
+    # bound pod's term (then nothing is uploaded or launched for it).
+    sym: Optional["SymTerms"] = None
 
 
 def empty_node_features(n: int, cfg: EncodingConfig = DEFAULT_ENCODING) -> NodeFeatures:
@@ -900,7 +922,7 @@ _PROTO_COPY_FIELDS = (
     "aff_req_group", "aff_req_self", "aff_pref_group", "aff_pref_weight",
     "anti_req_group", "anti_pref_group", "anti_pref_weight",
     "anti_forbid_key", "anti_forbid_dom", "anti_forbid_row",
-    "anti_forbid_maxpri")
+    "anti_forbid_maxpri", "sym_slot")
 
 
 def encode_pods(pods: List[Pod], p_pad: int,
@@ -913,7 +935,8 @@ def encode_pods(pods: List[Pod], p_pad: int,
                 volume_info_fn=None,
                 anti_forbidden_fn=None,
                 hard_failed: Optional[Dict[int, List[Tuple[str, str]]]] = None,
-                selector_spread: bool = False):
+                selector_spread: bool = False,
+                sym_table=None):
     """Encode a batch of pending pods, padded to ``p_pad`` rows.
 
     Returns an EncodedBatch: pod features plus the batch's distinct
@@ -938,6 +961,10 @@ def encode_pods(pods: List[Pod], p_pad: int,
     ownerReference — gated on the profile actually running the
     SelectorSpread plugin, because every distinct owner in the batch
     grows the group axis (and with it the (G,N) topology tables).
+    ``sym_table`` (cache.SymBatch, optional): stamps each pod's
+    ``sym_slot`` with the rows of the bound pods' terms it matches
+    (``slots_for(pod)``) and supplies the batch's SymTerms
+    (``build()``) — default: no symmetric terms.
     """
     if registry is None:
         registry = TopologyKeyRegistry(cfg)
@@ -990,7 +1017,9 @@ def encode_pods(pods: List[Pod], p_pad: int,
         anti_forbid_dom=np.full((P, cfg.max_anti_forbid), -1, dtype=np.int32),
         anti_forbid_row=np.full((P, cfg.max_anti_forbid), -1, dtype=np.int32),
         anti_forbid_maxpri=np.zeros((P, cfg.max_anti_forbid), dtype=np.int32),
+        sym_slot=np.full((P, cfg.max_topology_keys), -1, dtype=np.int32),
     )
+    sym_width = 0
     gang_group = np.full(P, -1, dtype=np.int32)
     gang_ids: Dict[str, int] = {}
     gang_mins: List[int] = []
@@ -1160,6 +1189,11 @@ def encode_pods(pods: List[Pod], p_pad: int,
                 if len(entry) >= 4:
                     f.anti_forbid_row[i, s] = entry[2]
                     f.anti_forbid_maxpri[i, s] = entry[3]
+        if sym_table is not None:
+            rows = sym_table.slots_for(pod)
+            if rows:
+                f.sym_slot[i, :len(rows)] = rows
+                sym_width = max(sym_width, len(rows))
 
         anti = aff.pod_anti_affinity if aff else None
         if anti:
@@ -1197,5 +1231,10 @@ def encode_pods(pods: List[Pod], p_pad: int,
         group=gang_group,
         min_count=np.array(gang_mins + [0] * (GG - len(gang_mins)),
                            dtype=np.int32))
+    sym = None
+    if sym_width:
+        sym = sym_table.build()
+    f = f._replace(sym_slot=np.ascontiguousarray(f.sym_slot[:, :sym_width]))
     return EncodedBatch(pf=f, gf=builder.build(group_pad),
-                        naf=na_builder.build(overflow=overflow), gang=gang)
+                        naf=na_builder.build(overflow=overflow), gang=gang,
+                        sym=sym)

@@ -72,7 +72,7 @@ import torch
 
 from ..config import SchedulerConfig
 from ..encode import NodeFeatureCache, encode_pods, to_torch
-from ..encode.cache import bucket_for, static_token, step_bucket
+from ..encode.cache import SymBatch, bucket_for, static_token, step_bucket
 from ..encode.features import GangFeatures
 from ..errors import ConflictError, NotFoundError
 from ..faults import FAULTS, FaultWorkerDeath
@@ -1231,6 +1231,11 @@ class Scheduler:
         # Symmetric existing-pod anti-affinity is enforced by the
         # InterPodAffinity filter via encode.anti_forbid slots.
         self._anti_enabled = "InterPodAffinity" in names
+        # Upstream's symmetric InterPodAffinity score: the encoder stamps
+        # each pod's rows of the bound pods' terms it matches
+        # (cache.SymBatch) when the profile scores InterPodAffinity.
+        self._sym_enabled = any(p.name == "InterPodAffinity"
+                                for p in plugin_set.score_plugins)
         # SelectorSpread consumes owner-derived selector groups; the
         # shared assigned corpus must then carry owner pairs too, enabled
         # here, before the informers sync.
@@ -1378,6 +1383,11 @@ class Scheduler:
             # minus CPU is time the phase did not run: waiting for the
             # interpreter lock, on a collection, or blocked.
             "prepare_cpu_s_total": 0.0, "resolve_cpu_s_total": 0.0,
+            # Upstream's symmetric InterPodAffinity term: the encoder's
+            # host seconds matching pods to the bound pods' terms and
+            # building the batch's table (metrics() adds the cache's
+            # seconds keeping the term index), and the slots stamped.
+            "sym_affinity_s_total": 0.0, "sym_affinity_slots_total": 0,
             # Blocking reads of the card on a batch's path (every
             # fetch.* span, the step's reads inside its ops) and their
             # wall seconds, wherever they fall (most in step_s_total;
@@ -2881,6 +2891,8 @@ class Scheduler:
                 return pairs
 
         encode_hard: Dict[int, list] = {}
+        sym = (SymBatch(self.cache, seq=self._batch_seq + 1)
+               if self._sym_enabled else None)
         with span("encode.pods", pods=len(pods),
                   **({"loop_slot": 1} if loop_slot else {})):
             eb = encode_pods(pods, p_pad, cfg=self.cache.cfg,
@@ -2891,7 +2903,13 @@ class Scheduler:
                              volume_info_fn=lambda p: vol_state(p)[1:],
                              anti_forbidden_fn=anti_fn,
                              hard_failed=encode_hard,
-                             selector_spread=self._selspread_enabled)
+                             selector_spread=self._selspread_enabled,
+                             sym_table=sym)
+        if sym is not None:
+            slots = int((eb.pf.sym_slot >= 0).sum())
+            with self._metrics_lock:
+                self._metrics["sym_affinity_s_total"] += sym.seconds
+                self._metrics["sym_affinity_slots_total"] += slots
         for idx, infos in encode_hard.items():
             for info in infos:
                 if self._fail_closed_plugins.get(info[0], True):
@@ -4713,6 +4731,11 @@ class Scheduler:
         out["histograms"] = {name: h.snapshot()
                              for name, h in self._hists.items()}
         out["shortlist_width"] = int(self._shortlist_k or 0)
+        # The cache's share of the symmetric term's host seconds (bind
+        # and unbind) and its live term groups (a gauge).
+        sym_s, sym_terms = self.cache.sym_stats()
+        out["sym_affinity_s_total"] += sym_s
+        out["sym_affinity_terms"] = sym_terms
         # The ring depth the next tranche would use (0: the loop is off).
         out["loop_depth_effective"] = (self._effective_loop_depth()
                                        if self._loop_enabled else 0)

@@ -45,7 +45,7 @@ from .gang import gang_assign
 from .hostread import host_read
 from .select import (NEG, fma_f32, greedy_assign, greedy_assign_shortlist,
                      order_key)
-from .topology import group_topology_state
+from .topology import group_topology_state, sym_node_rows
 
 
 class Decision(NamedTuple):
@@ -126,7 +126,9 @@ def max_rescale_100(masked: torch.Tensor,
 def cycle_state(plugin_set: PluginSet, eb, nf, af) -> dict:
     """The shared cycle state (the reference's CycleState) the active
     plugins ask for: the topology tables (ops/topology.py) when one
-    ``needs_topology``, the node-affinity group rows when one
+    ``needs_topology``, with the bound pods' symmetric term rows
+    (``sym_rows``, ops/topology.sym_node_rows) when the batch carries a
+    SymTerms table, the node-affinity group rows when one
     ``needs_node_affinity``. Computed on the node axis given, which the
     step keeps whole even under sampling (domain counts and minima must
     be the cluster's)."""
@@ -135,6 +137,10 @@ def cycle_state(plugin_set: PluginSet, eb, nf, af) -> dict:
     if any(p.needs_topology for p in active):
         num_domains = max(nf.valid.shape[0], DEFAULT_ENCODING.domain_buckets)
         ctx.update(group_topology_state(nf, af, eb.gf, num_domains))
+        # An encoding of the JAX package's has no table.
+        sym = getattr(eb, "sym", None)
+        if sym is not None:
+            ctx["sym_rows"] = sym_node_rows(nf, sym)
     if any(p.needs_node_affinity for p in active):
         from ..plugins.nodeaffinity import (group_preferred_score,
                                             group_required_match)
@@ -187,6 +193,9 @@ def evaluate_shards(plugin_set: PluginSet, pfs, nfs, ctxs,
     # and the running AND, then dies (outside explain mode no list holds
     # all F masks at once).
     feasible = list(valid_pair)
+    # The nodes the scorers normalize over: the feasible ones, less those
+    # failing a check a filter deferred to the assignment.
+    scored = None
     rc: List[torch.Tensor] = []
     masks: List[List[torch.Tensor]] = []
     raws: List[List[torch.Tensor]] = []
@@ -199,6 +208,13 @@ def evaluate_shards(plugin_set: PluginSet, pfs, nfs, ctxs,
         if explain:
             masks.append(ms)
         del ms
+        ds = [p.deferred_filter(pfs[j], nfs[j], ctxs[j]) for j in range(J)]
+        if ds[0] is not None:
+            scored = (ds if scored is None else
+                      [scored[j] & ds[j] for j in range(J)])
+        del ds
+    scored = (feasible if scored is None else
+              [feasible[j] & scored[j] for j in range(J)])
     feasible_counts = node_sum([f.sum(dim=1) for f in feasible]).to(
         torch.int32)
     P = pfs[0].valid.shape[0]
@@ -211,13 +227,14 @@ def evaluate_shards(plugin_set: PluginSet, pfs, nfs, ctxs,
     for i, p in enumerate(plugin_set.score_plugins):
         raw = [p.score(pfs[j], nfs[j], ctxs[j]).to(torch.float32)
                for j in range(J)]
-        norm = _normalize_shards(p, raw, feasible, collectives)
+        norm = _normalize_shards(p, raw, scored, collectives)
         w = plugin_set.weight_of(p) if w_vec is None else float(w_vec[i])
         totals = [totals[j] + w * norm[j] for j in range(J)]
         if explain:
             raws.append(raw)
             norms.append(norm)
         del raw, norm
+    del scored
     return ([torch.where(feasible[j], totals[j], NEG) for j in range(J)],
             feasible, feasible_counts, reject_counts, (masks, raws, norms))
 
@@ -235,9 +252,10 @@ def _normalize_shards(p, raws, feasible, collectives):
         return [p.rescale(raws[j], None, []).to(torch.float32)
                 for j in range(J)]
     masked = [torch.where(feasible[j], raws[j], 0.0) for j in range(J)]
-    local = [row_stats(m, p.row_stats) for m in masked]
+    local = [row_stats(masked[j], p.row_stats, raws[j], feasible[j])
+             for j in range(J)]
     dev0 = raws[0].device
-    combined = [(collectives.node_max if op == "max" else
+    combined = [(collectives.node_max if op.endswith("max") else
                  collectives.node_min)([local[j][k] for j in range(J)], dev0)
                 for k, op in enumerate(p.row_stats)]
     del local
@@ -480,7 +498,7 @@ def build_step(plugin_set: PluginSet, shortlist: Optional[int] = None,
             free_full = nf.free
             nf = _gather_nodes(nf, sample_idx)
             for k2 in ("counts_node", "dom_valid", "na_req_match",
-                       "na_pref_score"):
+                       "na_pref_score", "sym_rows"):
                 if k2 in ctx:
                     ctx[k2] = ctx[k2][:, sample_idx]
             N = sample_nodes

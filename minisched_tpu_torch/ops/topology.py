@@ -121,3 +121,15 @@ def gather_group_rows(group_idx: torch.Tensor, table: torch.Tensor,
     safe = torch.clamp(group_idx, 0, table.shape[0] - 1).long()
     out = table.index_select(0, safe)
     return torch.where((group_idx >= 0)[:, None], out, fill)
+
+
+def sym_node_rows(nf, sym) -> torch.Tensor:
+    """(T,N) float32: each node's summed weight of the bound pods' terms
+    in table row t (features.SymTerms), read from the node's domain under
+    row t's topology key; 0 where the node lacks the key. Domain ids are
+    global (hostname: the node row), so any node subset (a sample, a
+    mesh shard) reads its own columns."""
+    dom = nf.topo_domains.index_select(0, sym.key_idx.long())   # (T,N)
+    width = sym.dom_w.shape[1]
+    w = torch.gather(sym.dom_w, 1, torch.clamp(dom, 0, width - 1).long())
+    return torch.where((dom >= 0) & (dom < width), w, 0.0)

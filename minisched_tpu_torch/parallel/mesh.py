@@ -202,8 +202,9 @@ def feature_shardings(mesh: Mesh, eb_template, nf_template,
     """Per-leaf shardings of one step's inputs: pod-feature leaves and
     the gang ids split over "pod", node features over "node"
     (``topo_domains`` over its second dim); the constraint groups, the
-    node-affinity groups, the gang quorums and the assigned-pod corpus
-    are replicated."""
+    node-affinity groups, the gang quorums, the symmetric term table
+    (when the batch has one) and the assigned-pod corpus are
+    replicated."""
     pf, gf, naf, gang = (eb_template.pf, eb_template.gf, eb_template.naf,
                          eb_template.gang)
     rep = replicated(mesh)
@@ -214,6 +215,9 @@ def feature_shardings(mesh: Mesh, eb_template, nf_template,
     eb_sh = type(eb_template)(pf=pf_sh, gf=type(gf)(*(rep for _ in gf)),
                               naf=type(naf)(*(rep for _ in naf)),
                               gang=gang_sh)
+    sym = getattr(eb_template, "sym", None)
+    if sym is not None:
+        eb_sh = eb_sh._replace(sym=type(sym)(*(rep for _ in sym)))
     af_sh = type(af_template)(*(rep for _ in af_template))
     return eb_sh, nf_sh, af_sh
 
@@ -307,6 +311,8 @@ def put(tensor: torch.Tensor, sharding: Sharding) -> ShardedTensor:
 
 
 def _tree_map(fn, tree, shardings):
+    if tree is None:
+        return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_tree_map(fn, t, s)
                             for t, s in zip(tree, shardings)))

@@ -35,8 +35,8 @@ from ..ops import prng
 from ..ops.auction import auction_assign
 from ..ops.gang import gang_assign
 from ..ops.pipeline import build_step, evaluate_shards
-from ..ops.topology import (group_assigned_match, topology_partials,
-                            topology_tables)
+from ..ops.topology import (group_assigned_match, sym_node_rows,
+                            topology_partials, topology_tables)
 from ..plugins.base import BatchedPlugin, PluginSet
 from .mesh import (NODE_AXIS, POD_AXIS, Mesh, Sharding, ShardedTensor,
                    leaf_sharding, pod_sharding, put)
@@ -109,6 +109,11 @@ def _make_evaluate(plugin_set: PluginSet, mesh: Mesh):
                 parts.append(topology_partials(
                     nf_j, ctx["af"], ctx["gf"], D, match.to(dev),
                     row0=j * nl, n_total=N))
+                if getattr(eb, "sym", None) is not None:
+                    # Domain ids are global: the shard's columns read
+                    # the whole table.
+                    ctx["sym_rows"] = sym_node_rows(nf_j,
+                                                    _to(eb.sym, dev))
             if needs_node_affinity:
                 from ..plugins.nodeaffinity import (group_preferred_score,
                                                     group_required_match)
@@ -250,6 +255,8 @@ def build_sharded_step(plugin_set: PluginSet, mesh: Mesh, eb_template=None,
 
         eb = eb._replace(pf=whole(eb.pf), gf=whole(eb.gf),
                          naf=whole(eb.naf), gang=whole(eb.gang))
+        if getattr(eb, "sym", None) is not None:
+            eb = eb._replace(sym=whole(eb.sym))
         return inner(eb, whole(nf), whole(af), key, has_gang=has_gang,
                      w_vec=w_vec)
 

@@ -29,16 +29,42 @@ import torch
 from ..state.events import ClusterEvent
 
 
-def row_stats(masked: torch.Tensor,
-              ops: Sequence[str]) -> List[torch.Tensor]:
-    """Each row's ``ops`` ("max" or "min", in order) over ``masked``,
-    the scores with 0.0 where infeasible, (P,1) each: the row statistics
-    a scorer's NormalizeScore reads (``row_stats`` on the plugin). On a
-    mesh each node shard reduces its own columns and the node axis
-    combines them by pmax / pmin (parallel/sharded.py), exact in any
-    order, so the statistics have the same bits either way."""
-    return [(masked.max(dim=1, keepdim=True) if op == "max" else
-             masked.min(dim=1, keepdim=True)).values for op in ops]
+# Row statistics over the feasible nodes alone (row_stats' "fmax" and
+# "fmin"); a row with none reads -inf / +inf.
+FEASIBLE_ONLY = {"fmax": float("-inf"), "fmin": float("inf")}
+
+
+def row_stats(masked: Optional[torch.Tensor], ops: Sequence[str],
+              scores: Optional[torch.Tensor] = None,
+              feasible: Optional[torch.Tensor] = None
+              ) -> List[torch.Tensor]:
+    """Each row's ``ops`` (in order), (P,1) each: the row statistics a
+    scorer's NormalizeScore reads (``row_stats`` on the plugin). "max"
+    and "min" reduce ``masked``, the scores with 0.0 where infeasible;
+    "fmax" and "fmin" reduce ``scores`` over the ``feasible`` nodes alone
+    (upstream's NormalizeScore sees only the nodes that passed the
+    filters). On a mesh each node shard reduces its own columns and the
+    node axis combines them by pmax / pmin (parallel/sharded.py), exact
+    in any order, so the statistics have the same bits either way."""
+    out = []
+    infeasible = own = None
+    for op in ops:
+        if op in FEASIBLE_ONLY:
+            # One copy of the scores, refilled in place for each
+            # feasible-only statistic: masked_fill takes the constant as
+            # a scalar, where torch.where would first fill a tensor with
+            # it (launches the step pays every batch).
+            if own is None:
+                infeasible = ~feasible
+                own = scores.masked_fill(infeasible, FEASIBLE_ONLY[op])
+            else:
+                own.masked_fill_(infeasible, FEASIBLE_ONLY[op])
+            src = own
+        else:
+            src = masked
+        out.append((src.max(dim=1, keepdim=True) if op.endswith("max")
+                    else src.min(dim=1, keepdim=True)).values)
+    return out
 
 
 class BatchedPlugin:
@@ -95,20 +121,32 @@ class BatchedPlugin:
     def score(self, pf, nf, ctx) -> torch.Tensor:  # pragma: no cover
         raise NotImplementedError
 
+    def deferred_filter(self, pf, nf, ctx) -> Optional[torch.Tensor]:
+        """The verdict, on the batch's starting state, of the checks
+        ``filter`` left to the assignment in this step (PodTopologySpread's
+        skew check, which the caps scan makes with running counts), or
+        None when it deferred none. The scorers normalize over the nodes
+        that pass it too: upstream scores only the nodes that passed
+        every filter."""
+        return None
+
     # NormalizeScore in two halves, so that a row split over node shards
     # normalizes as a whole row: ``row_stats`` names the row statistics
     # it reads (module-level ``row_stats``), ``rescale`` applies them
-    # given the scores, the scores masked to 0.0 where infeasible, and
-    # the statistics. A plugin overrides these two, not ``normalize``.
+    # given the scores, the scores masked to 0.0 where infeasible (None
+    # when every statistic is a feasible-only one), and the statistics.
+    # A plugin overrides these two, not ``normalize``.
     row_stats: Tuple[str, ...] = ()
 
     def normalize(self, scores: torch.Tensor,
                   feasible: torch.Tensor) -> torch.Tensor:
         if not self.row_stats:
             return self.rescale(scores, None, [])
-        masked = torch.where(feasible, scores, 0.0)
+        masked = (torch.where(feasible, scores, 0.0)
+                  if set(self.row_stats) - set(FEASIBLE_ONLY) else None)
         return self.rescale(scores, masked,
-                            row_stats(masked, self.row_stats))
+                            row_stats(masked, self.row_stats, scores,
+                                      feasible))
 
     def rescale(self, scores: torch.Tensor, masked: Optional[torch.Tensor],
                 stats: List[torch.Tensor]) -> torch.Tensor:

@@ -8,7 +8,25 @@ exists in the node's domain" ⇔ counts_node[g] > 0.
   required affinity:      node's domain must contain ≥1 matching pod.
   required anti-affinity: node's domain must contain none (nodes missing
                           the topology key can't violate — allowed).
-  preferred (anti-)affinity: ± weight × matching-pod count per domain.
+  score (upstream PreScore/Score, k8s 1.22 scoring.go): in each domain
+    of the node, + weight × matching bound pods for each of the pod's
+    preferred affinity terms, − weight × them for each preferred
+    anti-affinity term, and, symmetrically, for every bound pod whose
+    terms match the incoming pod (processExistingPod): + weight for each
+    of its preferred affinity terms, − weight for each preferred
+    anti-affinity term, + hardPodAffinityWeight (1) for each required
+    affinity term, in the domain of that pod's node under the term's
+    key. Nodes lacking a key get nothing from it. NormalizeScore
+    shifts and scales each row's range over the scored nodes into
+    0..100.
+
+The symmetric part reads the cycle state's ``sym_rows`` (the bound pods'
+terms summed per domain on the host, encode/cache.SymBatch, gathered per
+node on the device) through the pod's ``sym_slot`` rows.
+NormalizeScore's range is the scored nodes' alone, as upstream's: the
+nodes that passed every filter on the batch's starting state, the checks
+the step defers to the assignment included (``BatchedPlugin.
+deferred_filter``).
 
 Counts see pods bound before this batch; required anti-affinity between
 two pods of one batch, direct and symmetric, is arbitrated by the engine
@@ -31,7 +49,7 @@ class InterPodAffinity(BatchedPlugin):
     needs_topology = True
     column_local = False  # reads corpus-derived domain counts
     normalize_row_local = True  # per-row min/max shift-and-scale
-    row_stats = ("min", "max")
+    row_stats = ("fmin", "fmax")
 
     def events_to_register(self):
         return [ClusterEvent(GVK.POD, ActionType.ALL),
@@ -87,12 +105,22 @@ class InterPodAffinity(BatchedPlugin):
             ag = pf.anti_pref_group[:, t]
             score = score - (pf.anti_pref_weight[:, t:t + 1]
                              * gather_group_rows(ag, ctx["counts_node"]))
+        sym = ctx.get("sym_rows")
+        if sym is not None:
+            for s in range(pf.sym_slot.shape[1]):
+                score = score + gather_group_rows(pf.sym_slot[:, s], sym)
         return score
 
     def rescale(self, scores, masked, stats):
         # Scores can be negative (anti-affinity), so shift-and-scale the
-        # feasible range into 0..100, in the JAX package's order.
+        # row's range over the scored nodes ("fmin", "fmax") into 0..100,
+        # in the JAX package's order.
         lo, hi = stats
-        span = torch.clamp_min(hi - lo, 1e-30)
-        return torch.where(hi > lo, 100.0 * (scores - lo) / span,
-                           torch.zeros_like(scores))
+        # Raw scores are whole numbers (integer weights times counts), so
+        # a row with hi > lo has hi - lo >= 1: the JAX package's
+        # clamp_min(hi - lo, 1e-30) leaves it as is. A row with hi <= lo
+        # (flat, or no feasible node: +inf, -inf) is set to 0 whatever
+        # the quotient; masked_fill takes the 0 as a scalar, where
+        # torch.where would first fill a tensor with it.
+        return (100.0 * (scores - lo) / (hi - lo)).masked_fill_(hi <= lo,
+                                                                0.0)

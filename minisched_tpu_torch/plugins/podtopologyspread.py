@@ -9,12 +9,18 @@ slot c with selector group g,
            count(node's domain) + 1 - min(count over existing domains)
            ≤ max_skew; nodes missing the topology key are filtered
            (upstream semantics).
-  score:   domains with fewer matching pods score higher
-           (max_count - count, normalized 0..100).
+  score:   for ScheduleAnyway constraints only (upstream's PreScore keeps
+           no other: a pod whose constraints are all DoNotSchedule gets
+           no spread score), domains with fewer matching pods score
+           higher (max_count - count, normalized 0..100).
 
 Counts see pods bound before this batch. Within a batch, the in-scan
 domain caps (ops/spreadcap.py) judge enforced DoNotSchedule groups
-against running counts, and the engine's arbitration the rest.
+against running counts, and the engine's arbitration the rest. The
+filter then stands down for the enforced groups; ``deferred_filter``
+gives its verdict on the batch's starting state, which bounds the nodes
+the scorers normalize over (upstream scores only the nodes that passed
+the skew check).
 """
 from __future__ import annotations
 
@@ -61,6 +67,13 @@ class PodTopologySpread(BatchedPlugin):
             ok = ok & torch.where(active[:, None], dom_ok & within, True)
         return ok
 
+    def deferred_filter(self, pf, nf, ctx):
+        if ctx.get("spread_scan_groups") is None:
+            return None
+        frozen = dict(ctx)
+        del frozen["spread_scan_groups"]
+        return self.filter(pf, nf, frozen)
+
     def score(self, pf, nf, ctx) -> torch.Tensor:
         P, N = pf.valid.shape[0], nf.valid.shape[0]
         dom_valid = ctx["dom_valid"].to(torch.float32)
@@ -72,9 +85,13 @@ class PodTopologySpread(BatchedPlugin):
             dom_ok = gather_group_rows(g, dom_valid) > 0
             gsafe = torch.clamp(g, 0, ctx["max_count"].shape[0] - 1).long()
             spread = ctx["max_count"][gsafe][:, None] - counts
+            # A slot's mode is set only where its group is (encode), so
+            # the ScheduleAnyway test alone is "a live ScheduleAnyway
+            # slot".
+            live = pf.spread_mode[:, c] == F.SPREAD_SCHEDULE_ANYWAY
             # nodes missing the topology key score 0 (upstream), not max
-            score = score + torch.where((g >= 0)[:, None] & dom_ok,
-                                        spread, 0.0)
+            score = score + torch.where(live[:, None] & dom_ok, spread,
+                                        0.0)
         return score
 
     def rescale(self, scores, masked, stats):

@@ -44,7 +44,7 @@ from minisched_tpu_torch.ops.bid_select import (
 from minisched_tpu_torch.ops.pipeline import build_step
 from minisched_tpu_torch.plugins import PluginSet
 from minisched_tpu_torch.scenario.runner import Cluster
-from minisched_tpu_torch.service.defaultconfig import Profile, make_plugin
+from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as TO
 from minisched_tpu_torch.state.objects import pod_requests
 from test_torch_engine import MODES, SHARED_METRICS, _run_cluster
@@ -55,6 +55,7 @@ from torch_parity import (AUCTION_CASES, AUCTION_SELECT_CASES, BENCH_PROFILE,
                           auction_instance, auction_select_case,
                           auction_strength_case, auction_tie_case,
                           bench_cluster, bits_equal, build_cache,
+                          port_plugin,
                           full_cluster, mixed_cluster, sampled_cluster)
 
 NEG = -3.0e38
@@ -438,7 +439,7 @@ def test_step_auction_hard_spread_keeps_the_static_filter(k):
                          p_pad=64, selspread=False)
     (jeb, jnf, jaf, _), (teb, tnf, taf, _) = jx, tx
     jps = JPluginSet([jmake(n) for n in TOPO])
-    tps = PluginSet([make_plugin(n) for n in TOPO])
+    tps = PluginSet([port_plugin(n) for n in TOPO])
     d = _step_both(jps, tps, jeb, jnf, jaf, k, teb=teb, tnf=tnf, taf=taf)
     assert not d.scan_groups.any()
     assert torch.equal(d.feasible_static, d.feasible_counts)

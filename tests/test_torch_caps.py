@@ -25,9 +25,9 @@ from minisched_tpu_torch.ops.select import greedy_assign, greedy_assign_plain
 from minisched_tpu_torch.ops.spreadcap import build_domain_caps
 from minisched_tpu_torch.ops.topology import group_topology_state
 from minisched_tpu_torch.plugins import PluginSet
-from minisched_tpu_torch.service.defaultconfig import make_plugin
 from test_torch_plugins_full import assert_decisions_equal, encode_both
-from torch_parity import CAPS_KINDS, ZONE, bits_equal, caps_problem, full_cluster
+from torch_parity import (CAPS_KINDS, ZONE, bits_equal, caps_problem,
+                          full_cluster, port_plugin)
 
 SPREAD_PLUGINS = ["NodeUnschedulable", "NodeResourcesFit",
                   "PodTopologySpread"]
@@ -97,7 +97,7 @@ def _steps(recipe, p_pad, plugins, *, shortlist=None, sample=None, seed=0,
     jx, tx = encode_both(recipe, p_pad=p_pad, selspread=selspread)
     (jeb, jnf, jaf, _), (teb, tnf, taf, _) = jx, tx
     jps = JPluginSet([jmake(n) for n in plugins])
-    tps = PluginSet([make_plugin(n) for n in plugins])
+    tps = PluginSet([port_plugin(n) for n in plugins])
     key_j = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
     key_t = prng.fold_in(prng.PRNGKey(seed), 7)
     want = jbuild_step(jps, shortlist=shortlist, sample_nodes=sample)(

@@ -40,7 +40,8 @@ from minisched_tpu_torch.state import objects as TO
 from test_torch_caps import SCENARIOS, SPREAD_PLUGINS
 from test_torch_plugins_full import encode_both
 from torch_parity import (BENCH_PROFILE, LIVE_PROFILE, ZONE, bench_cluster,
-                          bits_equal, full_cluster, mixed_cluster)
+                          bits_equal, full_cluster, jax_rules,
+                          mixed_cluster, port_plugin)
 
 import chip_smoke
 
@@ -67,10 +68,10 @@ PROFILES = {
               lambda: Profile(**BENCH_PROFILE).build(),
               lambda O: (*bench_cluster(O, 150, 48, 3), [])),
     "full": (lambda: jfull_profile().build(),
-             lambda: full_scheduler_profile().build(),
+             lambda: jax_rules(full_scheduler_profile()).build(),
              lambda O: full_cluster(O, 96, 48, 1)),
     "c4-hard": (lambda: JPluginSet([jmake(n) for n in C4_PLUGINS]),
-                lambda: PluginSet([make_plugin(n) for n in C4_PLUGINS]),
+                lambda: PluginSet([port_plugin(n) for n in C4_PLUGINS]),
                 _c4_hard),
 }
 
@@ -257,7 +258,7 @@ def test_chunked_step_matches_jax_and_unchunked(case, monkeypatch):
     (jeb, jnf, jaf, _n), (teb, tnf, taf, _) = jx, tx
     targs = [to_torch(x, "cpu") for x in (teb, tnf, taf)]
     jps = JPluginSet(_plugins(jmake, names, fit_args))
-    tps = PluginSet(_plugins(make_plugin, names, fit_args))
+    tps = PluginSet(_plugins(port_plugin, names, fit_args))
     key = prng.fold_in(prng.PRNGKey(3), 2)
     chunk_sizes = []
     orig = tpl._chunk_pods

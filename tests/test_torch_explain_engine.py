@@ -21,7 +21,7 @@ from minisched_tpu_torch.ops import spreadcap
 from test_torch_spread_engine import C4, _c4
 from torch_obs_parity import (JAX, LATER_SLICE_KEYS, PORT, bench_burst,
                               disarm_all, pin_rung, placements, wait_until)
-from torch_parity import sampled_cluster
+from torch_parity import jax_rules, sampled_cluster
 
 KEYS = (FILTER_RESULT_KEY, SCORE_RESULT_KEY, FINAL_SCORE_RESULT_KEY)
 
@@ -84,7 +84,10 @@ def _burst(pkg, kw, view, n_nodes, n_pods, recipe=None, profile=None):
     nodes, pods = recipe(pkg.O)
     c.create_objects(nodes)
     c.create_objects(pods)
-    c.start(pkg.Profile(name="c4", plugins=profile),
+    prof = pkg.Profile(name="c4", plugins=profile)
+    if pkg is PORT:
+        prof = jax_rules(prof)
+    c.start(prof,
             pkg.config(**dict(kw, explain=True)))
     try:
         sched = c.service.scheduler

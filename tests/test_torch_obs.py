@@ -16,7 +16,9 @@ holds the engine's spans, each batch's carrying its id, and the
 collector's pauses, and ``trace_next_batch`` writes a ``torch.profiler``
 trace of one batch; the port-only counters (thread CPU per phase,
 blocking reads, the step's device span, the collector watch) keep
-their relations, and the benchmark's readers of them divide per batch.
+their relations, and the benchmark's readers of them divide per batch;
+upstream's symmetric InterPodAffinity term has its span and counters on
+the benchmark's hard-spread mix and none on its claims mix.
 Wall-clock fields are checked for type and sign only.
 """
 import gc
@@ -52,7 +54,8 @@ PORT_ONLY_KEYS = frozenset(
      "gc_pause_s_total", "hard_spread_batches", "sampled_batches",
      "spread_repaired", "spread_revoked", "spread_revoked_enforced",
      "kernel_launches", "snapshots_untracked_total",
-     "snapshots_tracked_total"]
+     "snapshots_tracked_total", "sym_affinity_s_total",
+     "sym_affinity_slots_total", "sym_affinity_terms"]
     + [f"kernel_launches_{k}" for k in (
         "auction", "bid_auction", "caps_scan", "greedy_assign",
         "insert_ports", "shortlist_scan", "shortlist_select")])
@@ -458,7 +461,8 @@ def test_recorder_keeps_every_span_under_collections():
     ("fetch_wait_ms.backlog", "fetch_wait_s_total", 250.0),
     ("host_syncs.backlog", "host_syncs_total", 0.25),
     ("step_device_span_ms.backlog", "step_device_span_s_total", 250.0),
-    ("gc_pause_ms.backlog", "gc_pause_s_total", 250.0)])
+    ("gc_pause_ms.backlog", "gc_pause_s_total", 250.0),
+    ("sym_affinity_ms.spread", "sym_affinity_s_total", 250.0)])
 def test_benchmark_readers_of_the_port_counters(metric, counter, per_batch):
     """Each reader divides its counter by the window's batches (ms of
     seconds; host_syncs as a count); None with no batch, and None where
@@ -504,3 +508,64 @@ def test_trace_next_batch_writes_a_profiler_trace(tmp_path):
     names = {e.get("name") for e in doc["traceEvents"]}
     assert "prepare" in names and "resolve" in names
     assert not (tmp_path / "error.txt").exists()
+
+
+def _mix_burst(cell_name: str, tmp_path, n_pods: int = 192, seed: int = 7):
+    """The benchmark's cell ``cell_name`` cut to 400 nodes, ``n_pods`` of
+    its pods in batches of 64, every object in the store before the
+    engine starts, the recorder armed: (metrics, the recorder's spans)."""
+    from benchmark import harness, spec, workload
+
+    cell = spec.cell(cell_name)
+    cl = dict(cell.config["cluster"], nodes=400)
+    config = dict(cell.config, scheduler=dict(cell.config["scheduler"],
+                                              max_batch_size=64))
+    source = workload.PodSource(cell.traffic["pod"], cl["zones"], seed)
+    PORT.obs.configure(True)
+    c = PORT.Cluster()
+    c.create_objects(workload.make_nodes(cl, seed, PORT.O))
+    c.create_objects(source.objects(range(n_pods), PORT.O))
+    c.start(harness.profile(config),
+            harness.scheduler_config(config, seed, "cpu"),
+            with_pv_controller=False)
+    try:
+        sched = c.service.scheduler
+        assert PORT_wait(lambda: all(p.spec.node_name
+                                     for p in c.list_pods()))
+        assert PORT_wait(lambda: sched.metrics()["pods_assigned"]
+                         >= n_pods)
+        doc = json.load(open(sched.dump_trace(str(tmp_path / "t.json"))))
+        return sched.metrics(), [e for e in doc["traceEvents"]
+                                 if e.get("ph") == "X"]
+    finally:
+        c.shutdown()
+
+
+@pytest.mark.parametrize("cell", [
+    "kube-default-50k-adaptive.backlog10k-spread-hard",
+    "kube-default-50k.backlog10k-claims"])
+def test_symmetric_affinity_span_and_counters(cell, tmp_path):
+    """On the hard-spread mix every pod (app=bench) matches the one term
+    group of the bound pods' preferred zone terms once any is bound:
+    each batch after that stamps one slot a pod, in an
+    ``encode.sym_affinity`` span carrying the batch's id, and the host
+    seconds count. On the claims mix no pod carries a term: no slot, no
+    term, no second, no span."""
+    m, spans = _mix_burst(cell, tmp_path)
+    sym = [e for e in spans if e["name"] == "encode.sym_affinity"]
+    if cell.endswith("claims"):
+        assert m["sym_affinity_slots_total"] == 0
+        assert m["sym_affinity_terms"] == 0
+        assert m["sym_affinity_s_total"] == 0.0
+        assert not sym
+        return
+    assert m["sym_affinity_terms"] == 1
+    assert m["sym_affinity_s_total"] > 0.0
+    seqs = sorted(e["args"]["seq"] for e in sym)
+    assert seqs and len(set(seqs)) == len(seqs)
+    assert 2 <= seqs[0] and seqs[-1] <= m["batches"]
+    # One slot a pod in every batch that had a table (batch ``seq``'s
+    # size is batch_sizes[seq - 1]).
+    sizes = m["batch_sizes"]
+    assert len(sizes) == m["batches"]
+    assert m["sym_affinity_slots_total"] == sum(sizes[q - 1] for q in seqs)

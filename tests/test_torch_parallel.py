@@ -52,7 +52,8 @@ from minisched_tpu_torch.service.defaultconfig import Profile, make_plugin
 from minisched_tpu_torch.service.service import SchedulerService
 from minisched_tpu_torch.state import objects as TO
 from minisched_tpu_torch.state.store import ClusterStore
-from torch_parity import bits_equal, full_cluster, greedy_case
+from torch_parity import (bits_equal, full_cluster, greedy_case, jax_rules,
+                          port_plugin)
 
 CPU8 = [torch.device("cpu")] * 8
 ZONE = "topology.kubernetes.io/zone"
@@ -165,7 +166,7 @@ def _both_sharded(recipe, plugins, assignment, *, p_pad, eight_devices,
     jx, tx = encode_both(recipe, p_pad, n_pad, selspread)
     (jeb, jnf, jaf, names) = jx
     jps = JPluginSet([jmake(n) for n in plugins])
-    tps = PluginSet([make_plugin(n) for n in plugins])
+    tps = PluginSet([port_plugin(n) for n in plugins])
     jmesh = jmake_mesh(eight_devices)
     want = jbuild_sharded(jps, jmesh, jeb, jnf, jaf, explain=explain,
                           assignment=assignment)(
@@ -209,16 +210,29 @@ def test_feature_shardings_match_jax(eight_devices):
     jtrees = jshardings(jmesh, *jx[:3])
     ttrees = feature_shardings(mesh, *tx[:3])
 
-    def flat(tree):
+    def flat(tree, like=None):
+        """The leaves of ``tree`` (an absent table has none); with
+        ``like`` (the JAX package's tree), those of ``like``'s fields
+        alone, in its order."""
         out = []
-        for leaf in tree:
+        for name in tree._fields:
+            if like is not None and name not in like._fields:
+                continue
+            leaf = getattr(tree, name)
+            if leaf is None:
+                continue
             nested = (isinstance(leaf, tuple) and hasattr(leaf, "_fields")
                       and not isinstance(leaf, Sharding))
-            out.extend(flat(leaf) if nested else [leaf])
+            out.extend(flat(leaf, None if like is None else
+                            getattr(like, name)) if nested else [leaf])
         return out
 
+    # The port-only leaves: the symmetric term's slots split over "pod"
+    # with every pod-feature leaf, and no table in this encoding.
+    assert ttrees[0].pf.sym_slot.spec == ("pod",)
+    assert ttrees[0].sym is None
     for jt, tt in zip(jtrees, ttrees):
-        jl, tl = flat(jt), flat(tt)
+        jl, tl = flat(jt), flat(tt, like=jt)
         assert len(jl) == len(tl)
         for js, ts in zip(jl, tl):
             want = tuple(js.spec)
@@ -336,7 +350,8 @@ def test_sharded_hard_semantics_gang_spread_anti(eight_devices, assignment):
         *jshard(jmesh, jeb, jnf, jaf), jax.random.PRNGKey(7))
     eb, nf, af = _torch(tx)
     mesh = make_mesh(CPU8)
-    got = build_sharded_step(full_scheduler_profile().build(), mesh, eb, nf,
+    got = build_sharded_step(jax_rules(full_scheduler_profile()).build(),
+                             mesh, eb, nf,
                              af, assignment=assignment)(
         *shard_features(mesh, eb, nf, af), prng.PRNGKey(7))
     assert_decisions_equal(want, got)

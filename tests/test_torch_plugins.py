@@ -55,7 +55,7 @@ def test_copied_encoder_and_cache_match_jax(seed):
     (jeb, jnf, jaf, jnames), (teb, tnf, taf, tnames) = _both(seed)
     assert jnames == tnames
     for a, b in ((jeb, teb), (jnf, tnf), (jaf, taf)):
-        la, lb = leaves(a), leaves(b)
+        la, lb = leaves(a), leaves(b, like=a)
         assert len(la) == len(lb)
         for x, y in zip(la, lb):
             assert bits_equal(x, y)

@@ -29,7 +29,8 @@ from minisched_tpu_torch.plugins.nodeaffinity import (group_preferred_score,
                                                       group_required_match)
 from minisched_tpu_torch.service.defaultconfig import make_plugin
 from minisched_tpu_torch.state import objects as TO
-from torch_parity import AVOID, HOST, ZONE, bits_equal, full_cluster
+from torch_parity import (AVOID, HOST, ZONE, bits_equal, full_cluster,
+                          port_plugin)
 
 EIGHT = ["PodTopologySpread", "InterPodAffinity", "SelectorSpread",
          "TaintToleration", "NodeAffinity", "NodeName", "ImageLocality",
@@ -86,7 +87,7 @@ def test_plugin_matches_jax(name, seed):
     jx, tx = encode_both(lambda O: full_cluster(O, 96, 48, seed))
     jeb, jnf = jx[0], jx[1]
     ctx_j, (eb, nf, _af), ctx_t = contexts(jx, tx)
-    jp, tp = jmake(name), make_plugin(name)
+    jp, tp = jmake(name), port_plugin(name)
     assert (jp.is_filter, jp.is_score, jp.is_permit, jp.needs_topology,
             jp.needs_node_affinity, jp.default_weight) == (
         tp.is_filter, tp.is_score, tp.is_permit, tp.needs_topology,
@@ -134,7 +135,7 @@ def step_both(recipe, plugins, *, p_pad=16, selspread=False, seed=0,
     jx, tx = encode_both(recipe, p_pad=p_pad, selspread=selspread)
     (jeb, jnf, jaf, names), (teb, tnf, taf, _) = jx, tx
     jps = JPluginSet([jmake(n) for n in plugins], weights)
-    tps = PluginSet([make_plugin(n) for n in plugins], weights)
+    tps = PluginSet([port_plugin(n) for n in plugins], weights)
     want = jbuild_step(jps)(jeb, jnf, jaf, jax.random.fold_in(
         jax.random.PRNGKey(seed), 1))
     got = build_step(tps)(*(to_torch(x, "cpu") for x in (teb, tnf, taf)),

@@ -29,7 +29,7 @@ from minisched_tpu_torch.scenario.runner import Cluster
 from minisched_tpu_torch.service.defaultconfig import Profile
 from minisched_tpu_torch.state import objects as TO
 from test_torch_engine import MODES, SHARED_METRICS, _run_cluster
-from torch_parity import bits_equal, leaves, sampled_cluster
+from torch_parity import bits_equal, jax_rules, leaves, sampled_cluster
 
 C4 = list(C4_PLUGINS)  # with DefaultPreemption, as bench.py runs it
 ZONE = "topology.kubernetes.io/zone"
@@ -56,7 +56,8 @@ def _c4_sampled(O):
 def _both(recipe, kw, seed=0):
     want, jm = _run_cluster(JCluster, JO, JProfile(name="c4", plugins=C4),
                             JConfig(**kw), 0, 0, seed, recipe=recipe)
-    got, m = _run_cluster(Cluster, TO, Profile(name="c4", plugins=C4),
+    got, m = _run_cluster(Cluster, TO,
+                          jax_rules(Profile(name="c4", plugins=C4)),
                           SchedulerConfig(platform="cpu", **kw), 0, 0, seed,
                           recipe=recipe)
     assert got == want
@@ -125,9 +126,12 @@ def test_chip_smoke_c4_recipe_encodes_like_make_c4_workload():
             cache.upsert_nodes_bulk(nodes)
             nf, names, _sv, _incs = cache.snapshot_versioned()
             eb = enc(pods, 256, cfg=cache.cfg, registry=cache.registry)
-            out.append((names, leaves(nf) + leaves(eb)))
+            out.append((names, nf, eb))
         assert out[0][0] == out[1][0]
-        for a, b in zip(out[0][1], out[1][1]):
+        want = leaves(out[0][1]) + leaves(out[0][2])
+        got = leaves(out[1][1]) + leaves(out[1][2], like=out[0][2])
+        assert len(want) == len(got)
+        for a, b in zip(want, got):
             assert bits_equal(a, b)
 
 
@@ -267,7 +271,7 @@ def test_engine_repair_matches_jax(iters):
     kw = dict(max_batch_size=64, spread_repair_iters=iters)
     want, jm = _run_cluster(JCluster, JO, JProfile(plugins=prof),
                             JConfig(**kw), 0, 0, 0, recipe=recipe)
-    got, m = _run_cluster(Cluster, TO, Profile(plugins=prof),
+    got, m = _run_cluster(Cluster, TO, jax_rules(Profile(plugins=prof)),
                           SchedulerConfig(platform="cpu", **kw), 0, 0, 0,
                           recipe=recipe)
     assert got == want
@@ -383,7 +387,7 @@ def test_caps_follow_the_profile_not_the_arbitration():
 
     want, jm = _run_cluster(JCluster, JO, JProfile(plugins=prof),
                             JConfig(**kw), 0, 0, 0, recipe=recipe)
-    got, m = _run_cluster(Cluster, TO, Profile(plugins=prof),
+    got, m = _run_cluster(Cluster, TO, jax_rules(Profile(plugins=prof)),
                           SchedulerConfig(platform="cpu", **kw), 0, 0, 0,
                           recipe=recipe)
     assert got == want

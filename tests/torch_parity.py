@@ -6,7 +6,16 @@ cluster from the same seed, built from their own object types.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from minisched_tpu_torch.encode import features as F
+from minisched_tpu_torch.plugins.base import PluginSet
+from minisched_tpu_torch.plugins.interpodaffinity import InterPodAffinity
+from minisched_tpu_torch.plugins.podtopologyspread import PodTopologySpread
+from minisched_tpu_torch.service.defaultconfig import Profile, make_plugin
 
 BENCH_PLUGINS = ["NodeUnschedulable", "NodeResourcesFit",
                  "NodeResourcesLeastAllocated",
@@ -15,6 +24,74 @@ BENCH_PLUGINS = ["NodeUnschedulable", "NodeResourcesFit",
 BENCH_PROFILE = dict(name="bench", plugins=BENCH_PLUGINS,
                      plugin_args={"NodeResourcesFit": {"score_strategy": None}})
 LIVE_PROFILE = dict()  # NodeUnschedulable + NodeNumber (the default)
+
+# The JAX package's InterPodAffinity and PodTopologySpread rules, as
+# subclasses of the port's plugins (whose rules are upstream's); a parity
+# case builds the port's side with them (``jax_rules``, ``port_plugin``).
+
+
+class JaxInterPodAffinity(InterPodAffinity):
+    """No symmetric existing-pod term, and the normalization range
+    counting 0.0 at every infeasible node."""
+
+    row_stats = ("min", "max")
+
+    def score(self, pf, nf, ctx):
+        return super().score(pf, nf, {k: v for k, v in ctx.items()
+                                      if k != "sym_rows"})
+
+
+class JaxPodTopologySpread(PodTopologySpread):
+    """DoNotSchedule constraints scored as ScheduleAnyway ones, and no
+    check deferred from the nodes the scorers normalize over."""
+
+    def score(self, pf, nf, ctx):
+        live = pf.spread_group >= 0
+        mode = torch.where(
+            live, torch.full_like(pf.spread_mode, F.SPREAD_SCHEDULE_ANYWAY),
+            torch.full_like(pf.spread_mode, F.SPREAD_DO_NOT_SCHEDULE))
+        return super().score(pf._replace(spread_mode=mode), nf, ctx)
+
+    def deferred_filter(self, pf, nf, ctx):
+        return None
+
+
+JAX_RULES = {"InterPodAffinity": JaxInterPodAffinity,
+             "PodTopologySpread": JaxPodTopologySpread}
+
+
+def on_jax_rules(plugin):
+    """``plugin``, or its JAX-rules twin with the same instance state."""
+    cls = JAX_RULES.get(plugin.name)
+    if cls is None or isinstance(plugin, cls):
+        return plugin
+    twin = cls.__new__(cls)
+    twin.__dict__.update(plugin.__dict__)
+    return twin
+
+
+@dataclasses.dataclass
+class JaxRulesProfile(Profile):
+    """A port profile whose topology plugins follow the JAX package's
+    rules (``JAX_RULES``)."""
+
+    def build(self) -> PluginSet:
+        built = super().build()
+        return PluginSet([on_jax_rules(p) for p in built.plugins],
+                         built.weights)
+
+
+def jax_rules(profile):
+    """The port's ``profile`` (service.defaultconfig.Profile) on the JAX
+    package's rules."""
+    return JaxRulesProfile(**{f.name: getattr(profile, f.name)
+                              for f in dataclasses.fields(profile)})
+
+
+def port_plugin(name: str, **args):
+    """The port's plugin ``name`` (service.defaultconfig.make_plugin) on
+    the JAX package's rules, for a parity case."""
+    return on_jax_rules(make_plugin(name, **args))
 
 
 def bench_cluster(O, n_nodes: int, n_pods: int, seed: int = 0):
@@ -129,12 +206,30 @@ def build_cache(cache_cls, nodes, bound=()):
     return cache
 
 
-def leaves(tree):
-    """Flat numpy leaves of a (nested) NamedTuple, in field order."""
+def leaves(tree, like=None):
+    """Flat numpy leaves of a (nested) NamedTuple, in field order. With
+    ``like`` (the JAX package's tree of the same type), the leaves of
+    ``like``'s fields, in its order: a field only the port has (the
+    symmetric term's ``sym_slot`` and ``sym``) must then be empty, a
+    zero-size array or None, as an encoding without that term leaves
+    it."""
+    if like is None:
+        out = []
+        for leaf in tree:
+            if isinstance(leaf, tuple):
+                out.extend(leaves(leaf))
+            else:
+                out.append(np.asarray(leaf))
+        return out
     out = []
-    for leaf in tree:
+    for name in tree._fields:
+        leaf = getattr(tree, name)
+        if name not in like._fields:
+            assert leaf is None or np.asarray(leaf).size == 0, name
+            continue
+        other = getattr(like, name)
         if isinstance(leaf, tuple):
-            out.extend(leaves(leaf))
+            out.extend(leaves(leaf, other))
         else:
             out.append(np.asarray(leaf))
     return out
